@@ -1,0 +1,745 @@
+"""Device-side propagation engine over graph representations (PyTorch).
+
+One call to :func:`propagate` computes, for every vertex at once,
+
+    y[v] = ⊕_{u -> v}  x[u] ⊗ w(u, v)
+
+on any representation:
+
+* ``DeviceExpanded``   — EXP: one segment-reduce over the expanded edges.
+* ``DeviceCondensed``  — C-DUP / DEDUP-1: one segment-reduce per condensed
+  layer (the 2-hop factorized SpMV, ``y = B_out^T (B_in^T x)``); path
+  multiplicity is counted by ring semirings and ignored by idempotent ones.
+* ``DevicePacked``     — the same condensed semantics with each layer also
+  carried as a bit-packed block-sparse incidence, so batched steps run on
+  the hand-written CUDA SpMM kernels (:mod:`repro_torch.kernels.bitmap_spmm`).
+* correction structure — DEDUP-C: C-DUP propagation minus a sparse
+  correction term makes ring propagation exact without rewriting edges.
+
+``x`` may be a single ``(n,)`` vector or an ``(n, B)`` matrix of ``B``
+independent frontiers; every semiring step then runs as one factorized
+SpMM and per-column results equal ``B`` single-vector calls.
+
+Containers are plain dataclasses of tensors.  Every upload takes an
+explicit ``device`` and defaults to ``"cuda"``; the CPU is used only when
+the caller asks for it.  Dispatch follows the JAX package's
+``repro/core/engine.py`` step for step, with ``backend`` ``'cuda'`` |
+``'segment'`` | ``'auto'`` in place of ``'pallas'`` | ``'xla'`` |
+``'auto'``: ``'auto'`` takes the kernel exactly when the frontier is a
+CUDA tensor on an sm_90 device.  The segment path (``index_add_`` /
+``scatter_reduce``) serves what the JAX package sends to XLA — 1-D
+frontiers, unpackable layers, non-kernel semirings — and never stands in
+for a kernel that failed.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .condensed import BipartiteEdges, CondensedGraph, ExpandedGraph
+from .semiring import PLUS_TIMES, Semiring, kernelizable, segment_reduce
+
+__all__ = [
+    "DeviceBipartite",
+    "DeviceExpanded",
+    "DeviceCondensed",
+    "PackedOperands",
+    "FusedOperands",
+    "DevicePackedLayer",
+    "DevicePacked",
+    "DeviceGraph",
+    "BACKENDS",
+    "device_graph_bytes",
+    "self_path_counts",
+    "to_device",
+    "to_device_packed",
+    "propagate",
+    "KERNEL_DISPATCH_COUNT",
+    "KERNEL_STANDDOWN_COUNT",
+    "reset_kernel_dispatch_count",
+]
+
+BACKENDS = ("cuda", "segment", "auto")
+
+# Evidence that propagation steps dispatched to a kernel wrapper instead
+# of the segment path: one per layer step (CPU frontiers included, where
+# the wrapper runs its plain version).
+KERNEL_DISPATCH_COUNT = 0
+
+# Fused-epilogue stand-downs: every time a ring propagation over a
+# corrected DevicePacked considers the fused DEDUP-C path and declines,
+# the reason from :func:`_fused_applicable` is counted here, under the JAX
+# package's reason strings.
+KERNEL_STANDDOWN_COUNT: dict = {}
+
+
+def reset_kernel_dispatch_count() -> None:
+    global KERNEL_DISPATCH_COUNT
+    KERNEL_DISPATCH_COUNT = 0
+    KERNEL_STANDDOWN_COUNT.clear()
+
+
+@dataclasses.dataclass
+class DeviceBipartite:
+    src: torch.Tensor  # (E,) int64
+    dst: torch.Tensor  # (E,) int64
+    n_src: int
+    n_dst: int
+
+
+@dataclasses.dataclass
+class DeviceExpanded:
+    """EXP: unique edges with multiplicity weights (1 after dedup)."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    weight: torch.Tensor  # float32 multiplicities; all-ones when deduplicated
+    n: int
+    graph_version: int = 0
+    device: torch.device = torch.device("cpu")
+
+
+@dataclasses.dataclass
+class DeviceCondensed:
+    """C-DUP / DEDUP-1 / DEDUP-C on device.
+
+    ``chains``      list of chains; each chain a tuple of DeviceBipartite.
+    ``direct``      optional real->real edges (may repeat = multiplicity).
+    ``correction``  optional (src, dst, count) triple; when present, ring
+                    propagation subtracts it (DEDUP-C).
+    ``diag_mult``   per-node count of self paths (subtracted by ring
+                    propagation so self-loops never contribute).
+    ``deduplicated``True when path multiplicity is structurally 1.
+    ``graph_version`` source graph's delta version (a plain int).
+    """
+
+    chains: Tuple[Tuple[DeviceBipartite, ...], ...]
+    direct: Optional[DeviceBipartite]
+    correction: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    diag_mult: Optional[torch.Tensor]
+    n_real: int
+    deduplicated: bool
+    graph_version: int = 0
+    device: torch.device = torch.device("cpu")
+
+
+@dataclasses.dataclass
+class PackedOperands:
+    """One direction's slot-stream kernel operands (layout of
+    :class:`repro_torch.kernels.pack.BlockSparseBitmap`; ``bitmaps`` is the
+    int32 view of the uint32 words)."""
+
+    slot_src: torch.Tensor   # (n_slots,) int32
+    slot_row: torch.Tensor   # (n_slots,) int32
+    row_start: torch.Tensor  # (n_rt,) int32
+    row_count: torch.Tensor  # (n_rt,) int32
+    bitmaps: torch.Tensor    # (n_slots, TILE, WORDS) int32
+
+
+@dataclasses.dataclass
+class FusedOperands:
+    """Operands of the fused last-layer SpMM + DEDUP-C epilogue kernel
+    (:func:`repro_torch.kernels.bitmap_spmm.bitmap_spmm_fused`): the
+    interleaved main/correction slot stream of
+    :func:`repro_torch.kernels.correction.build_fused_stream`, the main
+    layer's bitmaps and the correction's bit-planes."""
+
+    kind: torch.Tensor       # (n_slots,) int32 — 0 main, 1 correction
+    main_src: torch.Tensor   # (n_slots,) int32
+    corr_src: torch.Tensor   # (n_slots,) int32
+    main_idx: torch.Tensor   # (n_slots,) int32
+    corr_idx: torch.Tensor   # (n_slots,) int32
+    slot_row: torch.Tensor   # (n_slots,) int32
+    row_start: torch.Tensor  # (n_rt,) int32
+    row_count: torch.Tensor  # (n_rt,) int32
+    bitmaps: torch.Tensor    # (n_main, TILE, WORDS) int32
+    planes: torch.Tensor     # (n_corr, P, TILE, WORDS) int32
+    plane_weights: Tuple[float, ...]
+    n_out: int
+
+
+@dataclasses.dataclass
+class DevicePackedLayer:
+    """One condensed layer in COO plus bit-packed slot-stream form.
+
+    ``src``/``dst`` drive the segment path (any semiring, any direction);
+    ``fwd`` is the dst-major packed incidence and ``rev`` its transpose,
+    so reverse steps dispatch to the kernels too.  Either is ``None`` when
+    the layer cannot be packed (duplicate edges)."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    fwd: Optional[PackedOperands]
+    rev: Optional[PackedOperands]
+    n_src: int
+    n_dst: int
+
+
+@dataclasses.dataclass
+class DevicePacked:
+    """A :class:`DeviceCondensed` whose layers carry packed SpMM operands.
+
+    Identical propagation semantics; batched (``(n, B)``) steps under any
+    kernelizable semiring, in either direction, dispatch per layer to the
+    K1/K2 kernel when ``backend`` resolves to the kernels (``'cuda'``
+    always, ``'segment'`` never, ``'auto'`` for CUDA frontiers on sm_90).
+
+    ``fused_fwd`` / ``fused_rev`` carry the fused last-layer +
+    DEDUP-C-epilogue operands (K3) when the graph has a correction;
+    ``fused_standdown`` records why they were not built (``''`` when
+    built)."""
+
+    chains: Tuple[Tuple[DevicePackedLayer, ...], ...]
+    direct: Optional[DevicePackedLayer]
+    correction: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    diag_mult: Optional[torch.Tensor]
+    n_real: int
+    deduplicated: bool
+    backend: str
+    fused_fwd: Optional[FusedOperands] = None
+    fused_rev: Optional[FusedOperands] = None
+    graph_version: int = 0
+    fused_standdown: str = ""
+    device: torch.device = torch.device("cpu")
+
+
+DeviceGraph = Union[DeviceExpanded, DeviceCondensed, DevicePacked]
+
+
+def device_graph_bytes(graph) -> int:
+    """Device bytes held by one uploaded graph: every tensor reachable
+    from the container (edge arrays, packed bitmaps, fused streams,
+    correction triples)."""
+    if isinstance(graph, torch.Tensor):
+        return graph.numel() * graph.element_size()
+    if dataclasses.is_dataclass(graph):
+        return sum(
+            device_graph_bytes(getattr(graph, f.name))
+            for f in dataclasses.fields(graph)
+        )
+    if isinstance(graph, (tuple, list)):
+        return sum(device_graph_bytes(g) for g in graph)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# Host -> device conversion
+# ---------------------------------------------------------------------------
+
+def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+
+def _words(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 bitmap words as an int32 view on ``device`` (same bits)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def _dev_edges(e: BipartiteEdges, device) -> DeviceBipartite:
+    return DeviceBipartite(
+        _tensor(e.src, torch.int64, device),
+        _tensor(e.dst, torch.int64, device),
+        e.n_src,
+        e.n_dst,
+    )
+
+
+def self_path_counts(graph: CondensedGraph) -> np.ndarray:
+    """Host: number of closed u->u paths per real node (diagonal of M)."""
+    diag = np.zeros(graph.n_real, dtype=np.int64)
+    for chain in graph.chains:
+        if chain.n_layers == 1:
+            e_in, e_out = chain.edges
+            # Join (u, V) with (V, u): count matching (V, u) occurrences.
+            key_in = e_in.dst.astype(np.int64) * graph.n_real + e_in.src
+            key_out = e_out.src.astype(np.int64) * graph.n_real + e_out.dst
+            key_out_sorted = np.sort(key_out)
+            lo = np.searchsorted(key_out_sorted, key_in, side="left")
+            hi = np.searchsorted(key_out_sorted, key_in, side="right")
+            np.add.at(diag, e_in.src, (hi - lo))
+        else:
+            s, d, m = chain.path_pairs()
+            mask = s == d
+            np.add.at(diag, s[mask], m[mask])
+    if graph.direct is not None and graph.direct.n_edges:
+        mask = graph.direct.src == graph.direct.dst
+        np.add.at(diag, graph.direct.src[mask], 1)
+    return diag
+
+
+def to_device(
+    graph: Union[CondensedGraph, ExpandedGraph],
+    correction=None,
+    deduplicated: bool = False,
+    drop_self_loops: bool = True,
+    graph_version: int = 0,
+    device="cuda",
+) -> DeviceGraph:
+    """Build the device representation on ``device``.
+
+    For ``CondensedGraph`` inputs, pass ``correction`` (the triples from
+    :func:`repro_torch.core.dedup.build_correction`, or the
+    :class:`~repro_torch.core.dedup.StreamedCorrection` of
+    :func:`~repro_torch.core.dedup.build_correction_streaming`) to get
+    DEDUP-C semantics, or ``deduplicated=True`` for DEDUP-1 output.
+    Without either, ring propagation counts duplicate paths (C-DUP
+    semantics).  Indices are int64; weights, counts and frontiers float32.
+    """
+    device = torch.device(device)
+    if isinstance(graph, ExpandedGraph):
+        g = graph.without_self_loops() if drop_self_loops else graph
+        return DeviceExpanded(
+            _tensor(g.src, torch.int64, device),
+            _tensor(g.dst, torch.int64, device),
+            torch.clamp(_tensor(g.multiplicity, torch.float32, device), max=1.0),
+            g.n,
+            graph_version=int(graph_version),
+            device=device,
+        )
+    chains = tuple(
+        tuple(_dev_edges(e, device) for e in c.edges) for c in graph.chains
+    )
+    direct = _dev_edges(graph.direct, device) if graph.direct is not None else None
+    corr = None
+    if correction is not None:
+        cs, cd, cm = correction
+        corr = (
+            _tensor(cs, torch.int64, device),
+            _tensor(cd, torch.int64, device),
+            _tensor(cm, torch.float32, device),
+        )
+    diag = None
+    if drop_self_loops and corr is None:
+        # Full self-path multiplicity: u reaches itself once per
+        # containing virtual node, and all of those must be subtracted.
+        diag = _tensor(self_path_counts(graph), torch.float32, device)
+    return DeviceCondensed(
+        chains=chains,
+        direct=direct,
+        correction=corr,
+        diag_mult=diag,
+        n_real=graph.n_real,
+        deduplicated=deduplicated,
+        graph_version=int(graph_version),
+        device=device,
+    )
+
+
+def _upload_operands(bsb, device) -> PackedOperands:
+    return PackedOperands(
+        slot_src=_tensor(bsb.slot_src, torch.int32, device),
+        slot_row=_tensor(bsb.slot_row, torch.int32, device),
+        row_start=_tensor(bsb.row_start, torch.int32, device),
+        row_count=_tensor(bsb.row_count, torch.int32, device),
+        bitmaps=_words(bsb.bitmaps, device),
+    )
+
+
+def _pack_edges(e: BipartiteEdges, dev: DeviceBipartite, device):
+    """``dev`` is the already-uploaded COO layer from :func:`to_device`,
+    reused so the edge arrays cross to the device only once.  Packs both
+    directions: the forward incidence and its transpose (reverse steps).
+
+    Returns ``(DevicePackedLayer, fwd_bsb, rev_bsb)`` — the host-side
+    packings ride along so :func:`to_device_packed` can build the fused
+    correction stream without re-packing."""
+    from ..kernels.pack import pack_bipartite
+
+    try:
+        fwd_bsb = pack_bipartite(e)
+        rev_bsb = pack_bipartite(e.reversed())
+    except ValueError:
+        fwd_bsb = rev_bsb = None  # duplicate edges (multiplicity): COO only
+    layer = DevicePackedLayer(
+        src=dev.src,
+        dst=dev.dst,
+        fwd=_upload_operands(fwd_bsb, device) if fwd_bsb is not None else None,
+        rev=_upload_operands(rev_bsb, device) if rev_bsb is not None else None,
+        n_src=e.n_src,
+        n_dst=e.n_dst,
+    )
+    return layer, fwd_bsb, rev_bsb
+
+
+def _upload_fused(stream, main_bsb, corr_planes, device) -> FusedOperands:
+    def t(a):
+        return _tensor(a, torch.int32, device)
+
+    return FusedOperands(
+        kind=t(stream.kind),
+        main_src=t(stream.main_src),
+        corr_src=t(stream.corr_src),
+        main_idx=t(stream.main_idx),
+        corr_idx=t(stream.corr_idx),
+        slot_row=t(stream.slot_row),
+        row_start=t(stream.row_start),
+        row_count=t(stream.row_count),
+        bitmaps=_words(main_bsb.bitmaps, device),
+        planes=_words(corr_planes.planes, device),
+        plane_weights=corr_planes.plane_weights,
+        n_out=main_bsb.n_dst,
+    )
+
+
+def _build_fused(
+    graph: CondensedGraph,
+    chains_host,
+    triples: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    device,
+) -> Tuple[Optional[FusedOperands], Optional[FusedOperands], str]:
+    """Build the fused (last layer + DEDUP-C epilogue) operands for both
+    directions.  Forward fuses into the last chain's final layer; reverse
+    propagation walks each chain backwards, so its final step is the same
+    chain's *first* layer transposed.
+
+    Returns ``(fused_fwd, fused_rev, standdown_reason)`` with the JAX
+    package's reasons: ``''`` when built, else
+    ``'no_chains_or_empty_correction'``, ``'unpackable_last_layer'`` or
+    ``'endpoint_mismatch'``."""
+    from ..kernels.correction import build_fused_stream, pack_correction
+
+    cs, cd, cm = triples
+    if not graph.chains or cs.size == 0:
+        return None, None, "no_chains_or_empty_correction"
+    _, last_fwd_bsb, _ = chains_host[-1][-1]
+    _, _, first_rev_bsb = chains_host[-1][0]
+    if last_fwd_bsb is None or first_rev_bsb is None:
+        return None, None, "unpackable_last_layer"
+    n = graph.n_real
+    if last_fwd_bsb.n_dst != n or first_rev_bsb.n_dst != n:
+        return None, None, "endpoint_mismatch"
+    corr_fwd = pack_correction(cs, cd, cm, n_src=n, n_dst=n)
+    corr_rev = pack_correction(cd, cs, cm, n_src=n, n_dst=n)
+    fused_fwd = _upload_fused(
+        build_fused_stream(last_fwd_bsb, corr_fwd), last_fwd_bsb, corr_fwd, device
+    )
+    fused_rev = _upload_fused(
+        build_fused_stream(first_rev_bsb, corr_rev), first_rev_bsb, corr_rev, device
+    )
+    return fused_fwd, fused_rev, ""
+
+
+def to_device_packed(
+    graph: CondensedGraph,
+    correction=None,
+    deduplicated: bool = False,
+    drop_self_loops: bool = True,
+    backend: str = "auto",
+    fuse_correction: bool = True,
+    measure: bool = False,
+    graph_version: int = 0,
+    device="cuda",
+) -> DevicePacked:
+    """Like :func:`to_device`, additionally packing every condensed layer
+    into bit-packed block-sparse operands (both directions) so batched
+    steps run on the CUDA kernels.  ``fuse_correction`` (default on) also
+    builds the fused last-layer + DEDUP-C-epilogue operands when a
+    correction is present.  Kernels walk one 128-row source tile per slot
+    (the JAX package's ``row_window=128``).  ``measure=True`` (pack-time
+    autotuning) is not ported yet (ROADMAP.md, Queue 1 item 10)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if measure:
+        raise NotImplementedError(
+            "measured-crossover packing is not ported yet (ROADMAP.md, "
+            "Queue 1 item 10: kernels/autotune.py)"
+        )
+    device = torch.device(device)
+    base = to_device(
+        graph,
+        correction=correction,
+        deduplicated=deduplicated,
+        drop_self_loops=drop_self_loops,
+        device=device,
+    )
+    chains_host = tuple(
+        tuple(_pack_edges(e, d, device) for e, d in zip(c.edges, dc))
+        for c, dc in zip(graph.chains, base.chains)
+    )
+    chains = tuple(tuple(t[0] for t in c) for c in chains_host)
+    direct = (
+        _pack_edges(graph.direct, base.direct, device)[0]
+        if graph.direct is not None
+        else None
+    )
+    fused_fwd = fused_rev = None
+    if correction is None:
+        standdown = "no_correction"
+    elif not fuse_correction:
+        standdown = "fuse_correction_disabled"
+    else:
+        cs, cd, cm = correction
+        fused_fwd, fused_rev, standdown = _build_fused(
+            graph,
+            chains_host,
+            (np.asarray(cs), np.asarray(cd), np.asarray(cm)),
+            device,
+        )
+    return DevicePacked(
+        chains=chains,
+        direct=direct,
+        correction=base.correction,
+        diag_mult=base.diag_mult,
+        n_real=graph.n_real,
+        deduplicated=deduplicated,
+        backend=backend,
+        fused_fwd=fused_fwd,
+        fused_rev=fused_rev,
+        graph_version=int(graph_version),
+        fused_standdown=standdown,
+        device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Propagation
+# ---------------------------------------------------------------------------
+
+def _edge_propagate(
+    sr: Semiring,
+    edges,
+    x: torch.Tensor,
+    reverse: bool,
+) -> torch.Tensor:
+    src, dst = (edges.dst, edges.src) if reverse else (edges.src, edges.dst)
+    n_out = edges.n_src if reverse else edges.n_dst
+    return segment_reduce(sr, x.index_select(0, src), dst, n_out)
+
+
+def _on_hopper(x: torch.Tensor) -> bool:
+    """The 'auto' policy: the kernels serve CUDA frontiers on sm_90."""
+    return x.is_cuda and torch.cuda.get_device_capability(x.device) == (9, 0)
+
+
+def _kernel_applicable(
+    graph: DevicePacked,
+    layer: DevicePackedLayer,
+    x: torch.Tensor,
+    semiring: Semiring,
+    reverse: bool,
+) -> bool:
+    """Dispatch: batched kernelizable steps, both directions, when the
+    layer was packed and the backend resolves to the kernels.  The kernels
+    keep no per-slot state in shared memory, so no size test applies."""
+    if x.ndim != 2 or not kernelizable(semiring):
+        return False
+    packed = layer.rev if reverse else layer.fwd
+    if packed is None:
+        return False
+    if graph.backend == "cuda":
+        return True
+    if graph.backend == "segment":
+        return False
+    return _on_hopper(x)
+
+
+def _packed_layer_spmm(
+    layer: DevicePackedLayer,
+    x: torch.Tensor,
+    semiring: Semiring,
+    reverse: bool,
+) -> torch.Tensor:
+    """One layer of the factorized SpMM ``Y = B ⊕ X`` on the K1/K2 kernel."""
+    from ..kernels.bitmap_spmm import bitmap_spmm
+
+    global KERNEL_DISPATCH_COUNT
+    KERNEL_DISPATCH_COUNT += 1
+    ops = layer.rev if reverse else layer.fwd
+    n_out = layer.n_src if reverse else layer.n_dst
+    return bitmap_spmm(
+        ops.slot_src,
+        ops.slot_row,
+        ops.row_start,
+        ops.row_count,
+        ops.bitmaps,
+        x.contiguous(),
+        n_out,
+        op=semiring.add_kind,
+        zero=float(semiring.zero),
+    )
+
+
+def _layer_propagate(
+    graph: DeviceGraph,
+    sr: Semiring,
+    edges,
+    x: torch.Tensor,
+    reverse: bool,
+) -> torch.Tensor:
+    if isinstance(graph, DevicePacked) and _kernel_applicable(
+        graph, edges, x, sr, reverse
+    ):
+        return _packed_layer_spmm(edges, x, sr, reverse)
+    return _edge_propagate(sr, edges, x, reverse)
+
+
+def _fused_applicable(
+    graph: DevicePacked,
+    fused: Optional[FusedOperands],
+    x: torch.Tensor,
+    semiring: Semiring,
+    hop_weight: Optional[float],
+) -> Tuple[bool, str]:
+    """Fused-epilogue dispatch: batched plus-times steps only, no per-hop
+    weighting, and the backend policy of the per-layer kernels.
+
+    Returns ``(dispatch, reason)`` with the JAX package's reason strings:
+    the pack-time :attr:`DevicePacked.fused_standdown` when the operands
+    were never built, else ``'frontier_1d'`` / ``'semiring_<name>'`` /
+    ``'hop_weight'`` / ``'backend_xla'`` (the ``'segment'`` backend) /
+    ``'vmem_or_backend'`` (``'auto'`` off an sm_90 CUDA frontier)."""
+    if fused is None:
+        return False, graph.fused_standdown or "not_built"
+    if x.ndim != 2:
+        return False, "frontier_1d"
+    if semiring.name != "plus_times":
+        return False, f"semiring_{semiring.name}"
+    if hop_weight is not None:
+        return False, "hop_weight"
+    if graph.backend == "cuda":
+        return True, ""
+    if graph.backend == "segment":
+        return False, "backend_xla"
+    if _on_hopper(x):
+        return True, ""
+    return False, "vmem_or_backend"
+
+
+def _fused_layer_spmm(
+    fused: FusedOperands,
+    h: torch.Tensor,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """The last layer of the last chain with the DEDUP-C subtraction in
+    the kernel epilogue: ``y = B h − D x`` in one launch (K3)."""
+    from ..kernels.bitmap_spmm import bitmap_spmm_fused
+
+    global KERNEL_DISPATCH_COUNT
+    KERNEL_DISPATCH_COUNT += 1
+    return bitmap_spmm_fused(
+        fused.kind,
+        fused.main_src,
+        fused.corr_src,
+        fused.main_idx,
+        fused.corr_idx,
+        fused.slot_row,
+        fused.row_start,
+        fused.row_count,
+        fused.bitmaps,
+        fused.planes,
+        h.contiguous(),
+        x.contiguous(),
+        fused.n_out,
+        fused.plane_weights,
+    )
+
+
+def _apply_hop(sr: Semiring, y: torch.Tensor, hop_weight: Optional[float]) -> torch.Tensor:
+    if hop_weight is None:
+        return y
+    return sr.mul(y, torch.tensor(hop_weight, dtype=y.dtype, device=y.device))
+
+
+def _bcast(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast per-edge/per-node weight against feature matrices."""
+    w = w.to(like.dtype)
+    if like.ndim == w.ndim:
+        return w
+    return w.reshape(tuple(w.shape) + (1,) * (like.ndim - w.ndim))
+
+
+def propagate(
+    graph: DeviceGraph,
+    x: torch.Tensor,
+    semiring: Semiring = PLUS_TIMES,
+    *,
+    reverse: bool = False,
+    hop_weight: Optional[float] = None,
+    allow_duplicates: bool = False,
+) -> torch.Tensor:
+    """One superstep: ⊕-combine ⊗-weighted messages along all edges.
+
+    ``x`` is one frontier ``(n,)`` or a batch of ``B`` frontiers ``(n, B)``
+    processed in a single factorized SpMM; per-column results equal ``B``
+    independent single-frontier calls.  ``hop_weight`` is applied once
+    per *logical* (real->real) hop, not per condensed layer, so BFS hop
+    counting matches the expanded graph.
+    """
+    n_in = graph.n if isinstance(graph, DeviceExpanded) else graph.n_real
+    if x.ndim not in (1, 2) or x.shape[0] != n_in:
+        raise ValueError(
+            f"frontier must be ({n_in},) or ({n_in}, B); got shape {tuple(x.shape)}"
+        )
+    if isinstance(graph, DeviceExpanded):
+        src, dst = (graph.dst, graph.src) if reverse else (graph.src, graph.dst)
+        msgs = x.index_select(0, src)
+        if semiring.name == "plus_times":
+            msgs = msgs * _bcast(graph.weight, msgs)
+        y = segment_reduce(semiring, msgs, dst, graph.n)
+        return _apply_hop(semiring, y, hop_weight)
+
+    exact = (
+        semiring.idempotent
+        or graph.deduplicated
+        or graph.correction is not None
+    )
+    if not exact and not allow_duplicates:
+        raise ValueError(
+            "ring propagation on C-DUP counts duplicate paths; pass a "
+            "correction (DEDUP-C), a deduplicated graph (DEDUP-1), or "
+            "allow_duplicates=True (paper §4.1 duplication problem)"
+        )
+
+    # Fused DEDUP-C epilogue: the last chain's final layer and the
+    # correction subtraction run as one kernel launch; the trailing
+    # segment correction below is then skipped.
+    fused = None
+    if isinstance(graph, DevicePacked) and graph.correction is not None:
+        cand = graph.fused_rev if reverse else graph.fused_fwd
+        ok, reason = _fused_applicable(graph, cand, x, semiring, hop_weight)
+        if ok:
+            fused = cand
+        else:
+            KERNEL_STANDDOWN_COUNT[reason] = (
+                KERNEL_STANDDOWN_COUNT.get(reason, 0) + 1
+            )
+
+    y = None
+    for ci, chain in enumerate(graph.chains):
+        seq = chain[::-1] if reverse else chain
+        h = x
+        fuse_here = fused is not None and ci == len(graph.chains) - 1
+        for e in (seq[:-1] if fuse_here else seq):
+            h = _layer_propagate(graph, semiring, e, h, reverse)
+        if fuse_here:
+            h = _fused_layer_spmm(fused, h, x)
+        h = _apply_hop(semiring, h, hop_weight)
+        y = h if y is None else semiring.add(y, h)
+    if graph.direct is not None:
+        h = _layer_propagate(graph, semiring, graph.direct, x, reverse)
+        h = _apply_hop(semiring, h, hop_weight)
+        y = h if y is None else semiring.add(y, h)
+    if y is None:
+        zero_shape = (graph.n_real,) + tuple(x.shape[1:])
+        y = torch.full(zero_shape, semiring.zero, dtype=x.dtype, device=x.device)
+
+    if semiring.name == "plus_times":
+        # Exactness corrections only make sense in the ring.
+        if graph.correction is not None and fused is not None:
+            pass  # already subtracted inside the fused kernel epilogue
+        elif graph.correction is not None:
+            cs, cd, cm = graph.correction
+            src, dst = (cd, cs) if reverse else (cs, cd)
+            msgs = x.index_select(0, src)
+            corr = segment_reduce(
+                PLUS_TIMES, msgs * _bcast(cm, msgs), dst, graph.n_real
+            )
+            y = y - _apply_hop(semiring, corr, hop_weight)
+        elif graph.diag_mult is not None:
+            y = y - _apply_hop(
+                semiring, x * _bcast(graph.diag_mult, x), hop_weight
+            )
+    return y
