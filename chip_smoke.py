@@ -327,6 +327,22 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     ms = time_ms(lambda: K.bitmap_spmm_fused(*fargs), reps)
     plain_ms = time_ms(lambda: K.bitmap_spmm_fused_plain(*fargs), 3, 1)
     K.LAUNCHES.update(before)
+    # library: one torch.sparse.mm of the CSR [B | -D] (the last layer's
+    # incidence beside the weighted correction) against the stacked [h; x]
+    last = graph.chains[-1][-1]
+    cs, cd, cm = graph.correction
+    k3_csr = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([last.dst, cd]), torch.cat([last.src, n_h + cs])]),
+        torch.cat([torch.ones(last.src.shape[0], device=xr.device), -cm]),
+        (fused.n_out, n_h + graph.n_real),
+    ).coalesce().to_sparse_csr()
+    stacked = torch.cat([h, xr])
+    y_lib = torch.sparse.mm(k3_csr, stacked)
+    torch.cuda.synchronize()
+    if not torch.equal(y_lib, y_plain):
+        raise AssertionError("K3's library call computes another function")
+    k3_library_ms = time_ms(lambda: torch.sparse.mm(k3_csr, stacked), reps)
+    del k3_csr, stacked, y_lib
     n_planes = int(fused.planes.shape[1])
     n_corr = int(fused.planes.shape[0])
     main_bits, corr_bits = set_bits(fused.bitmaps), set_bits(fused.planes)
@@ -342,7 +358,7 @@ def kernel_rows(graph, launches, reps: int, seed: int):
         "launches": launches["bitmap_spmm_fused"],
         "max_abs_err": float((y - y_plain).abs().max().item()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": k3_library_ms,
         "shape": {"n_h": n_h, "n_out": fused.n_out, "features": feat,
                   "slots": int(fused.kind.shape[0]), "correction_slots": n_corr,
                   "planes": n_planes, "main_bits": main_bits, "plane_bits": corr_bits,
@@ -351,41 +367,364 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     return rows
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--authors", type=int, default=50_000)
-    ap.add_argument("--pubs", type=int, default=100_000)
-    ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--seed", type=int, default=7)
-    args = ap.parse_args()
+# ---------------------------------------------------------------------------
+# Phase 5: LM serving (glm4-9b at full width) with K4
+# ---------------------------------------------------------------------------
+
+# (B, T, H, KV, D, causal): tests/test_kernels.py's FLASH_SWEEP
+FLASH_SWEEP = [
+    (1, 64, 2, 1, 8, True),
+    (2, 128, 4, 2, 16, True),
+    (1, 96, 4, 4, 8, False),
+    (2, 100, 2, 1, 8, True),
+    (1, 256, 8, 2, 32, True),
+]
+# (B, Tq, Tk, H, KV, D, causal, q_offset, kv_length): the cache path
+FLASH_CACHE = [
+    (1, 300, 4128, 32, 2, 128, True, 0, [300]),        # prefill into a longer cache
+    (2, 64, 600, 32, 2, 128, True, 200, [264, 264]),   # prefill after a prefix
+    (8, 1, 4128, 32, 2, 128, False, 0, [4097, 4100, 1, 0, 33, 4128, 2049, 77]),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 0.05}   # tests/test_kernels.py:138
+BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16
+FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:34"
+# last-position logits of a 4096-token prefill, K4 against the plain
+# attention, both bf16 end to end: the max abs difference may be this
+# share of the largest |logit| (40 layers of bf16 round-off apart)
+LOGITS_RTOL = 0.05
+
+
+def flash_small_check() -> dict:
+    """K4 against its plain version on the sweep and the cache-path shapes,
+    float32 (full-precision matmuls) and bf16.  Launch counts made here
+    are restored: they are comparisons, not the main path's."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst = {}
+    cases = [(B, T, T, H, KV, D, c, 0, None) for B, T, H, KV, D, c in FLASH_SWEEP]
+    for dname, tol in FLASH_TOL.items():
+        dtype = getattr(torch, dname)
+        for B, Tq, Tk, H, KV, D, causal, q_off, kv_len in cases + FLASH_CACHE:
+            q = torch.randn((B, Tq, H, D), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((B, Tk, KV, D), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((B, Tk, KV, D), generator=gen, device="cuda").to(dtype)
+            lengths = (None if kv_len is None
+                       else torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+            kw = dict(causal=causal, q_offset=q_off, kv_length=lengths)
+            got = FA.flash_attention(q, k, v, **kw)
+            want = FA.flash_attention_plain(q, k, v, **kw)
+            err = float((got.float() - want.float()).abs().max().item())
+            shape = (B, Tq, Tk, H, KV, D, causal, q_off)
+            if not err < tol:
+                raise AssertionError(f"K4 {dname} {shape}: max abs err {err} >= {tol}")
+            worst[dname] = max(worst.get(dname, 0.0), err)
+    FA.LAUNCHES.update(before[0])
+    FA.PLAIN_CUDA_CALLS.update(before[1])
+    log(f"K4 small check: {2 * len(cases + FLASH_CACHE)} cases within tolerance; "
+        f"worst {json.dumps(worst)} (tolerances {json.dumps(FLASH_TOL)})")
+    return worst
+
+
+def lm_requests(cfg, seed: int, long_len: int, short_len: int, n_each: int, new_tokens: int):
+    import numpy as np
+
+    from repro_torch.serve.server import Request
+
+    rng = np.random.default_rng(seed)
+    lengths = [long_len] * n_each + [short_len] * n_each
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n),
+                    max_new_tokens=new_tokens) for i, n in enumerate(lengths)]
+
+
+def device_time_by_kind(prof) -> dict:
+    """Seconds of device time in K4, in matrix products (cuBLAS / CUTLASS
+    kernels) and in everything else."""
+    from torch.autograd import DeviceType
+
+    out = {"k4_s": 0.0, "gemm_s": 0.0, "other_s": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        if "flash_attention" in name:
+            kind = "k4_s"
+        elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+            kind = "gemm_s"
+        else:
+            kind = "other_s"
+        out[kind] += us / 1e6
+    return out
+
+
+def profile_lm(server, requests) -> dict:
+    """One profiled prefill (the first request) and, once every slot is
+    full, one profiled decode step: wall time, device time by kind and the
+    idle share.  Launches made here do not count as the main path's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as FA
+
+    before = dict(FA.LAUNCHES)
+    out = {}
+    slots = len(server.slots)
+    for phase in ("prefill", "decode"):
+        if phase == "decode":
+            for r in requests[1:slots]:
+                server.admit(r)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            if phase == "prefill":
+                server.admit(requests[0])
+            else:
+                server.step()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+        kinds = device_time_by_kind(prof)
+        busy = sum(kinds.values())
+        out[phase] = {"wall_s": wall_s, **kinds, "device_busy_s": busy,
+                      "idle_share": 1.0 - busy / wall_s}
+    FA.LAUNCHES.update(before)
+    return out
+
+
+def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
+    """K4 at one main-path shape: time, plain time, SDPA time, bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max().item())
+    if not err < FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"K4 {name}: max abs err {err}")
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps)
+    plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 3, 1)
+    FA.LAUNCHES.update(before[0])
+    FA.PLAIN_CUDA_CALLS.update(before[1])
+    B, Tq, H, D = q.shape
+    n_valid = int(kw["kv_length"].max().item())
+    # SDPA over the valid keys (every row of these shapes holds n_valid)
+    qs = q.transpose(1, 2).contiguous()
+    ks = k[:, :n_valid].transpose(1, 2).contiguous()
+    vs = v[:, :n_valid].transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=kw["causal"], enable_gqa=True), reps)
+    kv_bytes = 2 * B * n_valid * k.shape[2] * D * k.element_size()
+    n_bytes = 2 * nbytes(q) + kv_bytes
+    n_ops = 4 * B * H * D * pairs
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return {
+        "name": name, "route": "cuda", "source": f"{CSRC}/flash_attention.cu",
+        "replaces": FLASH_TPU_KERNEL, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+        "shape": {"q": list(q.shape), "kv": list(k.shape), "kv_valid": n_valid,
+                  "causal": kw["causal"], "q_offset": kw["q_offset"],
+                  "dtype": str(q.dtype), "pairs": pairs, "bytes": n_bytes,
+                  "flops": n_ops},
+    }
+
+
+def lm_phase(args) -> dict:
+    """glm4-9b (CONFIG: 40 layers, d_model 4096, vocab 151552) in bf16
+    with random weights: 16 requests through ``BatchedServer.run`` on 8
+    slots, counted K4 launches, the K4-vs-plain logits check, a profile
+    and K4's rows."""
+    import unittest.mock
 
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+    from repro_torch.configs import glm4_9b
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer
+    from repro_torch.serve.server import BatchedServer
 
-    from repro_torch.core import algorithms, engine, extract
+    cfg = glm4_9b.CONFIG
+    rec = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
+                      "n_params": cfg.n_params()}}
+    rec["k4_small_worst_err"] = flash_small_check()
+
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = transformer.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    rec["weight_bytes"] = nbytes(*leaves(params))
+    log(f"glm4-9b: {cfg.n_params():,} parameters, {rec['weight_bytes'] / 1e9:.2f} GB of "
+        f"bf16 weights, drawn in {rec['init_s']:.1f} s")
+
+    n_each, new_tokens = 8, args.new_tokens
+    server = BatchedServer(params, cfg, batch_slots=8, max_len=args.max_len)
+    requests = lm_requests(cfg, args.seed, args.long_prompt, args.short_prompt,
+                           n_each, new_tokens)
+    prefill_s = {args.long_prompt: [], args.short_prompt: []}
+    step_s, step_len = [], []
+    split = {"prefill": 0, "decode": 0}
+    admit, step = server.admit, server.step
+
+    def timed_admit(req):
+        torch.cuda.synchronize()
+        n0, t0 = FA.LAUNCHES["flash_attention"], time.perf_counter()
+        ok = admit(req)
+        torch.cuda.synchronize()
+        prefill_s[int(req.prompt.size)].append(time.perf_counter() - t0)
+        split["prefill"] += FA.LAUNCHES["flash_attention"] - n0
+        return ok
+
+    def timed_step():
+        length = server._active_length()
+        torch.cuda.synchronize()
+        n0, t0 = FA.LAUNCHES["flash_attention"], time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_len.append(length)
+        split["decode"] += FA.LAUNCHES["flash_attention"] - n0
+
+    server.admit, server.step = timed_admit, timed_step
+
+    # -- the run whose launches count ---------------------------------------
+    FA.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = server.run(requests)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = FA.LAUNCHES["flash_attention"]
+    plain_calls = FA.PLAIN_CUDA_CALLS["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    server.admit, server.step = admit, step
+
+    n_prefill = sum(len(v) for v in prefill_s.values())
+    n_steps = len(step_s)
+    log(f"served {len(out)} requests ({n_each} x {args.long_prompt} + {n_each} x "
+        f"{args.short_prompt} prompt tokens, {new_tokens} new each) in {run_s:.2f} s: "
+        f"{n_prefill} prefills, {n_steps} decode steps, {launches} K4 launches, "
+        f"{plain_calls} plain attention calls on the card")
+    if sorted(out) != list(range(2 * n_each)):
+        raise AssertionError(f"served {sorted(out)}")
+    for rid, toks in out.items():
+        if len(toks) != new_tokens or not all(0 <= t_ < cfg.vocab_size for t_ in toks):
+            raise AssertionError(f"request {rid}: {len(toks)} tokens {toks[:4]}...")
+    if n_prefill != 2 * n_each or n_steps != 2 * (new_tokens - 1):
+        raise AssertionError(f"{n_prefill} prefills / {n_steps} steps: deferral broke")
+    if launches != cfg.n_layers * (n_prefill + n_steps):
+        raise AssertionError(
+            f"K4 launched {launches} times, not n_layers x (prefills + steps) = "
+            f"{cfg.n_layers * (n_prefill + n_steps)}")
+    if plain_calls:
+        raise AssertionError(f"the plain attention ran {plain_calls} times on the card")
+
+    long_steps = [s for s, n in zip(step_s, step_len) if n >= args.long_prompt]
+    short_steps = [s for s, n in zip(step_s, step_len) if n < args.long_prompt]
+    rec.update({
+        "requests": len(out), "slots": 8, "max_len": args.max_len,
+        "prompt_tokens": [args.long_prompt, args.short_prompt], "new_tokens": new_tokens,
+        "run_s": run_s, "generated_tokens_per_s": len(out) * new_tokens / run_s,
+        "prefill_s_mean": {str(n): float(np.mean(v)) for n, v in prefill_s.items()},
+        "prefill_s_first": {str(n): v[0] for n, v in prefill_s.items()},
+        "decode_ms_per_step_mean": {
+            f"kv~{args.long_prompt}": 1e3 * float(np.mean(long_steps)),
+            f"kv~{args.short_prompt}": 1e3 * float(np.mean(short_steps))},
+        "prefills": n_prefill, "decode_steps": n_steps, "k4_launches": launches,
+        "k4_launches_split": dict(split), "plain_attention_cuda_calls": plain_calls,
+        "peak_memory_bytes": peak,
+    })
+    log(f"prefill s/request: {json.dumps(rec['prefill_s_mean'])}; decode ms/step at 8 "
+        f"slots: {json.dumps(rec['decode_ms_per_step_mean'])}; "
+        f"{rec['generated_tokens_per_s']:.1f} generated tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+
+    # -- the same 4096-token prefill through K4 and through the plain attention
+    prompt = torch.as_tensor(requests[0].prompt, device="cuda")[None, :]
+    logits = {}
+    with torch.inference_mode():
+        for which in ("k4", "plain"):
+            cache = transformer.init_cache(cfg, 1, args.max_len, "cuda")
+            attention = FA.flash_attention if which == "k4" else FA.flash_attention_plain
+            with unittest.mock.patch.object(transformer, "flash_attention", attention):
+                full, _ = transformer.forward(params, prompt, cfg, cache)
+            logits[which] = full[0, -1].clone()
+            del full, cache
+    FA.reset_launch_counts()
+    err = float((logits["k4"] - logits["plain"]).abs().max().item())
+    scale = float(logits["plain"].abs().max().item())
+    same_argmax = int(logits["k4"].argmax()) == int(logits["plain"].argmax())
+    log(f"last-position logits, K4 vs plain attention on the card: max abs err {err:.5f} "
+        f"(largest |logit| {scale:.4f}, tolerance {LOGITS_RTOL} x that); argmax agrees: "
+        f"{same_argmax}")
+    if not (np.isfinite(err) and err <= LOGITS_RTOL * scale):
+        raise AssertionError(f"K4 logits differ from the plain attention's by {err}")
+    rec["logits_check"] = {"max_abs_err": err, "max_abs_logit": scale,
+                           "rtol": LOGITS_RTOL, "argmax_agrees": same_argmax}
+
+    rec["profile"] = profile_lm(server, lm_requests(
+        cfg, args.seed + 1, args.long_prompt, args.short_prompt, n_each, new_tokens))
+    log(f"profiled prefill / decode step: {json.dumps(rec['profile'])}")
+
+    # -- K4 rows at the main path's shapes --------------------------------------
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g2 = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g2, device="cuda").to(torch.bfloat16)
+
+    T = args.long_prompt
+    rows = [k4_row(
+        "flash_attention_prefill", randn(1, T, H, hd), randn(1, args.max_len, KV, hd),
+        randn(1, args.max_len, KV, hd),
+        dict(causal=True, q_offset=0,
+             kv_length=torch.full((1,), T, dtype=torch.int32, device="cuda")),
+        T * (T + 1) // 2, split["prefill"], args.reps)]
+    kv = T + 4
+    rows.append(k4_row(
+        "flash_attention_decode", randn(8, 1, H, hd), randn(8, args.max_len, KV, hd),
+        randn(8, args.max_len, KV, hd),
+        dict(causal=False, q_offset=kv - 1,
+             kv_length=torch.full((8,), kv, dtype=torch.int32, device="cuda")),
+        8 * kv, split["decode"], args.reps))
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA {r['library_ms']:.4f}), "
+            f"{r['launches']} launches in the served run")
+    rec["kernels"] = rows
+    return rec
+
+
+def graph_phases(args, record) -> list:
+    """Phases 2-4: the small oracle check, the served main path with its
+    profile, and the graph kernels' rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine, extract
     from repro_torch.data.synth import dblp_catalog
     from repro_torch.kernels import bitmap_spmm as K
-    from repro_torch.kernels import build
     from repro_torch.serve.server import GraphQueryServer
-
-    record = {}
-    t0 = time.perf_counter()
-    build.build_all()
-    record["build_s"] = time.perf_counter() - t0
-    card = card_line()
-    log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} cc {torch.cuda.get_device_capability(0)}")
-    log(f"kernels built in {record['build_s']:.1f} s")
-    for name in build.LIBRARIES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
 
     small_input_check(args.seed)
 
@@ -464,15 +803,60 @@ def main() -> int:
             f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
 
     record.update({
-        "card": card, "stages": stages, "device_bytes": held,
+        "stages": stages, "device_bytes": held,
         "serve_s": serve_s, "segment_s": segment_s, "serve_profile": prof,
         "launches": launches,
         "standdowns": standdowns, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "graph": {"n_real": g.n_real, "n_virtual": g.n_virtual,
                   "edges_condensed": g.n_edges_condensed,
                   "correction_triples": len(server.graph.correction[0])},
-        "args": vars(args), "kernels": rows,
     })
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--authors", type=int, default=50_000)
+    ap.add_argument("--pubs", type=int, default=100_000)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--long-prompt", type=int, default=4096)
+    ap.add_argument("--short-prompt", type=int, default=1024)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=4128)
+    ap.add_argument("--lm-only", action="store_true",
+                    help="skip the graph phases (a quick check of the LM phase)")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    from repro_torch.kernels import build
+
+    record = {}
+    t0 = time.perf_counter()
+    build.build_all()
+    record["build_s"] = time.perf_counter() - t0
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} cc {torch.cuda.get_device_capability(0)}")
+    log(f"kernels built in {record['build_s']:.1f} s")
+    for name in build.LIBRARIES:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    rows = [] if args.lm_only else graph_phases(args, record)
+    torch.cuda.empty_cache()
+    lm = lm_phase(args)
+    rows += lm.pop("kernels")
+    record.update({"card": card, "lm": lm, "args": vars(args), "kernels": rows})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -51,6 +51,14 @@ LIBRARIES = {
             ]
         },
     ),
+    "flash_attention": (
+        "flash_attention.cu",
+        {
+            "flash_attention_launch": [
+                _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+            ]
+        },
+    ),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

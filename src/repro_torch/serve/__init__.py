@@ -1,1 +1,1 @@
-"""Batched graph-analytics serving for the port."""
+"""Batched serving for the port: LM decode and graph analytics."""

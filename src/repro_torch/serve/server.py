@@ -1,10 +1,13 @@
-"""Graph-analytics serving: fuse queued queries into one batched propagation.
+"""Batched serving loops: LM decode over a KV cache, and graph analytics
+over a condensed graph.
 
-:class:`GraphQueryServer` is the micro-batching front end for multi-source
-graph analytics: queued per-node queries of the same kind are fused into
-one ``(n, B)`` frontier and answered by a single batched algorithm call
-instead of ``B`` serial traversals.  The JAX package's LM decode server
-(``BatchedServer``) is not ported yet (ROADMAP.md, Queue 1 item 16).
+* :class:`BatchedServer` — fixed-slot LM batch, each slot an independent
+  request; prefill admits new requests into free slots; decode advances
+  all active slots one token per step (attention through K4 on the card).
+* :class:`GraphQueryServer` — the micro-batching front end for
+  multi-source graph analytics: queued per-node queries of the same kind
+  are fused into one ``(n, B)`` frontier and answered by a single batched
+  algorithm call instead of ``B`` serial traversals.
 """
 from __future__ import annotations
 
@@ -12,11 +15,16 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..configs.base import TransformerConfig
 from ..core import algorithms
 from ..core.engine import DeviceGraph
+from ..models import transformer
 
 __all__ = [
+    "Request",
+    "BatchedServer",
     "GraphQuery",
     "GraphQueryServer",
     "ServerStats",
@@ -67,6 +75,166 @@ class ServerStats:
         self.slots_compiled += other.slots_compiled
         for w, c in other.batch_widths_used.items():
             self.batch_widths_used[w] = self.batch_widths_used.get(w, 0) + c
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray          # (T,) integer token ids
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchedServer:
+    """Greedy-decode batched server over fixed slots (one card).
+
+    The slot semantics are the JAX package's: :meth:`admit` prefills one
+    request into a free slot, :meth:`step` decodes one token for every
+    slot at the active slots' common length, :meth:`run` admits every
+    pending request whose prompt length matches the active batch and
+    defers the rest until the batch drains.
+
+    The batch cache is spliced in place: :meth:`admit` zeroes the slot's
+    rows of the batch cache and prefills the prompt straight into them
+    (the reference prefills a one-slot cache and copies it in; the slot
+    ends up with the same contents).  Prefill and decode run under
+    ``torch.inference_mode()``."""
+
+    def __init__(
+        self,
+        params,
+        cfg: TransformerConfig,
+        batch_slots: int = 4,
+        max_len: int = 256,
+    ):
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed"].device
+        self.slots: List[Optional[Request]] = [None] * batch_slots
+        self.max_len = max_len
+        self.cache = transformer.init_cache(cfg, batch_slots, max_len, self.device)
+        self.lengths = np.zeros(batch_slots, dtype=np.int64)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if s is None:
+                return i
+        return None
+
+    def _active_length(self) -> Optional[int]:
+        """Common sequence length of the active slots, or None if idle.
+
+        The batch cache has one ``length``, so every active slot must sit
+        at the same position; admission enforces that invariant and
+        decode preserves it (all active slots advance one token per
+        step)."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                return int(self.lengths[i])
+        return None
+
+    def can_admit(self, req: Request) -> bool:
+        """True iff ``admit(req)`` would succeed right now: a slot is free
+        and the prompt length matches the active batch (or the batch is
+        idle)."""
+        if self._free_slot() is None:
+            return False
+        active = self._active_length()
+        return active is None or int(req.prompt.size) == active
+
+    def admit(self, req: Request) -> bool:
+        """Prefill a request into a free slot; False when none is free.
+
+        Raises ``ValueError`` on ragged admission — a prompt whose length
+        differs from the active slots'.  Use :meth:`can_admit` to defer
+        instead."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        active = self._active_length()
+        if active is not None and int(req.prompt.size) != active:
+            raise ValueError(
+                f"ragged admission: prompt length {int(req.prompt.size)} != "
+                f"active batch length {active}; the shared KV cache has one "
+                f"scalar length, so all active slots must decode in lockstep. "
+                f"Use can_admit() to defer this request until the batch "
+                f"drains."
+            )
+        with torch.inference_mode():
+            prompt = torch.as_tensor(
+                np.asarray(req.prompt, dtype=np.int64), device=self.device
+            )[None, :]
+            k = self.cache.k[:, slot:slot + 1]
+            v = self.cache.v[:, slot:slot + 1]
+            k.zero_()
+            v.zero_()
+            logits, _ = transformer.forward(
+                self.params, prompt, self.cfg, transformer.KVCache(k=k, v=v, length=0)
+            )
+            first = int(torch.argmax(logits[0, -1]))
+        req.generated.append(first)
+        self.lengths[slot] = req.prompt.size
+        self.slots[slot] = req
+        return True
+
+    def step(self) -> None:
+        """One decode step for every slot (idle slots decode token 0 and
+        their answers are dropped, as in the reference)."""
+        if all(s is None for s in self.slots):
+            return
+        tokens = np.zeros((len(self.slots), 1), dtype=np.int64)
+        for i, s in enumerate(self.slots):
+            if s is not None and s.generated:
+                tokens[i, 0] = s.generated[-1]
+        # The common active length is the batch position: max() over all
+        # slots would let a freed slot's stale length shift every other
+        # slot's attention window.
+        cache = transformer.KVCache(
+            k=self.cache.k, v=self.cache.v, length=self._active_length()
+        )
+        with torch.inference_mode():
+            logits, _ = transformer.forward(
+                self.params, torch.from_numpy(tokens).to(self.device), self.cfg, cache
+            )
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            s.generated.append(int(nxt[i]))
+            self.lengths[i] += 1
+            if len(s.generated) >= s.max_new_tokens:
+                s.done = True
+                self.slots[i] = None
+                self.lengths[i] = 0
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Serve every request; returns ``{rid: generated tokens}``."""
+        pending = list(requests)
+        out: Dict[int, List[int]] = {}
+        active: List[Request] = []
+        while pending or any(self.slots):
+            # Admit every pending request whose prompt length matches the
+            # active batch (all of them when idle); ragged ones wait.  No
+            # livelock: with all slots free any request is admissible, and
+            # with active slots step() always makes progress.
+            admitted = True
+            while admitted:
+                admitted = False
+                for j, r in enumerate(pending):
+                    if self.can_admit(r):
+                        self.admit(pending.pop(j))
+                        active.append(r)
+                        admitted = True
+                        break
+            self.step()
+            for r in active:
+                if r.done:
+                    out[r.rid] = r.generated
+            active = [r for r in active if not r.done]
+        for r in requests:
+            out.setdefault(r.rid, r.generated)
+        return out
 
 
 @dataclasses.dataclass

@@ -160,3 +160,115 @@ def test_wrapper_refuses_misaligned_words(packed):
     with pytest.raises(ValueError, match="8-byte"):
         K.bitmap_spmm(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
                       shifted, x, packed.chains[0][0].n_dst)
+
+
+# ---------------------------------------------------------------------------
+# K4: flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_SWEEP = [
+    # (B, T, H, KV, D, causal), the shapes of tests/test_kernels.py
+    (1, 64, 2, 1, 8, True),
+    (2, 128, 4, 2, 16, True),
+    (1, 96, 4, 4, 8, False),
+    (2, 100, 2, 1, 8, True),
+    (1, 256, 8, 2, 32, True),
+    (1, 300, 32, 2, 128, True),      # glm4-9b's heads, ragged q tiles
+]
+
+# (B, Tq, Tk, H, KV, D, causal, q_offset, kv_length)
+FLASH_CACHE = [
+    (1, 40, 96, 32, 2, 128, True, 0, [40]),           # prefill into a longer cache
+    (2, 12, 64, 8, 2, 64, True, 20, [32, 32]),        # prefill after a prefix
+    (4, 1, 130, 32, 2, 128, False, 0, [1, 33, 97, 130]),  # decode, ragged tails
+    (2, 1, 40, 6, 2, 50, False, 0, [0, 17]),          # a row with no key; D = 50
+]
+
+# float32 with full-precision matmuls in the plain version; bf16 at the
+# reference's bound (tests/test_kernels.py)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 0.05}
+
+
+def _qkv(seed, B, Tq, Tk, H, KV, D, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Tq, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Tk, KV, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Tk, KV, D), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+@pytest.fixture
+def full_fp32():
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("shape", FLASH_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_sweep(card, full_fp32, shape, dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    B, T, H, KV, D, causal = shape
+    q, k, v = _qkv(T + D, B, T, T, H, KV, D, dtype)
+    before = FA.LAUNCHES["flash_attention"]
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.LAUNCHES["flash_attention"] == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal, block_q=64, block_kv=64)
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", FLASH_CACHE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_cache_path(card, full_fp32, case, dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal, q_offset, kv_length = case
+    q, k, v = _qkv(Tk + D, B, Tq, Tk, H, KV, D, dtype)
+    lengths = torch.tensor(kv_length, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, q_offset=q_offset, kv_length=lengths)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+    if 0 in kv_length:
+        assert float(got[kv_length.index(0)].abs().max()) == 0.0
+
+
+def test_cuda_batched_server_runs_k4_and_matches_cpu(card):
+    """A small float32 model served on the card gives the CPU's tokens, and
+    every attention call of the run launched K4: n_layers per prefill and
+    per decode step; the plain version never ran on the card."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer
+    from repro_torch.serve.server import BatchedServer, Request
+
+    cfg = dataclasses.replace(registry.get_arch("glm4-9b").SMOKE, dtype="float32")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+    on_card = to_card(params)
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=int(n)),
+                        max_new_tokens=5) for i, n in enumerate([7, 7, 4, 7])]
+
+    want = BatchedServer(params, cfg, batch_slots=3, max_len=32).run(requests())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        FA.reset_launch_counts()
+        got = BatchedServer(on_card, cfg, batch_slots=3, max_len=32).run(requests())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got == want
+    # 4 prefills; two batches of 4 decode steps each (max_new_tokens - 1)
+    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers * (4 + 2 * 4)
+    assert FA.PLAIN_CUDA_CALLS["flash_attention"] == 0

@@ -30,6 +30,11 @@ def test_slice_modules_are_all_listed():
         "repro_torch.kernels.bitmap_spmm", "repro_torch.kernels.ref",
         "repro_torch.core.engine", "repro_torch.core.algorithms",
         "repro_torch.serve.server", "repro_torch.core.interop",
+        "repro_torch.configs.base", "repro_torch.configs.glm4_9b",
+        "repro_torch.configs.yi_9b", "repro_torch.configs.registry",
+        "repro_torch.kernels.flash_attention", "repro_torch.models.layers",
+        "repro_torch.models.transformer", "repro_torch.models.interop",
+        "repro_torch.launch.serve",
     ):
         assert name in MODULES
 
