@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # the full run: DBLP 50K authors / 100K pubs
+    python3 chip_smoke.py --quick    # a first check of changed kernels (~1 min)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -27,6 +28,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time, the plain version's time, a bound (the larger of the bytes at
    3.35 TB/s and its float32 operations at 67 TFLOP/s) and, for K1, one
    ``torch.sparse.mm`` call on a CSR of the same incidence.
+5. LM serving: K4 against its plain version on small and cache-path
+   shapes (the main path's prefill and decode among them) in float32 to
+   2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
+   weights serves 16 requests (8 x 4096 + 8 x 1024 prompt tokens, 32 new
+   each) on 8 slots, with K4 launched at every attention call and the
+   plain attention never; the last-position logits of one prefill
+   through K4 and through the plain attention agree; a profiled prefill
+   and decode step; K4's rows at the prefill and decode shapes, held to
+   the plain version element by element in bf16.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -384,6 +394,7 @@ FLASH_CACHE = [
     (1, 300, 4128, 32, 2, 128, True, 0, [300]),        # prefill into a longer cache
     (2, 64, 600, 32, 2, 128, True, 200, [264, 264]),   # prefill after a prefix
     (8, 1, 4128, 32, 2, 128, False, 0, [4097, 4100, 1, 0, 33, 4128, 2049, 77]),
+    (1, 4096, 4128, 32, 2, 128, True, 0, [4096]),      # the main path's prefill
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 0.05}   # tests/test_kernels.py:138
 BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16
@@ -392,6 +403,20 @@ FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:34"
 # attention, both bf16 end to end: the max abs difference may be this
 # share of the largest |logit| (40 layers of bf16 round-off apart)
 LOGITS_RTOL = 0.05
+# K4 in bf16 at the main path's shapes, element by element against the
+# plain version: |got - want| <= K4_BF16_ATOL + K4_BF16_RTOL * |want|.
+# RTOL is one bf16 unit in the last place of the output (both round it
+# once); ATOL covers p rounded to bf16 against a different running max.
+# A late row of a 4096-token prefill averages thousands of keys, so its
+# outputs are a few hundredths: a dropped key tile hides under the 0.05 of
+# FLASH_TOL, not under this bound.
+K4_BF16_RTOL = 2.0 ** -7
+K4_BF16_ATOL = 2e-3
+# (long prompt, short prompt, new tokens) of the served LM run; --quick
+# takes the second for a first check of a changed kernel (weights stay
+# full width).  The cache holds the long prompt and its new tokens.
+LM_FULL = (4096, 1024, 32)
+LM_QUICK = (256, 64, 4)
 
 
 def flash_small_check() -> dict:
@@ -499,7 +524,9 @@ def profile_lm(server, requests) -> dict:
 
 
 def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
-    """K4 at one main-path shape: time, plain time, SDPA time, bound."""
+    """K4 at one main-path shape: time, plain time, SDPA time, bound.
+    ``pairs`` counts the (batch row, query, key) triples whose score the
+    masks keep: the causal half for prefill, every valid key for decode."""
     import torch
     import torch.nn.functional as F
 
@@ -508,9 +535,14 @@ def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
     before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
     got = FA.flash_attention(q, k, v, **kw)
     want = FA.flash_attention_plain(q, k, v, **kw)
-    err = float((got.float() - want.float()).abs().max().item())
-    if not err < FLASH_TOL["bfloat16"]:
-        raise AssertionError(f"K4 {name}: max abs err {err}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max().item())
+    excess = float((diff - K4_BF16_RTOL * want.float().abs()).max().item())
+    log(f"{name}: K4 against plain, max abs err {err}, largest |err| - "
+        f"{K4_BF16_RTOL} |plain| {excess} (tolerance {K4_BF16_ATOL})")
+    if not excess <= K4_BF16_ATOL:
+        raise AssertionError(f"K4 {name}: |err| exceeds {K4_BF16_ATOL} + "
+                             f"{K4_BF16_RTOL} |plain| by up to {excess - K4_BF16_ATOL}")
     ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 3, 1)
     FA.LAUNCHES.update(before[0])
@@ -525,7 +557,7 @@ def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
         qs, ks, vs, is_causal=kw["causal"], enable_gqa=True), reps)
     kv_bytes = 2 * B * n_valid * k.shape[2] * D * k.element_size()
     n_bytes = 2 * nbytes(q) + kv_bytes
-    n_ops = 4 * B * H * D * pairs
+    n_ops = 4 * H * D * pairs
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_OPS_PER_S * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -537,7 +569,7 @@ def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
         "shape": {"q": list(q.shape), "kv": list(k.shape), "kv_valid": n_valid,
                   "causal": kw["causal"], "q_offset": kw["q_offset"],
                   "dtype": str(q.dtype), "pairs": pairs, "bytes": n_bytes,
-                  "flops": n_ops},
+                  "flops": n_ops, "bf16_excess_over_rtol": excess},
     }
 
 
@@ -577,11 +609,12 @@ def lm_phase(args) -> dict:
     log(f"glm4-9b: {cfg.n_params():,} parameters, {rec['weight_bytes'] / 1e9:.2f} GB of "
         f"bf16 weights, drawn in {rec['init_s']:.1f} s")
 
-    n_each, new_tokens = 8, args.new_tokens
-    server = BatchedServer(params, cfg, batch_slots=8, max_len=args.max_len)
-    requests = lm_requests(cfg, args.seed, args.long_prompt, args.short_prompt,
+    long_len, short_len, new_tokens = LM_QUICK if args.quick else LM_FULL
+    max_len, n_each = long_len + new_tokens, 8
+    server = BatchedServer(params, cfg, batch_slots=8, max_len=max_len)
+    requests = lm_requests(cfg, args.seed, long_len, short_len,
                            n_each, new_tokens)
-    prefill_s = {args.long_prompt: [], args.short_prompt: []}
+    prefill_s = {long_len: [], short_len: []}
     step_s, step_len = [], []
     split = {"prefill": 0, "decode": 0}
     admit, step = server.admit, server.step
@@ -621,8 +654,8 @@ def lm_phase(args) -> dict:
 
     n_prefill = sum(len(v) for v in prefill_s.values())
     n_steps = len(step_s)
-    log(f"served {len(out)} requests ({n_each} x {args.long_prompt} + {n_each} x "
-        f"{args.short_prompt} prompt tokens, {new_tokens} new each) in {run_s:.2f} s: "
+    log(f"served {len(out)} requests ({n_each} x {long_len} + {n_each} x "
+        f"{short_len} prompt tokens, {new_tokens} new each) in {run_s:.2f} s: "
         f"{n_prefill} prefills, {n_steps} decode steps, {launches} K4 launches, "
         f"{plain_calls} plain attention calls on the card")
     if sorted(out) != list(range(2 * n_each)):
@@ -639,17 +672,17 @@ def lm_phase(args) -> dict:
     if plain_calls:
         raise AssertionError(f"the plain attention ran {plain_calls} times on the card")
 
-    long_steps = [s for s, n in zip(step_s, step_len) if n >= args.long_prompt]
-    short_steps = [s for s, n in zip(step_s, step_len) if n < args.long_prompt]
+    long_steps = [s for s, n in zip(step_s, step_len) if n >= long_len]
+    short_steps = [s for s, n in zip(step_s, step_len) if n < long_len]
     rec.update({
-        "requests": len(out), "slots": 8, "max_len": args.max_len,
-        "prompt_tokens": [args.long_prompt, args.short_prompt], "new_tokens": new_tokens,
+        "requests": len(out), "slots": 8, "max_len": max_len,
+        "prompt_tokens": [long_len, short_len], "new_tokens": new_tokens,
         "run_s": run_s, "generated_tokens_per_s": len(out) * new_tokens / run_s,
         "prefill_s_mean": {str(n): float(np.mean(v)) for n, v in prefill_s.items()},
         "prefill_s_first": {str(n): v[0] for n, v in prefill_s.items()},
         "decode_ms_per_step_mean": {
-            f"kv~{args.long_prompt}": 1e3 * float(np.mean(long_steps)),
-            f"kv~{args.short_prompt}": 1e3 * float(np.mean(short_steps))},
+            f"kv~{long_len}": 1e3 * float(np.mean(long_steps)),
+            f"kv~{short_len}": 1e3 * float(np.mean(short_steps))},
         "prefills": n_prefill, "decode_steps": n_steps, "k4_launches": launches,
         "k4_launches_split": dict(split), "plain_attention_cuda_calls": plain_calls,
         "peak_memory_bytes": peak,
@@ -664,7 +697,7 @@ def lm_phase(args) -> dict:
     logits = {}
     with torch.inference_mode():
         for which in ("k4", "plain"):
-            cache = transformer.init_cache(cfg, 1, args.max_len, "cuda")
+            cache = transformer.init_cache(cfg, 1, max_len, "cuda")
             attention = FA.flash_attention if which == "k4" else FA.flash_attention_plain
             with unittest.mock.patch.object(transformer, "flash_attention", attention):
                 full, _ = transformer.forward(params, prompt, cfg, cache)
@@ -683,7 +716,7 @@ def lm_phase(args) -> dict:
                            "rtol": LOGITS_RTOL, "argmax_agrees": same_argmax}
 
     rec["profile"] = profile_lm(server, lm_requests(
-        cfg, args.seed + 1, args.long_prompt, args.short_prompt, n_each, new_tokens))
+        cfg, args.seed + 1, long_len, short_len, n_each, new_tokens))
     log(f"profiled prefill / decode step: {json.dumps(rec['profile'])}")
 
     # -- K4 rows at the main path's shapes --------------------------------------
@@ -693,17 +726,17 @@ def lm_phase(args) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=g2, device="cuda").to(torch.bfloat16)
 
-    T = args.long_prompt
+    T = long_len
     rows = [k4_row(
-        "flash_attention_prefill", randn(1, T, H, hd), randn(1, args.max_len, KV, hd),
-        randn(1, args.max_len, KV, hd),
+        "flash_attention_prefill", randn(1, T, H, hd), randn(1, max_len, KV, hd),
+        randn(1, max_len, KV, hd),
         dict(causal=True, q_offset=0,
              kv_length=torch.full((1,), T, dtype=torch.int32, device="cuda")),
         T * (T + 1) // 2, split["prefill"], args.reps)]
     kv = T + 4
     rows.append(k4_row(
-        "flash_attention_decode", randn(8, 1, H, hd), randn(8, args.max_len, KV, hd),
-        randn(8, args.max_len, KV, hd),
+        "flash_attention_decode", randn(8, 1, H, hd), randn(8, max_len, KV, hd),
+        randn(8, max_len, KV, hd),
         dict(causal=False, q_offset=kv - 1,
              kv_length=torch.full((8,), kv, dtype=torch.int32, device="cuda")),
         8 * kv, split["decode"], args.reps))
@@ -821,13 +854,12 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--long-prompt", type=int, default=4096)
-    ap.add_argument("--short-prompt", type=int, default=1024)
-    ap.add_argument("--new-tokens", type=int, default=32)
-    ap.add_argument("--max-len", type=int, default=4128)
-    ap.add_argument("--lm-only", action="store_true",
-                    help="skip the graph phases (a quick check of the LM phase)")
+    ap.add_argument("--quick", action="store_true",
+                    help="a first check of changed kernels: DBLP 3000 authors / 6000 "
+                         "pubs and 256 / 64-token prompts with 4 new tokens")
     args = ap.parse_args()
+    if args.quick:
+        args.authors, args.pubs = 3000, 6000
 
     import numpy as np
     import torch
@@ -852,7 +884,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    rows = [] if args.lm_only else graph_phases(args, record)
+    rows = graph_phases(args, record)
     torch.cuda.empty_cache()
     lm = lm_phase(args)
     rows += lm.pop("kernels")

@@ -40,6 +40,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace flash_attention {
 
 constexpr int THREADS = 256;
@@ -260,12 +262,19 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, const int32_t* kv_length,
            int B, int Tq, int Tk, int H, int KV, int D, int q_offset, int causal,
-           float scale, cudaStream_t st) {
+           float scale, int device, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DP>();
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // The shared-memory limit is a per-device attribute of the kernel: set
+  // it at the first launch on each device, not at every launch.
+  static std::atomic<uint64_t> attr_set{0};
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (!(attr_set.load() & bit)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_attention_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    attr_set.fetch_or(bit);
+  }
   const int G = H / KV;
   const int bq = ROWS / G;
   const dim3 grid((Tq + bq - 1) / bq, KV, B);
@@ -290,21 +299,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (KV <= 0 || H % KV != 0 || H / KV > ROWS || D <= 0 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Tq <= 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
+  int current = -1;
+  if (cudaGetDevice(&current) != cudaSuccess || current != device) {
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow = D <= 64;
   switch (dtype) {
     case 0:
       return narrow ? launch<float, 64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset,
-                                        causal, scale, st)
+                                        causal, scale, device, st)
                     : launch<float, 128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset,
-                                         causal, scale, st);
+                                         causal, scale, device, st);
     case 1:
       return narrow ? launch<__nv_bfloat16, 64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D,
-                                                q_offset, causal, scale, st)
+                                                q_offset, causal, scale, device, st)
                     : launch<__nv_bfloat16, 128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D,
-                                                 q_offset, causal, scale, st);
+                                                 q_offset, causal, scale, device, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
