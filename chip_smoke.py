@@ -33,10 +33,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
    weights serves 16 requests (8 x 4096 + 8 x 1024 prompt tokens, 32 new
    each) on 8 slots, with K4 launched at every attention call and the
-   plain attention never; the last-position logits of one prefill
-   through K4 and through the plain attention agree; a profiled prefill
-   and decode step; K4's rows at the prefill and decode shapes, held to
-   the plain version element by element in bf16.
+   plain attention never: the tensor-core prefill kernel n_layers x
+   prefills times, the split-KV decode kernel and its combine n_layers x
+   decode steps times each, the float32 kernel never; the last-position
+   logits of one prefill through K4 and through the plain attention
+   agree; a profiled prefill and decode step; K4's rows at the prefill
+   and decode shapes, held to the plain version element by element in
+   bf16, the decode row timed over four distinct caches in turn (cold
+   L2) with its warm time logged beside; the count of tensor-core
+   instructions in the bf16 kernels' SASS where ``cuobjdump`` exists.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -78,20 +83,42 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+# device-side spin (clock cycles, ~0.1 s on an H100) that holds the stream
+# while the host enqueues a timed run
+HOLD_CYCLES = 200_000_000
+
+
+def time_device_and_host(fn, reps: int, warmup: int = 2):
+    """``(device ms, host ms)`` per call of ``fn``.  The ``reps`` calls are
+    queued behind a device-side spin (``torch.cuda._sleep``), so the CUDA
+    events around them time the card's work and not the host's launch
+    rate: a call whose host cost exceeds its device time (K4's decode) is
+    otherwise timed at the host's pace.  The host ms is the enqueue time;
+    if it outlasts the spin, the queue ran dry and the device time includes
+    host gaps, which is logged."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    held.record()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
+    t = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_ms = (time.perf_counter() - t) * 1e3
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    if host_ms > held.elapsed_time(start):
+        log(f"  (timing: the host took {host_ms:.1f} ms to enqueue {reps} calls, longer "
+            f"than the {held.elapsed_time(start):.1f} ms hold: device time includes host gaps)")
+    return start.elapsed_time(end) / reps, host_ms / reps
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    return time_device_and_host(fn, reps, warmup)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +443,9 @@ K4_BF16_ATOL = 2e-3
 # takes the second for a first check of a changed kernel (weights stay
 # full width).  The cache holds the long prompt and its new tokens.
 LM_FULL = (4096, 1024, 32)
+# distinct decode-shape caches K4's decode row is timed over in turn: 4 x
+# 33.8 MB at the full run's shape, well past the 50 MB L2
+DECODE_CACHES = 4
 LM_QUICK = (256, 64, 4)
 
 
@@ -472,7 +502,7 @@ def device_time_by_kind(prof) -> dict:
     kernels) and in everything else."""
     from torch.autograd import DeviceType
 
-    out = {"k4_s": 0.0, "gemm_s": 0.0, "other_s": 0.0}
+    out = {"k4_s": 0.0, "gemm_s": 0.0, "other_s": 0.0, "k4_by_kernel_s": {}}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -480,13 +510,16 @@ def device_time_by_kind(prof) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        if "flash_attention" in name:
+        if "flash_" in name:  # flash_prefill / flash_decode / flash_combine kernels
             kind = "k4_s"
         elif any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
             kind = "gemm_s"
         else:
             kind = "other_s"
         out[kind] += us / 1e6
+        if kind == "k4_s":
+            by = out["k4_by_kernel_s"]
+            by[e.key] = by.get(e.key, 0.0) + us / 1e6
     return out
 
 
@@ -516,22 +549,30 @@ def profile_lm(server, requests) -> dict:
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t
         kinds = device_time_by_kind(prof)
-        busy = sum(kinds.values())
+        busy = kinds["k4_s"] + kinds["gemm_s"] + kinds["other_s"]
         out[phase] = {"wall_s": wall_s, **kinds, "device_busy_s": busy,
                       "idle_share": 1.0 - busy / wall_s}
     FA.LAUNCHES.update(before)
     return out
 
 
-def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
+def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
     """K4 at one main-path shape: time, plain time, SDPA time, bound.
-    ``pairs`` counts the (batch row, query, key) triples whose score the
-    masks keep: the causal half for prefill, every valid key for decode."""
+    ``caches`` holds distinct ``(k, v)`` pairs of one shape: K4 and SDPA
+    are timed over them in turn, so that with more bytes than the 50 MB L2
+    every call finds its keys and values cold, as the served run's
+    attention does after reading a layer's weights; the warm time on the
+    first pair alone is logged beside it.  ``pairs`` counts the (batch
+    row, query, key) triples whose score the masks keep: the causal half
+    for prefill, every valid key for decode."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
+    k, v = caches[0]
     before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
     got = FA.flash_attention(q, k, v, **kw)
     want = FA.flash_attention_plain(q, k, v, **kw)
@@ -543,7 +584,14 @@ def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
     if not excess <= K4_BF16_ATOL:
         raise AssertionError(f"K4 {name}: |err| exceeds {K4_BF16_ATOL} + "
                              f"{K4_BF16_RTOL} |plain| by up to {excess - K4_BF16_ATOL}")
-    ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps)
+
+    def rotated(fn, pairs_):
+        turn = itertools.count()
+        return lambda: fn(*pairs_[next(turn) % len(pairs_)])
+
+    attend = lambda k_, v_: FA.flash_attention(q, k_, v_, **kw)  # noqa: E731
+    ms, host_ms = time_device_and_host(rotated(attend, caches), reps)
+    warm_ms = time_ms(lambda: attend(k, v), reps)
     plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), 3, 1)
     FA.LAUNCHES.update(before[0])
     FA.PLAIN_CUDA_CALLS.update(before[1])
@@ -551,26 +599,95 @@ def k4_row(name, q, k, v, kw, pairs, launches, reps) -> dict:
     n_valid = int(kw["kv_length"].max().item())
     # SDPA over the valid keys (every row of these shapes holds n_valid)
     qs = q.transpose(1, 2).contiguous()
-    ks = k[:, :n_valid].transpose(1, 2).contiguous()
-    vs = v[:, :n_valid].transpose(1, 2).contiguous()
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=kw["causal"], enable_gqa=True), reps)
+    sdpa_caches = [(k_[:, :n_valid].transpose(1, 2).contiguous(),
+                    v_[:, :n_valid].transpose(1, 2).contiguous()) for k_, v_ in caches]
+    sdpa = lambda k_, v_: F.scaled_dot_product_attention(  # noqa: E731
+        qs, k_, v_, is_causal=kw["causal"], enable_gqa=True)
+    library_ms = time_ms(rotated(sdpa, sdpa_caches), reps)
+    library_warm_ms = time_ms(lambda: sdpa(*sdpa_caches[0]), reps)
+    del sdpa_caches
     kv_bytes = 2 * B * n_valid * k.shape[2] * D * k.element_size()
     n_bytes = 2 * nbytes(q) + kv_bytes
     n_ops = 4 * H * D * pairs
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / BF16_OPS_PER_S * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rotation = sum(nbytes(k_, v_) for k_, v_ in caches)
+    log(f"{name}: K4 {ms:.4f} ms over {len(caches)} caches in turn ({rotation / 1e6:.1f} MB), "
+        f"warm on one {warm_ms:.4f} ms, host {host_ms:.4f} ms a call; SDPA "
+        f"{library_ms:.4f} ms in turn, warm {library_warm_ms:.4f} ms")
     return {
-        "name": name, "route": "cuda", "source": f"{CSRC}/flash_attention.cu",
+        "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
         "replaces": FLASH_TPU_KERNEL, "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
         "shape": {"q": list(q.shape), "kv": list(k.shape), "kv_valid": n_valid,
                   "causal": kw["causal"], "q_offset": kw["q_offset"],
                   "dtype": str(q.dtype), "pairs": pairs, "bytes": n_bytes,
-                  "flops": n_ops, "bf16_excess_over_rtol": excess},
+                  "flops": n_ops, "bf16_excess_over_rtol": excess,
+                  "caches_in_turn": len(caches), "bytes_in_turn": rotation,
+                  "warm_ms": warm_ms, "library_warm_ms": library_warm_ms,
+                  "host_ms": host_ms},
     }
+
+
+def k4_rows(T, max_len, H, KV, hd, launches, reps, seed) -> list:
+    """K4's two rows at the served run's shapes: a causal prefill of ``T``
+    tokens into a ``max_len`` cache, and a decode step of 8 slots over
+    ``T + 4`` cached positions, timed over ``DECODE_CACHES`` distinct
+    caches in turn.  ``launches``: the served run's per-kernel counts."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = [k4_row(
+        "flash_attention_prefill", "flash_prefill.cu", randn(1, T, H, hd),
+        [(randn(1, max_len, KV, hd), randn(1, max_len, KV, hd))],
+        dict(causal=True, q_offset=0,
+             kv_length=torch.full((1,), T, dtype=torch.int32, device="cuda")),
+        T * (T + 1) // 2, launches["flash_attention_prefill"], reps)]
+    kv = T + 4
+    rows.append(k4_row(
+        "flash_attention_decode", "flash_decode.cu", randn(8, 1, H, hd),
+        [(randn(8, max_len, KV, hd), randn(8, max_len, KV, hd))
+         for _ in range(DECODE_CACHES)],
+        dict(causal=False, q_offset=kv - 1,
+             kv_length=torch.full((8,), kv, dtype=torch.int32, device="cuda")),
+        8 * kv, launches["flash_attention_decode"], reps))
+    n_split, split_keys = FA.decode_split(
+        max_len, 8 * KV * -(-(H // KV) // 16),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    rows[-1]["shape"].update(combine_launches=launches["flash_attention_combine"],
+                             n_split=n_split, split_keys=split_keys,
+                             decode_blocks=n_split * KV * 8)
+    return rows
+
+
+def mma_instruction_counts() -> dict:
+    """``HMMA`` / ``HGMMA`` instructions in the SASS of K4's bf16 libraries,
+    where the toolkit has ``cuobjdump``; empty where it has none."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("cuobjdump not found: no SASS instruction counts")
+        return {}
+    counts = {}
+    for name in ("flash_prefill", "flash_decode"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+    log(f"SASS tensor-core instructions: {json.dumps(counts)}")
+    return counts
 
 
 def lm_phase(args) -> dict:
@@ -671,6 +788,14 @@ def lm_phase(args) -> dict:
             f"{cfg.n_layers * (n_prefill + n_steps)}")
     if plain_calls:
         raise AssertionError(f"the plain attention ran {plain_calls} times on the card")
+    kernel_launches = {key: n for key, n in FA.LAUNCHES.items() if key != "flash_attention"}
+    expected = {"flash_attention_prefill": cfg.n_layers * n_prefill,
+                "flash_attention_decode": cfg.n_layers * n_steps,
+                "flash_attention_combine": cfg.n_layers * n_steps,
+                "flash_attention_f32": 0}
+    log(f"K4 kernel launches: {json.dumps(kernel_launches)}")
+    if kernel_launches != expected:
+        raise AssertionError(f"K4 kernel launches {kernel_launches}, expected {expected}")
 
     long_steps = [s for s, n in zip(step_s, step_len) if n >= long_len]
     short_steps = [s for s, n in zip(step_s, step_len) if n < long_len]
@@ -684,7 +809,8 @@ def lm_phase(args) -> dict:
             f"kv~{long_len}": 1e3 * float(np.mean(long_steps)),
             f"kv~{short_len}": 1e3 * float(np.mean(short_steps))},
         "prefills": n_prefill, "decode_steps": n_steps, "k4_launches": launches,
-        "k4_launches_split": dict(split), "plain_attention_cuda_calls": plain_calls,
+        "k4_launches_split": dict(split), "k4_kernel_launches": kernel_launches,
+        "plain_attention_cuda_calls": plain_calls,
         "peak_memory_bytes": peak,
     })
     log(f"prefill s/request: {json.dumps(rec['prefill_s_mean'])}; decode ms/step at 8 "
@@ -720,26 +846,9 @@ def lm_phase(args) -> dict:
     log(f"profiled prefill / decode step: {json.dumps(rec['profile'])}")
 
     # -- K4 rows at the main path's shapes --------------------------------------
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g2 = torch.Generator(device="cuda").manual_seed(args.seed)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g2, device="cuda").to(torch.bfloat16)
-
-    T = long_len
-    rows = [k4_row(
-        "flash_attention_prefill", randn(1, T, H, hd), randn(1, max_len, KV, hd),
-        randn(1, max_len, KV, hd),
-        dict(causal=True, q_offset=0,
-             kv_length=torch.full((1,), T, dtype=torch.int32, device="cuda")),
-        T * (T + 1) // 2, split["prefill"], args.reps)]
-    kv = T + 4
-    rows.append(k4_row(
-        "flash_attention_decode", randn(8, 1, H, hd), randn(8, max_len, KV, hd),
-        randn(8, max_len, KV, hd),
-        dict(causal=False, q_offset=kv - 1,
-             kv_length=torch.full((8,), kv, dtype=torch.int32, device="cuda")),
-        8 * kv, split["decode"], args.reps))
+    rows = k4_rows(long_len, max_len, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim, kernel_launches, args.reps, args.seed)
+    rec["sass"] = mma_instruction_counts()
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA {r['library_ms']:.4f}), "

@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "build_all", "load", "build_log"]
+__all__ = ["BUILD_DIR", "build_all", "load", "build_log", "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -53,10 +53,17 @@ LIBRARIES = {
     ),
     "flash_attention": (
         "flash_attention.cu",
+        {"flash_attention_launch": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
+    ),
+    "flash_prefill": (
+        "flash_prefill.cu",
+        {"flash_prefill_launch": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
+    ),
+    "flash_decode": (
+        "flash_decode.cu",
         {
-            "flash_attention_launch": [
-                _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
-            ]
+            "flash_decode_launch": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+            "flash_combine_launch": [_P] * 4 + [_I] * 4 + [_P],
         },
     ),
 }
@@ -78,7 +85,7 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
     source, _ = LIBRARIES[name]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
@@ -91,7 +98,7 @@ def build_log(name: str) -> str:
     """The compiler's output for library ``name`` (registers, spills and
     shared memory per kernel, from ``-Xptxas -v``); empty if not built
     here."""
-    log = _library_path(name).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -102,7 +109,7 @@ def build_all() -> List[Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = []
     for name, (source, _) in LIBRARIES.items():
-        out = _library_path(name)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
@@ -122,7 +129,7 @@ def build_all() -> List[Path]:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
-    return [_library_path(name) for name in LIBRARIES]
+    return [library_path(name) for name in LIBRARIES]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -131,7 +138,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    path = _library_path(name)
+    path = library_path(name)
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))

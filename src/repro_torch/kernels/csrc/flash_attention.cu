@@ -1,4 +1,11 @@
-// K4: GQA flash-attention forward with online softmax, for sm_90a.
+// K4, float32 route: GQA flash-attention forward with online softmax on
+// the CUDA cores, for sm_90a.  The wrapper (repro_torch/kernels/
+// flash_attention.py) sends every float32 call here; bfloat16 calls go to
+// the tensor-core kernels of flash_prefill.cu (Tq > 1) and
+// flash_decode.cu (Tq == 1).  The float32 route stays on the CUDA cores
+// because TF32 tensor cores cannot hold the float32 tolerance (2e-5) that
+// the tests and chip_smoke.py hold K4 to; the bf16 main path never
+// launches it.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_kernel (the Pallas TPU
 // kernel launched by flash_attention_pallas), extended by the q_offset and
@@ -8,24 +15,19 @@
 // kv_length = cache_len + 1, not causal).
 //
 // Computes, for q (B, Tq, H, D), k and v (B, Tk, KV, D), G = H / KV:
-//   s[b, t, h, j] = (q[b, t, h] . k[b, j, h / G]) * scale            (fp32)
+//   s[b, t, h, j] = (q[b, t, h] . k[b, j, h / G]) * scale
 //   masked where j >= kv_length[b], or (causal) j > q_offset + t
 //   out[b, t, h]  = sum_j softmax(s)[j] * v[b, j, h / G]
-// with the reference's rounding: scores and sums in fp32, p rounded to the
-// input type before the P.V product (bf16 inputs round p to bf16), the
-// output acc / max(l, 1e-20) cast to the input type.  A row whose every
-// key is masked gives 0.  Keys at or past kv_length are never read, so a
-// ragged key tail needs no padding.
+// in float32 throughout, the output acc / max(l, 1e-20).  A row whose
+// every key is masked gives 0.  Keys at or past kv_length are never read,
+// so a ragged key tail needs no padding.
 //
-// What bounds it on the H100: prefill at T = 4096 does ~137 GFLOP per
-// layer (the causal half) against ~3 MB of q/k/v/out, so operations bound
-// it; decode (Tq = 1) reads the whole valid cache for one query row per
-// head, so bytes bound it.  This first design runs on the CUDA cores in
-// fp32 (no mma.sync, wgmma or TMA: later work).  What it does:
+// What bounds it on the H100: prefill is bound by operations (float32 at
+// 67 TFLOP/s outside the tensor cores), decode by bytes.  What it does:
 //  * one block per (q-tile, kv head, batch) takes the G query heads of its
 //    group, 64 query rows in all (64 / G positions), so each K/V tile is
 //    read once per group and decode's bytes are read once per kv head;
-//  * K/V tiles of 32 keys are staged in shared memory as fp32, Q once;
+//  * K/V tiles of 32 keys are staged in shared memory, Q once;
 //  * each thread holds 4 rows x 2 keys of scores and 4 rows x DP/16
 //    columns of the accumulator in registers; the online softmax state
 //    (m, l) of a row lives in the 16 lanes that share it, reduced with
@@ -35,7 +37,6 @@
 // The TPU kernel's grid walked the kv blocks in order per output block;
 // here the loop over key tiles lives inside the block.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,24 +52,6 @@ constexpr int RPT = 4;                // rows per thread  (16 row groups x 4 = R
 constexpr int KPT = BKV / 16;         // keys per thread  (16 lanes x 2 = BKV)
 constexpr int PS = BKV + 4;           // row stride of the P tile
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as the reference's astype
-}
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -93,10 +76,10 @@ constexpr size_t smem_bytes() {
 }
 
 // DP: head_dim padded to 64 or 128 (columns past D are zero).
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, const int32_t* __restrict__ kv_length, int Tq, int Tk, int H,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, const int32_t* __restrict__ kv_length, int Tq, int Tk, int H,
     int KV, int D, int G, int bq, int q_offset, int causal, float scale) {
   constexpr int QS = DP + 4;          // row stride of the Q and K tiles
   constexpr int NC = DP / 64;         // float4 accumulator columns per thread
@@ -126,7 +109,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
       const int t = t0 + r / G;
       if (t < Tq) {
         const int h = kvh * G + r % G;
-        val = to_float<T>(q[((b * Tq + t) * H + h) * D + d]);
+        val = q[((b * Tq + t) * H + h) * D + d];
       }
     }
     Qs[r * QS + d] = val;
@@ -154,8 +137,8 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
       float kf = 0.f, vf = 0.f;
       if (key < n_keys && d < D) {
         const int64_t off = ((b * Tk + key) * KV + kvh) * D + d;
-        kf = to_float<T>(k[off]);
-        vf = to_float<T>(v[off]);
+        kf = k[off];
+        vf = v[off];
       }
       Ks[j * QS + d] = kf;
       Vs[j * DP + d] = vf;
@@ -203,7 +186,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
       for (int j = 0; j < KPT; ++j) {
         const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_safe);
         p_sum += p;
-        Ps[(ty * RPT + i) * PS + tx + 16 * j] = to_float<T>(from_float<T>(p));
+        Ps[(ty * RPT + i) * PS + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + row_sum16(p_sum);
       m[i] = m_new;
@@ -246,20 +229,20 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
     if (r >= rows || t >= Tq) continue;
     const float den = fmaxf(l[i], 1e-20f);
     const int h = kvh * G + r % G;
-    T* out = o + ((b * Tq + t) * H + h) * D;
+    float* out = o + ((b * Tq + t) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const float vals[4] = {acc[i][c].x, acc[i][c].y, acc[i][c].z, acc[i][c].w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * tx + 64 * c + e;
-        if (d < D) out[d] = from_float<T>(vals[e] / den);
+        if (d < D) out[d] = vals[e] / den;
       }
     }
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, const int32_t* kv_length,
            int B, int Tq, int Tk, int H, int KV, int D, int q_offset, int causal,
            float scale, int device, cudaStream_t st) {
@@ -270,7 +253,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const int32_t* 
   const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
   if (!(attr_set.load() & bit)) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (attr != cudaSuccess) return static_cast<int>(attr);
     attr_set.fetch_or(bit);
@@ -278,23 +261,22 @@ int launch(const void* q, const void* k, const void* v, void* o, const int32_t* 
   const int G = H / KV;
   const int bq = ROWS / G;
   const dim3 grid((Tq + bq - 1) / bq, KV, B);
-  flash_attention_kernel<T, DP><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), kv_length, Tq, Tk, H, KV, D, G, bq, q_offset, causal, scale);
+  flash_attention_kernel<DP><<<grid, THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), kv_length, Tq, Tk, H, KV, D, G, bq, q_offset, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace flash_attention
 
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
-// q and o are contiguous (B, Tq, H, D), k and v contiguous (B, Tk, KV, D),
-// all of ``dtype`` (0 = float32, 1 = bfloat16); kv_length is a device array
-// of B int32 or null (every key valid).  Needs H % KV == 0, H / KV <= 64
-// and 0 < D <= 128.
+// q and o are contiguous float32 (B, Tq, H, D), k and v contiguous float32
+// (B, Tk, KV, D); kv_length is a device array of B int32 or null (every
+// key valid).  Needs H % KV == 0, H / KV <= 64 and 0 < D <= 128.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const int32_t* kv_length, int B, int Tq, int Tk, int H,
-                                      int KV, int D, int q_offset, int causal, int dtype,
-                                      float scale, int device, void* stream) {
+                                      int KV, int D, int q_offset, int causal, float scale,
+                                      int device, void* stream) {
   using namespace flash_attention;
   if (KV <= 0 || H % KV != 0 || H / KV > ROWS || D <= 0 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -305,19 +287,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     if (set != cudaSuccess) return static_cast<int>(set);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool narrow = D <= 64;
-  switch (dtype) {
-    case 0:
-      return narrow ? launch<float, 64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset,
-                                        causal, scale, device, st)
-                    : launch<float, 128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset,
-                                         causal, scale, device, st);
-    case 1:
-      return narrow ? launch<__nv_bfloat16, 64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D,
-                                                q_offset, causal, scale, device, st)
-                    : launch<__nv_bfloat16, 128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D,
-                                                 q_offset, causal, scale, device, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return D <= 64 ? launch<64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset, causal,
+                              scale, device, st)
+                 : launch<128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset, causal,
+                               scale, device, st);
 }

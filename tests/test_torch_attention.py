@@ -123,3 +123,99 @@ def test_wrapper_counts_no_launch_on_cpu_and_checks_shapes():
         K.flash_attention(x, kv.to(torch.bfloat16), kv)
     with pytest.raises(ValueError, match="kv_length"):
         K.flash_attention(x, kv, kv, kv_length=torch.zeros(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The split-KV decode arithmetic (flash_attention_split_plain)
+# ---------------------------------------------------------------------------
+
+# (name, B, Tk, H, KV, D, causal, q_offset, kv_length, split_keys)
+SPLIT_CASES = [
+    ("empty_row", 2, 200, 4, 1, 16, False, 0, [0, 150], 64),
+    ("shorter_than_split", 1, 300, 2, 2, 8, False, 0, [50], 128),
+    ("not_a_multiple", 1, 300, 32, 2, 32, False, 0, [200], 128),
+    ("ragged_rows", 4, 260, 8, 2, 16, False, 0, [1, 64, 129, 260], 64),
+    ("default_split", 2, 130, 32, 2, 16, False, 0, [130, 77], None),
+    ("causal_one_query", 1, 200, 4, 1, 16, True, 90, [200], 64),
+]
+
+# element-wise in bf16: one output ulp relative, plus p rounded to bf16
+# against a running max other than the reference's (chip_smoke.py's K4 bound)
+BF16_ATOL, BF16_RTOL = 2e-3, 2.0 ** -7
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_plain_matches_layers_decode(case, dtype):
+    """Partials per key range and the combine give the reference's decode
+    attention: float32 to 2e-5, bf16 element by element."""
+    _, B, Tk, H, KV, D, causal, q_offset, kv_length, split_keys = case
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(Tk + H + D)
+    q, tq = _pair(rng, (B, 1, H, D), jdt, tdt)
+    k, tk = _pair(rng, (B, Tk, KV, D), jdt, tdt)
+    v, tv = _pair(rng, (B, Tk, KV, D), jdt, tdt)
+    lengths = np.asarray(kv_length, dtype=np.int32)
+    want = np.asarray(jlayers.flash_attention(
+        q, k, v, causal=causal, q_offset=jnp.asarray(q_offset, jnp.int32),
+        kv_length=jnp.asarray(lengths),
+    ).astype(jnp.float32))
+    got = K.flash_attention_split_plain(
+        tq, tk, tv, causal=causal, q_offset=q_offset,
+        kv_length=torch.from_numpy(lengths), split_keys=split_keys,
+    )
+    assert got.dtype == tdt and got.shape == (B, 1, H, D)
+    diff = np.abs(got.float().numpy() - want)
+    if dtype == "float32":
+        assert diff.max() < 2e-5
+    else:
+        assert (diff <= BF16_ATOL + BF16_RTOL * np.abs(want)).all()
+    for row, n in enumerate(kv_length):
+        if n == 0:
+            assert float(got[row].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_plain_with_one_split_is_the_plain_version(dtype):
+    """One key range is the plain version over 64-key blocks, bit for bit:
+    the combine of a single partial is the division itself."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((3, 1, 8, 16)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((3, 150, 2, 16)).astype(np.float32)).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((3, 150, 2, 16)).astype(np.float32)).to(dtype)
+    lengths = torch.tensor([150, 3, 0], dtype=torch.int32)
+    got = K.flash_attention_split_plain(q, k, v, kv_length=lengths, split_keys=192)
+    want = K.flash_attention_plain(q, k, v, causal=False, kv_length=lengths, block_kv=64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Tk, pairs", [(4128, 16), (1056, 16), (130, 6), (64, 1), (1, 300)])
+def test_decode_split_fills_the_card(Tk, pairs):
+    """Whole 64-key tiles, every key covered, and two blocks per SM of an
+    H100 wherever the cache has enough tiles."""
+    n_split, split_keys = K.decode_split(Tk, pairs)
+    assert split_keys % 64 == 0 and n_split * split_keys >= Tk
+    assert (n_split - 1) * split_keys < Tk
+    tiles = -(-Tk // 64)
+    assert n_split * pairs >= min(2 * 132, tiles * pairs)
+
+
+def test_decode_split_at_the_main_path_shape():
+    """glm4-9b's decode: 8 slots x 2 kv heads over a 4128-key cache."""
+    n_split, split_keys = K.decode_split(4128, 8 * 2)
+    assert (n_split, split_keys) == (22, 192)
+    assert n_split * 8 * 2 >= 264
+
+
+def test_wrapper_counts_every_kernel_key_at_zero_on_cpu():
+    K.reset_launch_counts()
+    q = torch.zeros((2, 1, 4, 8), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 70, 2, 8), dtype=torch.bfloat16)
+    K.flash_attention(q, kv, kv, causal=False, kv_length=torch.tensor([3, 70]))
+    K.flash_attention(q.float(), kv.float(), kv.float(), causal=False)
+    assert set(K.LAUNCHES) == {"flash_attention", "flash_attention_prefill",
+                               "flash_attention_decode", "flash_attention_combine",
+                               "flash_attention_f32"}
+    assert not any(K.LAUNCHES.values()) and not any(K.PLAIN_CUDA_CALLS.values())
+    with pytest.raises(ValueError, match="multiple of 64"):
+        K.flash_attention_split_plain(q, kv, kv, split_keys=100)

@@ -272,3 +272,120 @@ def test_cuda_batched_server_runs_k4_and_matches_cpu(card):
     # 4 prefills; two batches of 4 decode steps each (max_new_tokens - 1)
     assert FA.LAUNCHES["flash_attention"] == cfg.n_layers * (4 + 2 * 4)
     assert FA.PLAIN_CUDA_CALLS["flash_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K4's bf16 kernels: tensor-core prefill, split-KV decode + combine
+# ---------------------------------------------------------------------------
+
+# element-wise bf16 bound against the plain version (chip_smoke.py's
+# K4_BF16_ATOL / K4_BF16_RTOL): one output ulp relative, plus p rounded to
+# bf16 against another running max than the plain version's
+BF16_ATOL, BF16_RTOL = 2e-3, 2.0 ** -7
+# against flash_attention_split_plain, which rounds p at the same points:
+# one output ulp, plus the rare p whose bf16 rounding flips because the
+# two add the same products in another order (a few 1e-4 at 17 keys)
+SPLIT_ATOL = 5e-4
+
+
+def _within(got, want, atol, rtol=BF16_RTOL):
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - atol - rtol * want.float().abs()).max())
+    assert excess <= 0.0, f"exceeds {atol} + {rtol} |want| by {excess}"
+
+
+@pytest.mark.parametrize("D", [8, 16, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 16])
+def test_cuda_prefill_kernel_matches_plain(card, D, G):
+    """A causal prefill of 100 positions (not a multiple of any tile) after
+    30 cached ones, over a 160-position cache with a ragged valid prefix."""
+    from repro_torch.kernels import flash_attention as FA
+
+    KV, T, q_offset, Tk = 2, 100, 30, 160
+    q, k, v = _qkv(D * 7 + G, 2, T, Tk, G * KV, KV, D, torch.bfloat16)
+    lengths = torch.tensor([q_offset + T, q_offset + T - 9], dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, q_offset=q_offset, kv_length=lengths)
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.LAUNCHES["flash_attention_prefill"] == before["flash_attention_prefill"] + 1
+    _within(got, FA.flash_attention_plain(q, k, v, **kw), BF16_ATOL)
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, Tq, Tk, H, KV, D, causal, q_offset, kv_length)
+    (1, 300, 4128, 32, 2, 128, True, 0, [300]),     # glm4-9b's heads, 8 positions a block
+    (2, 65, 65, 4, 4, 128, False, 0, None),         # not causal, one key past a tile
+    (1, 129, 129, 12, 2, 64, True, 0, None),        # G = 6: 126 of 128 rows in use
+    (1, 40, 40, 128, 2, 50, True, 0, None),         # G = 64, D = 50 (element loads)
+])
+def test_cuda_prefill_kernel_edges(card, shape):
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal, q_offset, kv_length = shape
+    q, k, v = _qkv(Tq + D, B, Tq, Tk, H, KV, D, torch.bfloat16)
+    lengths = (None if kv_length is None
+               else torch.tensor(kv_length, dtype=torch.int32, device="cuda"))
+    kw = dict(causal=causal, q_offset=q_offset, kv_length=lengths)
+    _within(FA.flash_attention(q, k, v, **kw), FA.flash_attention_plain(q, k, v, **kw),
+            BF16_ATOL)
+
+
+# (name, B, Tk, H, KV, D, causal, q_offset, kv_length)
+DECODE_CASES = [
+    ("empty_row", 2, 200, 4, 1, 16, False, 0, [0, 150]),
+    ("shorter_than_one_split", 1, 4128, 4, 1, 64, False, 0, [50]),
+    ("not_a_multiple_of_the_split", 1, 4128, 16, 1, 128, False, 0, [3000]),
+    ("ragged_rows", 4, 260, 8, 2, 16, False, 0, [1, 64, 129, 260]),
+    ("g3_d50", 2, 40, 6, 2, 50, False, 0, [0, 17]),
+    ("g32_two_head_chunks", 2, 300, 64, 2, 64, False, 0, [300, 201]),
+    ("causal_one_query", 1, 200, 4, 1, 16, True, 90, [200]),
+    ("main_path", 8, 4128, 32, 2, 128, False, 4099, [4100] * 8),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_cuda_decode_kernel_matches_split_and_plain(card, case):
+    """The split-KV kernel and its combine: close to the split plain version
+    (the same rounding points) and within the element-wise bound of the
+    plain version; a row with no valid key is 0."""
+    from repro_torch.kernels import flash_attention as FA
+
+    _, B, Tk, H, KV, D, causal, q_offset, kv_length = case
+    q, k, v = _qkv(Tk + H + D, B, 1, Tk, H, KV, D, torch.bfloat16)
+    lengths = torch.tensor(kv_length, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, q_offset=q_offset, kv_length=lengths)
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.LAUNCHES["flash_attention_decode"] == before["flash_attention_decode"] + 1
+    assert FA.LAUNCHES["flash_attention_combine"] == before["flash_attention_combine"] + 1
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _, split_keys = FA.decode_split(Tk, B * KV * -(-(H // KV) // 16), n_sm)
+    _within(got, FA.flash_attention_split_plain(q, k, v, split_keys=split_keys, **kw),
+            SPLIT_ATOL)
+    _within(got, FA.flash_attention_plain(q, k, v, **kw), BF16_ATOL)
+    for row, n in enumerate(kv_length):
+        if n == 0:
+            assert float(got[row].abs().max()) == 0.0
+
+
+def test_cuda_k4_launches_one_kernel_route_per_call(card):
+    """bf16 Tq > 1: the prefill kernel; bf16 Tq == 1: the decode kernel and
+    its combine; float32: the float32 kernel only.  Each call is one wrapper
+    call."""
+    from repro_torch.kernels import flash_attention as FA
+
+    routes = [
+        (torch.bfloat16, 5, {"flash_attention_prefill": 1}),
+        (torch.bfloat16, 1, {"flash_attention_decode": 1, "flash_attention_combine": 1}),
+        (torch.float32, 5, {"flash_attention_f32": 1}),
+        (torch.float32, 1, {"flash_attention_f32": 1}),
+    ]
+    for dtype, Tq, kernels in routes:
+        q, k, v = _qkv(1, 2, Tq, 70, 8, 2, 32, dtype)
+        FA.reset_launch_counts()
+        FA.flash_attention(q, k, v, causal=Tq > 1, q_offset=70 - Tq)
+        torch.cuda.synchronize()
+        want = {key: 0 for key in FA.LAUNCHES}
+        want.update(kernels, flash_attention=1)
+        assert FA.LAUNCHES == want, (dtype, Tq)
+        assert FA.PLAIN_CUDA_CALLS["flash_attention"] == 0
