@@ -14,20 +14,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    personalized PageRank to float32 round-off).
 3. Main path: ``dblp_catalog(mean_authors_per_pub=6.0)`` -> ``extract`` ->
    ``GraphQueryServer.from_condensed(packed=True)`` with ``'auto'``
-   dispatch, ``run`` of 32 ``bfs`` + 32 ``ppr`` + 32 ``common_neighbors``
-   queries and one ``reachable_multi`` batch of 32.  Launch counts are
-   zeroed just before and read just after; every kernel must have
-   launched, no ``'vmem_or_backend'`` stand-down may occur, and the
+   dispatch (the upload builds every row index on the card: its builds
+   are counted, and all of them are run and timed once more against the
+   uploaded bytes, ``stages.index_build_s``), ``run`` of 32 ``bfs`` + 32
+   ``ppr`` + 32 ``common_neighbors`` queries and one ``reachable_multi``
+   batch of 32.  Launch counts are zeroed just before and read just
+   after; every kernel must have launched (at the full size exactly
+   ``FULL_LAUNCHES``), no ``'vmem_or_backend'`` stand-down may occur, and the
    answers must equal those of the same graphs served by the segment
    path on the card (PPR to ``rtol=1e-5, atol=1e-6``: the two paths add
    float32 values in different orders).
    One more run of the same batches under ``torch.profiler`` gives the
    device time by kernel and the card's idle share.
-4. Kernels: at the main path's operands, each kernel against its plain
-   PyTorch version on the card (integer frontiers, byte-equal), with its
-   time, the plain version's time, a bound (the larger of the bytes at
-   3.35 TB/s and its float32 operations at 67 TFLOP/s) and, for K1, one
-   ``torch.sparse.mm`` call on a CSR of the same incidence.
+4. Kernels: at the main path's operands, K1-K3 against their plain
+   PyTorch versions over the bitmaps (integer frontiers, byte-equal),
+   twice on a float frontier (the same bits) and against the plain mirror
+   of their arithmetic over the index; the index builder against its plain
+   version (byte-equal).  Each with its time, the plain version's time, a
+   bound (the larger of the bytes these inputs need at 3.35 TB/s and the
+   float32 operations at 67 TFLOP/s; ``layout_bound_ms`` counts every
+   bitmap byte instead, the earlier design's reads) and, for K1 and K3,
+   one ``torch.sparse.mm`` call on a CSR of the same function.
 5. LM serving: K4 against its plain version on small and cache-path
    shapes (the main path's prefill and decode among them) in float32 to
    2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
@@ -68,6 +75,13 @@ Edges(ID1, ID2) :- AuthorPub(ID1, PubID), AuthorPub(ID2, PubID).
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TPU_KERNEL = "src/repro/kernels/bitmap_spmm.py"
+# (authors, pubs, batch) of the full run, and the graph kernels' launches in
+# its served run: K1 at PPR's first layer and common neighbours, K2 min at
+# BFS, K2 max at reachable_multi, K3 at PPR's last layer
+FULL_GRAPH = (50_000, 100_000, 32)
+INDEX_FIELDS = ("row_ptr", "col", "weight")
+FULL_LAUNCHES = {"bitmap_spmm_sum": 22, "bitmap_spmm_min": 10, "bitmap_spmm_max": 10,
+                 "bitmap_spmm_fused": 20}
 CSRC = "src/repro_torch/kernels/csrc"
 
 
@@ -226,7 +240,7 @@ def profile_serve(server, nodes, reach_nodes):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
     K.LAUNCHES.update(before)
-    by_kernel = {}
+    by_kernel, calls = {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -234,13 +248,20 @@ def profile_serve(server, nodes, reach_nodes):
         if us is None:
             us = e.self_cuda_time_total
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
+        calls[e.key] = calls.get(e.key, 0) + e.count
     busy_s = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # device launches of the graph kernels, by kind (the names' prefixes)
+    graph = {kind: sum(n for key, n in calls.items() if key.startswith(f"void bitmap_spmm::{kind}<"))
+             for kind in ("spmm_kernel", "carry_kernel", "fused_kernel", "fused_carry_kernel")}
     return {
         "wall_s": wall_s,
         "device_busy_s": busy_s if by_kernel else None,
         "idle_share": 1.0 - busy_s / wall_s if by_kernel else None,
         "top_kernels_s": dict(top),
+        "graph_kernel_launches": graph,
+        "bitmap_kernels_s": sum(t for key, t in by_kernel.items() if "bitmap_spmm::" in key),
+        "memcpy_dtoh_s": sum(t for key, t in by_kernel.items() if "DtoH" in key),
     }
 
 
@@ -293,13 +314,86 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def index_bytes(graph) -> int:
+    """Device bytes of a packed graph's row indices."""
+    return sum(nbytes(*(getattr(ops, k) for k in INDEX_FIELDS if hasattr(ops, k)))
+               for ops in all_operands(graph))
+
+
+def all_operands(graph):
+    """Every PackedOperands and FusedOperands of a packed graph."""
+    layers = [layer for chain in graph.chains for layer in chain]
+    if graph.direct is not None:
+        layers.append(graph.direct)
+    out = [ops for layer in layers for ops in (layer.fwd, layer.rev) if ops is not None]
+    return out + [f for f in (graph.fused_fwd, graph.fused_rev) if f is not None]
+
+
+def rebuild_indices(graphs) -> float:
+    """Seconds to build every row index of ``graphs`` again on the card (the
+    upload-time work), each rebuild held to the uploaded bytes."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import bitmap_index as BI
+
+    before = dict(BI.INDEX_BUILDS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rebuilt = []
+    for graph in graphs:
+        for ops in all_operands(graph):
+            if isinstance(ops, engine.FusedOperands):
+                tables = [getattr(ops, k) for k in engine.FUSED_TABLES]
+                rebuilt.append((ops, BI.bitmap_index_fused(*tables, ops.plane_weights)))
+            else:
+                tables = [getattr(ops, k) for k in engine.PACKED_TABLES]
+                rebuilt.append((ops, BI.bitmap_index(*tables)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    BI.INDEX_BUILDS.update(before)
+    for ops, index in rebuilt:
+        if not all(torch.equal(getattr(ops, k), v) for k, v in zip(INDEX_FIELDS, index)):
+            raise AssertionError("a rebuilt row index differs from the uploaded one")
+    return seconds
+
+
 def bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_repeats(name, fn) -> None:
+    """Two launches on a float frontier give the same bits."""
+    import torch
+
+    first = fn()
+    if not torch.equal(first, fn()):
+        raise AssertionError(f"{name}: two launches on a float frontier differ")
+
+
+def spmm_row(name, source, line, launches, y, y_plain, ms, plain_ms, need, layout,
+             library_ms, mirror_err, shape) -> dict:
+    b_ms, b_by = bound(*need)
+    return {
+        "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
+        "replaces": f"{TPU_KERNEL}:{line}", "launches": launches,
+        "max_abs_err": float((y - y_plain).abs().nan_to_num(0.0).max().item()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "layout_bound_ms": bound(*layout)[0], "library_ms": library_ms,
+        "shape": {**shape, "float_repeat_bit_identical": True,
+                  "float_vs_mirror_max_abs_err": mirror_err},
+    }
+
+
 def kernel_rows(graph, launches, reps: int, seed: int):
+    """K1, K2 and K3 at the main path's operands (F = 32) against their plain
+    versions over the bitmaps, exactly on integer frontiers; on a float
+    frontier twice (same bits) and against the plain mirror of their
+    arithmetic.  ``bound_ms`` counts the bytes these inputs need (the
+    index, each source and output row once); ``layout_bound_ms`` every
+    bitmap byte the earlier design read."""
     import numpy as np
     import torch
 
@@ -314,22 +408,29 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     with_inf = ints.clone()
     with_inf[torch.from_numpy(rng.random((n_src, feat)) < 0.5).cuda()] = float("inf")
     zero_one = (ints > 3).to(torch.float32)
-    bits = set_bits(ops.bitmaps)
-    tables = (ops.slot_src, ops.row_start, ops.row_count, ops.bitmaps)
+    floats = torch.from_numpy(rng.random((n_src, feat)).astype(np.float32)).cuda()
+    nnz = int(ops.row_ptr[n_out].item())
+    index = (ops.row_ptr[: n_out + 1], ops.col)
     rows = []
     cases = [("sum", ints, 0.0), ("min", with_inf, float("inf")), ("max", zero_one, 0.0)]
     for op, x, zero in cases:
-        args = (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps, x, n_out)
+        idx_args = (ops.row_ptr, ops.col)
+        plain_args = (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps)
         before = dict(K.LAUNCHES)
-        y = K.bitmap_spmm(*args, op=op, zero=zero)
-        y_plain = K.bitmap_spmm_plain(*args, op=op, zero=zero)
+        y = K.bitmap_spmm(*idx_args, x, n_out, op=op, zero=zero)
+        y_plain = K.bitmap_spmm_plain(*plain_args, x, n_out, op=op, zero=zero)
         torch.cuda.synchronize()
         if not torch.equal(y, y_plain):
             raise AssertionError(f"bitmap_spmm {op}: kernel != plain version")
-        ms = time_ms(lambda: K.bitmap_spmm(*args, op=op, zero=zero), reps)
-        plain_ms = time_ms(lambda: K.bitmap_spmm_plain(*args, op=op, zero=zero), 3, 1)
+        check_repeats(f"bitmap_spmm {op}",
+                      lambda: K.bitmap_spmm(*idx_args, floats, n_out, op=op, zero=zero))
+        mirror_err = float((K.bitmap_spmm(*idx_args, floats, n_out, op=op, zero=zero)
+                            - K.bitmap_spmm_index_plain(*idx_args, floats, n_out, op=op,
+                                                        zero=zero)).abs().max().item())
+        ms = time_ms(lambda: K.bitmap_spmm(*idx_args, x, n_out, op=op, zero=zero), reps)
+        plain_ms = time_ms(lambda: K.bitmap_spmm_plain(*plain_args, x, n_out, op=op, zero=zero),
+                           3, 1)
         K.LAUNCHES.update(before)  # comparison launches are not main-path launches
-        b_ms, b_by = bound(nbytes(*tables, x, y), bits * feat)
         library_ms = None
         if op == "sum":
             csr = torch.sparse_coo_tensor(
@@ -338,31 +439,34 @@ def kernel_rows(graph, launches, reps: int, seed: int):
                 (n_out, n_src),
             ).coalesce().to_sparse_csr()
             library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps)
-        name = f"bitmap_spmm_{op}"
-        rows.append({
-            "name": name, "route": "cuda", "source": f"{CSRC}/bitmap_spmm.cu",
-            "replaces": f"{TPU_KERNEL}:77", "launches": launches[name],
-            "max_abs_err": float((y - y_plain).abs().nan_to_num(0.0).max().item()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms,
-            "shape": {"n_src": n_src, "n_out": n_out, "features": feat,
-                      "slots": int(ops.slot_src.shape[0]), "set_bits": bits},
-        })
+        rows.append(spmm_row(
+            f"bitmap_spmm_{op}", "bitmap_spmm.cu", 77, launches[f"bitmap_spmm_{op}"], y,
+            y_plain, ms, plain_ms, (nbytes(*index, x, y), nnz * feat),
+            (nbytes(*plain_args, x, y), nnz * feat), library_ms, mirror_err,
+            {"n_src": n_src, "n_out": n_out, "features": feat,
+             "slots": int(ops.slot_src.shape[0]), "entries": nnz}))
     fused = graph.fused_fwd
     n_h = graph.chains[-1][-1].n_src
     h = torch.from_numpy(rng.integers(0, 7, (n_h, feat)).astype(np.float32)).cuda()
     xr = torch.from_numpy(rng.integers(0, 7, (graph.n_real, feat)).astype(np.float32)).cuda()
-    fargs = (fused.kind, fused.main_src, fused.corr_src, fused.main_idx, fused.corr_idx,
-             fused.slot_row, fused.row_start, fused.row_count, fused.bitmaps,
-             fused.planes, h, xr, fused.n_out, fused.plane_weights)
+    hf = torch.from_numpy(rng.random((n_h, feat)).astype(np.float32)).cuda()
+    xf = torch.from_numpy(rng.random((graph.n_real, feat)).astype(np.float32)).cuda()
+    f_idx = (fused.row_ptr, fused.col, fused.weight)
+    f_plain = (fused.kind, fused.main_src, fused.corr_src, fused.main_idx, fused.corr_idx,
+               fused.slot_row, fused.row_start, fused.row_count, fused.bitmaps, fused.planes)
     before = dict(K.LAUNCHES)
-    y = K.bitmap_spmm_fused(*fargs)
-    y_plain = K.bitmap_spmm_fused_plain(*fargs)
+    y = K.bitmap_spmm_fused(*f_idx, h, xr, fused.n_out)
+    y_plain = K.bitmap_spmm_fused_plain(*f_plain, h, xr, fused.n_out, fused.plane_weights)
     torch.cuda.synchronize()
     if not torch.equal(y, y_plain):
         raise AssertionError("bitmap_spmm_fused: kernel != plain version")
-    ms = time_ms(lambda: K.bitmap_spmm_fused(*fargs), reps)
-    plain_ms = time_ms(lambda: K.bitmap_spmm_fused_plain(*fargs), 3, 1)
+    check_repeats("bitmap_spmm_fused", lambda: K.bitmap_spmm_fused(*f_idx, hf, xf, fused.n_out))
+    mirror_err = float((K.bitmap_spmm_fused(*f_idx, hf, xf, fused.n_out)
+                        - K.bitmap_spmm_fused_index_plain(*f_idx, hf, xf, fused.n_out))
+                       .abs().max().item())
+    ms = time_ms(lambda: K.bitmap_spmm_fused(*f_idx, h, xr, fused.n_out), reps)
+    plain_ms = time_ms(lambda: K.bitmap_spmm_fused_plain(*f_plain, h, xr, fused.n_out,
+                                                         fused.plane_weights), 3, 1)
     K.LAUNCHES.update(before)
     # library: one torch.sparse.mm of the CSR [B | -D] (the last layer's
     # incidence beside the weighted correction) against the stacked [h; x]
@@ -382,25 +486,67 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     del k3_csr, stacked, y_lib
     n_planes = int(fused.planes.shape[1])
     n_corr = int(fused.planes.shape[0])
-    main_bits, corr_bits = set_bits(fused.bitmaps), set_bits(fused.planes)
-    f_bytes = nbytes(fused.kind, fused.main_src, fused.corr_src, fused.main_idx,
-                     fused.corr_idx, fused.row_start, fused.row_count,
-                     fused.bitmaps, fused.planes, h, xr, y)
-    # one add per main bit, a multiply-add per plane bit, one subtract per output
-    f_ops = feat * (main_bits + 2 * corr_bits + fused.n_out)
-    b_ms, b_by = bound(f_bytes, f_ops)
-    rows.append({
-        "name": "bitmap_spmm_fused", "route": "cuda",
-        "source": f"{CSRC}/bitmap_spmm_fused.cu", "replaces": f"{TPU_KERNEL}:190",
-        "launches": launches["bitmap_spmm_fused"],
-        "max_abs_err": float((y - y_plain).abs().max().item()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": k3_library_ms,
-        "shape": {"n_h": n_h, "n_out": fused.n_out, "features": feat,
-                  "slots": int(fused.kind.shape[0]), "correction_slots": n_corr,
-                  "planes": n_planes, "main_bits": main_bits, "plane_bits": corr_bits,
-                  **plane_skew(fused)},
-    })
+    f_nnz = int(fused.row_ptr[fused.n_out].item())
+    corr_entries = int((fused.weight != 0).sum().item())
+    main_bits, corr_bits = f_nnz - corr_entries, set_bits(fused.planes)
+    # one add per main entry, a multiply and an add per correction entry,
+    # one subtract per output
+    f_ops = feat * (main_bits + 2 * corr_entries + fused.n_out)
+    need = nbytes(fused.row_ptr[: fused.n_out + 1], *f_idx[1:], h, xr, y)
+    layout = nbytes(*f_plain[:5], f_plain[6], f_plain[7], fused.bitmaps, fused.planes, h, xr, y)
+    rows.append(spmm_row(
+        "bitmap_spmm_fused", "bitmap_spmm_fused.cu", 190, launches["bitmap_spmm_fused"], y,
+        y_plain, ms, plain_ms, (need, f_ops), (layout, f_ops), k3_library_ms, mirror_err,
+        {"n_h": n_h, "n_out": fused.n_out, "features": feat,
+         "slots": int(fused.kind.shape[0]), "correction_slots": n_corr,
+         "planes": n_planes, "main_entries": main_bits, "correction_entries": corr_entries,
+         "plane_bits": corr_bits, **plane_skew(fused)}))
+    return rows
+
+
+def index_rows(graph, builds: dict, reps: int) -> list:
+    """The upload-time index builder at the main path's operands (the
+    author -> publication layer and the forward fused stream) against its
+    plain version, byte for byte.  ``launches``: the builds the served
+    graphs' upload made."""
+    import torch
+
+    from repro_torch.kernels import bitmap_index as BI
+
+    ops, fused = graph.chains[0][0].fwd, graph.fused_fwd
+    cases = [
+        ("bitmap_index", 77, BI.bitmap_index, BI.bitmap_index_plain,
+         (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps),
+         (ops.row_ptr, ops.col)),
+        ("bitmap_index_fused", 190, BI.bitmap_index_fused, BI.bitmap_index_fused_plain,
+         (fused.kind, fused.main_src, fused.corr_src, fused.main_idx, fused.corr_idx,
+          fused.slot_row, fused.row_start, fused.row_count, fused.bitmaps, fused.planes,
+          fused.plane_weights),
+         (fused.row_ptr, fused.col, fused.weight)),
+    ]
+    rows = []
+    for name, line, fn, plain, args, uploaded in cases:
+        before = dict(BI.INDEX_BUILDS)
+        got, want = fn(*args), plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: kernel != plain version")
+        if not all(torch.equal(a, b) for a, b in zip(got, uploaded)):
+            raise AssertionError(f"{name}: a rebuild differs from the uploaded index")
+        err = max(float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
+                  for a, b in zip(got, want))
+        ms = time_ms(lambda: fn(*args), reps)
+        plain_ms = time_ms(lambda: plain(*args), 2, 1)
+        BI.INDEX_BUILDS.update(before)
+        words = [t for t in args if isinstance(t, torch.Tensor)]
+        b_ms, b_by = bound(nbytes(*words, *got), 0)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"{CSRC}/bitmap_index.cu",
+            "replaces": f"{TPU_KERNEL}:{line}", "launches": builds[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "layout_bound_ms": b_ms, "library_ms": None,
+            "shape": {"entries": int(got[1].shape[0]), "rows": int(got[0].shape[0]) - 1,
+                      "index_bytes": nbytes(*got)},
+        })
     return rows
 
 
@@ -668,18 +814,50 @@ def k4_rows(T, max_len, H, KV, hd, launches, reps, seed) -> list:
     return rows
 
 
-def mma_instruction_counts() -> dict:
-    """``HMMA`` / ``HGMMA`` instructions in the SASS of K4's bf16 libraries,
-    where the toolkit has ``cuobjdump``; empty where it has none."""
+def graph_atomic_counts() -> dict:
+    """Atomic and reduction instructions in the SASS of the graph SpMM
+    libraries, where the toolkit has ``cuobjdump``: global ones (``ATOMG``,
+    ``RED``) must be absent; the carry pass's one shared-memory integer
+    ``ATOMS`` is counted beside them."""
     import re
-    import shutil
 
     from repro_torch.kernels import build
+
+    tool = cuobjdump()
+    if tool is None:
+        return {}
+    counts = {}
+    for name in ("bitmap_spmm", "bitmap_spmm_fused"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass))
+                        for op in ("ATOMG", "RED", "REDG", "ATOM", "ATOMS")}
+        if any(counts[name][op] for op in ("ATOMG", "RED", "REDG", "ATOM")):
+            raise AssertionError(f"{name}: global atomics in the SASS: {counts[name]}")
+    log(f"SASS atomics of the graph SpMMs: {json.dumps(counts)}")
+    return counts
+
+
+def cuobjdump():
+    import shutil
 
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin", "cuobjdump")
     if not os.path.exists(tool):
         log("cuobjdump not found: no SASS instruction counts")
+        return None
+    return tool
+
+
+def mma_instruction_counts() -> dict:
+    """``HMMA`` / ``HGMMA`` instructions in the SASS of K4's bf16 libraries,
+    where the toolkit has ``cuobjdump``; empty where it has none."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = cuobjdump()
+    if tool is None:
         return {}
     counts = {}
     for name in ("flash_prefill", "flash_decode"):
@@ -865,6 +1043,7 @@ def graph_phases(args, record) -> list:
 
     from repro_torch.core import engine, extract
     from repro_torch.data.synth import dblp_catalog
+    from repro_torch.kernels import bitmap_index as BI
     from repro_torch.kernels import bitmap_spmm as K
     from repro_torch.serve.server import GraphQueryServer
 
@@ -881,13 +1060,19 @@ def graph_phases(args, record) -> list:
     stages["extract_s"] = time.perf_counter() - t
     if g.n_virtual == 0:
         raise AssertionError("extraction postponed no join: nothing to pack")
+    builds_before = dict(BI.INDEX_BUILDS)
     t = time.perf_counter()
     server = GraphQueryServer.from_condensed(g, packed=True, device="cuda")
     torch.cuda.synchronize()
     stages["correction_pack_upload_s"] = time.perf_counter() - t
+    builds = {k: v - builds_before[k] for k, v in BI.INDEX_BUILDS.items()}
     exact, counts = server.graph, server.counts_graph
+    stages["index_build_s"] = rebuild_indices((exact, counts))
     held = {"exact": engine.device_graph_bytes(exact),
-            "counts": engine.device_graph_bytes(counts)}
+            "counts": engine.device_graph_bytes(counts),
+            "exact_index": index_bytes(exact), "counts_index": index_bytes(counts)}
+    log(f"index builds at upload: {json.dumps(builds)} (inside correction_pack_upload_s); "
+        f"all of them again: {stages['index_build_s']:.4f} s")
     log(f"graph: {g!r}; plan {res.plans[0].describe()}")
     log(f"correction: {len(server.graph.correction[0])} triples, "
         f"{exact.fused_fwd.planes.shape[1]} planes; fused standdown {exact.fused_standdown!r}")
@@ -914,6 +1099,8 @@ def graph_phases(args, record) -> list:
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if (args.authors, args.pubs, args.batch) == FULL_GRAPH and launches != FULL_LAUNCHES:
+        raise AssertionError(f"launches {launches}, expected {FULL_LAUNCHES} at this size")
     if standdowns.get("vmem_or_backend"):
         raise AssertionError("the fused kernel stood down for 'vmem_or_backend'")
 
@@ -937,17 +1124,28 @@ def graph_phases(args, record) -> list:
 
     prof = profile_serve(server, nodes, reach_nodes)
     log(f"profiled serve: {json.dumps(prof)}")
+    # each wrapper call is one range kernel and one carry pass, nothing else
+    k12 = sum(launches[f"bitmap_spmm_{op}"] for op in ("sum", "min", "max"))
+    want = {"spmm_kernel": k12, "carry_kernel": k12,
+            "fused_kernel": launches["bitmap_spmm_fused"],
+            "fused_carry_kernel": launches["bitmap_spmm_fused"]}
+    if prof["device_busy_s"] is not None and prof["graph_kernel_launches"] != want:
+        raise AssertionError(f"graph kernels launched {prof['graph_kernel_launches']} times "
+                             f"in the profiled run, expected {want}")
 
     rows = kernel_rows(exact, launches, args.reps, args.seed)
     log(f"K3 operands: {json.dumps(rows[-1]['shape'])}")
+    rows += index_rows(exact, builds, max(args.reps // 4, 2))
+    record["graph_sass_atomics"] = graph_atomic_counts()
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, layout bound "
+            f"{r['layout_bound_ms']:.4f}, library {r['library_ms']})")
 
     record.update({
         "stages": stages, "device_bytes": held,
         "serve_s": serve_s, "segment_s": segment_s, "serve_profile": prof,
-        "launches": launches,
+        "launches": launches, "index_builds": builds,
         "standdowns": standdowns, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "graph": {"n_real": g.n_real, "n_virtual": g.n_virtual,
                   "edges_condensed": g.n_edges_condensed,
@@ -1004,7 +1202,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    extra = ("layout_bound_ms",)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

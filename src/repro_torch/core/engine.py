@@ -48,6 +48,10 @@ __all__ = [
     "DeviceCondensed",
     "PackedOperands",
     "FusedOperands",
+    "PACKED_TABLES",
+    "FUSED_TABLES",
+    "packed_operands",
+    "fused_operands",
     "DevicePackedLayer",
     "DevicePacked",
     "DeviceGraph",
@@ -128,24 +132,30 @@ class DeviceCondensed:
 
 @dataclasses.dataclass
 class PackedOperands:
-    """One direction's slot-stream kernel operands (layout of
+    """One direction's packed operands (layout of
     :class:`repro_torch.kernels.pack.BlockSparseBitmap`; ``bitmaps`` is the
-    int32 view of the uint32 words)."""
+    int32 view of the uint32 words) and the row index the K1/K2 kernels
+    read, built from them on the device by
+    :func:`repro_torch.kernels.bitmap_index.bitmap_index`."""
 
     slot_src: torch.Tensor   # (n_slots,) int32
     slot_row: torch.Tensor   # (n_slots,) int32
     row_start: torch.Tensor  # (n_rt,) int32
     row_count: torch.Tensor  # (n_rt,) int32
     bitmaps: torch.Tensor    # (n_slots, TILE, WORDS) int32
+    row_ptr: torch.Tensor    # (n_rt * TILE + 1,) int32
+    col: torch.Tensor        # (nnz,) int32 — source row of each set bit
 
 
 @dataclasses.dataclass
 class FusedOperands:
-    """Operands of the fused last-layer SpMM + DEDUP-C epilogue kernel
-    (:func:`repro_torch.kernels.bitmap_spmm.bitmap_spmm_fused`): the
+    """Operands of the fused last-layer SpMM + DEDUP-C epilogue: the
     interleaved main/correction slot stream of
     :func:`repro_torch.kernels.correction.build_fused_stream`, the main
-    layer's bitmaps and the correction's bit-planes."""
+    layer's bitmaps and the correction's bit-planes, and the row index the
+    K3 kernel (:func:`repro_torch.kernels.bitmap_spmm.bitmap_spmm_fused`)
+    reads, built from them on the device by
+    :func:`repro_torch.kernels.bitmap_index.bitmap_index_fused`."""
 
     kind: torch.Tensor       # (n_slots,) int32 — 0 main, 1 correction
     main_src: torch.Tensor   # (n_slots,) int32
@@ -159,6 +169,9 @@ class FusedOperands:
     planes: torch.Tensor     # (n_corr, P, TILE, WORDS) int32
     plane_weights: Tuple[float, ...]
     n_out: int
+    row_ptr: torch.Tensor    # (n_rt * TILE + 1,) int32
+    col: torch.Tensor        # (nnz,) int32 — h row (main) or x row (correction)
+    weight: torch.Tensor     # (nnz,) int32 — 0 main, else the correction count
 
 
 @dataclasses.dataclass
@@ -211,8 +224,8 @@ DeviceGraph = Union[DeviceExpanded, DeviceCondensed, DevicePacked]
 
 def device_graph_bytes(graph) -> int:
     """Device bytes held by one uploaded graph: every tensor reachable
-    from the container (edge arrays, packed bitmaps, fused streams,
-    correction triples)."""
+    from the container (edge arrays, packed bitmaps, row indices, fused
+    streams, correction triples)."""
     if isinstance(graph, torch.Tensor):
         return graph.numel() * graph.element_size()
     if dataclasses.is_dataclass(graph):
@@ -328,8 +341,36 @@ def to_device(
     )
 
 
+# the tables each index builder reads, in its argument order
+PACKED_TABLES = ("slot_src", "slot_row", "row_start", "row_count", "bitmaps")
+FUSED_TABLES = ("kind", "main_src", "corr_src", "main_idx", "corr_idx", "slot_row",
+                 "row_start", "row_count", "bitmaps", "planes")
+
+
+def packed_operands(**tables: torch.Tensor) -> PackedOperands:
+    """:class:`PackedOperands` from uploaded tables and bitmaps, with the
+    row index built from them on their device."""
+    from ..kernels.bitmap_index import bitmap_index
+
+    row_ptr, col = bitmap_index(*(tables[k] for k in PACKED_TABLES))
+    return PackedOperands(**tables, row_ptr=row_ptr, col=col)
+
+
+def fused_operands(plane_weights, n_out: int, **tables: torch.Tensor) -> FusedOperands:
+    """:class:`FusedOperands` from an uploaded fused stream, bitmaps and
+    planes, with the row index built from them on their device."""
+    from ..kernels.bitmap_index import bitmap_index_fused
+
+    plane_weights = tuple(float(w) for w in plane_weights)
+    row_ptr, col, weight = bitmap_index_fused(
+        *(tables[k] for k in FUSED_TABLES), plane_weights
+    )
+    return FusedOperands(**tables, plane_weights=plane_weights, n_out=int(n_out),
+                         row_ptr=row_ptr, col=col, weight=weight)
+
+
 def _upload_operands(bsb, device) -> PackedOperands:
-    return PackedOperands(
+    return packed_operands(
         slot_src=_tensor(bsb.slot_src, torch.int32, device),
         slot_row=_tensor(bsb.slot_row, torch.int32, device),
         row_start=_tensor(bsb.row_start, torch.int32, device),
@@ -368,7 +409,7 @@ def _upload_fused(stream, main_bsb, corr_planes, device) -> FusedOperands:
     def t(a):
         return _tensor(a, torch.int32, device)
 
-    return FusedOperands(
+    return fused_operands(
         kind=t(stream.kind),
         main_src=t(stream.main_src),
         corr_src=t(stream.corr_src),
@@ -550,11 +591,8 @@ def _packed_layer_spmm(
     ops = layer.rev if reverse else layer.fwd
     n_out = layer.n_src if reverse else layer.n_dst
     return bitmap_spmm(
-        ops.slot_src,
-        ops.slot_row,
-        ops.row_start,
-        ops.row_count,
-        ops.bitmaps,
+        ops.row_ptr,
+        ops.col,
         x.contiguous(),
         n_out,
         op=semiring.add_kind,
@@ -620,20 +658,12 @@ def _fused_layer_spmm(
     global KERNEL_DISPATCH_COUNT
     KERNEL_DISPATCH_COUNT += 1
     return bitmap_spmm_fused(
-        fused.kind,
-        fused.main_src,
-        fused.corr_src,
-        fused.main_idx,
-        fused.corr_idx,
-        fused.slot_row,
-        fused.row_start,
-        fused.row_count,
-        fused.bitmaps,
-        fused.planes,
+        fused.row_ptr,
+        fused.col,
+        fused.weight,
         h.contiguous(),
         x.contiguous(),
         fused.n_out,
-        fused.plane_weights,
     )
 
 

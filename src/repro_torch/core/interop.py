@@ -20,11 +20,12 @@ import numpy as np
 import torch
 
 from .engine import (
-    DeviceBipartite,
+    FUSED_TABLES,
+    PACKED_TABLES,
     DevicePacked,
     DevicePackedLayer,
-    FusedOperands,
-    PackedOperands,
+    fused_operands,
+    packed_operands,
 )
 
 __all__ = ["packed_arrays", "device_packed_from_arrays"]
@@ -66,7 +67,9 @@ def device_packed_from_arrays(
     """The port's ``DevicePacked`` on ``device`` from :func:`packed_arrays`
     output (slot tables, bitmaps, planes, correction triples,
     ``diag_mult``).  Indices become int64, tables int32, bitmap words
-    int32 views of the uint32 words, weights and counts float32; the
+    int32 views of the uint32 words, weights and counts float32; each
+    packed direction's row index is built anew from its operands (other
+    packages carry none, and the port's is derived); the
     backend names ``'pallas'`` / ``'xla'`` map to ``'cuda'`` /
     ``'segment'``."""
     device = torch.device(device)
@@ -82,13 +85,7 @@ def device_packed_from_arrays(
     def ops(m):
         if m is None:
             return None
-        return PackedOperands(
-            slot_src=arr(m["slot_src"], torch.int32),
-            slot_row=arr(m["slot_row"], torch.int32),
-            row_start=arr(m["row_start"], torch.int32),
-            row_count=arr(m["row_count"], torch.int32),
-            bitmaps=arr(m["bitmaps"], torch.int32),
-        )
+        return packed_operands(**{k: arr(m[k], torch.int32) for k in PACKED_TABLES})
 
     def layer(m):
         if m is None:
@@ -105,16 +102,8 @@ def device_packed_from_arrays(
     def fused(m):
         if m is None:
             return None
-        t = {
-            k: arr(m[k], torch.int32)
-            for k in ("kind", "main_src", "corr_src", "main_idx", "corr_idx",
-                      "slot_row", "row_start", "row_count", "bitmaps", "planes")
-        }
-        return FusedOperands(
-            plane_weights=tuple(float(w) for w in m["plane_weights"]),
-            n_out=int(m["n_out"]),
-            **t,
-        )
+        t = {k: arr(m[k], torch.int32) for k in FUSED_TABLES}
+        return fused_operands(m["plane_weights"], int(m["n_out"]), **t)
 
     corr = meta["correction"]
     return DevicePacked(

@@ -2,46 +2,59 @@
 plain PyTorch versions.
 
 * :func:`bitmap_spmm` — K1 (``op='sum'``) and K2 (``op='min' | 'max'``):
-  ``y = B ⊕ x`` over one packed incidence
-  (:class:`~repro_torch.kernels.pack.BlockSparseBitmap` layout), source
-  ``csrc/bitmap_spmm.cu``.  Replaces the JAX package's Pallas
-  ``kernels/bitmap_spmm.py::_kernel``.
-* :func:`bitmap_spmm_fused` — K3: ``y = B h − Σ_k 2^k (D_k x)`` over the
-  interleaved main/correction stream of
-  :func:`~repro_torch.kernels.correction.build_fused_stream`, source
-  ``csrc/bitmap_spmm_fused.cu``.  Replaces the Pallas ``_fused_kernel``.
+  ``y = B ⊕ x`` over one packed incidence, source ``csrc/bitmap_spmm.cu``.
+  Replaces the JAX package's Pallas ``kernels/bitmap_spmm.py::_kernel``.
+* :func:`bitmap_spmm_fused` — K3: ``y = B h − D x`` with ``D`` the DEDUP-C
+  correction counts, source ``csrc/bitmap_spmm_fused.cu``.  Replaces the
+  Pallas ``_fused_kernel``.
 
-A wrapper takes its plain version only when the frontier lies on the CPU
-(the tests' case).  On a CUDA tensor it launches the kernel or raises:
-there is no fallback.  Every launch adds one to its kernel's entry in
-:data:`LAUNCHES`; plain-version calls count nothing.
+The kernels read the row index of :mod:`repro_torch.kernels.bitmap_index`
+(``row_ptr``, ``col`` and, for K3, ``weight``: 0 for a main entry over
+``h``, the correction count for an entry over ``x``), built once per
+uploaded graph from the byte-identical packed operands; they read no
+bitmap.  Frontiers are float32 ``(rows, F)`` in row-major order and need no
+padding; the output has ``n_out`` rows (``n_out`` at most the index's row
+count, 128 per row tile).
 
-Operands: int32 slot/run tables, bitmaps and planes as int32 views of the
-packed uint32 words (bit ``j`` of word ``w`` in row ``r`` is source column
-``32·w + j``), float32 frontiers ``(rows, F)`` in row-major order.  A
-frontier needs no padding: it must hold every source row that a set bit
-selects, and the output has ``n_out`` rows (at most 128 per row tile).
+Three plain versions sit beside the kernels:
 
-The kernels merge partial rows with atomics, so float sums on the card
-come out in an order that changes from run to run; integer-valued
-frontiers are exact and equal the plain versions bit for bit.
+* :func:`bitmap_spmm_plain` / :func:`bitmap_spmm_fused_plain` read the
+  **bitmaps** (and bit-planes), not the index: the independent yardstick
+  the kernels are held to on the card, so a wrong index is caught.
+* :func:`bitmap_spmm_index_plain` / :func:`bitmap_spmm_fused_index_plain`
+  mirror the kernels' arithmetic over the index: the same merge-path
+  ranges, the same sequential fold within a range, and the same fixed
+  order of the carry pass, so they give the kernels' bits on float
+  frontiers too.  A wrapper runs its mirror when the frontier lies on the
+  CPU (the tests' case); on a CUDA tensor it launches the kernel or
+  raises: there is no fallback.
+
+Every launch adds one to its kernel's entry in :data:`LAUNCHES` (a launch
+is the range kernel plus its carry pass); plain calls count nothing.  The
+kernels merge split rows in a fixed order, without atomics, so float sums
+are bit-identical from launch to launch; integer-valued frontiers equal
+the plain versions bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .pack import TILE, WORDS
+from .bitmap_index import _set_bits
+from .pack import TILE
 
 __all__ = [
     "LAUNCHES",
     "reset_launch_counts",
+    "default_range_items",
     "bitmap_spmm",
     "bitmap_spmm_plain",
+    "bitmap_spmm_index_plain",
     "bitmap_spmm_fused",
     "bitmap_spmm_fused_plain",
+    "bitmap_spmm_fused_index_plain",
 ]
 
 # kernel name -> launches since the last reset (plain integers)
@@ -53,6 +66,15 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}
+_IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
+
+# features per grid.y block of the kernels (csrc/bitmap_common.cuh)
+FEATURE_BLOCK = 32
+# chunks the carry pass cuts a row's tails into (csrc/bitmap_common.cuh)
+CHUNKS = 32
+# lanes the range length is sized for: about two waves of full warps on a
+# 132-SM card at F = 32 (8 lanes a group)
+_TARGET_LANES = 1 << 18
 
 
 def reset_launch_counts() -> None:
@@ -60,25 +82,28 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def _pow2ceil(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def default_range_items(total: int, n_feat: int) -> int:
+    """Merged items (row ends + entries) per range for ``total`` items at
+    ``n_feat`` features: enough ranges to fill the card with 16-byte
+    groups, at least 64 and at most 512 items each (on the H100, 64 for
+    the smoke graph's K1/K2 and 128 for its K3 were the fastest of 32 to
+    256; ``scripts/spmm_times.py``).  Depends on shapes only, so a graph's
+    ranges, and its float sums, repeat exactly."""
+    lanes = min(8, _pow2ceil(-(-min(n_feat, FEATURE_BLOCK) // 4)))
+    return min(512, max(64, _pow2ceil(-(-total * lanes // _TARGET_LANES))))
+
+
 # ---------------------------------------------------------------------------
 # Checks shared by both wrappers
 # ---------------------------------------------------------------------------
 
-def _check_table(name: str, t: torch.Tensor, device: torch.device) -> None:
+def _check_index(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.dtype != torch.int32 or t.ndim != 1:
         raise ValueError(f"{name} must be a 1-D int32 tensor, got {t.dtype} {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, frontier on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_words(name: str, t: torch.Tensor, device: torch.device, ndim: int) -> None:
-    if t.dtype != torch.int32 or t.ndim != ndim or tuple(t.shape[-2:]) != (TILE, WORDS):
-        raise ValueError(
-            f"{name} must be int32 (..., {TILE}, {WORDS}) words, got "
-            f"{t.dtype} {tuple(t.shape)}"
-        )
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, frontier on {device}")
     if not t.is_contiguous():
@@ -94,14 +119,12 @@ def _check_frontier(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} lies on {t.device}: only cpu and cuda are served")
 
 
-def _check_out(n_out: int, n_rt: int) -> None:
-    if not 0 <= n_out <= n_rt * TILE:
-        raise ValueError(f"n_out={n_out} outside the {n_rt} row tiles of the pack")
-
-
-def _check_aligned(name: str, t: torch.Tensor) -> None:
-    if t.data_ptr() % 8:
-        raise ValueError(f"{name} must start on an 8-byte boundary: the kernel reads word pairs")
+def _check_out(n_out: int, row_ptr: torch.Tensor) -> None:
+    n_rows = int(row_ptr.shape[0]) - 1
+    if not 0 <= n_out <= n_rows:
+        raise ValueError(
+            f"n_out={n_out} outside the {n_rows} rows ({n_rows // TILE} row tiles) of the index"
+        )
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -112,24 +135,20 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# ---------------------------------------------------------------------------
-# Plain PyTorch versions (CPU tests; compared with the kernels on the card)
-# ---------------------------------------------------------------------------
+def _grid(frontiers: Sequence[torch.Tensor], n_out: int, nnz: int, items: Optional[int]):
+    """``(vec, log_g, range_items, n_groups)`` of a launch: 16-byte gathers
+    when every frontier allows them, the smallest group of lanes that covers
+    a feature block, and enough ranges to cover every item."""
+    n_feat = int(frontiers[0].shape[1])
+    vec = 4 if n_feat % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in frontiers) else 1
+    lanes = min(FEATURE_BLOCK // vec, _pow2ceil(-(-min(n_feat, FEATURE_BLOCK) // vec)))
+    items = items or default_range_items(n_out + nnz, n_feat)
+    return vec, lanes.bit_length() - 1, items, -(-(n_out + nnz) // items)
 
-def _set_bits(words: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(slot, row, col)`` int64 of every set bit of a ``(n, TILE, WORDS)``
-    word stack, in (slot, row, col) order."""
-    flat = words.reshape(-1)
-    nz = torch.nonzero(flat, as_tuple=True)[0]
-    vals = flat[nz].to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
-    word_i, bit = torch.nonzero((vals[:, None] >> shifts) & 1, as_tuple=True)
-    w = nz[word_i]
-    slot = w // (TILE * WORDS)
-    row = (w % (TILE * WORDS)) // WORDS
-    col = (w % WORDS) * 32 + bit
-    return slot, row, col
 
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions over the bitmaps (compared with the kernels on the card)
+# ---------------------------------------------------------------------------
 
 def _reduce_rows(
     dst: torch.Tensor, vals: torch.Tensor, n_out: int, op: str, zero: float
@@ -138,7 +157,7 @@ def _reduce_rows(
     if op == "sum":
         out = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
         return out.index_add_(0, dst, vals)
-    init = float("inf") if op == "min" else float("-inf")
+    init = _IDENTITY[op]
     out = torch.full(shape, init, dtype=vals.dtype, device=vals.device)
     out.scatter_reduce_(
         0, dst[:, None].expand_as(vals), vals,
@@ -216,47 +235,169 @@ def bitmap_spmm_fused_plain(
 
 
 # ---------------------------------------------------------------------------
-# Wrappers
+# Plain mirrors of the kernels' arithmetic over the index
 # ---------------------------------------------------------------------------
 
-def bitmap_spmm(
-    slot_src: torch.Tensor,
-    slot_row: torch.Tensor,
-    row_start: torch.Tensor,
-    row_count: torch.Tensor,
-    bitmaps: torch.Tensor,
+def _combine(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if op == "sum":
+        return a + b
+    return torch.minimum(a, b) if op == "min" else torch.maximum(a, b)
+
+
+def _run_pos(seg: torch.Tensor) -> torch.Tensor:
+    """Position of each element within its run of equal ``seg`` values."""
+    n = int(seg.shape[0])
+    at = torch.arange(n, device=seg.device)
+    first = torch.ones(n, dtype=torch.bool, device=seg.device)
+    first[1:] = seg[1:] != seg[:-1]
+    return at - torch.cummax(torch.where(first, at, torch.zeros_like(at)), 0).values
+
+
+def _fold(seg: torch.Tensor, vals: torch.Tensor, n_seg: int, op: str) -> torch.Tensor:
+    """``out[s] = (((identity ⊕ v_0) ⊕ v_1) ⊕ …)`` over the values of each
+    segment in order; ``seg`` is sorted, so each segment is one run."""
+    out = torch.full((n_seg, vals.shape[1]), _IDENTITY[op], dtype=vals.dtype,
+                     device=vals.device)
+    if seg.shape[0] == 0:
+        return out
+    pos = _run_pos(seg)
+    order = torch.argsort(pos, stable=True)
+    for idx in torch.split(order, torch.bincount(pos).tolist()):
+        s = seg[idx]
+        out[s] = _combine(op, out[s], vals[idx])
+    return out
+
+
+def _fold_rows(row_ptr: torch.Tensor, items: int, piece_row: torch.Tensor,
+               piece_range: torch.Tensor, partial: torch.Tensor, n_out: int, op: str):
+    """The carry pass over the pieces' partials (csrc/bitmap_common.cuh,
+    ``carry``).  Row r's head is its piece in the range of its end (merged
+    item ``row_ptr[r+1] + r``; it may hold no entry) and its T tails the
+    ranges from its first entry's (item ``row_ptr[r] + r``) up to the head's.
+    The tails fold in CHUNKS chunks of ``ceil(T / CHUNKS)``, and the row is
+    identity ⊕ the chunks in order ⊕ the head; a row in one range is its
+    one piece."""
+    rp = row_ptr.to(torch.int64)
+    first = (rp[piece_row] + piece_row) // items
+    head = (rp[piece_row + 1] + piece_row) // items
+    size = torch.clamp((head - first + CHUNKS - 1) // CHUNKS, min=1)
+    chunk = torch.where(piece_range == head, CHUNKS, (piece_range - first) // size)
+    key = piece_row * (CHUNKS + 1) + chunk
+    new = torch.ones(key.shape[0], dtype=torch.bool, device=key.device)
+    new[1:] = key[1:] != key[:-1]
+    chunks = _fold(torch.cumsum(new, 0) - 1, partial, int(new.sum()), op)
+    return _fold(piece_row[new], chunks, n_out, op)
+
+
+def _ranges(row_ptr: torch.Tensor, n_out: int, items: int):
+    """The kernels' cut of rows ``< n_out`` into merge-path ranges of
+    ``items`` items: ``(entries, piece of each entry, row and range of each
+    piece, piece count)``, where a piece is the part of a row inside one
+    range (entry ``e`` of row ``r`` is merged item ``e + r``)."""
+    rp = row_ptr[: n_out + 1].to(torch.int64)
+    nnz = int(rp[-1])
+    row = torch.repeat_interleave(torch.arange(n_out, device=rp.device), rp[1:] - rp[:-1])
+    rng = (torch.arange(nnz, device=rp.device) + row) // items
+    new = torch.ones(nnz, dtype=torch.bool, device=rp.device)
+    new[1:] = (row[1:] != row[:-1]) | (rng[1:] != rng[:-1])
+    piece = torch.cumsum(new, 0) - 1
+    return nnz, piece, row[new], rng[new], int(new.sum())
+
+
+def _finish(op: str, y: torch.Tensor, zero: float) -> torch.Tensor:
+    if op == "sum":
+        return y
+    return torch.where(y == _IDENTITY[op], torch.full_like(y, zero), y)
+
+
+def bitmap_spmm_index_plain(
+    row_ptr: torch.Tensor,
+    col: torch.Tensor,
     x: torch.Tensor,
     n_out: int,
     op: str = "sum",
     zero: float = 0.0,
+    range_items: Optional[int] = None,
 ) -> torch.Tensor:
-    """``y = B ⊕ x`` over one packed incidence: ``(n_out, F)`` float32.
+    """The K1/K2 kernel's arithmetic in plain PyTorch: each range's pieces
+    folded in entry order, then each row from its pieces as the carry pass
+    folds them (:func:`_fold_rows`), then the identity-to-``zero``
+    epilogue."""
+    items = range_items or default_range_items(n_out + int(col.shape[0]), int(x.shape[1]))
+    nnz, piece, piece_row, piece_range, n_pieces = _ranges(row_ptr, n_out, items)
+    vals = x.index_select(0, col[:nnz].to(torch.int64))
+    partial = _fold(piece, vals, n_pieces, op)
+    return _finish(op, _fold_rows(row_ptr, items, piece_row, piece_range, partial, n_out, op),
+                   zero)
+
+
+def bitmap_spmm_fused_index_plain(
+    row_ptr: torch.Tensor,
+    col: torch.Tensor,
+    weight: torch.Tensor,
+    h: torch.Tensor,
+    x: torch.Tensor,
+    n_out: int,
+    range_items: Optional[int] = None,
+) -> torch.Tensor:
+    """The K3 kernel's arithmetic in plain PyTorch: ``acc`` over the main
+    entries (weight 0) of ``h`` and ``cacc`` over ``weight · x`` (each
+    product rounded once), each folded as
+    :func:`bitmap_spmm_index_plain` folds, then ``acc − cacc``."""
+    items = range_items or default_range_items(n_out + int(col.shape[0]), int(x.shape[1]))
+    nnz, piece, piece_row, piece_range, n_pieces = _ranges(row_ptr, n_out, items)
+    c = col[:nnz].to(torch.int64)
+    w = weight[:nnz]
+    main = (w == 0)[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    acc_v = torch.where(main, h.index_select(0, torch.where(w == 0, c, 0)), zero)
+    corr_v = torch.where(
+        main, zero, w.to(x.dtype)[:, None] * x.index_select(0, torch.where(w == 0, 0, c))
+    )
+    pieces = (row_ptr, items, piece_row, piece_range)
+    acc = _fold_rows(*pieces, _fold(piece, acc_v, n_pieces, "sum"), n_out, "sum")
+    cacc = _fold_rows(*pieces, _fold(piece, corr_v, n_pieces, "sum"), n_out, "sum")
+    return acc - cacc
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def bitmap_spmm(
+    row_ptr: torch.Tensor,
+    col: torch.Tensor,
+    x: torch.Tensor,
+    n_out: int,
+    op: str = "sum",
+    zero: float = 0.0,
+    range_items: Optional[int] = None,
+) -> torch.Tensor:
+    """``y = B ⊕ x`` over one packed incidence's row index: ``(n_out, F)``
+    float32.
 
     ``op``/``zero`` come from the semiring's ``add_kind``/``zero``.  A CPU
-    frontier runs :func:`bitmap_spmm_plain`; a CUDA frontier launches the
-    K1/K2 kernel (``csrc/bitmap_spmm.cu``) on the current stream."""
+    frontier runs :func:`bitmap_spmm_index_plain`; a CUDA frontier launches
+    the K1/K2 kernel (``csrc/bitmap_spmm.cu``) and its carry pass on the
+    current stream.  ``range_items`` overrides the range length (tests)."""
     if op not in _OP_CODES:
         raise ValueError(f"unknown kernel op {op!r}")
     _check_frontier("x", x)
-    for name, t in (("slot_src", slot_src), ("slot_row", slot_row),
-                    ("row_start", row_start), ("row_count", row_count)):
-        _check_table(name, t, x.device)
-    _check_words("bitmaps", bitmaps, x.device, 3)
-    n_rt = int(row_start.shape[0])
-    _check_out(n_out, n_rt)
-    if bitmaps.shape[0] != slot_src.shape[0] or slot_row.shape != slot_src.shape:
-        raise ValueError("slot tables and bitmaps disagree on the slot count")
+    _check_index("row_ptr", row_ptr, x.device)
+    _check_index("col", col, x.device)
+    _check_out(n_out, row_ptr)
     if x.device.type == "cpu":
-        return bitmap_spmm_plain(
-            slot_src, slot_row, row_start, row_count, bitmaps, x, n_out, op, zero
-        )
+        return bitmap_spmm_index_plain(row_ptr, col, x, n_out, op, zero, range_items)
     from .build import load
 
-    _check_aligned("bitmaps", bitmaps)
-    y = torch.empty((n_out, x.shape[1]), dtype=torch.float32, device=x.device)
+    n_feat = int(x.shape[1])
+    y = torch.empty((n_out, n_feat), dtype=torch.float32, device=x.device)
+    vec, log_g, items, n_groups = _grid((x,), n_out, int(col.shape[0]), range_items)
+    carry_rows = torch.empty(n_groups, dtype=torch.int32, device=x.device)
+    carry_vals = torch.empty(2 * n_groups * n_feat, dtype=torch.float32, device=x.device)
     rc = load("bitmap_spmm").bitmap_spmm_launch(
-        _ptr(slot_src), _ptr(slot_row), _ptr(bitmaps), int(slot_src.shape[0]),
-        _ptr(x), _ptr(y), n_out, int(x.shape[1]), _OP_CODES[op], float(zero),
+        _ptr(row_ptr), _ptr(col), _ptr(x), _ptr(y), n_out, n_feat, _OP_CODES[op], float(zero),
+        vec, log_g, items, n_groups, _ptr(carry_rows), _ptr(carry_vals),
         x.device.index or 0, _stream(x.device),
     )
     if rc != 0:
@@ -266,31 +407,20 @@ def bitmap_spmm(
 
 
 def bitmap_spmm_fused(
-    kind: torch.Tensor,
-    main_src: torch.Tensor,
-    corr_src: torch.Tensor,
-    main_idx: torch.Tensor,
-    corr_idx: torch.Tensor,
-    slot_row: torch.Tensor,
-    row_start: torch.Tensor,
-    row_count: torch.Tensor,
-    bitmaps: torch.Tensor,
-    planes: torch.Tensor,
+    row_ptr: torch.Tensor,
+    col: torch.Tensor,
+    weight: torch.Tensor,
     h: torch.Tensor,
     x: torch.Tensor,
     n_out: int,
-    plane_weights: Sequence[float],
+    range_items: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused last-layer SpMM with the DEDUP-C subtraction in the epilogue:
-    ``y = B h − D x`` as ``(n_out, F)`` float32, plus-times only.  ``h``
-    (the last hidden frontier) and ``x`` (the original input) share the
-    feature width.  A CPU frontier runs :func:`bitmap_spmm_fused_plain`; a
-    CUDA frontier launches the K3 kernel (``csrc/bitmap_spmm_fused.cu``).
-    The kernel weighs plane ``k`` by ``2**k``, the weights
-    :func:`~repro_torch.kernels.correction.pack_correction` gives, and
-    expects each stored bitmap and plane stack to be named by one slot of
-    the stream, as :func:`~repro_torch.kernels.correction.build_fused_stream`
-    lays it out."""
+    ``y = B h − D x`` as ``(n_out, F)`` float32, plus-times only, over the
+    fused stream's row index.  ``h`` (the last hidden frontier) and ``x``
+    (the original input) share the feature width.  A CPU frontier runs
+    :func:`bitmap_spmm_fused_index_plain`; a CUDA frontier launches the K3
+    kernel (``csrc/bitmap_spmm_fused.cu``) and its carry pass."""
     _check_frontier("h", h)
     _check_frontier("x", x)
     if h.shape[1] != x.shape[1] or h.device != x.device:
@@ -298,36 +428,24 @@ def bitmap_spmm_fused(
             f"h and x must share the feature axis and device: "
             f"{tuple(h.shape)} on {h.device} vs {tuple(x.shape)} on {x.device}"
         )
-    tables = (("kind", kind), ("main_src", main_src), ("corr_src", corr_src),
-              ("main_idx", main_idx), ("corr_idx", corr_idx),
-              ("slot_row", slot_row), ("row_start", row_start),
-              ("row_count", row_count))
-    for name, t in tables:
-        _check_table(name, t, x.device)
-    _check_words("bitmaps", bitmaps, x.device, 3)
-    _check_words("planes", planes, x.device, 4)
-    n_planes = int(planes.shape[1])
-    if tuple(float(w) for w in plane_weights) != tuple(float(2**k) for k in range(n_planes)):
-        raise ValueError("plane_weights must be 2**k for each of the planes")
-    n_rt = int(row_start.shape[0])
-    _check_out(n_out, n_rt)
+    for name, t in (("row_ptr", row_ptr), ("col", col), ("weight", weight)):
+        _check_index(name, t, x.device)
+    if weight.shape != col.shape:
+        raise ValueError("col and weight must name the same entries")
+    _check_out(n_out, row_ptr)
     if x.device.type == "cpu":
-        return bitmap_spmm_fused_plain(
-            kind, main_src, corr_src, main_idx, corr_idx, slot_row,
-            row_start, row_count, bitmaps, planes, h, x, n_out, plane_weights,
-        )
+        return bitmap_spmm_fused_index_plain(row_ptr, col, weight, h, x, n_out, range_items)
     from .build import load
 
-    _check_aligned("bitmaps", bitmaps)
-    _check_aligned("planes", planes)
-    n_main, n_corr = int(bitmaps.shape[0]), int(planes.shape[0])
-    y = torch.empty((n_out, x.shape[1]), dtype=torch.float32, device=x.device)
-    tables = torch.empty(2 * (n_main + n_corr), dtype=torch.int32, device=x.device)
+    n_feat = int(x.shape[1])
+    y = torch.empty((n_out, n_feat), dtype=torch.float32, device=x.device)
+    vec, log_g, items, n_groups = _grid((h, x), n_out, int(col.shape[0]), range_items)
+    carry_rows = torch.empty(n_groups, dtype=torch.int32, device=x.device)
+    carry_vals = torch.empty(4 * n_groups * n_feat, dtype=torch.float32, device=x.device)
     rc = load("bitmap_spmm_fused").bitmap_spmm_fused_launch(
-        _ptr(kind), _ptr(main_src), _ptr(corr_src), _ptr(main_idx), _ptr(corr_idx),
-        _ptr(slot_row), int(kind.shape[0]), _ptr(bitmaps), n_main, _ptr(planes),
-        n_corr, n_planes, _ptr(h), _ptr(x), _ptr(y), n_out, int(x.shape[1]),
-        _ptr(tables), x.device.index or 0, _stream(x.device),
+        _ptr(row_ptr), _ptr(col), _ptr(weight), _ptr(h), _ptr(x), _ptr(y), n_out, n_feat,
+        vec, log_g, items, n_groups, _ptr(carry_rows), _ptr(carry_vals),
+        x.device.index or 0, _stream(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"bitmap_spmm_fused launch failed: CUDA error {rc}")

@@ -38,18 +38,20 @@ _F = ctypes.c_float
 
 # library -> (source, {C function: argtypes})
 LIBRARIES = {
+    "bitmap_index": (
+        "bitmap_index.cu",
+        {
+            "bitmap_index_launch": [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I, _P],
+            "bitmap_index_fused_launch": [_I] + [_P] * 9 + [_I] * 2 + [_P] * 3 + [_I, _P],
+        },
+    ),
     "bitmap_spmm": (
         "bitmap_spmm.cu",
-        {"bitmap_spmm_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P]},
+        {"bitmap_spmm_launch": [_P] * 4 + [_I] * 3 + [_F] + [_I] * 4 + [_P] * 2 + [_I, _P]},
     ),
     "bitmap_spmm_fused": (
         "bitmap_spmm_fused.cu",
-        {
-            "bitmap_spmm_fused_launch": [
-                _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I,
-                _P, _P, _P, _I, _I, _P, _I, _P,
-            ]
-        },
+        {"bitmap_spmm_fused_launch": [_P] * 6 + [_I] * 6 + [_P] * 2 + [_I, _P]},
     ),
     "flash_attention": (
         "flash_attention.cu",

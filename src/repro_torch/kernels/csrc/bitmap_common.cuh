@@ -1,35 +1,39 @@
-// Shared pieces of the bit-packed block-sparse SpMM kernels (sm_90a).
+// Shared pieces of the SpMM kernels over the row index (sm_90a).
 //
-// Operand layout (repro_torch/kernels/pack.py, byte-identical to the JAX
-// package's): each slot is a 128x128 0/1 block stored as 128 rows x 4
-// uint32 words; bit j of word w in row r is source column 32*w + j of the
-// slot's source tile.  A 2 KiB bitmap is a "unit": one per slot for K1/K2,
-// one per main slot and one per correction slot and bit-plane for K3.
+// Operands: the destination-row CSR of bitmap_index.cu (row_ptr, col, and
+// for K3 weight), built once per uploaded graph from the packed bitmaps,
+// and float32 frontiers (rows, n_feat) in row-major order.
 //
-// Schedule shared by every kernel here.  A block of 8 warps takes 16
-// consecutive units and one feature block of 32 columns; warp k takes
-// rows 16k .. 16k+15 of each of its units, lane l one feature column.  A
-// lane first loads its 8 bytes of all 16 units (row l/2, columns
-// 64*(l%2) .. +63) with streaming loads, so a warp keeps 4 KiB of bitmap
-// reads in flight and the bitmaps do not push the frontier and the output
-// out of L2.  For each unit a ballot says which lanes hold any set bit;
-// the warp walks those word pairs and queues one entry (destination row,
-// source row) per set bit, lane q holding entry q.  A full queue (32
-// entries), and the last one, is drained eight entries a round: every
-// lane loads its feature of the eight source rows at once (one coalesced
-// row segment each), sums runs of entries that share a destination row
-// (also across drains), and folds each run into y with one atomic per
-// lane.  Queued entries cross unit boundaries, so the loads of a warp's
-// sparse units overlap instead of waiting one by one.  The words are
-// warp-uniform, so no loop diverges.
+// Schedule shared by the kernels here (merge-based CSR SpMM).  The
+// n_out row ends and the row_ptr[n_out] entries form one merged list of
+// n_out + nnz items (a row's end follows its last entry); it is cut into
+// equal ranges of ``range_items`` items, one range per *group* of G lanes
+// (G = 1 .. 32, a power of two; a warp holds 32 / G groups).  A group
+// finds its range's first (row, entry) by binary search over row_ptr and
+// walks its items in order, so no group walks more than range_items items
+// however skewed the rows are.  Each lane of a group holds V consecutive
+// features (V = 4: 16-byte float4 gathers when n_feat % 4 == 0 and the
+// frontiers are 16-byte aligned; V = 1 otherwise), so at F = 32 eight
+// lanes cover a source row and a warp is four groups; F > 32 tiles the
+// feature axis over grid.y in blocks of 32.  A group loads BATCH entries'
+// columns at once (streaming loads, so the index does not evict the
+// frontiers from L2) and issues their BATCH gathers before it folds any of
+// them: 16 source rows in flight a warp at F = 32.  On the H100 BATCH = 4
+// beat 2, 8 and 16, and loading the next batch's columns early lost (more
+// registers, fewer warps; scripts/spmm_times.py).
 //
-// Why not one block per output row tile, as the TPU kernel's grid had it:
-// the graphs this serves are skewed.  On DBLP-shaped data a few
-// high-degree authors own most of the correction's set bits (on the
-// smoke's 50K-author graph one output row tile of 391 holds a quarter of
-// them, and single bit-planes are over half dense), so a block per row
-// tile leaves one SM working long after the rest are idle.  Equal slices of the unit list spread that work over
-// the card; atomics merge the slices' partial rows.
+// Merge without atomics, in a fixed order.  A row that ends inside the
+// range and began inside it is folded in registers and stored once.  The
+// first row of a range may have begun in an earlier range (its partial is
+// the range's *head*), and the last may go on into a later one (its
+// partial is the range's *tail*).  Both go to a carry buffer, two slots
+// per range, and a second short kernel gives each row with a head its
+// value from the tails of the ranges before it that hold the row and the
+// head, in a fixed order (see ``carry``; folding an identity is exact, so
+// padding a batch of tails with it changes no bit).  The order depends only on the
+// index and range_items, so float sums are bit-identical from launch to
+// launch.  Every range writes its head row (-1 where it has none), so no
+// scratch needs clearing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,19 +42,9 @@
 
 namespace bitmap_spmm {
 
-constexpr int TILE = 128;
-constexpr int UNIT_PAIRS = TILE * TILE / 64;       // uint2 per 2 KiB unit: 256
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = TILE / WARPS;        // 16 rows = 32 uint2
-constexpr int FEATURE_BLOCK = 32;                  // one feature per lane
-constexpr int UNITS_PER_BLOCK = 16;
-constexpr int LOADS_PER_ROUND = 8;
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-static_assert(ROWS_PER_WARP * 2 == 32, "a lane holds half a row of a warp's rows");
-static_assert(UNITS_PER_BLOCK <= 32, "one lane holds each unit's tables");
-static_assert(32 % LOADS_PER_ROUND == 0, "rounds tile the queue");
+constexpr int THREADS = 256;
+constexpr int FEATURE_BLOCK = 32;   // features per grid.y block
+constexpr int BATCH = 4;            // entries a group has in flight
 
 enum Op { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
 
@@ -59,157 +53,240 @@ __host__ __device__ __forceinline__ float identity() {
   return OP == OP_SUM ? 0.0f : (OP == OP_MIN ? INFINITY : -INFINITY);
 }
 
+// Sums round once per add (no contraction with a multiply), so the plain
+// mirror in bitmap_spmm.py repeats them bit for bit.
 template <int OP>
 __device__ __forceinline__ float combine(float acc, float v) {
-  if (OP == OP_SUM) return acc + v;
+  if (OP == OP_SUM) return __fadd_rn(acc, v);
   if (OP == OP_MIN) return fminf(acc, v);
   return fmaxf(acc, v);
 }
 
-// *addr (+)= v.  Float min/max through the integer atomics: for v with
-// the sign bit clear the float order is the signed-integer order of the
-// bits; with it set, the reversed unsigned order.
-template <int OP>
-__device__ __forceinline__ void atomic_combine(float* addr, float v) {
-  if (OP == OP_SUM) {
-    atomicAdd(addr, v);
-    return;
-  }
-  const int bits = __float_as_int(v);
-  int* as_int = reinterpret_cast<int*>(addr);
-  unsigned* as_uint = reinterpret_cast<unsigned*>(addr);
-  if (OP == OP_MIN) {
-    if (bits >= 0) atomicMin(as_int, bits);
-    else atomicMax(as_uint, static_cast<unsigned>(bits));
+template <int V>
+struct Vec {
+  float v[V];
+};
+
+template <int V>
+__device__ __forceinline__ Vec<V> splat(float f) {
+  Vec<V> r;
+#pragma unroll
+  for (int i = 0; i < V; ++i) r.v[i] = f;
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ Vec<V> load(const float* __restrict__ p) {
+  Vec<V> r;
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = q.x; r.v[1] = q.y; r.v[2] = q.z; r.v[3] = q.w;
   } else {
-    if (bits >= 0) atomicMax(as_int, bits);
-    else atomicMin(as_uint, static_cast<unsigned>(bits));
+#pragma unroll
+    for (int i = 0; i < V; ++i) r.v[i] = __ldg(p + i);
+  }
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* __restrict__ p, const Vec<V>& a) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = a.v[i];
   }
 }
 
-// A warp's queue of set bits.  Entry q lives in lane q's registers; n is
-// warp-uniform.  ``code`` picks the operand and weight (K3): 0 reads ``a``
-// with weight 1, k + 1 reads ``b`` with weight -2^k (sums only).  The
-// pending run (``prow``, ``pacc``: one destination row and this lane's
-// partial for it) carries across drains, so consecutive bits of one row
-// cost one atomic.
-struct BitQueue {
-  int n = 0;
-  int row = 0;   // destination row of this lane's entry
-  int src = 0;   // source row
-  int code = 0;
-  int prow = -1;
-  float pacc = 0.0f;
+template <int OP, int V>
+__device__ __forceinline__ Vec<V> combine(Vec<V> acc, const Vec<V>& v) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc.v[i] = combine<OP>(acc.v[i], v.v[i]);
+  return acc;
+}
+
+// Rows whose ends lie before merged item d: the count of r < n_rows with
+// row_ptr[r + 1] + r < d (row r's end is merged item row_ptr[r + 1] + r).
+__device__ __forceinline__ int path_row(const int32_t* __restrict__ row_ptr, int n_rows,
+                                        int64_t d) {
+  int lo = 0;
+  int hi = d < n_rows ? static_cast<int>(d) : n_rows;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(row_ptr + mid + 1) + static_cast<int64_t>(mid) < d) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// A lane's place in the grid: its group (one range), its first feature,
+// and whether it writes the group's carry rows.
+struct Lane {
+  int64_t group;
+  int feature;
+  bool active;   // the feature exists
+  bool writer;   // first lane of its group in feature block 0
 };
 
-// Where every lane sends its feature: operands, output and row width.
-struct Target {
-  const float* __restrict__ a;
-  const float* __restrict__ b;
-  float* __restrict__ y;
-  int ld;        // features per row of a, b and y
-  int feature;   // this lane's column
-  bool active;   // the column exists
-};
-
-template <int OP>
-__device__ __forceinline__ void flush_run(BitQueue& q, const Target& t) {
-  if (q.prow >= 0 && t.active) {
-    atomic_combine<OP>(t.y + static_cast<int64_t>(q.prow) * t.ld + t.feature, q.pacc);
-  }
-  q.prow = -1;
+template <int V>
+__device__ __forceinline__ Lane lane_of(int log_g, int n_feat) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  const int g_lane = static_cast<int>(t & ((1 << log_g) - 1));
+  Lane l;
+  l.group = t >> log_g;
+  l.feature = blockIdx.y * FEATURE_BLOCK + g_lane * V;
+  l.active = l.feature < n_feat;
+  l.writer = blockIdx.y == 0 && g_lane == 0;
+  return l;
 }
 
-// Load the queued entries' source features, LOADS_PER_ROUND at once, and
-// fold them into the pending run, emitting it whenever the row changes.
-template <int OP>
-__device__ __forceinline__ void drain(BitQueue& q, const Target& t) {
-  for (int k0 = 0; k0 < q.n; k0 += LOADS_PER_ROUND) {
-    float v[LOADS_PER_ROUND];
-    int row[LOADS_PER_ROUND];
+// Carry slots: range g's head (slot 0) and tail (slot 1), each ACC
+// accumulators of n_feat floats; carry_rows[g] names the head's row (-1:
+// none).  A tail's row needs no name: the carry pass finds the tails of row
+// r from row_ptr.
+template <int ACC, typename T>
+__device__ __forceinline__ T* carry_slot(T* vals, int64_t g, int slot, int acc, int n_feat) {
+  return vals + ((g * 2 + slot) * ACC + acc) * n_feat;
+}
+
+inline unsigned blocks_for(int64_t n_groups, int log_g) {
+  return static_cast<unsigned>(((n_groups << log_g) + THREADS - 1) / THREADS);
+}
+
+// The walk of one range.  ``P`` is the kernel's policy: its accumulator
+// ``State`` (init / fold / merge), ``index(e, ok)`` (the streaming loads of
+// entry e's index words), ``gather`` (the source row's features),
+// ``finish(r, state)`` (store row r of y) and ``save`` / ``restore`` (a
+// carry slot).  A group's lanes share every branch.
+template <class P>
+__device__ __forceinline__ void walk(const P& p, const int32_t* __restrict__ row_ptr,
+                                     int n_out, int range_items, const Lane& l,
+                                     int32_t* __restrict__ carry_rows,
+                                     float* __restrict__ carry_vals) {
+  const int nnz = __ldg(row_ptr + n_out);
+  const int64_t total = n_out + static_cast<int64_t>(nnz);
+  int64_t d = l.group * range_items;
+  const int64_t d_end = d + range_items < total ? d + range_items : total;
+  int head = -1;
+  if (d < total) {
+    int r = path_row(row_ptr, n_out, d);
+    int e = static_cast<int>(d - r);
+    const int r0 = r;
+    const bool begun = e > __ldg(row_ptr + r);   // row r0 began in an earlier range
+    int row_end = __ldg(row_ptr + r + 1);
+    int row_first = e;
+    typename P::State acc = P::init();
+    while (d < d_end) {
+      const int64_t left = d_end - d;
+      typename P::Index idx[BATCH];
 #pragma unroll
-    for (int j = 0; j < LOADS_PER_ROUND; ++j) {
-      const int k = k0 + j;
-      row[j] = __shfl_sync(FULL_MASK, q.row, k);
-      const int src = __shfl_sync(FULL_MASK, q.src, k);
-      const int code = __shfl_sync(FULL_MASK, q.code, k);
-      v[j] = identity<OP>();
-      if (k < q.n && t.active) {
-        v[j] = __ldg((code == 0 ? t.a : t.b) + static_cast<int64_t>(src) * t.ld + t.feature);
-        if (OP == OP_SUM && code != 0) v[j] *= -static_cast<float>(1u << (code - 1));
+      for (int k = 0; k < BATCH; ++k) idx[k] = p.index(e + k, k < left && e + k < nnz);
+      typename P::Item v[BATCH];
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) v[k] = p.gather(idx[k], l);
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        while (e >= row_end && d < d_end) {   // the next item is row r's end
+          if (r == r0 && begun) {
+            p.save(carry_vals, l.group, 0, acc, l);
+            head = r;
+          } else {
+            p.finish(r, acc, l);
+          }
+          ++r;
+          ++d;
+          row_first = e;
+          acc = P::init();
+          if (r < n_out) row_end = __ldg(row_ptr + r + 1);
+        }
+        if (d >= d_end) break;
+        P::fold(acc, v[k]);   // entry e = the batch's first + k
+        ++e;
+        ++d;
       }
+    }
+    if (e > row_first) p.save(carry_vals, l.group, 1, acc, l);   // row r goes on
+  }
+  if (l.writer) carry_rows[l.group] = head;
+}
+
+// The carry pass, one kernel; each range with a head finishes its row r
+// from the tails of the ranges before it that hold the row, then the head.
+// Those T tails are the ranges from the one holding r's first entry
+// (merged item row_ptr[r] + r) up to the head's, so no search is needed.
+// They are cut into CHUNKS chunks of ceil(T / CHUNKS) consecutive tails,
+// each folded in order from the identity, and the row is the identity,
+// then the chunks in order, then the head: for T <= CHUNKS a chunk is one
+// tail, so that is the plain range order.  A light head (T <= CHUNKS)
+// folds its chunks alone; a heavy one (a row over more than CHUNKS ranges:
+// the high-degree rows of a skewed graph) is folded by every group of its
+// block, a chunk or more each, through shared memory, so no group walks
+// more than about T / CHUNKS + CHUNKS slots.  Heavy heads lie more than
+// CHUNKS ranges apart, so a block meets at most MAX_HEAVY of them.
+constexpr int CHUNKS = 32;
+constexpr int MAX_HEAVY = THREADS / (CHUNKS + 1) + 1;
+
+// Fold the tail slots [u0, u1) into acc, BATCH loads in flight.
+template <class P>
+__device__ __forceinline__ void fold_tails(const P& p, typename P::State& acc,
+                                           const float* __restrict__ carry_vals, int64_t u0,
+                                           int64_t u1, const Lane& l) {
+  for (int64_t u = u0; u < u1; u += BATCH) {
+    typename P::State tails[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      tails[k] = u + k < u1 ? p.restore(carry_vals, u + k, 1, l) : P::init();
     }
 #pragma unroll
-    for (int j = 0; j < LOADS_PER_ROUND; ++j) {
-      if (k0 + j >= q.n) break;
-      if (row[j] == q.prow) {
-        q.pacc = combine<OP>(q.pacc, v[j]);
-      } else {
-        flush_run<OP>(q, t);
-        q.prow = row[j];
-        q.pacc = v[j];
-      }
+    for (int k = 0; k < BATCH; ++k) acc = P::merge(acc, tails[k]);   // identity: no-op
+  }
+}
+
+template <class P, int V>
+__device__ __forceinline__ void carry(const P& p, const int32_t* __restrict__ row_ptr,
+                                      int range_items, const int32_t* __restrict__ carry_rows,
+                                      const float* __restrict__ carry_vals, int64_t n_groups,
+                                      int log_g) {
+  __shared__ typename P::State part[CHUNKS][FEATURE_BLOCK / V];
+  __shared__ int heavy[MAX_HEAVY];
+  __shared__ int n_heavy;
+  const Lane l = lane_of<V>(log_g, p.n_feat);
+  const int g_lane = threadIdx.x & ((1 << log_g) - 1);
+  const int local = threadIdx.x >> log_g;   // group within the block
+  const int n_local = THREADS >> log_g;
+  const int64_t block_group = l.group - local;
+  if (threadIdx.x == 0) n_heavy = 0;
+  __syncthreads();
+  const int r = l.group < n_groups ? carry_rows[l.group] : -1;
+  const int64_t first =
+      r >= 0 ? (__ldg(row_ptr + r) + static_cast<int64_t>(r)) / range_items : l.group;
+  if (r >= 0 && l.group - first <= CHUNKS) {
+    typename P::State acc = P::init();
+    fold_tails(p, acc, carry_vals, first, l.group, l);
+    p.finish(r, P::merge(acc, p.restore(carry_vals, l.group, 0, l)), l);
+  } else if (r >= 0 && g_lane == 0) {
+    heavy[atomicAdd(&n_heavy, 1)] = local;   // the order found does not matter
+  }
+  __syncthreads();
+  for (int k = 0; k < n_heavy; ++k) {
+    const int64_t g = block_group + heavy[k];
+    const int hr = carry_rows[g];
+    const int64_t h_first = (__ldg(row_ptr + hr) + static_cast<int64_t>(hr)) / range_items;
+    const int64_t size = (g - h_first + CHUNKS - 1) / CHUNKS;
+    for (int j = local; j < CHUNKS; j += n_local) {
+      const int64_t u0 = h_first + j * size;
+      typename P::State acc = P::init();
+      fold_tails(p, acc, carry_vals, u0, u0 + size < g ? u0 + size : g, l);
+      part[j][g_lane] = acc;
     }
-  }
-  q.n = 0;
-}
-
-// Drain the queue and emit the pending run: the warp's last word.
-template <int OP>
-__device__ __forceinline__ void finish(BitQueue& q, const Target& t) {
-  drain<OP>(q, t);
-  flush_run<OP>(q, t);
-}
-
-// Queue the set bits of one unit's rows 16*warp .. +15 (destination row
-// tile ``dst_tile``, source tile ``src_tile``, operand ``code``), draining
-// whenever the queue fills.  ``pair`` is this lane's 8 bytes of the unit.
-template <int OP>
-__device__ __forceinline__ void queue_unit(BitQueue& q, const Target& t, uint2 pair,
-                                           int dst_tile, int src_tile, int code,
-                                           int n_out, int warp, int lane) {
-  unsigned nz = __ballot_sync(FULL_MASK, (pair.x | pair.y) != 0u);
-  while (nz) {
-    const int l = __ffs(nz) - 1;
-    nz &= nz - 1;
-    const uint32_t w0 = __shfl_sync(FULL_MASK, pair.x, l);
-    const uint32_t w1 = __shfl_sync(FULL_MASK, pair.y, l);
-    uint64_t bits = (static_cast<uint64_t>(w1) << 32) | w0;
-    const int row = dst_tile * TILE + warp * ROWS_PER_WARP + (l >> 1);
-    if (row >= n_out) continue;
-    const int col0 = src_tile * TILE + 64 * (l & 1);
-    while (bits) {
-      const int b = __ffsll(static_cast<long long>(bits)) - 1;
-      bits &= bits - 1;
-      if (lane == q.n) {
-        q.row = row;
-        q.src = col0 + b;
-        q.code = code;
-      }
-      if (++q.n == 32) drain<OP>(q, t);
+    __syncthreads();
+    if (local == heavy[k]) {
+      typename P::State acc = P::init();
+      for (int j = 0; j < CHUNKS; ++j) acc = P::merge(acc, part[j][g_lane]);
+      p.finish(hr, P::merge(acc, p.restore(carry_vals, g, 0, l)), l);
     }
+    __syncthreads();
   }
-}
-
-// y[i] = v for i < n (grid-stride).
-__global__ void fill_kernel(float* __restrict__ y, int64_t n, float v) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    y[i] = v;
-  }
-}
-
-// y[i] = to where y[i] == from (grid-stride): the semiring-zero epilogue.
-__global__ void replace_kernel(float* __restrict__ y, int64_t n, float from, float to) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    if (y[i] == from) y[i] = to;
-  }
-}
-
-inline dim3 elementwise_grid(int64_t n) {
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  return dim3(static_cast<unsigned>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096));
 }
 
 }  // namespace bitmap_spmm

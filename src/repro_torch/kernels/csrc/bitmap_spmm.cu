@@ -1,122 +1,148 @@
-// K1 / K2: bit-packed block-sparse SpMM, y = B (+) x, for sm_90a.
+// K1 / K2: y = B (+) x over the row index of a packed incidence, sm_90a.
 //
 // Replaces: src/repro/kernels/bitmap_spmm.py::_kernel (the Pallas TPU
 // kernel launched by _bitmap_spmm_pallas), op='sum' (K1) and
 // op='min' | 'max' (K2), with row_window = 128.
 //
-// Computes, for every destination row r,
-//   y[r, f] = (+)_{slots s of r's row tile} (+)_{set bits (r, c) of s} x[128*slot_src[s] + c, f]
-// where (+) is a float32 sum (K1) or a min / max select (K2).  Rows with no
-// source take the semiring zero: +inf -> zero for min, -inf -> zero for
-// max (every -inf, a genuine one included, as the JAX segment path does).
-// No multiply ever meets a frontier value, so inf frontiers are safe, and
-// the sum runs on CUDA cores in float32: integer-valued frontiers stay
-// exact (no tensor cores, no TF32).  Float sums are merged with atomics,
-// in an order that changes from run to run.
+// Computes, for every destination row r < n_out,
+//   y[r, f] = (+)_{e in [row_ptr[r], row_ptr[r+1])} x[col[e], f]
+// where (+) is a float32 sum (K1) or a min / max select (K2), and a value
+// equal to the op's identity becomes ``zero`` (every empty row, and for max
+// every -inf, as the JAX segment path does).  No multiply meets a frontier
+// value, so inf frontiers are safe; the sum runs on CUDA cores in float32
+// (no tensor cores, no TF32), so integer-valued frontiers stay exact.
 //
-// What bounds it on the H100: device memory.  Every 2 KiB bitmap is read
-// once and the condensed layers this serves hold a few set bits per
-// 128x128 block (3.3 on the DBLP smoke graph's first layer), so the
-// operation count is far below the bytes' share of the roofline.  The TPU
-// kernel staged a dense (128, Fb) source tile per slot and fed the MXU;
-// here that would read 128 source rows to use a few, so the design reads
-// only the source rows that set bits select, mostly from L2.  What it does
-// about the bitmap bytes (bitmap_common.cuh): each warp issues its 16
-// units' words at once, a ballot skips empty word pairs, and the slot list
-// is cut into equal slices of 16 slots, one per block, so a high-degree
-// row tile is spread over many SMs.  Shared memory: none, so any layer
-// that packs is served.
+// Why the bitmaps are no longer read: the TPU kernel streamed every 128x128
+// bitmap to feed its matrix unit; the condensed layers this serves hold a
+// few set bits per 2 KiB bitmap (3.3 on the DBLP smoke graph's first
+// layer, ~630 bytes per edge), so reading them bounds any schedule above
+// one library call on a CSR.  The kernel reads the row index that
+// bitmap_index.cu builds from the same operands at upload.
 //
-// Launches: fill y with the op's identity, the SpMM, and (min / max) the
-// zero substitution, all on the caller's stream.
+// What bounds it on the H100: the gathers.  The bytes these inputs need
+// are the index (row_ptr, col), each source row of x once and each output
+// row once; the gathers themselves re-read source rows, 128 bytes each at
+// F = 32, from L2 (x fits the 50 MB L2).  The design (bitmap_common.cuh):
+// equal merge-path ranges so skewed rows spread over the card, BATCH
+// gathers in flight per group, 16-byte gathers, streaming loads of the
+// index, and a fixed-order carry pass in place of atomics, so the sums are
+// bit-identical from launch to launch.
 //
-// Feature block.  The JAX engine pads the batch axis to 128; the server's
-// batches are 8, 16 or 32 wide, so the port uses 32 features per block
-// (one per lane) and masks lanes past F instead of padding.
+// Launches: the range kernel and the carry pass, on the caller's stream.
 
 #include "bitmap_common.cuh"
 
 namespace bitmap_spmm {
 
-template <int OP>
-__global__ void __launch_bounds__(THREADS) bitmap_spmm_kernel(
-    const int32_t* __restrict__ slot_src, const int32_t* __restrict__ slot_row,
-    const uint2* __restrict__ bitmaps, int n_slots, const float* __restrict__ x,
-    float* __restrict__ y, int n_out, int n_feat) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int feature = blockIdx.y * FEATURE_BLOCK + lane;
-  const bool active = feature < n_feat;
-  const int first = blockIdx.x * UNITS_PER_BLOCK;
-  const int count = min(UNITS_PER_BLOCK, n_slots - first);
+template <int OP, int V>
+struct Reduce {
+  const int32_t* __restrict__ col;
+  const float* __restrict__ x;
+  float* __restrict__ y;
+  int n_feat;
+  float zero;
 
-  // lane j < count holds slot first + j's tables
-  int my_dst = 0, my_src = 0;
-  if (lane < count) {
-    my_dst = __ldg(slot_row + first + lane);
-    my_src = __ldg(slot_src + first + lane);
+  using State = Vec<V>;
+  using Index = int;   // source row, -1 past the range
+  using Item = Vec<V>;
+
+  __device__ static State init() { return splat<V>(identity<OP>()); }
+  __device__ Index index(int e, bool ok) const { return ok ? __ldcs(col + e) : -1; }
+  __device__ Item gather(Index c, const Lane& l) const {
+    return c >= 0 && l.active ? load<V>(x + static_cast<int64_t>(c) * n_feat + l.feature)
+                              : init();
   }
-  uint2 pairs[UNITS_PER_BLOCK];
+  __device__ static void fold(State& s, const Item& v) { s = combine<OP, V>(s, v); }
+  __device__ static State merge(State a, const State& b) { return combine<OP, V>(a, b); }
+  __device__ void finish(int r, State s, const Lane& l) const {
+    if (!l.active) return;
+    if (OP != OP_SUM) {
 #pragma unroll
-  for (int j = 0; j < UNITS_PER_BLOCK; ++j) {
-    pairs[j] = j < count
-        ? __ldcs(bitmaps + static_cast<int64_t>(first + j) * UNIT_PAIRS + warp * 32 + lane)
-        : make_uint2(0u, 0u);
+      for (int i = 0; i < V; ++i) s.v[i] = s.v[i] == identity<OP>() ? zero : s.v[i];
+    }
+    store<V>(y + static_cast<int64_t>(r) * n_feat + l.feature, s);
   }
-  const Target t{x, x, y, n_feat, feature, active};
-  BitQueue q;
-#pragma unroll
-  for (int j = 0; j < UNITS_PER_BLOCK; ++j) {
-    const int dst = __shfl_sync(FULL_MASK, my_dst, j);
-    const int src = __shfl_sync(FULL_MASK, my_src, j);
-    queue_unit<OP>(q, t, pairs[j], dst, src, 0, n_out, warp, lane);
+  __device__ void save(float* vals, int64_t g, int slot, const State& s, const Lane& l) const {
+    if (l.active) store<V>(carry_slot<1>(vals, g, slot, 0, n_feat) + l.feature, s);
   }
-  finish<OP>(q, t);
+  __device__ State restore(const float* vals, int64_t g, int slot, const Lane& l) const {
+    return l.active ? load<V>(carry_slot<1>(vals, g, slot, 0, n_feat) + l.feature) : init();
+  }
+};
+
+template <int OP, int V>
+__global__ void __launch_bounds__(THREADS) spmm_kernel(
+    Reduce<OP, V> p, const int32_t* __restrict__ row_ptr, int n_out, int range_items,
+    int n_groups, int log_g, int32_t* __restrict__ carry_rows, float* __restrict__ carry_vals) {
+  const Lane l = lane_of<V>(log_g, p.n_feat);
+  if (l.group >= n_groups) return;
+  walk(p, row_ptr, n_out, range_items, l, carry_rows, carry_vals);
+}
+
+template <int OP, int V>
+__global__ void __launch_bounds__(THREADS) carry_kernel(
+    Reduce<OP, V> p, const int32_t* __restrict__ row_ptr, int range_items,
+    const int32_t* __restrict__ carry_rows, const float* __restrict__ carry_vals, int n_groups,
+    int log_g) {
+  carry<decltype(p), V>(p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
+}
+
+template <int OP, int V>
+int launch(const int32_t* row_ptr, const int32_t* col, const float* x, float* y, int n_out,
+           int n_feat, float zero, int log_g, int range_items, int n_groups,
+           int32_t* carry_rows, float* carry_vals, cudaStream_t st) {
+  const Reduce<OP, V> p{col, x, y, n_feat, zero};
+  const dim3 grid(blocks_for(n_groups, log_g), (n_feat + FEATURE_BLOCK - 1) / FEATURE_BLOCK);
+  spmm_kernel<OP, V><<<grid, THREADS, 0, st>>>(p, row_ptr, n_out, range_items, n_groups, log_g,
+                                              carry_rows, carry_vals);
+  carry_kernel<OP, V><<<grid, THREADS, 0, st>>>(p, row_ptr, range_items, carry_rows, carry_vals,
+                                               n_groups, log_g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int OP>
-int launch(const int32_t* slot_src, const int32_t* slot_row, const uint32_t* bitmaps,
-           int n_slots, const float* x, float* y, int n_out, int n_feat, float zero,
-           cudaStream_t st) {
-  const int64_t n_y = static_cast<int64_t>(n_out) * n_feat;
-  fill_kernel<<<elementwise_grid(n_y), THREADS, 0, st>>>(y, n_y, identity<OP>());
-  if (n_slots > 0) {
-    const dim3 grid((n_slots + UNITS_PER_BLOCK - 1) / UNITS_PER_BLOCK,
-                    (n_feat + FEATURE_BLOCK - 1) / FEATURE_BLOCK);
-    bitmap_spmm_kernel<OP><<<grid, THREADS, 0, st>>>(
-        slot_src, slot_row, reinterpret_cast<const uint2*>(bitmaps), n_slots, x, y,
-        n_out, n_feat);
+int launch_vec(int vec, const int32_t* row_ptr, const int32_t* col, const float* x, float* y,
+               int n_out, int n_feat, float zero, int log_g, int range_items, int n_groups,
+               int32_t* carry_rows, float* carry_vals, cudaStream_t st) {
+  if (vec == 4) {
+    return launch<OP, 4>(row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items, n_groups,
+                         carry_rows, carry_vals, st);
   }
-  if (OP != OP_SUM) {
-    replace_kernel<<<elementwise_grid(n_y), THREADS, 0, st>>>(y, n_y, identity<OP>(),
-                                                              zero);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<OP, 1>(row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items, n_groups,
+                       carry_rows, carry_vals, st);
 }
 
 }  // namespace bitmap_spmm
 
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
-// y must hold n_out rows of n_feat floats; every set bit's row lies in a
-// row tile below n_rt; bitmaps must be 8-byte aligned.  row_start and
-// row_count describe the same slots by row tile and are not read: the
-// kernel walks the slot list in equal slices.
-extern "C" int bitmap_spmm_launch(const int32_t* slot_src, const int32_t* slot_row,
-                                  const uint32_t* bitmaps, int n_slots,
-                                  const float* x, float* y, int n_out, int n_feat,
-                                  int op, float zero, int device, void* stream) {
+// y holds n_out rows of n_feat floats; row_ptr holds at least n_out + 1
+// offsets.  vec = 4 needs n_feat % 4 == 0 and x 16-byte aligned; a group
+// is 2^log_g lanes (vec x 2^log_g <= 32); n_groups ranges of range_items
+// items cover n_out + row_ptr[n_out]; the carry scratch holds n_groups
+// rows and 2 n_groups n_feat floats.
+extern "C" int bitmap_spmm_launch(const int32_t* row_ptr, const int32_t* col, const float* x,
+                                  float* y, int n_out, int n_feat, int op, float zero, int vec,
+                                  int log_g, int range_items, int n_groups,
+                                  int32_t* carry_rows, float* carry_vals, int device,
+                                  void* stream) {
   using namespace bitmap_spmm;
-  if (n_out <= 0 || n_feat <= 0) return 0;
+  if (n_out <= 0 || n_feat <= 0 || n_groups <= 0) return 0;
+  if ((vec != 1 && vec != 4) || (vec << log_g) > FEATURE_BLOCK || range_items <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (op) {
     case OP_SUM:
-      return launch<OP_SUM>(slot_src, slot_row, bitmaps, n_slots, x, y, n_out, n_feat, zero, st);
+      return launch_vec<OP_SUM>(vec, row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items,
+                                n_groups, carry_rows, carry_vals, st);
     case OP_MIN:
-      return launch<OP_MIN>(slot_src, slot_row, bitmaps, n_slots, x, y, n_out, n_feat, zero, st);
+      return launch_vec<OP_MIN>(vec, row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items,
+                                n_groups, carry_rows, carry_vals, st);
     case OP_MAX:
-      return launch<OP_MAX>(slot_src, slot_row, bitmaps, n_slots, x, y, n_out, n_feat, zero, st);
+      return launch_vec<OP_MAX>(vec, row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items,
+                                n_groups, carry_rows, carry_vals, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,156 +3,156 @@
 // Replaces: src/repro/kernels/bitmap_spmm.py::_fused_kernel (the Pallas TPU
 // kernel launched by _bitmap_spmm_fused).
 //
-// Computes y = B h - sum_k 2^k (D_k x) over the operands of
-// repro_torch/kernels/correction.py::build_fused_stream: the stream's main
-// slots (kind 0: bitmap main_idx[s], source tile main_src[s] of h) and its
-// correction slots (kind 1: P bit-planes corr_idx[s], source tile
-// corr_src[s] of x), each with destination row tile slot_row[s].  Main
-// bitmaps add their rows' sums of h; correction planes subtract 2^k times
-// their rows' sums of x.  Plus-times only.  The powers of two scale
-// exactly, so integer-valued frontiers give the same bits as
-// SpMM-then-subtract; float sums are merged with atomics, in an order that
-// changes from run to run.
+// Computes y = B h - D x over the row index of the fused stream
+// (bitmap_index.cu): for every row r < n_out, its main entries (weight 0,
+// bits of the last layer's bitmaps, over h) and its correction entries
+// (weight = the duplicate count sum_k 2^k bit_k folded from the P
+// bit-planes, over x),
+//   acc  = sum_{main e}  h[col[e]]
+//   cacc = sum_{corr e}  weight[e] * x[col[e]]
+//   y[r] = acc - cacc,
+// two accumulators and one subtraction, as the TPU kernel's epilogue does.
+// Plus-times only, float32 on CUDA cores (no tensor cores, no TF32):
+// integer-valued frontiers give the same bits as SpMM-then-subtract.
 //
-// What bounds it on the H100: device memory, as for K1 (bitmap_spmm.cu):
-// every main bitmap (2 KiB) and every correction plane (2 KiB each, P
-// planes per slot; P = bit width of the largest duplicate count) is read
-// once, and the planes are most of the bytes.  The design is K1's
-// (bitmap_common.cuh) over one list of units: the main bitmaps, then the
-// planes in their stored order (corr_idx * P + k), cut into equal slices of
-// 16 units per block.  The TPU kernel walked the stream row tile by row
-// tile with two accumulators and wrote acc - cacc once; on this card that
-// order puts the heaviest correction rows (high-degree authors: a quarter
-// of all plane bits in one row tile of the smoke's graph) on one SM, so
-// the port walks the bitmaps in storage order and merges with atomics
-// instead.  A first small kernel inverts the stream's main_idx / corr_idx
-// into per-bitmap destination and source tiles; row_start and row_count
-// are not read.  Shared memory: none, so admission depends on neither the slot
-// count nor P.
+// Why the bitmaps and planes are no longer read: the TPU kernel streamed
+// each main bitmap and each correction slot's P planes (14 at the smoke's
+// size, 2 KiB each) to find a few set bits, and split one count over up to
+// P gathers.  The index holds one entry per correction count (2,955,152 in
+// place of 3,422,444 plane bits on the smoke graph) and no empty words.
 //
-// Launches: the table inversion (fill + scatter), zero y, the SpMM, all on
-// the caller's stream.
+// What bounds it on the H100: the gathers.  The bytes these inputs need are
+// the index (row_ptr, col, weight), each source row of h and x once and
+// each output row once; the gathers re-read 128-byte source rows (F = 32)
+// from L2, where h and x fit.  The correction is skewed (one row tile of
+// 391 holds a quarter of its bits on the smoke graph), so a row per warp
+// would leave one SM working long after the rest: the merge-path ranges of
+// bitmap_common.cuh give every group the same number of items, and the
+// carry pass merges split rows in a fixed order, so float sums are
+// bit-identical from launch to launch.
+//
+// Launches: the range kernel and the carry pass, on the caller's stream.
 
 #include "bitmap_common.cuh"
 
 namespace bitmap_spmm {
 
-__global__ void fill_int_kernel(int32_t* __restrict__ t, int64_t n, int32_t v) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    t[i] = v;
+template <int V>
+struct Fused {
+  const int32_t* __restrict__ col;
+  const int32_t* __restrict__ weight;
+  const float* __restrict__ h;
+  const float* __restrict__ x;
+  float* __restrict__ y;
+  int n_feat;
+
+  struct State {
+    Vec<V> acc;    // main entries, over h
+    Vec<V> cacc;   // correction entries, weight x x
+  };
+  struct Index {
+    int col;   // -1 past the range
+    int w;
+  };
+  struct Item {
+    Vec<V> v;   // h row, or weight x the x row (rounded once)
+    bool main;
+  };
+
+  __device__ static State init() { return {splat<V>(0.0f), splat<V>(0.0f)}; }
+  __device__ Index index(int e, bool ok) const {
+    return ok ? Index{__ldcs(col + e), __ldcs(weight + e)} : Index{-1, 0};
   }
-}
-
-// Per stored bitmap, its destination and source tiles: tables[0 .. n_main)
-// and [n_main .. 2 n_main) for the main bitmaps, then the same for the
-// correction stack.  Bitmaps the stream never names keep -1 and are
-// skipped.
-__global__ void invert_stream_kernel(
-    const int32_t* __restrict__ kind, const int32_t* __restrict__ main_src,
-    const int32_t* __restrict__ corr_src, const int32_t* __restrict__ main_idx,
-    const int32_t* __restrict__ corr_idx, const int32_t* __restrict__ slot_row,
-    int n_slots, int n_main, int n_corr, int32_t* __restrict__ tables) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_slots) return;
-  if (__ldg(kind + s) == 0) {
-    const int m = __ldg(main_idx + s);
-    if (m < 0 || m >= n_main) return;
-    tables[m] = __ldg(slot_row + s);
-    tables[n_main + m] = __ldg(main_src + s);
-  } else {
-    const int c = __ldg(corr_idx + s);
-    if (c < 0 || c >= n_corr) return;
-    int32_t* corr = tables + 2 * static_cast<int64_t>(n_main);
-    corr[c] = __ldg(slot_row + s);
-    corr[n_corr + c] = __ldg(corr_src + s);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) bitmap_spmm_fused_kernel(
-    const int32_t* __restrict__ tables, const uint2* __restrict__ bitmaps,
-    const uint2* __restrict__ planes, int n_main, int n_corr, int n_planes,
-    const float* __restrict__ h, const float* __restrict__ x, float* __restrict__ y,
-    int n_out, int n_feat) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int feature = blockIdx.y * FEATURE_BLOCK + lane;
-  const bool active = feature < n_feat;
-  const int64_t n_units = n_main + static_cast<int64_t>(n_corr) * n_planes;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * UNITS_PER_BLOCK;
-  const int count = n_units - first < UNITS_PER_BLOCK ? static_cast<int>(n_units - first)
-                                                     : UNITS_PER_BLOCK;
-
-  // lane j < count holds unit first + j's tables; code 0 = main, k + 1 = plane k
-  int my_dst = -1, my_src = 0, my_code = 0;
-  if (lane < count) {
-    const int64_t u = first + lane;
-    if (u < n_main) {
-      my_dst = __ldg(tables + u);
-      my_src = __ldg(tables + n_main + u);
-    } else {
-      const int64_t v = u - n_main;
-      const int64_t c = v / n_planes;
-      const int32_t* corr = tables + 2 * static_cast<int64_t>(n_main);
-      my_dst = __ldg(corr + c);
-      my_src = __ldg(corr + n_corr + c);
-      my_code = 1 + static_cast<int>(v % n_planes);
+  __device__ Item gather(Index i, const Lane& l) const {
+    Item it{splat<V>(0.0f), i.w == 0};
+    if (i.col < 0 || !l.active) return it;
+    it.v = load<V>((it.main ? h : x) + static_cast<int64_t>(i.col) * n_feat + l.feature);
+    if (!it.main) {
+      const float w = static_cast<float>(i.w);
+#pragma unroll
+      for (int k = 0; k < V; ++k) it.v.v[k] = __fmul_rn(w, it.v.v[k]);
     }
+    return it;
   }
-  uint2 pairs[UNITS_PER_BLOCK];
+  __device__ static void fold(State& s, const Item& it) {
+    if (it.main) s.acc = combine<OP_SUM, V>(s.acc, it.v);
+    else s.cacc = combine<OP_SUM, V>(s.cacc, it.v);
+  }
+  __device__ static State merge(State a, const State& b) {
+    return {combine<OP_SUM, V>(a.acc, b.acc), combine<OP_SUM, V>(a.cacc, b.cacc)};
+  }
+  __device__ void finish(int r, const State& s, const Lane& l) const {
+    if (!l.active) return;
+    Vec<V> out;
 #pragma unroll
-  for (int j = 0; j < UNITS_PER_BLOCK; ++j) {
-    const int64_t u = first + j;
-    const uint2* unit = u < n_main ? bitmaps + u * UNIT_PAIRS
-                                   : planes + (u - n_main) * UNIT_PAIRS;
-    pairs[j] = j < count ? __ldcs(unit + warp * 32 + lane) : make_uint2(0u, 0u);
+    for (int k = 0; k < V; ++k) out.v[k] = __fsub_rn(s.acc.v[k], s.cacc.v[k]);
+    store<V>(y + static_cast<int64_t>(r) * n_feat + l.feature, out);
   }
-  const Target t{h, x, y, n_feat, feature, active};
-  BitQueue q;
-#pragma unroll
-  for (int j = 0; j < UNITS_PER_BLOCK; ++j) {
-    const int dst = __shfl_sync(FULL_MASK, my_dst, j);
-    const int src = __shfl_sync(FULL_MASK, my_src, j);
-    const int code = __shfl_sync(FULL_MASK, my_code, j);
-    if (dst < 0) continue;
-    queue_unit<OP_SUM>(q, t, pairs[j], dst, src, code, n_out, warp, lane);
+  __device__ void save(float* vals, int64_t g, int slot, const State& s, const Lane& l) const {
+    if (!l.active) return;
+    store<V>(carry_slot<2>(vals, g, slot, 0, n_feat) + l.feature, s.acc);
+    store<V>(carry_slot<2>(vals, g, slot, 1, n_feat) + l.feature, s.cacc);
   }
-  finish<OP_SUM>(q, t);
+  __device__ State restore(const float* vals, int64_t g, int slot, const Lane& l) const {
+    if (!l.active) return init();
+    return {load<V>(carry_slot<2>(vals, g, slot, 0, n_feat) + l.feature),
+            load<V>(carry_slot<2>(vals, g, slot, 1, n_feat) + l.feature)};
+  }
+};
+
+template <int V>
+__global__ void __launch_bounds__(THREADS) fused_kernel(
+    Fused<V> p, const int32_t* __restrict__ row_ptr, int n_out, int range_items, int n_groups,
+    int log_g, int32_t* __restrict__ carry_rows, float* __restrict__ carry_vals) {
+  const Lane l = lane_of<V>(log_g, p.n_feat);
+  if (l.group >= n_groups) return;
+  walk(p, row_ptr, n_out, range_items, l, carry_rows, carry_vals);
+}
+
+template <int V>
+__global__ void __launch_bounds__(THREADS) fused_carry_kernel(
+    Fused<V> p, const int32_t* __restrict__ row_ptr, int range_items,
+    const int32_t* __restrict__ carry_rows, const float* __restrict__ carry_vals, int n_groups,
+    int log_g) {
+  carry<decltype(p), V>(p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
+}
+
+template <int V>
+int launch(const int32_t* row_ptr, const int32_t* col, const int32_t* weight, const float* h,
+           const float* x, float* y, int n_out, int n_feat, int log_g, int range_items,
+           int n_groups, int32_t* carry_rows, float* carry_vals, cudaStream_t st) {
+  const Fused<V> p{col, weight, h, x, y, n_feat};
+  const dim3 grid(blocks_for(n_groups, log_g), (n_feat + FEATURE_BLOCK - 1) / FEATURE_BLOCK);
+  fused_kernel<V><<<grid, THREADS, 0, st>>>(p, row_ptr, n_out, range_items, n_groups, log_g,
+                                            carry_rows, carry_vals);
+  fused_carry_kernel<V><<<grid, THREADS, 0, st>>>(p, row_ptr, range_items, carry_rows, carry_vals,
+                                                  n_groups, log_g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bitmap_spmm
 
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
-// y must hold n_out rows of n_feat floats; plane k carries weight 2^k
-// (n_planes <= 31); bitmaps and planes must be 8-byte aligned; tables is
-// int32 scratch of 2 * (n_main + n_corr) entries.
-extern "C" int bitmap_spmm_fused_launch(
-    const int32_t* kind, const int32_t* main_src, const int32_t* corr_src,
-    const int32_t* main_idx, const int32_t* corr_idx, const int32_t* slot_row,
-    int n_slots, const uint32_t* bitmaps, int n_main, const uint32_t* planes,
-    int n_corr, int n_planes, const float* h, const float* x, float* y, int n_out,
-    int n_feat, int32_t* tables, int device, void* stream) {
+// As bitmap_spmm_launch, with the frontiers h (main entries) and x
+// (correction entries) sharing n_feat, both 16-byte aligned for vec = 4,
+// and a carry scratch of n_groups rows and 4 n_groups n_feat floats.
+extern "C" int bitmap_spmm_fused_launch(const int32_t* row_ptr, const int32_t* col,
+                                        const int32_t* weight, const float* h, const float* x,
+                                        float* y, int n_out, int n_feat, int vec, int log_g,
+                                        int range_items, int n_groups, int32_t* carry_rows,
+                                        float* carry_vals, int device, void* stream) {
   using namespace bitmap_spmm;
-  if (n_out <= 0 || n_feat <= 0) return 0;
+  if (n_out <= 0 || n_feat <= 0 || n_groups <= 0) return 0;
+  if ((vec != 1 && vec != 4) || (vec << log_g) > FEATURE_BLOCK || range_items <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (n_planes < 1 || n_planes > 31) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t n_y = static_cast<int64_t>(n_out) * n_feat;
-  fill_kernel<<<elementwise_grid(n_y), THREADS, 0, st>>>(y, n_y, 0.0f);
-  const int64_t n_tables = 2 * (static_cast<int64_t>(n_main) + n_corr);
-  if (n_tables > 0 && n_slots > 0) {
-    fill_int_kernel<<<elementwise_grid(n_tables), THREADS, 0, st>>>(tables, n_tables, -1);
-    invert_stream_kernel<<<(n_slots + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-        kind, main_src, corr_src, main_idx, corr_idx, slot_row, n_slots, n_main, n_corr,
-        tables);
-    const int64_t n_units = n_main + static_cast<int64_t>(n_corr) * n_planes;
-    const dim3 grid(static_cast<unsigned>((n_units + UNITS_PER_BLOCK - 1) / UNITS_PER_BLOCK),
-                    (n_feat + FEATURE_BLOCK - 1) / FEATURE_BLOCK);
-    bitmap_spmm_fused_kernel<<<grid, THREADS, 0, st>>>(
-        tables, reinterpret_cast<const uint2*>(bitmaps),
-        reinterpret_cast<const uint2*>(planes), n_main, n_corr, n_planes, h, x, y,
-        n_out, n_feat);
+  if (vec == 4) {
+    return launch<4>(row_ptr, col, weight, h, x, y, n_out, n_feat, log_g, range_items, n_groups,
+                     carry_rows, carry_vals, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<1>(row_ptr, col, weight, h, x, y, n_out, n_feat, log_g, range_items, n_groups,
+                   carry_rows, carry_vals, st);
 }

@@ -8,10 +8,12 @@ so on such a machine run it as
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Operands come from the port's own host half (a small DBLP catalog,
-extracted, corrected and packed); frontiers are integer-valued (with
-``inf`` / ``-inf`` where the op allows), so kernel and plain version must
-agree bit for bit.  Float frontiers agree to float32 round-off: the
-kernels add in another order than ``index_add_``.
+extracted, corrected and packed); the row index is built on the card at
+upload.  The SpMM kernels read only the index, and are held to the plain
+versions that read the bitmaps: on integer-valued frontiers (with
+``inf`` / ``-inf`` where the op allows) bit for bit.  On float frontiers
+they repeat the plain mirror of their own arithmetic bit for bit, and two
+launches give the same bits.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core import dedup, engine, extract
 from repro_torch.core.condensed import BipartiteEdges
 from repro_torch.data.synth import dblp_catalog
+from repro_torch.kernels import bitmap_index as BI
 from repro_torch.kernels import bitmap_spmm as K
 from repro_torch.kernels.pack import TILE, pack_bipartite
 
@@ -57,45 +60,90 @@ def _frontier(rng, n, feat, op):
     return torch.from_numpy(x).cuda()
 
 
-def _spmm_args(layer, reverse, x):
-    ops = layer.rev if reverse else layer.fwd
-    n_out = layer.n_src if reverse else layer.n_dst
-    return (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps, x, n_out)
+def _plain_args(ops):
+    return ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps
 
 
-def _fused_args(dev, reverse, h, x):
-    f = dev.fused_rev if reverse else dev.fused_fwd
+def _fused_plain_args(f):
     return (f.kind, f.main_src, f.corr_src, f.main_idx, f.corr_idx, f.slot_row,
-            f.row_start, f.row_count, f.bitmaps, f.planes, h, x, f.n_out,
-            f.plane_weights)
+            f.row_start, f.row_count, f.bitmaps, f.planes)
+
+
+def _directions(packed):
+    """(operands, n_in, n_out) of both directions of the first chain's layers."""
+    for layer in packed.chains[0]:
+        yield layer.fwd, layer.n_src, layer.n_dst
+        yield layer.rev, layer.n_dst, layer.n_src
+
+
+def _fused(packed, reverse):
+    f = packed.fused_rev if reverse else packed.fused_fwd
+    chain = packed.chains[-1]
+    return f, (chain[0].n_dst if reverse else chain[-1].n_src)
+
+
+def test_cuda_index_kernel_matches_plain(packed):
+    """The index built on the card at upload equals the plain build, for
+    both directions of every layer and both fused streams; a rebuild gives
+    the same bytes and counts one build."""
+    for ops, _, _ in _directions(packed):
+        want = BI.bitmap_index_plain(*_plain_args(ops))
+        assert torch.equal(ops.row_ptr, want[0]) and torch.equal(ops.col, want[1])
+        before = BI.INDEX_BUILDS["bitmap_index"]
+        again = BI.bitmap_index(*_plain_args(ops))
+        assert BI.INDEX_BUILDS["bitmap_index"] == before + 1
+        assert torch.equal(again[0], ops.row_ptr) and torch.equal(again[1], ops.col)
+    for reverse in (False, True):
+        f, _ = _fused(packed, reverse)
+        want = BI.bitmap_index_fused_plain(*_fused_plain_args(f), f.plane_weights)
+        for got, w in zip((f.row_ptr, f.col, f.weight), want):
+            assert torch.equal(got, w)
+        assert int(f.weight.max()) >= 2 ** (f.planes.shape[1] - 1)
 
 
 @pytest.mark.parametrize("feat", [8, 32, 40])
 def test_cuda_kernels_match_plain(packed, feat):
     """K1 and K2 over both layers in both directions, and K3 in both
-    directions, bit for bit against the plain versions; 40 features take
-    two feature blocks, the second one mostly masked."""
+    directions, bit for bit against the plain versions over the bitmaps; 40
+    features take two feature blocks, the second one mostly masked."""
     rng = np.random.default_rng(feat)
-    for layer in packed.chains[0]:
-        for reverse in (False, True):
-            n_in = layer.n_dst if reverse else layer.n_src
-            for op in ("sum", "min", "max"):
-                args = _spmm_args(layer, reverse, _frontier(rng, n_in, feat, op))
-                before = K.LAUNCHES[f"bitmap_spmm_{op}"]
-                got = K.bitmap_spmm(*args, op=op, zero=ZERO[op])
-                assert K.LAUNCHES[f"bitmap_spmm_{op}"] == before + 1
-                assert torch.equal(got, K.bitmap_spmm_plain(*args, op=op, zero=ZERO[op]))
+    for ops, n_in, n_out in _directions(packed):
+        for op in ("sum", "min", "max"):
+            x = _frontier(rng, n_in, feat, op)
+            before = K.LAUNCHES[f"bitmap_spmm_{op}"]
+            got = K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out, op=op, zero=ZERO[op])
+            assert K.LAUNCHES[f"bitmap_spmm_{op}"] == before + 1
+            want = K.bitmap_spmm_plain(*_plain_args(ops), x, n_out, op=op, zero=ZERO[op])
+            assert torch.equal(got, want)
     for reverse in (False, True):
-        chain = packed.chains[-1]
-        n_h = chain[0].n_dst if reverse else chain[-1].n_src
+        f, n_h = _fused(packed, reverse)
         h = _frontier(rng, n_h, feat, "sum")
         x = _frontier(rng, packed.n_real, feat, "sum")
-        fargs = _fused_args(packed, reverse, h, x)
         before = K.LAUNCHES["bitmap_spmm_fused"]
-        got = K.bitmap_spmm_fused(*fargs)
+        got = K.bitmap_spmm_fused(f.row_ptr, f.col, f.weight, h, x, f.n_out)
         assert K.LAUNCHES["bitmap_spmm_fused"] == before + 1
-        assert torch.equal(got, K.bitmap_spmm_fused_plain(*fargs))
+        want = K.bitmap_spmm_fused_plain(*_fused_plain_args(f), h, x, f.n_out, f.plane_weights)
+        assert torch.equal(got, want)
     assert packed.fused_fwd.planes.shape[1] >= 2  # several bit-planes
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_skewed_row_spans_many_ranges(card, op):
+    """One destination row with 3000 entries beside light rows: at 32 items
+    a range it spans about a hundred ranges, and at 5 every light row is
+    split too; the carry pass must give the plain version's bits."""
+    rng = np.random.default_rng(8)
+    light = np.unique(rng.integers(0, 400, 3000) * 3000 + rng.integers(0, 3000, 3000))
+    key = np.unique(np.r_[37 * 3000 + np.arange(3000), light])
+    s, d = key % 3000, key // 3000
+    ops = engine._upload_operands(pack_bipartite(BipartiteEdges(s, d, 3000, 400)), card)
+    for feat in (4, 32):
+        x = _frontier(rng, 3000, feat, op)
+        want = K.bitmap_spmm_plain(*_plain_args(ops), x, 400, op=op, zero=ZERO[op])
+        for items in (5, 32, None):
+            got = K.bitmap_spmm(ops.row_ptr, ops.col, x, 400, op=op, zero=ZERO[op],
+                                range_items=items)
+            assert torch.equal(got, want), (feat, items)
 
 
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
@@ -110,27 +158,39 @@ def test_cuda_pad_slots_and_ragged_rows(card, op):
     ops = engine._upload_operands(bsb, card)
     x = _frontier(rng, 260, 8, op)
     for n_out in (450, bsb.n_row_tiles * TILE):
-        args = (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
-                ops.bitmaps, x, n_out)
-        got = K.bitmap_spmm(*args, op=op, zero=ZERO[op])
+        got = K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out, op=op, zero=ZERO[op])
         assert got.shape == (n_out, 8)
-        assert torch.equal(got, K.bitmap_spmm_plain(*args, op=op, zero=ZERO[op]))
+        want = K.bitmap_spmm_plain(*_plain_args(ops), x, n_out, op=op, zero=ZERO[op])
+        assert torch.equal(got, want)
         assert bool((got[128:] == ZERO[op]).all())
 
 
 def test_cuda_float_frontiers_agree_to_roundoff(packed):
+    """On float frontiers each kernel gives the bits of the plain mirror of
+    its arithmetic, the same bits on a second launch, and the plain
+    versions over the bitmaps to float32 round-off."""
     rng = np.random.default_rng(3)
-    layer = packed.chains[0][0]
-    x = torch.from_numpy(rng.random((layer.n_src, 16)).astype(np.float32)).cuda()
-    args = _spmm_args(layer, False, x)
-    torch.testing.assert_close(K.bitmap_spmm(*args), K.bitmap_spmm_plain(*args),
-                               rtol=1e-5, atol=1e-6)
-    chain = packed.chains[-1]
-    h = torch.from_numpy(rng.random((chain[-1].n_src, 16)).astype(np.float32)).cuda()
-    xr = torch.from_numpy(rng.random((packed.n_real, 16)).astype(np.float32)).cuda()
-    fargs = _fused_args(packed, False, h, xr)
-    torch.testing.assert_close(K.bitmap_spmm_fused(*fargs),
-                               K.bitmap_spmm_fused_plain(*fargs), rtol=1e-5, atol=1e-4)
+    for ops, n_in, n_out in _directions(packed):
+        x = torch.from_numpy(rng.random((n_in, 32)).astype(np.float32)).cuda()
+        for op in ("sum", "min", "max"):
+            args = (ops.row_ptr, ops.col, x, n_out, op, ZERO[op])
+            got = K.bitmap_spmm(*args)
+            assert torch.equal(got, K.bitmap_spmm(*args))
+            assert torch.equal(got, K.bitmap_spmm_index_plain(*args))
+            torch.testing.assert_close(
+                got, K.bitmap_spmm_plain(*_plain_args(ops), x, n_out, op, ZERO[op]),
+                rtol=1e-5, atol=1e-6)
+    for reverse in (False, True):
+        f, n_h = _fused(packed, reverse)
+        h = torch.from_numpy(rng.random((n_h, 32)).astype(np.float32)).cuda()
+        xr = torch.from_numpy(rng.random((packed.n_real, 32)).astype(np.float32)).cuda()
+        args = (f.row_ptr, f.col, f.weight, h, xr, f.n_out)
+        got = K.bitmap_spmm_fused(*args)
+        assert torch.equal(got, K.bitmap_spmm_fused(*args))
+        assert torch.equal(got, K.bitmap_spmm_fused_index_plain(*args))
+        torch.testing.assert_close(
+            got, K.bitmap_spmm_fused_plain(*_fused_plain_args(f), h, xr, f.n_out,
+                                           f.plane_weights), rtol=1e-5, atol=1e-4)
 
 
 def test_cuda_auto_dispatch_launches_and_matches_segment(packed):
@@ -139,6 +199,8 @@ def test_cuda_auto_dispatch_launches_and_matches_segment(packed):
     path."""
     import dataclasses
 
+    from repro_torch.core import algorithms
+
     rng = np.random.default_rng(9)
     x = _frontier(rng, packed.n_real, 8, "sum")
     auto = dataclasses.replace(packed, backend="auto")
@@ -146,20 +208,36 @@ def test_cuda_auto_dispatch_launches_and_matches_segment(packed):
     K.reset_launch_counts()
     got = engine.propagate(auto, x)
     want = engine.propagate(seg, x)
+    src = [0, 5, 17, 200]
+    got_bfs, want_bfs = algorithms.bfs_multi(auto, src), algorithms.bfs_multi(seg, src)
+    got_reach = algorithms.reachable_multi(auto, src)
+    want_reach = algorithms.reachable_multi(seg, src)
     on_hopper = torch.cuda.get_device_capability() == (9, 0)
-    assert (K.LAUNCHES["bitmap_spmm_sum"] > 0) == on_hopper
-    assert (K.LAUNCHES["bitmap_spmm_fused"] > 0) == on_hopper
+    for name in K.LAUNCHES:
+        assert (K.LAUNCHES[name] > 0) == on_hopper, name
     assert torch.equal(got, want)
+    assert torch.equal(got_bfs, want_bfs) and torch.equal(got_reach, want_reach)
 
 
 def test_wrapper_refuses_misaligned_words(packed):
+    """The index builder reads each bitmap row as one 16-byte word: words
+    off a 16-byte boundary are refused.  The SpMM kernels gather 16 bytes
+    at a time only from a 16-byte aligned frontier: one 4 bytes off takes
+    the scalar loads and gives the same answer."""
     ops = packed.chains[0][0].fwd
     words = torch.empty(ops.bitmaps.numel() + 1, dtype=torch.int32, device="cuda")
     shifted = words[1:].view(ops.bitmaps.shape)
-    x = torch.zeros((packed.chains[0][0].n_src, 8), device="cuda")
-    with pytest.raises(ValueError, match="8-byte"):
-        K.bitmap_spmm(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
-                      shifted, x, packed.chains[0][0].n_dst)
+    shifted.copy_(ops.bitmaps)
+    with pytest.raises(ValueError, match="16-byte"):
+        BI.bitmap_index(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, shifted)
+    layer = packed.chains[0][0]
+    rng = np.random.default_rng(2)
+    x = _frontier(rng, layer.n_src, 8, "sum")
+    off = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    assert torch.equal(K.bitmap_spmm(ops.row_ptr, ops.col, off, layer.n_dst),
+                       K.bitmap_spmm(ops.row_ptr, ops.col, x, layer.n_dst))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
 """K1, K2 and K3 against the JAX package's Pallas kernels.
 
-On the CPU a wrapper runs its kernel's plain PyTorch version; here that
-version is held against ``bitmap_spmm_pallas`` / ``bitmap_spmm_fused_pallas``
-in interpret mode, on identical operands: the reference's own
-``to_device_packed`` output, handed to the port through
-``interop.device_packed_from_arrays``.  Frontiers are integer-valued (with
-``inf`` / ``-inf`` where the op allows), so every sum is exact and the
-comparison is ``np.array_equal``.  The CUDA kernels themselves run only on
+On the CPU a wrapper runs the plain mirror of its kernel's arithmetic over
+the row index; here that mirror is held against ``bitmap_spmm_pallas`` /
+``bitmap_spmm_fused_pallas`` in interpret mode, on identical operands: the
+reference's own ``to_device_packed`` output, handed to the port through
+``interop.device_packed_from_arrays`` (which builds the index from it).
+Frontiers are integer-valued (with ``inf`` / ``-inf`` where the op
+allows), so every sum is exact and the comparison is ``np.array_equal``.  The CUDA kernels themselves run only on
 the card: ``tests/test_torch_cuda.py`` holds them against these plain
 versions there.
 """
@@ -71,10 +71,8 @@ def _ref_spmm(ops, x, n_rt, op, zero):
 
 
 def _port_spmm(ops, x, n_out, op, zero):
-    return K.bitmap_spmm(
-        ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps,
-        torch.from_numpy(x), n_out, op=op, zero=zero,
-    ).numpy()
+    return K.bitmap_spmm(ops.row_ptr, ops.col, torch.from_numpy(x), n_out, op=op,
+                         zero=zero).numpy()
 
 
 ZERO = {"sum": 0.0, "min": float("inf"), "max": 0.0}
@@ -142,48 +140,45 @@ def test_plain_fused_matches_pallas(graphs, reverse):
         plane_weights=rf.plane_weights, feature_block=FB, interpret=True,
     ))[:, :FEAT]
     got = K.bitmap_spmm_fused(
-        pf.kind, pf.main_src, pf.corr_src, pf.main_idx, pf.corr_idx,
-        pf.slot_row, pf.row_start, pf.row_count, pf.bitmaps, pf.planes,
-        torch.from_numpy(h), torch.from_numpy(x), rf.n_out_pad, pf.plane_weights,
+        pf.row_ptr, pf.col, pf.weight, torch.from_numpy(h), torch.from_numpy(x),
+        rf.n_out_pad,
     ).numpy()
     assert pf.planes.shape[1] >= 2  # several bit-planes are exercised
     assert np.array_equal(got, want)
 
 
 def test_wrappers_refuse_other_devices_and_bad_operands(graphs):
+    from repro_torch.kernels.bitmap_index import bitmap_index_fused
+
     _, port = graphs
     ops = port.chains[0][0].fwd
     n_out = port.chains[0][0].n_dst
     x = torch.zeros((port.n_real, FEAT), device="meta")
     with pytest.raises(ValueError, match="only cpu and cuda"):
-        K.bitmap_spmm(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
-                      ops.bitmaps, x, n_out)
+        K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out)
     xf = torch.zeros((port.n_real, FEAT), dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
-        K.bitmap_spmm(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
-                      ops.bitmaps, xf, n_out)
+        K.bitmap_spmm(ops.row_ptr, ops.col, xf, n_out)
     x32 = xf.float()
     with pytest.raises(ValueError, match="op"):
-        K.bitmap_spmm(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
-                      ops.bitmaps, x32, n_out, op="prod")
+        K.bitmap_spmm(ops.row_ptr, ops.col, x32, n_out, op="prod")
     with pytest.raises(ValueError, match="row tiles"):
-        K.bitmap_spmm(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
-                      ops.bitmaps, x32, 10**7)
+        K.bitmap_spmm(ops.row_ptr, ops.col, x32, 10**7)
     f = port.fused_fwd
     with pytest.raises(ValueError, match="2\\*\\*k"):
-        K.bitmap_spmm_fused(
+        bitmap_index_fused(
             f.kind, f.main_src, f.corr_src, f.main_idx, f.corr_idx, f.slot_row,
             f.row_start, f.row_count, f.bitmaps, f.planes,
-            torch.zeros((port.chains[0][-1].n_src, FEAT)), x32, f.n_out,
             tuple(3.0 ** k for k in range(f.planes.shape[1])),
         )
 
 
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
 def test_fused_stream_names_each_bitmap_once(graphs, reverse):
-    """K3 walks the stored bitmaps and planes, not the stream, so each must
-    be named by exactly one slot: true of the reference's streams and of
-    the port's."""
+    """The index builder walks the stream's slots, so each stored bitmap
+    and plane stack must be named by exactly one slot (a second would
+    repeat its entries): true of the reference's streams and of the
+    port's."""
     ref, port = graphs
     for fused in ((ref.fused_rev, port.fused_rev) if reverse
                   else (ref.fused_fwd, port.fused_fwd)):
