@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py            # the full run: DBLP 50K authors / 100K pubs
-    python3 chip_smoke.py --quick    # a first check of changed kernels (~1 min)
+    python3 chip_smoke.py --quick    # a first check of changed kernels (~1.5 min)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -35,7 +35,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 operations at 67 TFLOP/s; ``layout_bound_ms`` counts every
    bitmap byte instead, the earlier design's reads) and, for K1 and K3,
    one ``torch.sparse.mm`` call on a CSR of the same function.
-5. LM serving: K4 against its plain version on small and cache-path
+5. Analytics (``analytics_phase``), each analytic with the launch counts
+   zeroed just before and read just after, ``backend='auto'``, each
+   equal to the same call on the segment backend on the card (exactly,
+   PPR to ``rtol=1e-5, atol=1e-6``), each launching the kernels
+   named and no ``'vmem_or_backend'`` stand-down (HITS, 1-D on the segment
+   path both ways, is compared bit for bit in PyTorch's deterministic mode:
+   CUDA's ``index_add_`` adds in no fixed order otherwise, and the DEDUP-C
+   subtraction cancels most of each sum): on the served DEDUP-C
+   graph, ``shortest_paths_multi`` over 32 sources with an integer cost
+   in 1-8 per publication (K2 min), ``widest_paths_multi`` with
+   capacities drawn the same way (K2 max), ``triangle_counts`` over every
+   author in blocks of 128 in ``per_step`` mode (K1 + K3 at F = 128) and
+   in ``wedge`` mode (raw hops on K1), the two equal on every node whose
+   wedge terms stay exact in float32 (``WEDGE_EXACT_BELOW``; the rest are
+   counted and their difference recorded), ``clustering_coefficients``
+   and ``hits(30)``, and one profiled triangle block; on App. C.2's
+   ``layered_1`` (30,000 real nodes, two virtual layers of 12,000, packed),
+   ``scc_labels(batch=128)`` equal to scipy's strong components of the
+   expanded graph, ``condensation`` equal to the DAG built from them,
+   and weighted ``shortest_paths_multi`` forward and reversed (K2 min);
+   on a DEDUP-1 rewriting of a 1,000-author co-author graph, batched PPR
+   (K1, never K3) equal to DEDUP-C's and BFS equal exactly.  Then K1 and
+   K3 at F = 128 and K2 min on the layered middle layer, held and timed
+   as in phase 4.  ``--quick``: layered_1's smoke size (600, [240, 240])
+   and DEDUP-1 at 300 / 600.
+6. LM serving: K4 against its plain version on small and cache-path
    shapes (the main path's prefill and decode among them) in float32 to
    2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
    weights serves 16 requests (8 x 4096 + 8 x 1024 prompt tokens, 32 new
@@ -221,11 +246,11 @@ def compare_answers(queries, got, ref, reach, reach_ref) -> None:
         raise AssertionError("reachable_multi: kernel path != segment path")
 
 
-def profile_serve(server, nodes, reach_nodes):
-    """Device time by kernel over one more run of the served batches:
-    the wall time, the summed kernel time and the share of the wall time
-    the card sat idle.  Launches made here do not count as the main
-    path's."""
+def profile_call(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` under
+    ``torch.profiler``: the wall time, the summed kernel time and the share
+    of the wall time the card sat idle.  Launches made here are restored:
+    they do not count as a path's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -236,7 +261,7 @@ def profile_serve(server, nodes, reach_nodes):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        serve_queries(server, nodes, reach_nodes)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
     K.LAUNCHES.update(before)
@@ -263,6 +288,11 @@ def profile_serve(server, nodes, reach_nodes):
         "bitmap_kernels_s": sum(t for key, t in by_kernel.items() if "bitmap_spmm::" in key),
         "memcpy_dtoh_s": sum(t for key, t in by_kernel.items() if "DtoH" in key),
     }
+
+
+def profile_serve(server, nodes, reach_nodes):
+    """:func:`profile_call` over one more run of the served batches."""
+    return profile_call(lambda: serve_queries(server, nodes, reach_nodes))
 
 
 # ---------------------------------------------------------------------------
@@ -387,64 +417,75 @@ def spmm_row(name, source, line, launches, y, y_plain, ms, plain_ms, need, layou
     }
 
 
-def kernel_rows(graph, launches, reps: int, seed: int):
-    """K1, K2 and K3 at the main path's operands (F = 32) against their plain
-    versions over the bitmaps, exactly on integer frontiers; on a float
-    frontier twice (same bits) and against the plain mirror of their
-    arithmetic.  ``bound_ms`` counts the bytes these inputs need (the
-    index, each source and output row once); ``layout_bound_ms`` every
-    bitmap byte the earlier design read."""
+ZERO = {"sum": 0.0, "min": float("inf"), "max": 0.0}
+
+
+def k12_row(name, layer, op, feat, launches, reps, rng, library=True) -> dict:
+    """K1 (``op='sum'``) or K2 over ``layer``'s forward operands at ``feat``
+    features against its plain version over the bitmaps: exactly on an
+    integer frontier (``inf`` half the entries for min, 0/1 for max), twice
+    on a float frontier (the same bits) and against the plain mirror of its
+    arithmetic.  ``bound_ms`` counts the bytes these inputs need (the index,
+    each source and output row once); ``layout_bound_ms`` every bitmap byte
+    the earlier design read.  ``library``: time one ``torch.sparse.mm`` of
+    the incidence's CSR (the sum only)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import bitmap_spmm as K
 
-    rng = np.random.default_rng(seed)
-    layer = graph.chains[0][0]          # author -> pub: ppr's and bfs's first layer
-    ops = layer.fwd
-    n_src, n_out = layer.n_src, layer.n_dst
-    feat = 32
-    ints = torch.from_numpy(rng.integers(0, 7, (n_src, feat)).astype(np.float32)).cuda()
-    with_inf = ints.clone()
-    with_inf[torch.from_numpy(rng.random((n_src, feat)) < 0.5).cuda()] = float("inf")
-    zero_one = (ints > 3).to(torch.float32)
+    ops, n_src, n_out = layer.fwd, layer.n_src, layer.n_dst
+    zero = ZERO[op]
+    x = torch.from_numpy(rng.integers(0, 7, (n_src, feat)).astype(np.float32)).cuda()
+    if op == "min":
+        x[torch.from_numpy(rng.random((n_src, feat)) < 0.5).cuda()] = float("inf")
+    elif op == "max":
+        x = (x > 3).to(torch.float32)
     floats = torch.from_numpy(rng.random((n_src, feat)).astype(np.float32)).cuda()
     nnz = int(ops.row_ptr[n_out].item())
     index = (ops.row_ptr[: n_out + 1], ops.col)
-    rows = []
-    cases = [("sum", ints, 0.0), ("min", with_inf, float("inf")), ("max", zero_one, 0.0)]
-    for op, x, zero in cases:
-        idx_args = (ops.row_ptr, ops.col)
-        plain_args = (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps)
-        before = dict(K.LAUNCHES)
-        y = K.bitmap_spmm(*idx_args, x, n_out, op=op, zero=zero)
-        y_plain = K.bitmap_spmm_plain(*plain_args, x, n_out, op=op, zero=zero)
-        torch.cuda.synchronize()
-        if not torch.equal(y, y_plain):
-            raise AssertionError(f"bitmap_spmm {op}: kernel != plain version")
-        check_repeats(f"bitmap_spmm {op}",
-                      lambda: K.bitmap_spmm(*idx_args, floats, n_out, op=op, zero=zero))
-        mirror_err = float((K.bitmap_spmm(*idx_args, floats, n_out, op=op, zero=zero)
-                            - K.bitmap_spmm_index_plain(*idx_args, floats, n_out, op=op,
-                                                        zero=zero)).abs().max().item())
-        ms = time_ms(lambda: K.bitmap_spmm(*idx_args, x, n_out, op=op, zero=zero), reps)
-        plain_ms = time_ms(lambda: K.bitmap_spmm_plain(*plain_args, x, n_out, op=op, zero=zero),
-                           3, 1)
-        K.LAUNCHES.update(before)  # comparison launches are not main-path launches
-        library_ms = None
-        if op == "sum":
-            csr = torch.sparse_coo_tensor(
-                torch.stack([layer.dst, layer.src]),
-                torch.ones(layer.src.shape[0], device=x.device),
-                (n_out, n_src),
-            ).coalesce().to_sparse_csr()
-            library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps)
-        rows.append(spmm_row(
-            f"bitmap_spmm_{op}", "bitmap_spmm.cu", 77, launches[f"bitmap_spmm_{op}"], y,
-            y_plain, ms, plain_ms, (nbytes(*index, x, y), nnz * feat),
-            (nbytes(*plain_args, x, y), nnz * feat), library_ms, mirror_err,
-            {"n_src": n_src, "n_out": n_out, "features": feat,
-             "slots": int(ops.slot_src.shape[0]), "entries": nnz}))
+    idx_args = (ops.row_ptr, ops.col)
+    plain_args = (ops.slot_src, ops.slot_row, ops.row_start, ops.row_count, ops.bitmaps)
+    before = dict(K.LAUNCHES)
+    y = K.bitmap_spmm(*idx_args, x, n_out, op=op, zero=zero)
+    y_plain = K.bitmap_spmm_plain(*plain_args, x, n_out, op=op, zero=zero)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_plain):
+        raise AssertionError(f"{name}: kernel != plain version")
+    check_repeats(name, lambda: K.bitmap_spmm(*idx_args, floats, n_out, op=op, zero=zero))
+    mirror_err = float((K.bitmap_spmm(*idx_args, floats, n_out, op=op, zero=zero)
+                        - K.bitmap_spmm_index_plain(*idx_args, floats, n_out, op=op,
+                                                    zero=zero)).abs().max().item())
+    ms = time_ms(lambda: K.bitmap_spmm(*idx_args, x, n_out, op=op, zero=zero), reps)
+    plain_ms = time_ms(lambda: K.bitmap_spmm_plain(*plain_args, x, n_out, op=op, zero=zero),
+                       3, 1)
+    K.LAUNCHES.update(before)  # comparison launches are not the path's launches
+    library_ms = None
+    if library and op == "sum":
+        csr = torch.sparse_coo_tensor(
+            torch.stack([layer.dst, layer.src]),
+            torch.ones(layer.src.shape[0], device=x.device),
+            (n_out, n_src),
+        ).coalesce().to_sparse_csr()
+        library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps)
+    return spmm_row(
+        name, "bitmap_spmm.cu", 77, launches, y, y_plain, ms, plain_ms,
+        (nbytes(*index, x, y), nnz * feat), (nbytes(*plain_args, x, y), nnz * feat),
+        library_ms, mirror_err,
+        {"n_src": n_src, "n_out": n_out, "features": feat,
+         "slots": int(ops.slot_src.shape[0]), "entries": nnz, "repeats": layer.repeats})
+
+
+def k3_row(name, graph, feat, launches, reps, rng) -> dict:
+    """K3 over the forward fused stream at ``feat`` features, held as
+    :func:`k12_row` holds K1/K2; the library call is one ``torch.sparse.mm``
+    of the CSR ``[B | -D]`` (the last layer's incidence beside the weighted
+    correction) against the stacked ``[h; x]``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bitmap_spmm as K
+
     fused = graph.fused_fwd
     n_h = graph.chains[-1][-1].n_src
     h = torch.from_numpy(rng.integers(0, 7, (n_h, feat)).astype(np.float32)).cuda()
@@ -459,8 +500,8 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     y_plain = K.bitmap_spmm_fused_plain(*f_plain, h, xr, fused.n_out, fused.plane_weights)
     torch.cuda.synchronize()
     if not torch.equal(y, y_plain):
-        raise AssertionError("bitmap_spmm_fused: kernel != plain version")
-    check_repeats("bitmap_spmm_fused", lambda: K.bitmap_spmm_fused(*f_idx, hf, xf, fused.n_out))
+        raise AssertionError(f"{name}: kernel != plain version")
+    check_repeats(name, lambda: K.bitmap_spmm_fused(*f_idx, hf, xf, fused.n_out))
     mirror_err = float((K.bitmap_spmm_fused(*f_idx, hf, xf, fused.n_out)
                         - K.bitmap_spmm_fused_index_plain(*f_idx, hf, xf, fused.n_out))
                        .abs().max().item())
@@ -468,8 +509,6 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     plain_ms = time_ms(lambda: K.bitmap_spmm_fused_plain(*f_plain, h, xr, fused.n_out,
                                                          fused.plane_weights), 3, 1)
     K.LAUNCHES.update(before)
-    # library: one torch.sparse.mm of the CSR [B | -D] (the last layer's
-    # incidence beside the weighted correction) against the stacked [h; x]
     last = graph.chains[-1][-1]
     cs, cd, cm = graph.correction
     k3_csr = torch.sparse_coo_tensor(
@@ -482,7 +521,7 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     torch.cuda.synchronize()
     if not torch.equal(y_lib, y_plain):
         raise AssertionError("K3's library call computes another function")
-    k3_library_ms = time_ms(lambda: torch.sparse.mm(k3_csr, stacked), reps)
+    library_ms = time_ms(lambda: torch.sparse.mm(k3_csr, stacked), reps)
     del k3_csr, stacked, y_lib
     n_planes = int(fused.planes.shape[1])
     n_corr = int(fused.planes.shape[0])
@@ -494,13 +533,27 @@ def kernel_rows(graph, launches, reps: int, seed: int):
     f_ops = feat * (main_bits + 2 * corr_entries + fused.n_out)
     need = nbytes(fused.row_ptr[: fused.n_out + 1], *f_idx[1:], h, xr, y)
     layout = nbytes(*f_plain[:5], f_plain[6], f_plain[7], fused.bitmaps, fused.planes, h, xr, y)
-    rows.append(spmm_row(
-        "bitmap_spmm_fused", "bitmap_spmm_fused.cu", 190, launches["bitmap_spmm_fused"], y,
-        y_plain, ms, plain_ms, (need, f_ops), (layout, f_ops), k3_library_ms, mirror_err,
+    return spmm_row(
+        name, "bitmap_spmm_fused.cu", 190, launches, y, y_plain, ms, plain_ms,
+        (need, f_ops), (layout, f_ops), library_ms, mirror_err,
         {"n_h": n_h, "n_out": fused.n_out, "features": feat,
          "slots": int(fused.kind.shape[0]), "correction_slots": n_corr,
          "planes": n_planes, "main_entries": main_bits, "correction_entries": corr_entries,
-         "plane_bits": corr_bits, **plane_skew(fused)}))
+         "plane_bits": corr_bits, **plane_skew(fused)})
+
+
+def kernel_rows(graph, launches, reps: int, seed: int):
+    """K1, K2 and K3 at the main path's operands (F = 32, the author ->
+    publication layer: ppr's and bfs's first) against their plain
+    versions (:func:`k12_row`, :func:`k3_row`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    layer = graph.chains[0][0]
+    rows = [k12_row(f"bitmap_spmm_{op}", layer, op, 32, launches[f"bitmap_spmm_{op}"],
+                    reps, rng) for op in ("sum", "min", "max")]
+    rows.append(k3_row("bitmap_spmm_fused", graph, 32, launches["bitmap_spmm_fused"],
+                       reps, rng))
     return rows
 
 
@@ -551,7 +604,376 @@ def index_rows(graph, builds: dict, reps: int) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: LM serving (glm4-9b at full width) with K4
+# Phase 5: the analytics library on the card
+# ---------------------------------------------------------------------------
+
+# App. C.2's layered_1 (benchmarks/bench_large.py): a directed chain with two
+# virtual layers; (n_real, layer sizes, edges per level), full and --quick
+LAYERED = {False: (30_000, [12_000, 12_000], [60_000, 40_000, 60_000]),
+           True: (600, [240, 240], [1_200, 800, 1_200])}
+# (authors, pubs) of the DEDUP-1 graph: the greedy rewriting runs in host
+# Python, so it is cut far below the main graph; full and --quick
+DEDUP1_GRAPH = {False: (1_000, 2_000), True: (300, 600)}
+# wedge-mode triangle counts sum raw M^2 terms in float32: a node's count is
+# exact when the largest entry of its M^2 column stays below 2^23, so that
+# every partial sum of the raw hops and corrections is below 2^24
+WEDGE_EXACT_BELOW = 2.0 ** 23
+# columns of one analytic's (n, B) frontiers; the tolerance of HITS and PPR
+# (float32 sums added in other orders by the two paths)
+ANALYTIC_BATCH = 32
+FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+class Analytics:
+    """Runs each analytic with the launch counts zeroed just before and
+    read just after, under its wall time (ending in a synchronize), its
+    ``propagate`` calls (supersteps of a fixpoint; for ``scc_labels`` also
+    its pivot rounds), its launches and stand-downs; and the same call on
+    the segment backend, which must launch nothing."""
+
+    def __init__(self):
+        self.records = {}
+
+    def run(self, name, fn, need):
+        import unittest.mock
+
+        import torch
+
+        from repro_torch.core import algorithms, engine
+        from repro_torch.kernels import bitmap_spmm as K
+
+        K.reset_launch_counts()
+        engine.reset_kernel_dispatch_count()
+        with unittest.mock.patch.object(algorithms, "propagate",
+                                        wraps=algorithms.propagate) as prop, \
+                unittest.mock.patch.object(algorithms, "reachable_multi",
+                                           wraps=algorithms.reachable_multi) as reach:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = dict(K.LAUNCHES)
+        standdowns = dict(engine.KERNEL_STANDDOWN_COUNT)
+        rec = {"wall_s": wall, "propagate_calls": prop.call_count,
+               "launches": launches, "standdowns": standdowns}
+        if reach.call_count:
+            rec["reachable_multi_calls"] = reach.call_count
+        log(f"{name}: {wall:.4f} s, {prop.call_count} propagate calls, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}, stand-downs "
+            f"{json.dumps(standdowns)}")
+        missing = [k for k in need if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels never launched: {missing}")
+        if standdowns.get("vmem_or_backend"):
+            raise AssertionError(f"{name}: the fused kernel stood down for 'vmem_or_backend'")
+        self.records[name] = rec
+        return out
+
+    def segment(self, name, fn):
+        import torch
+
+        from repro_torch.kernels import bitmap_spmm as K
+
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.records[name]["segment_wall_s"] = time.perf_counter() - t
+        if K.LAUNCHES != before:
+            raise AssertionError(f"{name}: the segment backend launched a kernel")
+        return out
+
+
+def _equal(name, got, want) -> None:
+    import numpy as np
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        ok = torch.equal(got, want)
+    else:
+        ok = np.array_equal(got, want)
+    if not ok:
+        raise AssertionError(f"{name}: kernel path != segment path")
+
+
+def m2_column_max(graph, block: int):
+    """Largest entry of each column of ``M^2`` (M = the raw C-DUP
+    multiplicities): two raw hops of identity blocks on the kernel path.
+    Launches made here do not count as a path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import bitmap_spmm as K
+
+    before = dict(K.LAUNCHES)
+    raw = dataclasses.replace(graph, correction=None, diag_mult=None)
+    n = graph.n_real
+    out = np.zeros(n, dtype=np.float64)
+    for lo in range(0, n, block):
+        hi = min(lo + block, n)
+        X = torch.zeros((n, block), dtype=torch.float32, device="cuda")
+        X[torch.arange(lo, hi, device="cuda"), torch.arange(hi - lo, device="cuda")] = 1.0
+        mx = engine.propagate(raw, X, allow_duplicates=True)
+        mmx = engine.propagate(raw, mx, allow_duplicates=True)
+        out[lo:hi] = mmx.max(dim=0).values[: hi - lo].cpu().numpy()
+    K.LAUNCHES.update(before)
+    return out
+
+
+def dblp_analytics(an, exact, rng) -> dict:
+    """The DEDUP-C graph the main path served: weighted shortest and
+    widest paths (K2 min / max), triangle counts in both modes (K1 + K3 at
+    F = 128; K1 on the raw hops), clustering coefficients, HITS."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import algorithms as A
+
+    seg = dataclasses.replace(exact, backend="segment")
+    n, n_pub = exact.n_real, exact.chains[0][0].n_dst
+    sources = rng.integers(0, n, ANALYTIC_BATCH)
+    cost = torch.from_numpy(rng.integers(1, 9, n_pub).astype(np.float32)).cuda()
+    cap = torch.from_numpy(rng.integers(1, 9, n_pub).astype(np.float32)).cuda()
+    rec = {}
+
+    d = an.run("shortest_paths_multi", lambda: A.shortest_paths_multi(
+        exact, sources, layer_weights=((cost,),)), ["bitmap_spmm_min"])
+    _equal("shortest_paths_multi", d, an.segment("shortest_paths_multi", lambda: A.shortest_paths_multi(
+        seg, sources, layer_weights=((cost,),))))
+    if d.shape != (n, ANALYTIC_BATCH) or bool((d[sources, torch.arange(ANALYTIC_BATCH)] != 0).any()):
+        raise AssertionError("shortest_paths_multi: malformed distances")
+    rec["shortest_reached_share"] = float(torch.isfinite(d).float().mean().item())
+
+    w = an.run("widest_paths_multi", lambda: A.widest_paths_multi(
+        exact, sources, layer_capacities=((cap,),)), ["bitmap_spmm_max"])
+    _equal("widest_paths_multi", w, an.segment("widest_paths_multi", lambda: A.widest_paths_multi(
+        seg, sources, layer_capacities=((cap,),))))
+    if bool((w[sources, torch.arange(ANALYTIC_BATCH)] != float("inf")).any()) or bool(
+            (w < 0).any()):
+        raise AssertionError("widest_paths_multi: malformed widths")
+
+    t = an.run("triangle_counts_per_step", lambda: A.triangle_counts(exact, block=128),
+               ["bitmap_spmm_sum", "bitmap_spmm_fused"])
+    _equal("triangle_counts_per_step", t, an.segment(
+        "triangle_counts_per_step", lambda: A.triangle_counts(seg, block=128)))
+    tw = an.run("triangle_counts_wedge", lambda: A.triangle_counts(exact, block=128, mode="wedge"),
+                ["bitmap_spmm_sum"])
+    tw_seg = an.segment("triangle_counts_wedge",
+                        lambda: A.triangle_counts(seg, block=128, mode="wedge"))
+    m2 = m2_column_max(exact, 128)
+    exact_nodes = m2 < WEDGE_EXACT_BELOW
+    for name, got in (("wedge (kernel path)", tw), ("wedge (segment path)", tw_seg)):
+        if not np.array_equal(got[exact_nodes], t[exact_nodes]):
+            raise AssertionError(f"triangle_counts: {name} != per_step on nodes whose "
+                                 "wedge terms are exact in float32")
+    hub = ~exact_nodes
+    rel = np.abs(tw[hub] - t[hub]) / np.maximum(t[hub], 1.0)
+    rec["triangles"] = {
+        "total": float(t.sum() / 3.0), "max": float(t.max()),
+        "wedge_exact_nodes": int(exact_nodes.sum()), "wedge_rounded_nodes": int(hub.sum()),
+        "m2_column_max": float(m2.max()),
+        "wedge_rounded_max_rel_diff": float(rel.max()) if hub.any() else 0.0,
+        "wedge_rounded_max_abs_diff": float(np.abs(tw[hub] - t[hub]).max()) if hub.any() else 0.0,
+        "wedge_kernel_vs_segment_equal": bool(np.array_equal(tw, tw_seg)),
+    }
+    log(f"triangles: {json.dumps(rec['triangles'])}")
+    if t.shape != (n,) or not (np.isfinite(t).all() and (t >= 0).all()
+                               and np.array_equal(t, np.floor(t))):
+        raise AssertionError("triangle_counts: malformed counts")
+
+    cc = an.run("clustering_coefficients", lambda: A.clustering_coefficients(exact, block=128),
+                ["bitmap_spmm_sum", "bitmap_spmm_fused"])
+    _equal("clustering_coefficients", cc, an.segment(
+        "clustering_coefficients", lambda: A.clustering_coefficients(seg, block=128)))
+    if not (np.isfinite(cc).all() and (cc >= 0).all() and (cc <= 1.0 + 1e-9).all()):
+        raise AssertionError("clustering_coefficients: outside [0, 1]")
+
+    h, a = an.run("hits", lambda: A.hits(exact, num_iters=30), [])
+    hs, as_ = an.segment("hits", lambda: A.hits(seg, num_iters=30))
+    rec["hits_default_mode_max_abs_diff"] = max(float((h - hs).abs().max().item()),
+                                                float((a - as_).abs().max().item()))
+    # HITS steps 1-D frontiers on the segment path both ways.  CUDA's
+    # index_add_ adds in no fixed order by default, and the DEDUP-C
+    # subtraction M x - D x cancels most of each sum, so two runs of the same
+    # call differ past 1e-5; in deterministic mode they must be bit-equal
+    torch.use_deterministic_algorithms(True)
+    try:
+        pair = (A.hits(exact, num_iters=30), A.hits(seg, num_iters=30))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for got, want in zip(*pair):
+        if not torch.equal(got, want):
+            raise AssertionError("hits: kernel path != segment path (deterministic mode)")
+    for v in (h, a):
+        if not (bool(torch.isfinite(v).all())
+                and abs(float(torch.linalg.vector_norm(v).item()) - 1.0) < 1e-4):
+            raise AssertionError("hits: scores are not a finite unit vector")
+
+    prof = profile_call(lambda: A._triangle_block(
+        exact, torch.eye(n, 128, device="cuda"), None, "per_step"))
+    rec["triangle_block_profile"] = prof
+    log(f"profiled per_step triangle block: {json.dumps(prof)}")
+    return rec
+
+
+def layered_analytics(an, args, rng) -> dict:
+    """App. C.2's layered_1, uploaded packed: SCC labels (K2 max) held to
+    scipy's strong components, the condensation DAG held to one built from
+    them, weighted shortest paths over both virtual layers forward and
+    reversed (K2 min)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import connected_components
+
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import engine
+    from repro_torch.data.synth import layered_condensed
+
+    n_real, sizes, edges = LAYERED[args.quick]
+    t = time.perf_counter()
+    lg = layered_condensed(n_real, sizes, edges, seed=0, symmetric=False)
+    lay = engine.to_device_packed(lg, backend="auto", device="cuda")
+    torch.cuda.synchronize()
+    rec = {"graph": {"n_real": n_real, "layer_sizes": sizes, "edges_per_level": edges,
+                     "layers_with_repeats": sum(layer.repeats for layer in lay.chains[0])},
+           "upload_s": time.perf_counter() - t}
+    seg = dataclasses.replace(lay, backend="segment")
+
+    # the expanded graph and its strong components, by scipy
+    mats = [sp.csr_matrix((np.ones(e.n_edges, np.float32), (e.src, e.dst)),
+                          shape=(e.n_src, e.n_dst)) for e in lg.chains[0].edges]
+    adj = (mats[0] @ mats[1] @ mats[2]).tocsr()
+    adj.setdiag(0)
+    adj.eliminate_zeros()
+    n_comp, comp = connected_components(adj, directed=True, connection="strong")
+    first = np.full(n_comp, n_real, dtype=np.int64)
+    np.minimum.at(first, comp, np.arange(n_real))
+    want_labels = first[comp]
+    rec["graph"].update(expanded_edges=int(adj.nnz), sccs=int(n_comp),
+                        largest_scc=int(np.bincount(comp).max()))
+
+    labels = an.run("scc_labels", lambda: A.scc_labels(lay, batch=128), ["bitmap_spmm_max"])
+    _equal("scc_labels", labels, an.segment("scc_labels", lambda: A.scc_labels(seg, batch=128)))
+    if not np.array_equal(labels, want_labels):
+        raise AssertionError("scc_labels != scipy's strong components")
+    cond = an.run("condensation", lambda: A.condensation(lay, labels=labels), ["bitmap_spmm_max"])
+    cond_seg = an.segment("condensation", lambda: A.condensation(seg, labels=labels))
+    for field in cond._fields:
+        _equal(f"condensation.{field}", getattr(cond, field), getattr(cond_seg, field))
+    u, v = adj.nonzero()
+    c = cond.component
+    keep = c[u] != c[v]
+    pairs = np.unique(c[u][keep] * cond.n_components + c[v][keep])
+    if not (np.array_equal(cond.dag_src, pairs // cond.n_components)
+            and np.array_equal(cond.dag_dst, pairs % cond.n_components)):
+        raise AssertionError("condensation DAG != the one built from scipy's components")
+    if not (cond.layers[cond.dag_src] > cond.layers[cond.dag_dst]).all():
+        raise AssertionError("condensation layering is not topological")
+    rec["condensation"] = {"components": cond.n_components, "dag_edges": int(cond.dag_src.size),
+                           "layers": int(cond.layers.max()) + 1}
+
+    lw = ((torch.from_numpy(rng.integers(1, 9, sizes[0]).astype(np.float32)).cuda(),
+           torch.from_numpy(rng.integers(1, 9, sizes[1]).astype(np.float32)).cuda()),)
+    sources = rng.integers(0, n_real, ANALYTIC_BATCH)
+    for reverse in (False, True):
+        name = "shortest_paths_multi_layered" + ("_reverse" if reverse else "")
+        d = an.run(name, lambda: A.shortest_paths_multi(lay, sources, layer_weights=lw,
+                                                       reverse=reverse), ["bitmap_spmm_min"])
+        _equal(name, d, an.segment(name, lambda: A.shortest_paths_multi(
+            seg, sources, layer_weights=lw, reverse=reverse)))
+        rec[name + "_reached_share"] = float(torch.isfinite(d).float().mean().item())
+    log(f"layered: {json.dumps(rec)}")
+    return rec, lay
+
+
+def dedup1_analytics(an, args, rng) -> dict:
+    """DEDUP-1 on a small co-author graph (host Python greedy), uploaded
+    packed with ``deduplicated=True``: batched PPR runs K1 and never K3 and
+    equals DEDUP-C's on the same graph; BFS agrees exactly."""
+    import torch
+
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import dedup, engine, extract
+    from repro_torch.data.synth import dblp_catalog
+
+    na, npb = DEDUP1_GRAPH[args.quick]
+    g = extract(dblp_catalog(na, npb, 6.0, seed=args.seed), QUERY).graph
+    t = time.perf_counter()
+    d1 = dedup.dedup1_greedy_virtual_first(g)
+    rec = {"graph": {"authors": na, "pubs": npb, "edges_condensed": g.n_edges_condensed,
+                     "dedup1_total_edges": d1.total_edges,
+                     "dedup1_direct_edges": d1.n_direct_edges},
+           "dedup1_host_s": time.perf_counter() - t}
+    dev1 = engine.to_device_packed(d1.graph, deduplicated=True, backend="auto", device="cuda")
+    devc = engine.to_device_packed(g, correction=dedup.build_correction(g), backend="auto",
+                                   device="cuda")
+    sources = rng.integers(0, g.n_real, ANALYTIC_BATCH)
+    seeds = A.one_hot_frontier(g.n_real, sources, device="cuda")
+    p1 = an.run("ppr_dedup1", lambda: A.personalized_pagerank(dev1, seeds), ["bitmap_spmm_sum"])
+    if an.records["ppr_dedup1"]["launches"]["bitmap_spmm_fused"]:
+        raise AssertionError("DEDUP-1 PPR launched K3")
+    p1_seg = an.segment("ppr_dedup1", lambda: A.personalized_pagerank(
+        dataclasses.replace(dev1, backend="segment"), seeds))
+    if not torch.allclose(p1, p1_seg, **FLOAT_TOL):
+        raise AssertionError("ppr_dedup1: kernel path != segment path")
+    pc = an.run("ppr_dedupc", lambda: A.personalized_pagerank(devc, seeds),
+                ["bitmap_spmm_sum", "bitmap_spmm_fused"])
+    if not torch.allclose(p1, pc, rtol=1e-5, atol=1e-6) or not bool(torch.isfinite(p1).all()):
+        raise AssertionError("PPR on DEDUP-1 != PPR on DEDUP-C")
+    b1 = an.run("bfs_dedup1", lambda: A.bfs_multi(dev1, sources), ["bitmap_spmm_min"])
+    _equal("bfs_dedup1", b1, an.segment("bfs_dedup1", lambda: A.bfs_multi(
+        dataclasses.replace(dev1, backend="segment"), sources)))
+    if not torch.equal(b1, A.bfs_multi(devc, sources)):
+        raise AssertionError("BFS on DEDUP-1 != BFS on DEDUP-C")
+    rec["ppr_max_abs_diff_vs_dedupc"] = float((p1 - pc).abs().max().item())
+    log(f"DEDUP-1: {json.dumps(rec)}")
+    return rec
+
+
+def analytics_phase(args, exact, record) -> list:
+    """Phase 5: every analytic on the card with ``backend='auto'``, each
+    against the same call on the segment backend; then the kernels' rows
+    at the analytics' shapes (K1 and K3 at the triangle block's F = 128, K2
+    min on the layered graph's middle layer at the batch's F = 32)."""
+    import numpy as np
+
+    an = Analytics()
+    rng = np.random.default_rng(args.seed + 1)
+    t = time.perf_counter()
+    rec = {"dblp": dblp_analytics(an, exact, rng)}
+    rec["layered"], lay = layered_analytics(an, args, rng)
+    rec["dedup1"] = dedup1_analytics(an, args, rng)
+    rec["phase_s"] = time.perf_counter() - t
+    rec["runs"] = an.records
+
+    def launched(kernel, names):
+        return sum(an.records[n]["launches"][kernel] for n in names)
+
+    f128 = ("triangle_counts_per_step", "triangle_counts_wedge", "clustering_coefficients")
+    layered_min = ("shortest_paths_multi_layered", "shortest_paths_multi_layered_reverse")
+    rows = [
+        k12_row("bitmap_spmm_sum_f128", exact.chains[0][0], "sum", 128,
+                launched("bitmap_spmm_sum", f128), args.reps, rng),
+        k3_row("bitmap_spmm_fused_f128", exact, 128, launched("bitmap_spmm_fused", f128),
+               args.reps, rng),
+        k12_row("bitmap_spmm_min_layered", lay.chains[0][1], "min", ANALYTIC_BATCH,
+                launched("bitmap_spmm_min", layered_min), args.reps, rng, library=False),
+    ]
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']}), "
+            f"{r['launches']} launches in the analytics phase")
+    log(f"analytics phase: {rec['phase_s']:.1f} s")
+    record["analytics"] = rec
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: LM serving (glm4-9b at full width) with K4
 # ---------------------------------------------------------------------------
 
 # (B, T, H, KV, D, causal): tests/test_kernels.py's FLASH_SWEEP
@@ -1036,8 +1458,9 @@ def lm_phase(args) -> dict:
 
 
 def graph_phases(args, record) -> list:
-    """Phases 2-4: the small oracle check, the served main path with its
-    profile, and the graph kernels' rows."""
+    """Phases 2-5: the small oracle check, the served main path with its
+    profile, the graph kernels' rows, and the analytics phase on the
+    served graph."""
     import numpy as np
     import torch
 
@@ -1142,6 +1565,8 @@ def graph_phases(args, record) -> list:
             f"{r['bound_ms']:.4f} by {r['bound_by']}, layout bound "
             f"{r['layout_bound_ms']:.4f}, library {r['library_ms']})")
 
+    rows += analytics_phase(args, exact, record)
+
     record.update({
         "stages": stages, "device_bytes": held,
         "serve_s": serve_s, "segment_s": segment_s, "serve_profile": prof,
@@ -1163,7 +1588,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--quick", action="store_true",
                     help="a first check of changed kernels: DBLP 3000 authors / 6000 "
-                         "pubs and 256 / 64-token prompts with 4 new tokens")
+                         "pubs, layered_1 at 600 nodes, DEDUP-1 at 300 / 600, and "
+                         "256 / 64-token prompts with 4 new tokens")
     args = ap.parse_args()
     if args.quick:
         args.authors, args.pubs = 3000, 6000

@@ -28,6 +28,8 @@ import numpy as np
 
 __all__ = [
     "BipartiteEdges",
+    "CSR",
+    "build_csr",
     "Chain",
     "CondensedGraph",
     "ExpandedGraph",
@@ -136,6 +138,29 @@ class BipartiteEdges:
     def nbytes(self) -> int:
         return int(self.src.nbytes + self.dst.nbytes)
 
+
+@dataclasses.dataclass
+class CSR:
+    """Compressed sparse row view of a BipartiteEdges (host-side): the
+    paper's adjacency-list layout (§5.1) for iterator-style traversal."""
+
+    indptr: np.ndarray
+    indices: np.ndarray
+    n_src: int
+    n_dst: int
+
+    def neighbors(self, i: int) -> np.ndarray:
+        return self.indices[self.indptr[i] : self.indptr[i + 1]]
+
+
+def build_csr(edges: BipartiteEdges) -> CSR:
+    """COO -> CSR by stable counting sort (paper §5.1 layout)."""
+    order = np.argsort(edges.src, kind="stable")
+    indices = edges.dst[order]
+    counts = np.bincount(edges.src, minlength=edges.n_src)
+    indptr = np.zeros(edges.n_src + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return CSR(indptr, indices, edges.n_src, edges.n_dst)
 
 
 @dataclasses.dataclass
@@ -526,6 +551,10 @@ class CondensedGraph:
     @property
     def n_virtual(self) -> int:
         return sum(c.n_virtual for c in self.chains)
+
+    @property
+    def max_layers(self) -> int:
+        return max((c.n_layers for c in self.chains), default=0)
 
     @property
     def n_edges_condensed(self) -> int:

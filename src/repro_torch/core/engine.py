@@ -28,13 +28,19 @@ the caller asks for it.  Dispatch follows the JAX package's
 ``'auto'``: ``'auto'`` takes the kernel exactly when the frontier is a
 CUDA tensor on an sm_90 device.  The segment path (``index_add_`` /
 ``scatter_reduce``) serves what the JAX package sends to XLA — 1-D
-frontiers, unpackable layers, non-kernel semirings — and never stands in
-for a kernel that failed.
+frontiers, ring steps over layers with repeated edges, non-kernel
+semirings — and never stands in for a kernel that failed.  One dispatch
+differs from the JAX package's, never an answer: a layer whose edge list
+repeats an edge (App. C's random layers) cannot be one bitmap, so the JAX
+package leaves it to XLA; the port packs its distinct edges instead and
+serves idempotent semirings (⊕ = min / max, to which a repeat adds
+nothing) through the kernels, while ring steps over it, which count the
+repeats, stay on the segment path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +67,7 @@ __all__ = [
     "to_device",
     "to_device_packed",
     "propagate",
+    "propagate_wedge",
     "KERNEL_DISPATCH_COUNT",
     "KERNEL_STANDDOWN_COUNT",
     "reset_kernel_dispatch_count",
@@ -180,8 +187,9 @@ class DevicePackedLayer:
 
     ``src``/``dst`` drive the segment path (any semiring, any direction);
     ``fwd`` is the dst-major packed incidence and ``rev`` its transpose,
-    so reverse steps dispatch to the kernels too.  Either is ``None`` when
-    the layer cannot be packed (duplicate edges)."""
+    so reverse steps dispatch to the kernels too.  ``repeats`` marks a
+    layer whose edge list repeats an edge: its operands hold each distinct
+    edge once and serve idempotent semirings only."""
 
     src: torch.Tensor
     dst: torch.Tensor
@@ -189,6 +197,7 @@ class DevicePackedLayer:
     rev: Optional[PackedOperands]
     n_src: int
     n_dst: int
+    repeats: bool = False
 
 
 @dataclasses.dataclass
@@ -379,28 +388,39 @@ def _upload_operands(bsb, device) -> PackedOperands:
     )
 
 
+def _distinct_edges(e: BipartiteEdges) -> BipartiteEdges:
+    key = np.unique(e.src * np.int64(e.n_dst) + e.dst)
+    return BipartiteEdges(key // e.n_dst, key % e.n_dst, e.n_src, e.n_dst)
+
+
 def _pack_edges(e: BipartiteEdges, dev: DeviceBipartite, device):
     """``dev`` is the already-uploaded COO layer from :func:`to_device`,
     reused so the edge arrays cross to the device only once.  Packs both
     directions: the forward incidence and its transpose (reverse steps).
+    A layer that repeats an edge packs its distinct edges (``repeats``).
 
     Returns ``(DevicePackedLayer, fwd_bsb, rev_bsb)`` — the host-side
     packings ride along so :func:`to_device_packed` can build the fused
-    correction stream without re-packing."""
+    correction stream without re-packing; they are ``None`` for a layer
+    with repeats, which cannot carry the ring's fused epilogue."""
     from ..kernels.pack import pack_bipartite
 
     try:
         fwd_bsb = pack_bipartite(e)
         rev_bsb = pack_bipartite(e.reversed())
-    except ValueError:
-        fwd_bsb = rev_bsb = None  # duplicate edges (multiplicity): COO only
+        fwd, rev, repeats = fwd_bsb, rev_bsb, False
+    except ValueError:  # repeated edges: pack each distinct edge once
+        fwd_bsb = rev_bsb = None
+        distinct = _distinct_edges(e)
+        fwd, rev, repeats = pack_bipartite(distinct), pack_bipartite(distinct.reversed()), True
     layer = DevicePackedLayer(
         src=dev.src,
         dst=dev.dst,
-        fwd=_upload_operands(fwd_bsb, device) if fwd_bsb is not None else None,
-        rev=_upload_operands(rev_bsb, device) if rev_bsb is not None else None,
+        fwd=_upload_operands(fwd, device),
+        rev=_upload_operands(rev, device),
         n_src=e.n_src,
         n_dst=e.n_dst,
+        repeats=repeats,
     )
     return layer, fwd_bsb, rev_bsb
 
@@ -563,9 +583,13 @@ def _kernel_applicable(
     reverse: bool,
 ) -> bool:
     """Dispatch: batched kernelizable steps, both directions, when the
-    layer was packed and the backend resolves to the kernels.  The kernels
-    keep no per-slot state in shared memory, so no size test applies."""
+    layer was packed (for a layer with repeated edges: under an
+    idempotent semiring only) and the backend resolves to the kernels.
+    The kernels keep no per-slot state in shared memory, so no size test
+    applies."""
     if x.ndim != 2 or not kernelizable(semiring):
+        return False
+    if layer.repeats and not semiring.idempotent:
         return False
     packed = layer.rev if reverse else layer.fwd
     if packed is None:
@@ -689,6 +713,7 @@ def propagate(
     reverse: bool = False,
     hop_weight: Optional[float] = None,
     allow_duplicates: bool = False,
+    layer_weights: Optional[Sequence[Sequence[torch.Tensor]]] = None,
 ) -> torch.Tensor:
     """One superstep: ⊕-combine ⊗-weighted messages along all edges.
 
@@ -697,12 +722,48 @@ def propagate(
     independent single-frontier calls.  ``hop_weight`` is applied once
     per *logical* (real->real) hop, not per condensed layer, so BFS hop
     counting matches the expanded graph.
+
+    ``layer_weights`` carries edge properties on condensed chains: one
+    sequence per chain, one ``(layer_size,)`` tensor per *virtual* layer,
+    ⊗-applied to the hidden frontier (broadcast over the ``B`` columns)
+    while it occupies that layer.  A condensed path's weight is then the
+    ⊗-product of its virtual-node properties (min-plus: path cost = Σ
+    weights; max-min: path width = min capacity), while every incidence
+    step stays an unweighted SpMM, so kernel dispatch is unaffected.
+    Direct edges carry no virtual node, hence the weight identity.  Only
+    idempotent semirings are supported (the DEDUP-C correction algebra is
+    multiplicity-based and has no weighted analogue).  Validation and
+    error texts are the JAX package's.
     """
     n_in = graph.n if isinstance(graph, DeviceExpanded) else graph.n_real
     if x.ndim not in (1, 2) or x.shape[0] != n_in:
         raise ValueError(
             f"frontier must be ({n_in},) or ({n_in}, B); got shape {tuple(x.shape)}"
         )
+    if layer_weights is not None:
+        if isinstance(graph, DeviceExpanded):
+            raise ValueError(
+                "layer_weights are condensed-chain edge properties; the "
+                "expanded representation needs them folded into a dense "
+                "weighted matrix instead (tests/oracle.py does exactly that)"
+            )
+        if not semiring.idempotent:
+            raise ValueError(
+                "layer_weights require an idempotent semiring: the ring "
+                "correction (DEDUP-C) subtracts path multiplicities and "
+                "has no weighted analogue"
+            )
+        if len(layer_weights) != len(graph.chains):
+            raise ValueError(
+                f"layer_weights must cover all {len(graph.chains)} chains; "
+                f"got {len(layer_weights)}"
+            )
+        for ci, (cw, chain) in enumerate(zip(layer_weights, graph.chains)):
+            if len(cw) != len(chain) - 1:
+                raise ValueError(
+                    f"chain {ci} has {len(chain) - 1} virtual layers; got "
+                    f"{len(cw)} weight arrays"
+                )
     if isinstance(graph, DeviceExpanded):
         src, dst = (graph.dst, graph.src) if reverse else (graph.src, graph.dst)
         msgs = x.index_select(0, src)
@@ -740,10 +801,18 @@ def propagate(
     y = None
     for ci, chain in enumerate(graph.chains):
         seq = chain[::-1] if reverse else chain
+        w_seq = None
+        if layer_weights is not None:
+            # weight i lives on virtual layer i; walking the chain
+            # backwards visits the layers in reverse order
+            cw = layer_weights[ci]
+            w_seq = cw[::-1] if reverse else cw
         h = x
         fuse_here = fused is not None and ci == len(graph.chains) - 1
-        for e in (seq[:-1] if fuse_here else seq):
+        for si, e in enumerate(seq[:-1] if fuse_here else seq):
             h = _layer_propagate(graph, semiring, e, h, reverse)
+            if w_seq is not None and si < len(seq) - 1:
+                h = semiring.mul(h, _bcast(torch.as_tensor(w_seq[si], device=h.device), h))
         if fuse_here:
             h = _fused_layer_spmm(fused, h, x)
         h = _apply_hop(semiring, h, hop_weight)
@@ -761,15 +830,72 @@ def propagate(
         if graph.correction is not None and fused is not None:
             pass  # already subtracted inside the fused kernel epilogue
         elif graph.correction is not None:
-            cs, cd, cm = graph.correction
-            src, dst = (cd, cs) if reverse else (cs, cd)
-            msgs = x.index_select(0, src)
-            corr = segment_reduce(
-                PLUS_TIMES, msgs * _bcast(cm, msgs), dst, graph.n_real
-            )
+            corr = _correction_apply(graph.correction, x, graph.n_real, reverse)
             y = y - _apply_hop(semiring, corr, hop_weight)
         elif graph.diag_mult is not None:
             y = y - _apply_hop(
                 semiring, x * _bcast(graph.diag_mult, x), hop_weight
             )
     return y
+
+
+def _correction_apply(
+    triples: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    x: torch.Tensor,
+    n_real: int,
+    reverse: bool,
+) -> torch.Tensor:
+    """``D·x`` (or ``Dᵀ·x``) for a sparse (src, dst, count) triple set."""
+    cs, cd, cm = triples
+    src, dst = (cd, cs) if reverse else (cs, cd)
+    msgs = x.index_select(0, src)
+    return segment_reduce(PLUS_TIMES, msgs * _bcast(cm, msgs), dst, n_real)
+
+
+def propagate_wedge(
+    graph: DeviceGraph,
+    x: torch.Tensor,
+    *,
+    reverse: bool = False,
+    wedge: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Exact two-hop ring propagation ``y = Aᵀ(Aᵀx)`` on a DEDUP-C graph
+    from *uncorrected* C-DUP hops.
+
+    The linear DEDUP-C identity ``A = M − D`` composes quadratically:
+
+        ``A² = (M − D)² = M² − (MD + DM − D²)``
+
+    so the exact wedge count is two raw multiplicity hops (each a plain
+    kernel-path SpMM — no per-step correction subtraction, no fused
+    epilogue) minus the *wedge correction* ``W = MD + DM − D²``.  With
+    ``wedge`` triples on the graph's device, precomputed by
+    :func:`repro_torch.core.dedup.build_wedge_correction`, the correction
+    is one sparse pass (``y = M(Mx) − Wx``); without them it is assembled
+    on the fly from the graph's own ``D`` triples
+    (``y = M(Mx) − M(Dx) − D(Mx) + D(Dx)``).  Byte-identical to two
+    per-step-corrected :func:`propagate` calls on integer frontiers.
+    On a :class:`DevicePacked` the raw graph keeps its packed layers and
+    row indices and drops only the correction, so every raw hop is K1.
+    """
+    if isinstance(graph, DeviceExpanded):
+        y = propagate(graph, x, PLUS_TIMES, reverse=reverse)
+        return propagate(graph, y, PLUS_TIMES, reverse=reverse)
+    if graph.correction is None:
+        if graph.deduplicated:
+            y = propagate(graph, x, PLUS_TIMES, reverse=reverse)
+            return propagate(graph, y, PLUS_TIMES, reverse=reverse)
+        raise ValueError(
+            "propagate_wedge needs a DEDUP-C correction: the quadratic "
+            "wedge correction is built from the linear D triples"
+        )
+    raw = dataclasses.replace(graph, correction=None, diag_mult=None)
+    mx = propagate(raw, x, PLUS_TIMES, reverse=reverse, allow_duplicates=True)
+    mmx = propagate(raw, mx, PLUS_TIMES, reverse=reverse, allow_duplicates=True)
+    if wedge is not None:
+        return mmx - _correction_apply(wedge, x, graph.n_real, reverse)
+    dx = _correction_apply(graph.correction, x, graph.n_real, reverse)
+    mdx = propagate(raw, dx, PLUS_TIMES, reverse=reverse, allow_duplicates=True)
+    dmx = _correction_apply(graph.correction, mx, graph.n_real, reverse)
+    ddx = _correction_apply(graph.correction, dx, graph.n_real, reverse)
+    return mmx - mdx - dmx + ddx

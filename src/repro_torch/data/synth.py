@@ -3,20 +3,28 @@
 * :func:`dblp_catalog`  — Author / Pub / AuthorPub (co-author graphs)
 * :func:`tpch_catalog`  — Customer / Orders / LineItem ("customers who
   bought the same item", the multi-layer Fig 5a example)
+* :func:`barabasi_albert_condensed` / :func:`layered_condensed` — condensed
+  graphs straight from the App. C.1 / C.2 generators
 
-Both draw from ``numpy.random.default_rng(seed)`` in the same order as the
-JAX package's generators, so one seed gives identical tables in both.
+All draw from ``numpy.random.default_rng(seed)`` in the same order as the
+JAX package's generators, so one seed gives identical tables and graphs in
+both.
 """
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import numpy as np
 
+from ..core.condensed import BipartiteEdges, Chain, CondensedGraph
 from ..core.relational import Catalog, Table
 
 __all__ = [
     "dblp_catalog",
     "tpch_catalog",
     "zipf_sizes",
+    "barabasi_albert_condensed",
+    "layered_condensed",
 ]
 
 
@@ -95,3 +103,125 @@ def tpch_catalog(
         {"okey": order_ids + 5_000_000, "pkey": part_ids + 9_000_000},
     )
     return Catalog([customers, orders, lineitem])
+
+
+# ---------------------------------------------------------------------------
+# Condensed-graph generators (paper App. C.1/C.2)
+# ---------------------------------------------------------------------------
+
+def barabasi_albert_condensed(
+    n_real: int,
+    n_virtual: int,
+    mean_size: float,
+    sd_size: float,
+    seed: int = 0,
+    p_initial: float = 0.15,
+    p_random_after_split: float = 0.35,
+) -> CondensedGraph:
+    """App. C.1 generator: preferential-attachment condensed graphs.
+
+    1. draw virtual node sizes ~ N(mean, sd);
+    2. split each virtual node with probability relative to its size;
+    3. attach an initial batch (``p_initial``) at random;
+    4. remaining virtual nodes attach either at random (split children,
+       with prob. ``p_random_after_split``) or preferentially: pick an
+       anchor real node of sufficient degree and sample its neighborhood
+       with probability proportional to (degree)^2;
+    5. merge split children back together.
+    """
+    rng = np.random.default_rng(seed)
+    sizes = np.maximum(
+        rng.normal(mean_size, sd_size, size=n_virtual).astype(np.int64), 2
+    )
+    sizes = np.minimum(sizes, max(2, n_real - 1))
+
+    # Step 2: split
+    split_prob = np.clip(sizes / (sizes.max() + 1.0), 0.05, 0.9)
+    is_split = rng.random(n_virtual) < split_prob
+    members: List[np.ndarray] = [np.empty(0, np.int64)] * n_virtual
+    degree = np.zeros(n_real, dtype=np.int64)
+
+    def attach_random(size: int) -> np.ndarray:
+        sel = rng.choice(n_real, size=size, replace=False)
+        degree[sel] += 1
+        return sel
+
+    def attach_preferential(size: int) -> np.ndarray:
+        anchors = np.flatnonzero(degree >= 1)
+        if anchors.size == 0:
+            return attach_random(size)
+        r = int(anchors[rng.integers(anchors.size)])
+        # Neighborhood = union of members of virtual nodes containing r —
+        # approximated by degree-weighted sampling over attached nodes
+        # (paper's P_i ∝ d(s_i)^2 rule).
+        attached = np.flatnonzero(degree > 0)
+        w = degree[attached].astype(np.float64) ** 2
+        w /= w.sum()
+        take = min(size, attached.size)
+        sel = rng.choice(attached, size=take, replace=False, p=w)
+        if take < size:
+            rest = rng.choice(
+                np.setdiff1d(np.arange(n_real), sel, assume_unique=False),
+                size=size - take,
+                replace=False,
+            )
+            sel = np.concatenate([sel, rest])
+        degree[sel] += 1
+        return sel
+
+    order = rng.permutation(n_virtual)
+    n_init = max(1, int(p_initial * n_virtual))
+    for i, v in enumerate(order):
+        size = int(sizes[v])
+        if i < n_init:
+            members[v] = attach_random(size)
+        elif is_split[v] and rng.random() < p_random_after_split:
+            members[v] = attach_random(size)
+        else:
+            members[v] = attach_preferential(size)
+
+    src = np.concatenate(members)
+    dst = np.concatenate(
+        [np.full(m.size, v, dtype=np.int64) for v, m in enumerate(members)]
+    )
+    e_in = BipartiteEdges(src, dst, n_real, n_virtual)
+    return CondensedGraph(n_real, [Chain([e_in, e_in.reversed()])])
+
+
+def layered_condensed(
+    n_real: int,
+    layer_sizes: Sequence[int],
+    edges_per_level: Sequence[int],
+    seed: int = 0,
+    symmetric: bool = True,
+) -> CondensedGraph:
+    """App. C.2 generator: k-layer chains with controlled selectivity.
+
+    ``layer_sizes``  virtual nodes per layer (k entries);
+    ``edges_per_level``  edge count per bipartite level (k+1 entries).
+    Lower layer_size / edge ratio = lower selectivity = denser expansion.
+    """
+    rng = np.random.default_rng(seed)
+    if len(edges_per_level) != len(layer_sizes) + 1:
+        raise ValueError("need len(edges_per_level) == len(layer_sizes) + 1")
+    levels = [n_real] + list(layer_sizes) + [n_real]
+    edges: List[BipartiteEdges] = []
+    for i, ne in enumerate(edges_per_level):
+        n_src, n_dst = levels[i], levels[i + 1]
+        src = rng.integers(0, n_src, size=ne)
+        dst = rng.integers(0, n_dst, size=ne)
+        # connectivity guarantee: each dst appears at least once
+        probe = rng.permutation(n_dst)
+        src2 = rng.integers(0, n_src, size=n_dst)
+        edges.append(
+            BipartiteEdges(
+                np.concatenate([src, src2]),
+                np.concatenate([dst, probe]),
+                n_src,
+                n_dst,
+            )
+        )
+    if symmetric and len(layer_sizes) == 1:
+        e_in = edges[0]
+        return CondensedGraph(n_real, [Chain([e_in, e_in.reversed()])])
+    return CondensedGraph(n_real, [Chain(edges)])

@@ -241,6 +241,111 @@ def test_wrapper_refuses_misaligned_words(packed):
 
 
 # ---------------------------------------------------------------------------
+# The analytics' traffic: 128 feature columns, +inf frontiers, empty rows,
+# a two-virtual-layer chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_cuda_kernels_at_128_features(packed, op):
+    """K1 / K2 at F = 128 (four feature blocks, the triangle blocks' width)
+    over both layers in both directions: bit for bit against the plain
+    versions on integer frontiers, and the same bits on a second launch of
+    a float frontier."""
+    rng = np.random.default_rng(128)
+    for ops, n_in, n_out in _directions(packed):
+        x = _frontier(rng, n_in, 128, op)
+        got = K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out, op=op, zero=ZERO[op])
+        assert torch.equal(got, K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out, op=op,
+                                              zero=ZERO[op]))
+        want = K.bitmap_spmm_plain(*_plain_args(ops), x, n_out, op=op, zero=ZERO[op])
+        assert torch.equal(got, want)
+        xf = torch.from_numpy(rng.random((n_in, 128)).astype(np.float32)).cuda()
+        args = (ops.row_ptr, ops.col, xf, n_out, op, ZERO[op])
+        assert torch.equal(K.bitmap_spmm(*args), K.bitmap_spmm(*args))
+
+
+def test_cuda_fused_at_128_features(packed):
+    """K3 at F = 128 in both directions: bit for bit against the plain
+    version on integer frontiers, and bit-identical between two launches on
+    a float frontier."""
+    rng = np.random.default_rng(129)
+    for reverse in (False, True):
+        f, n_h = _fused(packed, reverse)
+        h = _frontier(rng, n_h, 128, "sum")
+        x = _frontier(rng, packed.n_real, 128, "sum")
+        got = K.bitmap_spmm_fused(f.row_ptr, f.col, f.weight, h, x, f.n_out)
+        want = K.bitmap_spmm_fused_plain(*_fused_plain_args(f), h, x, f.n_out, f.plane_weights)
+        assert torch.equal(got, want)
+        hf = torch.from_numpy(rng.random((n_h, 128)).astype(np.float32)).cuda()
+        xf = torch.from_numpy(rng.random((packed.n_real, 128)).astype(np.float32)).cuda()
+        args = (f.row_ptr, f.col, f.weight, hf, xf, f.n_out)
+        assert torch.equal(K.bitmap_spmm_fused(*args), K.bitmap_spmm_fused(*args))
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_cuda_k2_inf_frontiers_and_empty_rows(card, op):
+    """K2 over frontiers full of ``+inf`` (shortest-path fills, widest-path
+    sources) with destination rows that receive nothing inside a row tile
+    and whole empty tiles: empty rows come out as the semiring zero (``inf``
+    for min, 0 for max), ``inf`` is carried through the 16-byte gathers and
+    the carry pass, and two launches give the same bits."""
+    rng = np.random.default_rng(17)
+    n_src, n_dst = 500, 700
+    dst = rng.choice(np.r_[np.arange(0, 300, 2), np.arange(520, 600)], 4000)
+    key = np.unique(rng.integers(0, n_src, 4000) * n_dst + dst)
+    ops = engine._upload_operands(
+        pack_bipartite(BipartiteEdges(key // n_dst, key % n_dst, n_src, n_dst)), card)
+    for feat in (4, 32, 128):
+        x = rng.integers(0, 9, (n_src, feat)).astype(np.float32)
+        x[rng.random((n_src, feat)) < (0.9 if op == "min" else 0.3)] = np.inf
+        x = torch.from_numpy(x).cuda()
+        want = K.bitmap_spmm_plain(*_plain_args(ops), x, n_dst, op=op, zero=ZERO[op])
+        for items in (5, None):
+            got = K.bitmap_spmm(ops.row_ptr, ops.col, x, n_dst, op=op, zero=ZERO[op],
+                                range_items=items)
+            assert torch.equal(got, want), (feat, items)
+            assert torch.equal(got, K.bitmap_spmm(ops.row_ptr, ops.col, x, n_dst, op=op,
+                                                  zero=ZERO[op], range_items=items))
+        empty = torch.ones(n_dst, dtype=torch.bool, device="cuda")
+        empty[torch.from_numpy(key % n_dst).cuda()] = False
+        assert bool((got[empty] == ZERO[op]).all())
+        assert bool(torch.isinf(got[~empty]).any())
+
+
+def test_cuda_two_virtual_layer_chain(card):
+    """App. C.2's layered generator (two virtual layers, repeated edges,
+    directed): every layer packs its distinct edges, and weighted shortest
+    paths forward and reversed, widest paths and SCC labels launch K2 on
+    the card and equal the segment path, twice over."""
+    import dataclasses
+
+    from repro_torch.core import algorithms
+    from repro_torch.data.synth import layered_condensed
+
+    g = layered_condensed(400, [150, 120], [900, 600, 900], seed=4, symmetric=False)
+    lay = engine.to_device_packed(g, backend="cuda", device=card)
+    seg = dataclasses.replace(lay, backend="segment")
+    assert all(layer.repeats for layer in lay.chains[0])
+    rng = np.random.default_rng(4)
+    lw = ((torch.from_numpy(rng.integers(1, 9, 150).astype(np.float32)).cuda(),
+           torch.from_numpy((rng.random(120) * 3).astype(np.float32)).cuda()),)
+    src = rng.integers(0, 400, 16)
+    K.reset_launch_counts()
+    for reverse in (False, True):
+        got = algorithms.shortest_paths_multi(lay, src, layer_weights=lw, reverse=reverse)
+        assert torch.equal(got, algorithms.shortest_paths_multi(lay, src, layer_weights=lw,
+                                                                reverse=reverse))
+        assert torch.equal(got, algorithms.shortest_paths_multi(seg, src, layer_weights=lw,
+                                                                reverse=reverse))
+    wide = algorithms.widest_paths_multi(lay, src, layer_capacities=lw)
+    assert torch.equal(wide, algorithms.widest_paths_multi(seg, src, layer_capacities=lw))
+    labels = algorithms.scc_labels(lay, batch=32)
+    assert np.array_equal(labels, algorithms.scc_labels(seg, batch=32))
+    assert K.LAUNCHES["bitmap_spmm_min"] > 0 and K.LAUNCHES["bitmap_spmm_max"] > 0
+    assert K.LAUNCHES["bitmap_spmm_sum"] == 0 and K.LAUNCHES["bitmap_spmm_fused"] == 0
+
+
+# ---------------------------------------------------------------------------
 # K4: flash attention
 # ---------------------------------------------------------------------------
 

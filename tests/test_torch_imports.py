@@ -34,7 +34,7 @@ def test_slice_modules_are_all_listed():
         "repro_torch.configs.yi_9b", "repro_torch.configs.registry",
         "repro_torch.kernels.flash_attention", "repro_torch.models.layers",
         "repro_torch.models.transformer", "repro_torch.models.interop",
-        "repro_torch.launch.serve",
+        "repro_torch.launch.serve", "repro_torch.kernels.ops",
     ):
         assert name in MODULES
 
