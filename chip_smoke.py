@@ -35,21 +35,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 operations at 67 TFLOP/s; ``layout_bound_ms`` counts every
    bitmap byte instead, the earlier design's reads) and, for K1 and K3,
    one ``torch.sparse.mm`` call on a CSR of the same function.
+   Then larger-than-memory extraction on phase 3's catalog:
+   ``extract_sharded`` in 8 shards spilled under ``build/spill`` and
+   tree-merged two at a time, unbounded and again with
+   ``max_resident_rows`` / ``max_assembly_bytes`` at the peaks it
+   observed, each graph identical to phase 3's and each spill store
+   validated; one row below the peak must raise
+   ``ExtractionBudgetError``.  ``sharded_extract_to_device(packed=True,
+   pack_shard_edges=)`` (and the counts graph packed slice by slice) must
+   upload phase 3's operands byte for byte, compared on the card, and
+   serve phase 3's batches with its answers bit for bit and its launches.
 5. Analytics (``analytics_phase``), each analytic with the launch counts
    zeroed just before and read just after, ``backend='auto'``, each
    equal to the same call on the segment backend on the card (exactly,
    PPR to ``rtol=1e-5, atol=1e-6``), each launching the kernels
    named and no ``'vmem_or_backend'`` stand-down (HITS, 1-D on the segment
-   path both ways, is compared bit for bit in PyTorch's deterministic mode:
-   CUDA's ``index_add_`` adds in no fixed order otherwise, and the DEDUP-C
-   subtraction cancels most of each sum): on the served DEDUP-C
+   path both ways, is compared bit for bit in default mode: the segment
+   sums add in a fixed order): on the served DEDUP-C
    graph, ``shortest_paths_multi`` over 32 sources with an integer cost
    in 1-8 per publication (K2 min), ``widest_paths_multi`` with
    capacities drawn the same way (K2 max), ``triangle_counts`` over every
    author in blocks of 128 in ``per_step`` mode (K1 + K3 at F = 128) and
    in ``wedge`` mode (raw hops on K1), the two equal on every node whose
    wedge terms stay exact in float32 (``WEDGE_EXACT_BELOW``; the rest are
-   counted and their difference recorded), ``clustering_coefficients``
+   counted and their difference recorded), the per_step counts summing to
+   a multiple of 3 and the ten largest equal to an int64 count by scipy,
+   ``clustering_coefficients``
    and ``hits(30)``, and one profiled triangle block; on App. C.2's
    ``layered_1`` (30,000 real nodes, two virtual layers of 12,000, packed),
    ``scc_labels(batch=128)`` equal to scipy's strong components of the
@@ -60,6 +71,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K3 at F = 128 and K2 min on the layered middle layer, held and timed
    as in phase 4.  ``--quick``: layered_1's smoke size (600, [240, 240])
    and DEDUP-1 at 300 / 600.
+   Then the measured crossover: every ``range_items`` candidate of K1 at
+   the served operands equal to its plain versions; ``measure_crossover``
+   (ops sum / min / max, B in 8 / 32 / 128) on every packed direction of
+   the served exact graph, and ``to_device_packed(measure=True)`` of
+   layered_1 and of the DEDUP-1 graph, each table through its JSON round
+   trip; DEDUP-1 PPR and BFS, condensation and layered_1's shortest paths
+   both ways rerun on the measured graphs, every step's dispatch the
+   table's decision and one launch per ``'cuda'`` decision, each equal to
+   the segment path.  Last, ``collapse_to_single_layer``: layered_1 keeps
+   its SCC labels and expanded edge count; TPC-H's symmetric three-layer
+   query (1,000 customers; ``--quick`` 300) collapses to one layer that
+   DEDUP-1 rewrites, batched PPR on it (K1, never K3) equal to DEDUP-C's
+   on the uncollapsed graph and BFS exact.
 6. LM serving: K4 against its plain version on small and cache-path
    shapes (the main path's prefill and decode among them) in float32 to
    2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
@@ -723,7 +747,33 @@ def m2_column_max(graph, block: int):
     return out
 
 
-def dblp_analytics(an, exact, rng) -> dict:
+def hub_triangles(g, t, n_hubs: int = 10) -> dict:
+    """The ``n_hubs`` largest per_step counts against an int64 count on the
+    host: scipy's sparse product of the neighbours' incidence rows, whose
+    off-diagonal nonzeros are the edges among a hub's neighbours (twice)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    e = g.chains[0].edges[0]  # author -> publication
+    inc = sp.csr_matrix((np.ones(e.n_edges, np.float32), (e.src, e.dst)),
+                        shape=(e.n_src, e.n_dst))
+    inc_t = inc.T.tocsr()
+    hubs = np.argsort(-t, kind="stable")[:n_hubs]
+    want = []
+    t0 = time.perf_counter()
+    for v in hubs:
+        nbrs = np.unique(inc_t[inc[v].indices].indices)
+        nbrs = nbrs[nbrs != v]
+        rows = inc[nbrs]
+        prod = (rows @ rows.T).tocsr()
+        want.append((int(prod.nnz) - int((prod.diagonal() != 0).sum())) // 2)
+    got = t[hubs]
+    if not np.array_equal(got, np.asarray(want, dtype=np.float64)):
+        raise AssertionError(f"triangle_counts: hub counts {got.tolist()} != scipy's {want}")
+    return {"hubs": hubs.tolist(), "counts": want, "host_s": time.perf_counter() - t0}
+
+
+def dblp_analytics(an, exact, g, rng) -> dict:
     """The DEDUP-C graph the main path served: weighted shortest and
     widest paths (K2 min / max), triangle counts in both modes (K1 + K3 at
     F = 128; K1 on the raw hops), clustering coefficients, HITS."""
@@ -783,6 +833,11 @@ def dblp_analytics(an, exact, rng) -> dict:
     if t.shape != (n,) or not (np.isfinite(t).all() and (t >= 0).all()
                                and np.array_equal(t, np.floor(t))):
         raise AssertionError("triangle_counts: malformed counts")
+    # per_step reduces each block in float64: the counts are exact
+    if int(t.sum()) % 3 or float(int(t.sum())) != t.sum():
+        raise AssertionError(f"triangle_counts: the counts sum to {t.sum()}, not 3 x triangles")
+    rec["triangles"]["hub_check"] = hub_triangles(g, t)
+    log(f"triangle hubs against scipy: {json.dumps(rec['triangles']['hub_check'])}")
 
     cc = an.run("clustering_coefficients", lambda: A.clustering_coefficients(exact, block=128),
                 ["bitmap_spmm_sum", "bitmap_spmm_fused"])
@@ -791,22 +846,16 @@ def dblp_analytics(an, exact, rng) -> dict:
     if not (np.isfinite(cc).all() and (cc >= 0).all() and (cc <= 1.0 + 1e-9).all()):
         raise AssertionError("clustering_coefficients: outside [0, 1]")
 
+    # HITS steps 1-D frontiers on the segment path both ways, whose sums
+    # run in a fixed order: the 'auto' and 'segment' calls are two runs of
+    # the same sums and must give the same bits, in default mode
     h, a = an.run("hits", lambda: A.hits(exact, num_iters=30), [])
     hs, as_ = an.segment("hits", lambda: A.hits(seg, num_iters=30))
-    rec["hits_default_mode_max_abs_diff"] = max(float((h - hs).abs().max().item()),
-                                                float((a - as_).abs().max().item()))
-    # HITS steps 1-D frontiers on the segment path both ways.  CUDA's
-    # index_add_ adds in no fixed order by default, and the DEDUP-C
-    # subtraction M x - D x cancels most of each sum, so two runs of the same
-    # call differ past 1e-5; in deterministic mode they must be bit-equal
-    torch.use_deterministic_algorithms(True)
-    try:
-        pair = (A.hits(exact, num_iters=30), A.hits(seg, num_iters=30))
-    finally:
-        torch.use_deterministic_algorithms(False)
-    for got, want in zip(*pair):
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("hits: deterministic mode is on")
+    for got, want in ((h, hs), (a, as_)):
         if not torch.equal(got, want):
-            raise AssertionError("hits: kernel path != segment path (deterministic mode)")
+            raise AssertionError("hits: two runs of the segment path differ")
     for v in (h, a):
         if not (bool(torch.isfinite(v).all())
                 and abs(float(torch.linalg.vector_norm(v).item()) - 1.0) < 1e-4):
@@ -887,7 +936,9 @@ def layered_analytics(an, args, rng) -> dict:
             seg, sources, layer_weights=lw, reverse=reverse)))
         rec[name + "_reached_share"] = float(torch.isfinite(d).float().mean().item())
     log(f"layered: {json.dumps(rec)}")
-    return rec, lay
+    ctx = {"layered_host": lg, "layered_labels": labels, "layered_weights": lw,
+           "layered_sources": sources}
+    return rec, lay, ctx
 
 
 def dedup1_analytics(an, args, rng) -> dict:
@@ -931,10 +982,10 @@ def dedup1_analytics(an, args, rng) -> dict:
         raise AssertionError("BFS on DEDUP-1 != BFS on DEDUP-C")
     rec["ppr_max_abs_diff_vs_dedupc"] = float((p1 - pc).abs().max().item())
     log(f"DEDUP-1: {json.dumps(rec)}")
-    return rec
+    return rec, {"dedup1_host": d1.graph, "dedup1_seeds": seeds, "dedup1_sources": sources}
 
 
-def analytics_phase(args, exact, record) -> list:
+def analytics_phase(args, exact, g, record):
     """Phase 5: every analytic on the card with ``backend='auto'``, each
     against the same call on the segment backend; then the kernels' rows
     at the analytics' shapes (K1 and K3 at the triangle block's F = 128, K2
@@ -944,9 +995,10 @@ def analytics_phase(args, exact, record) -> list:
     an = Analytics()
     rng = np.random.default_rng(args.seed + 1)
     t = time.perf_counter()
-    rec = {"dblp": dblp_analytics(an, exact, rng)}
-    rec["layered"], lay = layered_analytics(an, args, rng)
-    rec["dedup1"] = dedup1_analytics(an, args, rng)
+    rec = {"dblp": dblp_analytics(an, exact, g, rng)}
+    rec["layered"], lay, ctx = layered_analytics(an, args, rng)
+    rec["dedup1"], d1ctx = dedup1_analytics(an, args, rng)
+    ctx.update(d1ctx)
     rec["phase_s"] = time.perf_counter() - t
     rec["runs"] = an.records
 
@@ -969,7 +1021,7 @@ def analytics_phase(args, exact, record) -> list:
             f"{r['launches']} launches in the analytics phase")
     log(f"analytics phase: {rec['phase_s']:.1f} s")
     record["analytics"] = rec
-    return rows
+    return rows, ctx
 
 
 # ---------------------------------------------------------------------------
@@ -1457,6 +1509,448 @@ def lm_phase(args) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 3b: larger-than-memory extraction, and the measured crossover
+# ---------------------------------------------------------------------------
+
+# shards of the sharded runs, and the spill directory (gitignored build/)
+SCALE_SHARDS = 8
+SPILL_ROOT = os.path.join(ROOT, "build", "spill")
+# the frontier widths and ops of every measured crossover cell
+CROSSOVER_BATCHES = (8, 32, 128)
+CROSSOVER_OPS = ("sum", "min", "max")
+# TPC-H's "customers who bought the same item" (paper Fig. 5a): three
+# virtual layers, symmetric, so its collapse can be rewritten by DEDUP-1;
+# (customers, orders, parts), full and --quick
+TPCH_GRAPH = {False: (1_000, 4_000, 300), True: (300, 900, 100)}
+TPCH_QUERY = """
+Nodes(ID, Name) :- Customer(ID, Name).
+Edges(ID1, ID2) :- Orders(ok1, ID1), LineItem(ok1, pk),
+                   Orders(ok2, ID2), LineItem(ok2, pk).
+"""
+BUDGET_FIELDS = ("peak_resident_rows", "peak_assembly_bytes", "spilled_bytes",
+                 "n_spilled_records", "n_merge_rounds", "merge_peak_resident_bytes",
+                 "n_shards_processed", "n_segments_executed")
+
+
+def device_tensors(obj, prefix=""):
+    """Every tensor reachable from a device container, by path."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = {}
+        for f in dataclasses.fields(obj):
+            out.update(device_tensors(getattr(obj, f.name), f"{prefix}.{f.name}"))
+        return out
+    if isinstance(obj, (tuple, list)):
+        out = {}
+        for i, v in enumerate(obj):
+            out.update(device_tensors(v, f"{prefix}[{i}]"))
+        return out
+    return {}
+
+
+def same_upload(name, got, want) -> int:
+    """Every uploaded tensor of ``got`` equals ``want``'s, compared on the
+    card; returns the bytes compared."""
+    import torch
+
+    a, b = device_tensors(got), device_tensors(want)
+    if a.keys() != b.keys():
+        raise AssertionError(f"{name}: the uploads hold different operands")
+    for k in b:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{name}: operand {k} differs from the one-shot upload")
+    return sum(t.numel() * t.element_size() for t in b.values())
+
+
+def sharded_extraction(args, catalog, g, extract_s) -> dict:
+    """C.1: ``extract_sharded`` in ``SCALE_SHARDS`` shards, spilled and
+    tree-merged two at a time, unbounded and then under budgets set to the
+    peaks it observed, each graph identical to the one-shot build; one row
+    below the peak must raise ``ExtractionBudgetError``."""
+    import shutil
+
+    from repro_torch.core import (ExtractionBudgetError, ShardSpillStore, extract_sharded,
+                                  graphs_identical)
+
+    shutil.rmtree(SPILL_ROOT, ignore_errors=True)
+    rec = {"one_shot_extract_s": extract_s}
+
+    def run(name, **kw):
+        spill = os.path.join(SPILL_ROOT, name)
+        t = time.perf_counter()
+        res = extract_sharded(catalog, QUERY, n_shards=SCALE_SHARDS, spill_dir=spill,
+                              merge_arity=2, **kw)
+        seconds = time.perf_counter() - t
+        if not graphs_identical(g, res.graph):
+            raise AssertionError(f"sharded extraction ({name}) != the one-shot graph")
+        report = ShardSpillStore.open(spill).validate()
+        b = res.budget
+        rec[name] = {"seconds": seconds, **{f: getattr(b, f) for f in BUDGET_FIELDS},
+                     "validated_records": len(report.get("records", report))}
+        log(f"sharded extraction ({name}): {json.dumps(rec[name])}")
+        return b
+
+    b = run("unbounded")
+    run("at_peak", max_resident_rows=b.peak_resident_rows,
+        max_assembly_bytes=b.peak_assembly_bytes)
+    try:
+        extract_sharded(catalog, QUERY, n_shards=SCALE_SHARDS,
+                        spill_dir=os.path.join(SPILL_ROOT, "below"), merge_arity=2,
+                        max_resident_rows=b.peak_resident_rows - 1)
+    except ExtractionBudgetError as e:
+        rec["below_peak_error"] = str(e)
+    else:
+        raise AssertionError("a budget one row below the observed peak did not raise")
+    shutil.rmtree(SPILL_ROOT, ignore_errors=True)
+    return rec
+
+
+def sharded_upload(args, catalog, g, exact, counts, served) -> dict:
+    """C.2: ``sharded_extract_to_device(packed=True, pack_shard_edges=)``
+    uploads phase 3's exact graph byte for byte; the served batch from it
+    (beside a counts graph uploaded from the sharded build, also held to
+    phase 3's) gives phase 3's answers bit for bit with phase 3's
+    launches.  The copies are freed before the next phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.data.pipeline import sharded_extract_to_device
+    from repro_torch.kernels import bitmap_spmm as K
+    from repro_torch.serve.server import GraphQueryServer
+
+    nodes, reach_nodes, got, reach, launches = served
+    shard_edges = max(max(e.n_edges for e in g.chains[0].edges) // SCALE_SHARDS, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res, dev = sharded_extract_to_device(
+        catalog, QUERY, n_shards=SCALE_SHARDS, packed=True, pack_shard_edges=shard_edges,
+        spill_dir=os.path.join(SPILL_ROOT, "upload"), device="cuda")
+    torch.cuda.synchronize()
+    rec = {"pack_shard_edges": shard_edges, "pipeline_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    dev_counts = engine.to_device_packed(res.graph, drop_self_loops=False, device="cuda")
+    torch.cuda.synchronize()
+    rec["counts_upload_s"] = time.perf_counter() - t
+    rec["bytes_compared"] = (same_upload("exact", dev, exact)
+                             + same_upload("counts", dev_counts, counts))
+    server = GraphQueryServer(dev, counts_graph=dev_counts)
+    K.reset_launch_counts()
+    engine.reset_kernel_dispatch_count()
+    t = time.perf_counter()
+    queries, got2, reach2, _ = serve_queries(server, nodes, reach_nodes)
+    torch.cuda.synchronize()
+    rec["serve_s"] = time.perf_counter() - t
+    rec["launches"] = dict(K.LAUNCHES)
+    if rec["launches"] != launches:
+        raise AssertionError(f"served from the sharded build: launches {rec['launches']}, "
+                             f"phase 3 made {launches}")
+    for q in queries:
+        if not np.array_equal(got2[q.qid], got[q.qid]):
+            raise AssertionError(f"{q.kind} query {q.qid}: the sharded build's answer "
+                                 "differs from phase 3's")
+    if not np.array_equal(reach2, reach):
+        raise AssertionError("reachable_multi: the sharded build's answer differs")
+    log(f"sharded upload: {json.dumps(rec)}")
+    del server, dev, dev_counts
+    torch.cuda.empty_cache()
+    return rec
+
+
+def direction_views(graph):
+    """(name, ops.PackedLayer) of every packed direction of a packed graph,
+    each a forward layer of its own (``measure_crossover`` measures that)."""
+    from repro_torch.kernels.ops import PackedLayer
+
+    layers = [(f"chain{c}.layer{i}", layer) for c, chain in enumerate(graph.chains)
+              for i, layer in enumerate(chain)]
+    if graph.direct is not None:
+        layers.append(("direct", graph.direct))
+    for name, layer in layers:
+        yield f"{name}.fwd", PackedLayer(None, None, layer.fwd, None, layer.src, layer.dst,
+                                         layer.n_src, layer.n_dst, plans=layer.plans)
+        yield f"{name}.rev", PackedLayer(None, None, layer.rev, None, layer.dst, layer.src,
+                                         layer.n_dst, layer.n_src)
+
+
+def table_cells(table):
+    return [{"op": op, "src_bucket": sb, "batch_bucket": bb, "cuda_us": e.cuda_us,
+             "segment_us": e.segment_us, "range_items": e.range_items, "backend": e.backend}
+            for (op, sb, bb), e in table.entries]
+
+
+def round_trip(name, table) -> None:
+    from repro_torch.core import serialize
+
+    path = os.path.join(ROOT, "build", "crossover", f"{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    back = serialize.load_crossover_table(serialize.save_crossover_table(table, path))
+    if back != table or back.to_json() != table.to_json():
+        raise AssertionError(f"{name}: the crossover table changed in its JSON round trip")
+
+
+def candidate_checks(exact, rng) -> dict:
+    """Every ``range_items`` candidate of K1 at the served operands (the
+    author -> publication layer, F = 32): equal to the plain version over
+    the bitmaps on an integer frontier, to the plain mirror of its own
+    ranges on a float frontier, and twice the same bits.  Comparison
+    launches, not the path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import bitmap_spmm as K
+
+    layer = exact.chains[0][0]
+    ops, n_out = layer.fwd, layer.n_dst
+    x = torch.from_numpy(rng.integers(0, 7, (layer.n_src, 32)).astype(np.float32)).cuda()
+    floats = torch.from_numpy(rng.random((layer.n_src, 32)).astype(np.float32)).cuda()
+    plain = K.bitmap_spmm_plain(ops.slot_src, ops.slot_row, ops.row_start, ops.row_count,
+                                ops.bitmaps, x, n_out)
+    before = dict(K.LAUNCHES)
+    out = {}
+    for cfg in autotune.CANDIDATES:
+        items = cfg.range_items
+        if not torch.equal(K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out, range_items=items),
+                           plain):
+            raise AssertionError(f"K1 at range_items={items} != its plain version")
+        a = K.bitmap_spmm(ops.row_ptr, ops.col, floats, n_out, range_items=items)
+        if not torch.equal(a, K.bitmap_spmm(ops.row_ptr, ops.col, floats, n_out,
+                                            range_items=items)):
+            raise AssertionError(f"K1 at range_items={items}: two launches differ")
+        mirror = K.bitmap_spmm_index_plain(ops.row_ptr, ops.col, floats, n_out,
+                                           range_items=items)
+        out[items] = float((a - mirror).abs().max().item())
+        if out[items] != 0.0:
+            raise AssertionError(f"K1 at range_items={items} != the plain mirror's bits")
+    K.LAUNCHES.update(before)
+    return {"vs_mirror_max_abs_err": out}
+
+
+class Followed:
+    """Counts the dispatch decisions of ``'auto'`` steps over measured
+    operands: each must be the table's own (``decide`` on the cell), and
+    the kernels must launch exactly once per ``'cuda'`` decision."""
+
+    def __init__(self):
+        self.decisions = []
+
+    def __enter__(self):
+        import unittest.mock
+
+        from repro_torch.core import engine
+        from repro_torch.core.semiring import kernelizable
+
+        orig = engine._kernel_applicable
+
+        def wrapped(graph, layer, x, semiring, reverse):
+            ok = orig(graph, layer, x, semiring, reverse)
+            ops = layer.rev if reverse else layer.fwd
+            if (graph.backend == "auto" and x.ndim == 2 and kernelizable(semiring)
+                    and ops is not None and not (layer.repeats and not semiring.idempotent)):
+                if ops.crossover is None:
+                    raise AssertionError("an 'auto' step consulted unmeasured operands")
+                want = ops.crossover.decide(semiring.add_kind,
+                                            layer.n_dst if reverse else layer.n_src,
+                                            x.shape[1])
+                if (want == "cuda") != ok:
+                    raise AssertionError(f"dispatch {ok} against the table's {want!r}")
+                self.decisions.append(want)
+            return ok
+
+        self._patch = unittest.mock.patch.object(engine, "_kernel_applicable", wrapped)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+
+def measured_run(name, fn, seg_fn, exact) -> dict:
+    """One analytic over measured operands: its time, its launches, which
+    must follow the table, and its answer against the segment path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bitmap_spmm as K
+
+    K.reset_launch_counts()
+    with Followed() as f:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    n_cuda = f.decisions.count("cuda")
+    if sum(launches.values()) != n_cuda:
+        raise AssertionError(f"{name}: {launches} launches for {n_cuda} 'cuda' decisions")
+    before = dict(K.LAUNCHES)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = seg_fn()
+    torch.cuda.synchronize()
+    seg_wall = time.perf_counter() - t
+    if K.LAUNCHES != before:
+        raise AssertionError(f"{name}: the segment backend launched a kernel")
+    outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+    for a, b in zip(outs, wants):
+        if isinstance(a, torch.Tensor):
+            ok = torch.allclose(a, b, **FLOAT_TOL) if exact is False else torch.equal(a, b)
+        else:
+            ok = np.array_equal(a, b)
+        if not ok:
+            raise AssertionError(f"{name} (measured): != the segment path")
+    rec = {"wall_s": wall, "segment_wall_s": seg_wall, "launches": launches,
+           "decisions": {"cuda": n_cuda, "segment": f.decisions.count("segment")}}
+    log(f"measured {name}: {json.dumps(rec)}")
+    return rec
+
+
+def crossover_phase(args, exact, ctx, record) -> dict:
+    """C.3: the measured crossover on every packed direction of the served
+    exact graph, of layered_1 and of the DEDUP-1 graph; each table through
+    its JSON round trip; layered_1 and DEDUP-1 rebuilt with
+    ``to_device_packed(measure=True)`` and their analytics rerun, launches
+    following the tables, answers equal to the segment path's.
+    C.4: ``collapse_to_single_layer`` on layered_1 (SCC labels and expanded
+    edge count kept) and on TPC-H's symmetric three-layer query, whose
+    collapse DEDUP-1 rewrites (PPR on K1 only equal to DEDUP-C's, BFS
+    exact)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import condensed, dedup, engine, extract
+    from repro_torch.data.synth import tpch_catalog
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import bitmap_spmm as K
+
+    rng = np.random.default_rng(args.seed + 2)
+    t_phase = time.perf_counter()
+    rec = {"candidates": candidate_checks(exact, rng)}
+    mk = dict(ops=CROSSOVER_OPS, batch_sizes=CROSSOVER_BATCHES)
+    before = dict(K.LAUNCHES)
+
+    # -- the served exact graph: measure_crossover on every direction ------
+    t = time.perf_counter()
+    tables = {}
+    for name, view in direction_views(exact):
+        tables[f"exact.{name}"] = autotune.measure_crossover(view, **mk)
+    rec["exact_measure_s"] = time.perf_counter() - t
+
+    # -- layered_1 and DEDUP-1, packed with measure=True -------------------
+    t = time.perf_counter()
+    lay_host = ctx["layered_host"]
+    lay = engine.to_device_packed(lay_host, backend="auto", measure=True, measure_kwargs=mk,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    rec["layered_measured_upload_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dev1 = engine.to_device_packed(ctx["dedup1_host"], deduplicated=True, backend="auto",
+                                   measure=True, measure_kwargs=mk, device="cuda")
+    torch.cuda.synchronize()
+    rec["dedup1_measured_upload_s"] = time.perf_counter() - t
+    for gname, graph in (("layered", lay), ("dedup1", dev1)):
+        for name, view in direction_views(graph):
+            tables[f"{gname}.{name}"] = view.fwd.crossover
+    K.LAUNCHES.update(before)  # measurement launches are not the path's
+    for name, table in tables.items():
+        round_trip(name, table)
+    rec["tables"] = {name: table_cells(table) for name, table in tables.items()}
+    for name, table in tables.items():  # op, B: winner @ range_items, cuda / segment us
+        log(f"crossover {name} (n_src 2^{table.entries[0][0][1]}): " + " ".join(
+            f"{op}{1 << bb}:{e.backend[:3]}@{e.range_items}={e.cuda_us:.0f}/{e.segment_us:.0f}"
+            for (op, sb, bb), e in table.entries))
+
+    # -- analytics over the measured graphs --------------------------------
+    runs = {}
+    seeds, sources = ctx["dedup1_seeds"], ctx["dedup1_sources"]
+    seg1 = dataclasses.replace(dev1, backend="segment")
+    runs["ppr_dedup1"] = measured_run(
+        "ppr_dedup1", lambda: A.personalized_pagerank(dev1, seeds),
+        lambda: A.personalized_pagerank(seg1, seeds), exact=False)
+    runs["bfs_dedup1"] = measured_run(
+        "bfs_dedup1", lambda: A.bfs_multi(dev1, sources),
+        lambda: A.bfs_multi(seg1, sources), exact=True)
+    seg_lay = dataclasses.replace(lay, backend="segment")
+    labels = ctx["layered_labels"]
+    runs["condensation"] = measured_run(
+        "condensation", lambda: A.condensation(lay, labels=labels),
+        lambda: A.condensation(seg_lay, labels=labels), exact=True)
+    lw, lsources = ctx["layered_weights"], ctx["layered_sources"]
+    for reverse in (False, True):
+        name = "shortest_paths_multi_layered" + ("_reverse" if reverse else "")
+        runs[name] = measured_run(
+            name, lambda: A.shortest_paths_multi(lay, lsources, layer_weights=lw,
+                                                 reverse=reverse),
+            lambda: A.shortest_paths_multi(seg_lay, lsources, layer_weights=lw,
+                                           reverse=reverse), exact=True)
+    rec["runs"] = runs
+    del lay, dev1, seg1, seg_lay
+
+    # -- collapse ------------------------------------------------------------
+    t = time.perf_counter()
+    flat = condensed.collapse_to_single_layer(lay_host, max_growth=10.0)
+    col = {"collapse_s": time.perf_counter() - t, "max_growth": 10.0,
+           "edges_condensed": lay_host.n_edges_condensed,
+           "edges_collapsed": flat.n_edges_condensed}
+    t = time.perf_counter()
+    col["edges_expanded"] = lay_host.n_edges_expanded()
+    if flat.n_edges_expanded() != col["edges_expanded"]:
+        raise AssertionError("collapse changed the expanded edge count")
+    col["expanded_count_s"] = time.perf_counter() - t
+    flat_dev = engine.to_device_packed(flat, backend="auto", device="cuda")
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    flat_labels = A.scc_labels(flat_dev, batch=128)
+    torch.cuda.synchronize()
+    col["scc_s"] = time.perf_counter() - t
+    col["scc_launches"] = dict(K.LAUNCHES)
+    if not np.array_equal(flat_labels, labels):
+        raise AssertionError("SCC labels of the collapsed layered_1 != the uncollapsed ones")
+    col["sccs"] = int(np.unique(labels).size)
+    del flat_dev
+
+    nc, no, npt = TPCH_GRAPH[args.quick]
+    tg = extract(tpch_catalog(n_customers=nc, n_orders=no, n_parts=npt, seed=args.seed),
+                 TPCH_QUERY, mode="condensed").graph
+    t = time.perf_counter()
+    tflat = condensed.collapse_to_single_layer(tg, max_growth=10.0)
+    d1 = dedup.dedup1_greedy_virtual_first(tflat)
+    col["tpch"] = {"customers": nc, "orders": no, "parts": npt,
+                   "layers": tg.chains[0].n_layers, "edges_condensed": tg.n_edges_condensed,
+                   "edges_collapsed": tflat.n_edges_condensed,
+                   "dedup1_total_edges": d1.total_edges,
+                   "collapse_dedup1_host_s": time.perf_counter() - t}
+    tdev1 = engine.to_device_packed(d1.graph, deduplicated=True, backend="auto", device="cuda")
+    tdevc = engine.to_device_packed(tg, correction=dedup.build_correction(tg), backend="auto",
+                                    device="cuda")
+    tsrc = rng.integers(0, tg.n_real, ANALYTIC_BATCH)
+    tseeds = A.one_hot_frontier(tg.n_real, tsrc, device="cuda")
+    K.reset_launch_counts()
+    p1 = A.personalized_pagerank(tdev1, tseeds)
+    col["tpch"]["ppr_launches"] = dict(K.LAUNCHES)
+    if K.LAUNCHES["bitmap_spmm_sum"] == 0 or K.LAUNCHES["bitmap_spmm_fused"]:
+        raise AssertionError("PPR on the collapsed DEDUP-1 graph must run K1 and never K3")
+    pc = A.personalized_pagerank(tdevc, tseeds)
+    if not torch.allclose(p1, pc, **FLOAT_TOL) or not bool(torch.isfinite(p1).all()):
+        raise AssertionError("PPR on the collapsed DEDUP-1 graph != PPR on DEDUP-C")
+    if not torch.equal(A.bfs_multi(tdev1, tsrc), A.bfs_multi(tdevc, tsrc)):
+        raise AssertionError("BFS on the collapsed DEDUP-1 graph != BFS on DEDUP-C")
+    col["tpch"]["ppr_max_abs_diff_vs_dedupc"] = float((p1 - pc).abs().max().item())
+    rec["collapse"] = col
+    log(f"collapse: {json.dumps(col)}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"crossover and collapse: {rec['phase_s']:.1f} s")
+    record["crossover"] = rec
+    return rec
+
+
 def graph_phases(args, record) -> list:
     """Phases 2-5: the small oracle check, the served main path with its
     profile, the graph kernels' rows, and the analytics phase on the
@@ -1565,7 +2059,19 @@ def graph_phases(args, record) -> list:
             f"{r['bound_ms']:.4f} by {r['bound_by']}, layout bound "
             f"{r['layout_bound_ms']:.4f}, library {r['library_ms']})")
 
-    rows += analytics_phase(args, exact, record)
+    t = time.perf_counter()
+    record["scale"] = {
+        "extraction": sharded_extraction(args, catalog, g, stages["extract_s"]),
+        "upload": sharded_upload(args, catalog, g, exact, counts,
+                                 (nodes, reach_nodes, got, reach, launches)),
+    }
+    del catalog
+    record["scale"]["phase_s"] = time.perf_counter() - t
+    log(f"sharded extraction and upload: {record['scale']['phase_s']:.1f} s")
+
+    analytic_rows, ctx = analytics_phase(args, exact, g, record)
+    rows += analytic_rows
+    crossover_phase(args, exact, ctx, record)
 
     record.update({
         "stages": stages, "device_bytes": held,

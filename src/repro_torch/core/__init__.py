@@ -28,6 +28,7 @@ from .condensed import (
     CondensedGraph,
     ExpandedGraph,
     build_csr,
+    collapse_to_single_layer,
     graphs_identical,
 )
 from .dedup import (
@@ -49,8 +50,23 @@ from .dedup import (
 )
 from .dsl import ExtractionQuery, ParseError, parse
 from .engine import propagate, propagate_wedge
-from .extract import ExtractionResult, extract, extract_query
-from .relational import Catalog, Table
+from .extract import (
+    ExtractionResult,
+    extract,
+    extract_query,
+    extract_sharded,
+    merge_spilled_graph,
+)
+from .planner import ExtractionBudget, ExtractionBudgetError
+from .relational import Catalog, ShardedTable, Table
+from .serialize import (
+    ShardAssembly,
+    ShardSpillStore,
+    SpillError,
+    export_edge_list,
+    load_condensed,
+    save_condensed,
+)
 
 __all__ = [
     "BipartiteEdges",
@@ -68,6 +84,19 @@ __all__ = [
     "graphs_identical",
     "CSR",
     "build_csr",
+    "collapse_to_single_layer",
+    # sharded, budgeted and spilled extraction (DESIGN.md §7-§8)
+    "extract_sharded",
+    "merge_spilled_graph",
+    "ExtractionBudget",
+    "ExtractionBudgetError",
+    "ShardedTable",
+    "save_condensed",
+    "load_condensed",
+    "export_edge_list",
+    "ShardAssembly",
+    "ShardSpillStore",
+    "SpillError",
     # engine: propagate(..., layer_weights=) and the two-hop wedge path
     "propagate",
     "propagate_wedge",

@@ -532,12 +532,19 @@ def condensation(
 # ---------------------------------------------------------------------------
 
 def _triangle_block(graph, X, wedge, mode):
+    """``t`` of the block's columns: ``½ Σ_w a1·a2`` reduced in float64.
+    ``a1`` is a 0/1 adjacency column, so each product is an exact float32
+    integer; a hub's sum passes 2^24, where a float32 reduction rounds.
+    In float64 per_step counts are exact, and equal the JAX package's
+    float32 ones wherever those are (2t < 2^24).  Wedge mode's raw ``M²``
+    terms still round in float32 before the reduction, as the JAX
+    package's do."""
     a1 = propagate(graph, X, PLUS_TIMES)
     if mode == "wedge":
         a2 = propagate_wedge(graph, X, wedge=wedge)
     else:
         a2 = propagate(graph, a1, PLUS_TIMES)
-    return 0.5 * torch.sum(a1 * a2, dim=0)
+    return 0.5 * torch.sum(a1 * a2, dim=0, dtype=torch.float64)
 
 
 def triangle_counts(

@@ -30,6 +30,8 @@ __all__ = [
     "BipartiteEdges",
     "CSR",
     "build_csr",
+    "merge_sorted_unique",
+    "merge_chain_shards",
     "Chain",
     "CondensedGraph",
     "ExpandedGraph",
@@ -128,6 +130,10 @@ class BipartiteEdges:
 
     def reversed(self) -> "BipartiteEdges":
         return BipartiteEdges(self.dst.copy(), self.src.copy(), self.n_dst, self.n_src)
+
+    def sorted_by_src(self) -> "BipartiteEdges":
+        order = np.lexsort((self.dst, self.src))
+        return BipartiteEdges(self.src[order], self.dst[order], self.n_src, self.n_dst)
 
     def out_degrees(self) -> np.ndarray:
         return np.bincount(self.src, minlength=self.n_src)
@@ -437,6 +443,126 @@ def fold_path_pairs(
     return out
 
 
+# ---------------------------------------------------------------------------
+# Shard merging (DESIGN.md §7)
+# ---------------------------------------------------------------------------
+
+def merge_sorted_unique(parts: Sequence[np.ndarray]) -> np.ndarray:
+    """Sorted-key union of per-shard sorted-unique key arrays.
+
+    The associativity that makes sharded extraction exact: the union of
+    per-shard distinct values equals the distinct values of the union, and
+    sorting makes the result independent of the shard partition — so the
+    merged virtual-node id space is byte-identical to the unsharded one.
+    """
+    if not parts:
+        return np.empty(0, dtype=np.int64)
+    return np.unique(np.concatenate(list(parts)))
+
+
+def merge_chain_shards(
+    shard_chains: Sequence[Chain],
+    shard_layer_keys: Sequence[Sequence[np.ndarray]],
+    arity: Optional[int] = None,
+) -> Tuple[Chain, List[np.ndarray]]:
+    """Merge per-shard condensed chains into one global :class:`Chain`
+    (paper §4.2 Step 5, partition-parallel form; DESIGN.md §7/§8).
+
+    Each shard arrives with its own *local* virtual-node id spaces
+    (``shard_layer_keys[s][k]`` = sorted distinct values of postponed
+    attribute ``k`` seen by shard ``s``); real endpoints are already
+    global.  The merge:
+
+    1. unions every layer's key sets by sorted-key merge
+       (:func:`merge_sorted_unique`) — a plain offset concatenation would
+       duplicate virtual nodes whose key occurs in more than one shard,
+       which is why locals are *remapped*, not offset;
+    2. remaps each shard's local virtual ids through
+       ``searchsorted(merged_keys, local_keys)``;
+    3. concatenates each level's edges across shards in shard order.
+
+    Because ``remap[searchsorted(local, v)] == searchsorted(merged, v)``
+    for every value ``v`` a shard saw, and shard outputs are contiguous
+    slices of the unsharded segment output, the merged edge arrays are
+    byte-identical to the unsharded build's.
+
+    ``arity=None`` (default) merges all shards in one pass — the
+    DESIGN.md §7 behaviour, every shard resident at once.  ``arity=r``
+    runs the same operation as a tree reduce (DESIGN.md §8): consecutive
+    groups of ``r`` shards are merged per round until one remains.  The
+    union is associative and remapping composes
+    (``searchsorted(final, partial_keys)[searchsorted(partial, v)] ==
+    searchsorted(final, v)``), and groups stay consecutive, so the result
+    is byte-identical for every arity — but no round ever has more than
+    ``r`` shard chains plus one output resident, which is what lets the
+    out-of-core pipeline stream spilled shards two at a time.
+    """
+    if not shard_chains:
+        raise ValueError("merge_chain_shards needs at least one shard")
+    if arity is not None:
+        if arity < 2:
+            raise ValueError(f"tree-reduce arity must be >= 2, got {arity}")
+        chains = list(shard_chains)
+        keys = [list(k) for k in shard_layer_keys]
+        while len(chains) > 1:
+            next_chains: List[Chain] = []
+            next_keys: List[List[np.ndarray]] = []
+            for i in range(0, len(chains), arity):
+                if i + 1 >= len(chains):  # carried singleton
+                    next_chains.append(chains[i])
+                    next_keys.append(keys[i])
+                    continue
+                c, k = _merge_chain_group(
+                    chains[i : i + arity], keys[i : i + arity]
+                )
+                next_chains.append(c)
+                next_keys.append(k)
+            chains, keys = next_chains, next_keys
+        return chains[0], list(keys[0])
+    return _merge_chain_group(shard_chains, shard_layer_keys)
+
+
+def _merge_chain_group(
+    shard_chains: Sequence[Chain],
+    shard_layer_keys: Sequence[Sequence[np.ndarray]],
+) -> Tuple[Chain, List[np.ndarray]]:
+    """Single-pass k-way merge of one group — the §7 merge body; both the
+    all-at-once path and each tree-reduce round reduce to this."""
+    n_levels = len(shard_chains[0].edges)
+    n_layers = n_levels - 1
+    for c, keys in zip(shard_chains, shard_layer_keys):
+        if len(c.edges) != n_levels or len(keys) != n_layers:
+            raise ValueError("shards disagree on chain layer structure")
+    merged_keys = [
+        merge_sorted_unique([keys[k] for keys in shard_layer_keys])
+        for k in range(n_layers)
+    ]
+    remaps = [
+        [np.searchsorted(merged_keys[k], keys[k]) for k in range(n_layers)]
+        for keys in shard_layer_keys
+    ]
+    levels: List[BipartiteEdges] = []
+    n_real_src = shard_chains[0].edges[0].n_src
+    n_real_dst = shard_chains[0].edges[-1].n_dst
+    for lvl in range(n_levels):
+        srcs: List[np.ndarray] = []
+        dsts: List[np.ndarray] = []
+        for s, chain in enumerate(shard_chains):
+            e = chain.edges[lvl]
+            src = e.src if lvl == 0 else remaps[s][lvl - 1][e.src]
+            dst = e.dst if lvl == n_levels - 1 else remaps[s][lvl][e.dst]
+            srcs.append(np.asarray(src, dtype=np.int64))
+            dsts.append(np.asarray(dst, dtype=np.int64))
+        n_src = n_real_src if lvl == 0 else merged_keys[lvl - 1].size
+        n_dst = n_real_dst if lvl == n_levels - 1 else merged_keys[lvl].size
+        levels.append(
+            BipartiteEdges(
+                np.concatenate(srcs), np.concatenate(dsts), n_src, int(n_dst)
+            )
+        )
+    return Chain(levels), merged_keys
+
+
 def _arrays_identical(a: Optional[np.ndarray], b: Optional[np.ndarray]) -> bool:
     if a is None or b is None:
         return a is b
@@ -505,6 +631,12 @@ class ExpandedGraph:
     def out_degrees(self) -> np.ndarray:
         return np.bincount(self.src, minlength=self.n)
 
+    def adjacency_multiplicity(self) -> np.ndarray:
+        """Dense multiplicity matrix — tiny-graph tests only."""
+        m = np.zeros((self.n, self.n), dtype=np.int64)
+        np.add.at(m, (self.src, self.dst), self.multiplicity)
+        return m
+
     def without_self_loops(self) -> "ExpandedGraph":
         keep = self.src != self.dst
         return ExpandedGraph(
@@ -555,6 +687,9 @@ class CondensedGraph:
     @property
     def max_layers(self) -> int:
         return max((c.n_layers for c in self.chains), default=0)
+
+    def is_single_layer(self) -> bool:
+        return all(c.n_layers == 1 for c in self.chains)
 
     @property
     def n_edges_condensed(self) -> int:
@@ -658,6 +793,46 @@ class CondensedGraph:
         return g.without_self_loops() if drop_self_loops else g
 
     # -- preprocessing (paper §4.2 step 6) -------------------------------------
+    def n_paths_expanded(self) -> int:
+        """Total expanded path count (``M.sum()``), computed without
+        expanding (k backward sweeps per chain)."""
+        n = sum(c.n_paths() for c in self.chains)
+        if self.direct is not None:
+            n += self.direct.n_edges
+        return n
+
+    def n_edges_expanded(self, chunk_rows: Optional[int] = None) -> int:
+        s, _, _ = self.multiplicities(chunk_rows=chunk_rows)
+        return int(s.size)
+
+    def duplication_ratio(self, chunk_rows: Optional[int] = None) -> float:
+        """Mean path multiplicity over expanded edges (1.0 = no duplication)."""
+        _, _, m = self.multiplicities(chunk_rows=chunk_rows)
+        return float(m.mean()) if m.size else 1.0
+
+    def expansion_stats(
+        self,
+        chunk_rows: Optional[int] = None,
+        budget_triples: Optional[int] = None,
+        accounting: Optional[ExpansionAccounting] = None,
+    ) -> Tuple[int, float]:
+        """``(n_edges_expanded, duplication_ratio)`` in one budgeted pass.
+
+        :meth:`n_edges_expanded` and :meth:`duplication_ratio` each run a
+        full expansion sweep; callers that need both (the representation
+        advisor) should take this instead — one sweep, and it accepts the
+        same ``budget_triples`` / ``accounting`` plumbing as
+        :meth:`multiplicities` so the sweep is bounded and auditable.
+        """
+        s, _, m = self.multiplicities(
+            chunk_rows=chunk_rows,
+            budget_triples=budget_triples,
+            accounting=accounting,
+        )
+        dup = float(m.mean()) if m.size else 1.0
+        return int(s.size), dup
+
+    # -- preprocessing (paper §4.2 step 6) -------------------------------------
     def preprocess(self, expand_threshold: Optional[float] = None) -> "CondensedGraph":
         """Expand virtual nodes whose expansion does not grow the graph.
 
@@ -733,3 +908,55 @@ class CondensedGraph:
             f"chains={len(self.chains)}, edges={self.n_edges_condensed})"
         )
 
+
+def collapse_to_single_layer(
+    graph: CondensedGraph,
+    keep_layer: Optional[int] = None,
+    max_growth: float = 10.0,
+) -> CondensedGraph:
+    """Collapse multi-layer chains to single-layer (paper §5.2.2).
+
+    The paper's prescription for multi-layer dedup: "first converting it
+    into a single-layer graph ... through expansion of all virtual nodes
+    in all but one layer".  For each chain, every level before/after the
+    kept layer is composed into direct (real -> kept) / (kept -> real)
+    incidences; composed pair multiplicities are preserved as repeated
+    edges (C-DUP semantics).  ``keep_layer`` defaults to the layer
+    minimizing the composed edge count; raises if the composition would
+    grow the chain by more than ``max_growth`` (the paper's space-explosion
+    guard).
+    """
+    new_chains: List[Chain] = []
+    for chain in graph.chains:
+        if chain.n_layers == 1:
+            new_chains.append(chain)
+            continue
+        k = chain.n_layers
+        best: Optional[Chain] = None
+        candidates = range(k) if keep_layer is None else [keep_layer]
+        for keep in candidates:
+            # compose levels 0..keep into (real -> kept layer)
+            s, d, m = _compose_chain(chain.edges[: keep + 1])
+            e_in = BipartiteEdges(
+                np.repeat(s, m), np.repeat(d, m),
+                chain.edges[0].n_src, chain.edges[keep].n_dst,
+            )
+            s2, d2, m2 = _compose_chain(chain.edges[keep + 1 :])
+            e_out = BipartiteEdges(
+                np.repeat(s2, m2), np.repeat(d2, m2),
+                chain.edges[keep + 1].n_src, chain.edges[-1].n_dst,
+            )
+            cand = Chain([e_in, e_out])
+            if best is None or cand.n_edges < best.n_edges:
+                best = cand
+        assert best is not None
+        if best.n_edges > max_growth * chain.n_edges:
+            raise ValueError(
+                f"collapse grows chain {chain.n_edges} -> {best.n_edges} "
+                f"edges (> {max_growth}x); keep multi-layer + DEDUP-C instead"
+            )
+        new_chains.append(best)
+    return CondensedGraph(
+        graph.n_real, new_chains, graph.direct,
+        graph.node_properties, graph.node_type,
+    )

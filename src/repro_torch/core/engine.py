@@ -26,8 +26,9 @@ the caller asks for it.  Dispatch follows the JAX package's
 ``repro/core/engine.py`` step for step, with ``backend`` ``'cuda'`` |
 ``'segment'`` | ``'auto'`` in place of ``'pallas'`` | ``'xla'`` |
 ``'auto'``: ``'auto'`` takes the kernel exactly when the frontier is a
-CUDA tensor on an sm_90 device.  The segment path (``index_add_`` /
-``scatter_reduce``) serves what the JAX package sends to XLA — 1-D
+CUDA tensor on an sm_90 device.  The segment path (a fixed-order segment
+sum, :func:`~repro_torch.core.semiring.segment_plan`, / ``scatter_reduce``)
+serves what the JAX package sends to XLA — 1-D
 frontiers, ring steps over layers with repeated edges, non-kernel
 semirings — and never stands in for a kernel that failed.  One dispatch
 differs from the JAX package's, never an answer: a layer whose edge list
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 
 from .condensed import BipartiteEdges, CondensedGraph, ExpandedGraph
-from .semiring import PLUS_TIMES, Semiring, kernelizable, segment_reduce
+from .semiring import PLUS_TIMES, Semiring, kernelizable, segment_plan, segment_reduce
 
 __all__ = [
     "DeviceBipartite",
@@ -93,12 +94,21 @@ def reset_kernel_dispatch_count() -> None:
     KERNEL_STANDDOWN_COUNT.clear()
 
 
+def _plans() -> dict:
+    """The field that caches a container's segment-sum orders
+    (:class:`~repro_torch.core.semiring.SegmentPlan`), built on first use
+    and held beside the tensors they index; not counted by
+    :func:`device_graph_bytes`."""
+    return dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+
 @dataclasses.dataclass
 class DeviceBipartite:
     src: torch.Tensor  # (E,) int64
     dst: torch.Tensor  # (E,) int64
     n_src: int
     n_dst: int
+    plans: dict = _plans()  # reverse -> SegmentPlan
 
 
 @dataclasses.dataclass
@@ -111,6 +121,7 @@ class DeviceExpanded:
     n: int
     graph_version: int = 0
     device: torch.device = torch.device("cpu")
+    plans: dict = _plans()  # reverse -> SegmentPlan
 
 
 @dataclasses.dataclass
@@ -135,6 +146,7 @@ class DeviceCondensed:
     deduplicated: bool
     graph_version: int = 0
     device: torch.device = torch.device("cpu")
+    correction_plans: dict = _plans()
 
 
 @dataclasses.dataclass
@@ -143,7 +155,12 @@ class PackedOperands:
     :class:`repro_torch.kernels.pack.BlockSparseBitmap`; ``bitmaps`` is the
     int32 view of the uint32 words) and the row index the K1/K2 kernels
     read, built from them on the device by
-    :func:`repro_torch.kernels.bitmap_index.bitmap_index`."""
+    :func:`repro_torch.kernels.bitmap_index.bitmap_index`.
+
+    ``crossover`` is the measured-crossover dispatch table recorded at
+    pack time (``to_device_packed(..., measure=True)``; a frozen
+    :class:`~repro_torch.kernels.autotune.CrossoverTable`); ``None``
+    means unmeasured."""
 
     slot_src: torch.Tensor   # (n_slots,) int32
     slot_row: torch.Tensor   # (n_slots,) int32
@@ -152,6 +169,7 @@ class PackedOperands:
     bitmaps: torch.Tensor    # (n_slots, TILE, WORDS) int32
     row_ptr: torch.Tensor    # (n_rt * TILE + 1,) int32
     col: torch.Tensor        # (nnz,) int32 — source row of each set bit
+    crossover: Optional["CrossoverTable"] = None
 
 
 @dataclasses.dataclass
@@ -162,7 +180,9 @@ class FusedOperands:
     layer's bitmaps and the correction's bit-planes, and the row index the
     K3 kernel (:func:`repro_torch.kernels.bitmap_spmm.bitmap_spmm_fused`)
     reads, built from them on the device by
-    :func:`repro_torch.kernels.bitmap_index.bitmap_index_fused`."""
+    :func:`repro_torch.kernels.bitmap_index.bitmap_index_fused`.
+    ``crossover`` is the table measured on the fused main layer's
+    direction (its ``'sum'`` cells), when the pack was measured."""
 
     kind: torch.Tensor       # (n_slots,) int32 — 0 main, 1 correction
     main_src: torch.Tensor   # (n_slots,) int32
@@ -179,6 +199,7 @@ class FusedOperands:
     row_ptr: torch.Tensor    # (n_rt * TILE + 1,) int32
     col: torch.Tensor        # (nnz,) int32 — h row (main) or x row (correction)
     weight: torch.Tensor     # (nnz,) int32 — 0 main, else the correction count
+    crossover: Optional["CrossoverTable"] = None
 
 
 @dataclasses.dataclass
@@ -198,6 +219,7 @@ class DevicePackedLayer:
     n_src: int
     n_dst: int
     repeats: bool = False
+    plans: dict = _plans()  # reverse -> SegmentPlan
 
 
 @dataclasses.dataclass
@@ -226,6 +248,7 @@ class DevicePacked:
     graph_version: int = 0
     fused_standdown: str = ""
     device: torch.device = torch.device("cpu")
+    correction_plans: dict = _plans()
 
 
 DeviceGraph = Union[DeviceExpanded, DeviceCondensed, DevicePacked]
@@ -393,11 +416,39 @@ def _distinct_edges(e: BipartiteEdges) -> BipartiteEdges:
     return BipartiteEdges(key // e.n_dst, key % e.n_dst, e.n_src, e.n_dst)
 
 
-def _pack_edges(e: BipartiteEdges, dev: DeviceBipartite, device):
+def _measure_direction(bsb, ops: PackedOperands, plans: dict, key, src, dst,
+                       n_src: int, n_dst: int, measure_kwargs) -> "CrossoverTable":
+    """Record a crossover table for one packed direction by racing the
+    kernel (autotuned) against the segment path on this device.  The
+    direction's segment-sum order is built here once and shared with the
+    uploaded layer's ``plans``."""
+    from ..kernels.autotune import measure_crossover
+    from ..kernels.ops import PackedLayer
+
+    layer = PackedLayer(bsb=bsb, bsb_rev=None, fwd=ops, rev=None, src=src, dst=dst,
+                        n_src=n_src, n_dst=n_dst)
+    layer.plans[False] = _edge_plan(plans, src, dst, n_dst, key)
+    return measure_crossover(layer, **measure_kwargs)
+
+
+def _pack_edges(
+    e: BipartiteEdges,
+    dev: DeviceBipartite,
+    device,
+    shard_edges: Optional[int] = None,
+    measure: bool = False,
+    measure_kwargs: Optional[dict] = None,
+    pack_method: str = "reduceat",
+):
     """``dev`` is the already-uploaded COO layer from :func:`to_device`,
     reused so the edge arrays cross to the device only once.  Packs both
     directions: the forward incidence and its transpose (reverse steps).
     A layer that repeats an edge packs its distinct edges (``repeats``).
+    ``shard_edges`` routes the packing through the shard-at-a-time path
+    (:func:`repro_torch.kernels.pack.pack_bipartite` slices + OR-merge,
+    DESIGN.md §7): the same bytes, with packing transients bounded.
+    ``measure`` additionally races each direction against the segment
+    path and stores the crossover table on the uploaded operands.
 
     Returns ``(DevicePackedLayer, fwd_bsb, rev_bsb)`` — the host-side
     packings ride along so :func:`to_device_packed` can build the fused
@@ -405,31 +456,41 @@ def _pack_edges(e: BipartiteEdges, dev: DeviceBipartite, device):
     with repeats, which cannot carry the ring's fused epilogue."""
     from ..kernels.pack import pack_bipartite
 
+    kw = dict(method=pack_method, shard_edges=shard_edges)
     try:
-        fwd_bsb = pack_bipartite(e)
-        rev_bsb = pack_bipartite(e.reversed())
+        fwd_bsb = pack_bipartite(e, **kw)
+        rev_bsb = pack_bipartite(e.reversed(), **kw)
         fwd, rev, repeats = fwd_bsb, rev_bsb, False
     except ValueError:  # repeated edges: pack each distinct edge once
         fwd_bsb = rev_bsb = None
         distinct = _distinct_edges(e)
-        fwd, rev, repeats = pack_bipartite(distinct), pack_bipartite(distinct.reversed()), True
+        fwd, rev, repeats = (pack_bipartite(distinct, **kw),
+                             pack_bipartite(distinct.reversed(), **kw), True)
+    fwd_ops, rev_ops = _upload_operands(fwd, device), _upload_operands(rev, device)
     layer = DevicePackedLayer(
         src=dev.src,
         dst=dev.dst,
-        fwd=_upload_operands(fwd, device),
-        rev=_upload_operands(rev, device),
+        fwd=fwd_ops,
+        rev=rev_ops,
         n_src=e.n_src,
         n_dst=e.n_dst,
         repeats=repeats,
+        plans=dev.plans,
     )
+    if measure:
+        mk = measure_kwargs or {}
+        layer.fwd = dataclasses.replace(fwd_ops, crossover=_measure_direction(
+            fwd, fwd_ops, layer.plans, False, dev.src, dev.dst, e.n_src, e.n_dst, mk))
+        layer.rev = dataclasses.replace(rev_ops, crossover=_measure_direction(
+            rev, rev_ops, layer.plans, True, dev.dst, dev.src, e.n_dst, e.n_src, mk))
     return layer, fwd_bsb, rev_bsb
 
 
-def _upload_fused(stream, main_bsb, corr_planes, device) -> FusedOperands:
+def _upload_fused(stream, main_bsb, corr_planes, device, crossover=None) -> FusedOperands:
     def t(a):
         return _tensor(a, torch.int32, device)
 
-    return fused_operands(
+    fused = fused_operands(
         kind=t(stream.kind),
         main_src=t(stream.main_src),
         corr_src=t(stream.corr_src),
@@ -443,6 +504,7 @@ def _upload_fused(stream, main_bsb, corr_planes, device) -> FusedOperands:
         plane_weights=corr_planes.plane_weights,
         n_out=main_bsb.n_dst,
     )
+    return dataclasses.replace(fused, crossover=crossover)
 
 
 def _build_fused(
@@ -475,10 +537,12 @@ def _build_fused(
     corr_fwd = pack_correction(cs, cd, cm, n_src=n, n_dst=n)
     corr_rev = pack_correction(cd, cs, cm, n_src=n, n_dst=n)
     fused_fwd = _upload_fused(
-        build_fused_stream(last_fwd_bsb, corr_fwd), last_fwd_bsb, corr_fwd, device
+        build_fused_stream(last_fwd_bsb, corr_fwd), last_fwd_bsb, corr_fwd, device,
+        chains_host[-1][-1][0].fwd.crossover,
     )
     fused_rev = _upload_fused(
-        build_fused_stream(first_rev_bsb, corr_rev), first_rev_bsb, corr_rev, device
+        build_fused_stream(first_rev_bsb, corr_rev), first_rev_bsb, corr_rev, device,
+        chains_host[-1][0][0].rev.crossover,
     )
     return fused_fwd, fused_rev, ""
 
@@ -490,7 +554,10 @@ def to_device_packed(
     drop_self_loops: bool = True,
     backend: str = "auto",
     fuse_correction: bool = True,
+    pack_shard_edges: Optional[int] = None,
     measure: bool = False,
+    measure_kwargs: Optional[dict] = None,
+    pack_method: str = "reduceat",
     graph_version: int = 0,
     device="cuda",
 ) -> DevicePacked:
@@ -498,16 +565,17 @@ def to_device_packed(
     into bit-packed block-sparse operands (both directions) so batched
     steps run on the CUDA kernels.  ``fuse_correction`` (default on) also
     builds the fused last-layer + DEDUP-C-epilogue operands when a
-    correction is present.  Kernels walk one 128-row source tile per slot
-    (the JAX package's ``row_window=128``).  ``measure=True`` (pack-time
-    autotuning) is not ported yet (ROADMAP.md, Queue 1 item 10)."""
+    correction is present.  ``pack_shard_edges`` packs each layer
+    ``pack_shard_edges`` edges at a time and OR-merges the slices
+    (DESIGN.md §7): the uploaded bitmaps, and the row indices built from
+    them, are byte-identical to an unsharded pack.  ``measure=True``
+    races each packed direction against the segment path at pack time
+    and records the crossover table on the operands, so ``'auto'``
+    dispatch follows the measurement; ``measure_kwargs`` forwards to
+    :func:`~repro_torch.kernels.autotune.measure_crossover` (batch sizes,
+    ops).  ``pack_method`` is ``'reduceat'``, the port's only method."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if measure:
-        raise NotImplementedError(
-            "measured-crossover packing is not ported yet (ROADMAP.md, "
-            "Queue 1 item 10: kernels/autotune.py)"
-        )
     device = torch.device(device)
     base = to_device(
         graph,
@@ -516,13 +584,15 @@ def to_device_packed(
         drop_self_loops=drop_self_loops,
         device=device,
     )
+    pack = dict(shard_edges=pack_shard_edges, measure=measure,
+                measure_kwargs=measure_kwargs, pack_method=pack_method)
     chains_host = tuple(
-        tuple(_pack_edges(e, d, device) for e, d in zip(c.edges, dc))
+        tuple(_pack_edges(e, d, device, **pack) for e, d in zip(c.edges, dc))
         for c, dc in zip(graph.chains, base.chains)
     )
     chains = tuple(tuple(t[0] for t in c) for c in chains_host)
     direct = (
-        _pack_edges(graph.direct, base.direct, device)[0]
+        _pack_edges(graph.direct, base.direct, device, **pack)[0]
         if graph.direct is not None
         else None
     )
@@ -567,7 +637,18 @@ def _edge_propagate(
 ) -> torch.Tensor:
     src, dst = (edges.dst, edges.src) if reverse else (edges.src, edges.dst)
     n_out = edges.n_src if reverse else edges.n_dst
-    return segment_reduce(sr, x.index_select(0, src), dst, n_out)
+    plan = _edge_plan(edges.plans, src, dst, n_out, reverse) if sr.add_kind == "sum" else None
+    return segment_reduce(sr, x.index_select(0, src), dst, n_out, plan=plan)
+
+
+def _edge_plan(plans: dict, src, dst, n_out: int, key):
+    """The fixed summation order of one direction's edges: by destination,
+    then by source, so it depends on the edge set alone (not its order);
+    built once and kept in ``plans`` under ``key``."""
+    plan = plans.get(key)
+    if plan is None:
+        plan = plans[key] = segment_plan(dst, n_out, tiebreak=src)
+    return plan
 
 
 def _on_hopper(x: torch.Tensor) -> bool:
@@ -585,8 +666,13 @@ def _kernel_applicable(
     """Dispatch: batched kernelizable steps, both directions, when the
     layer was packed (for a layer with repeated edges: under an
     idempotent semiring only) and the backend resolves to the kernels.
-    The kernels keep no per-slot state in shared memory, so no size test
-    applies."""
+    Under ``'auto'`` a crossover table measured at pack time decides
+    first, as in the JAX package: a measured ``'segment'`` cell never
+    launches a kernel, and a measured ``'cuda'`` cell runs the kernel
+    wrappers whatever the frontier's device (on a CPU frontier they run
+    their plain mirrors).  Without a table, the kernels serve CUDA
+    frontiers on sm_90.  The kernels keep no per-slot state in shared
+    memory, so no size test applies."""
     if x.ndim != 2 or not kernelizable(semiring):
         return False
     if layer.repeats and not semiring.idempotent:
@@ -598,7 +684,16 @@ def _kernel_applicable(
         return True
     if graph.backend == "segment":
         return False
+    entry = _measured(packed.crossover, semiring.add_kind,
+                      layer.n_dst if reverse else layer.n_src, x)
+    if entry is not None:
+        return entry.backend == "cuda"
     return _on_hopper(x)
+
+
+def _measured(table, op: str, n_src: int, x: torch.Tensor):
+    """The crossover entry for this cell, or None when unmeasured."""
+    return None if table is None else table.lookup(op, n_src, x.shape[1])
 
 
 def _packed_layer_spmm(
@@ -614,6 +709,8 @@ def _packed_layer_spmm(
     KERNEL_DISPATCH_COUNT += 1
     ops = layer.rev if reverse else layer.fwd
     n_out = layer.n_src if reverse else layer.n_dst
+    entry = _measured(ops.crossover, semiring.add_kind,
+                      layer.n_dst if reverse else layer.n_src, x)
     return bitmap_spmm(
         ops.row_ptr,
         ops.col,
@@ -621,6 +718,7 @@ def _packed_layer_spmm(
         n_out,
         op=semiring.add_kind,
         zero=float(semiring.zero),
+        range_items=entry.range_items if entry is not None else None,
     )
 
 
@@ -652,7 +750,10 @@ def _fused_applicable(
     the pack-time :attr:`DevicePacked.fused_standdown` when the operands
     were never built, else ``'frontier_1d'`` / ``'semiring_<name>'`` /
     ``'hop_weight'`` / ``'backend_xla'`` (the ``'segment'`` backend) /
-    ``'vmem_or_backend'`` (``'auto'`` off an sm_90 CUDA frontier)."""
+    ``'vmem_or_backend'`` (``'auto'`` off an sm_90 CUDA frontier), and the
+    port's ``'measured_segment'``: under ``'auto'`` a measured table on the
+    fused main layer whose ``'sum'`` cell says the segment path is faster
+    (a measured ``'cuda'`` cell dispatches, as for the per-layer kernels)."""
     if fused is None:
         return False, graph.fused_standdown or "not_built"
     if x.ndim != 2:
@@ -665,6 +766,11 @@ def _fused_applicable(
         return True, ""
     if graph.backend == "segment":
         return False, "backend_xla"
+    # the fused main layer: the last layer forward, the first one reversed
+    main = graph.chains[-1][-1].n_src if fused is graph.fused_fwd else graph.chains[-1][0].n_dst
+    entry = _measured(fused.crossover, "sum", main, x)
+    if entry is not None:
+        return (True, "") if entry.backend == "cuda" else (False, "measured_segment")
     if _on_hopper(x):
         return True, ""
     return False, "vmem_or_backend"
@@ -767,9 +873,12 @@ def propagate(
     if isinstance(graph, DeviceExpanded):
         src, dst = (graph.dst, graph.src) if reverse else (graph.src, graph.dst)
         msgs = x.index_select(0, src)
+        plan = None
         if semiring.name == "plus_times":
             msgs = msgs * _bcast(graph.weight, msgs)
-        y = segment_reduce(semiring, msgs, dst, graph.n)
+        if semiring.add_kind == "sum":
+            plan = _edge_plan(graph.plans, src, dst, graph.n, reverse)
+        y = segment_reduce(semiring, msgs, dst, graph.n, plan=plan)
         return _apply_hop(semiring, y, hop_weight)
 
     exact = (
@@ -830,7 +939,8 @@ def propagate(
         if graph.correction is not None and fused is not None:
             pass  # already subtracted inside the fused kernel epilogue
         elif graph.correction is not None:
-            corr = _correction_apply(graph.correction, x, graph.n_real, reverse)
+            corr = _correction_apply(graph.correction, x, graph.n_real, reverse,
+                                     graph.correction_plans)
             y = y - _apply_hop(semiring, corr, hop_weight)
         elif graph.diag_mult is not None:
             y = y - _apply_hop(
@@ -844,12 +954,24 @@ def _correction_apply(
     x: torch.Tensor,
     n_real: int,
     reverse: bool,
+    plans: Optional[dict] = None,
 ) -> torch.Tensor:
-    """``D·x`` (or ``Dᵀ·x``) for a sparse (src, dst, count) triple set."""
+    """``D·x`` (or ``Dᵀ·x``) for a sparse (src, dst, count) triple set,
+    summed in the triples' fixed order.  ``plans`` (the graph's
+    ``correction_plans``) keeps that order for the graph's own triples,
+    keyed by the tensors' identities; the tensors are held beside it so an
+    identity is never reused while its key lives."""
     cs, cd, cm = triples
     src, dst = (cd, cs) if reverse else (cs, cd)
     msgs = x.index_select(0, src)
-    return segment_reduce(PLUS_TIMES, msgs * _bcast(cm, msgs), dst, n_real)
+    if plans is None:
+        plan = segment_plan(dst, n_real, tiebreak=src)
+    else:
+        key = (id(cs), id(cd), reverse)
+        if key not in plans:
+            plans[key] = (cs, cd, segment_plan(dst, n_real, tiebreak=src))
+        plan = plans[key][2]
+    return segment_reduce(PLUS_TIMES, msgs * _bcast(cm, msgs), dst, n_real, plan=plan)
 
 
 def propagate_wedge(
@@ -894,8 +1016,9 @@ def propagate_wedge(
     mmx = propagate(raw, mx, PLUS_TIMES, reverse=reverse, allow_duplicates=True)
     if wedge is not None:
         return mmx - _correction_apply(wedge, x, graph.n_real, reverse)
-    dx = _correction_apply(graph.correction, x, graph.n_real, reverse)
+    plans = graph.correction_plans
+    dx = _correction_apply(graph.correction, x, graph.n_real, reverse, plans)
     mdx = propagate(raw, dx, PLUS_TIMES, reverse=reverse, allow_duplicates=True)
-    dmx = _correction_apply(graph.correction, mx, graph.n_real, reverse)
-    ddx = _correction_apply(graph.correction, dx, graph.n_real, reverse)
+    dmx = _correction_apply(graph.correction, mx, graph.n_real, reverse, plans)
+    ddx = _correction_apply(graph.correction, dx, graph.n_real, reverse, plans)
     return mmx - mdx - dmx + ddx

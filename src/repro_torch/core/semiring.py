@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -26,6 +26,8 @@ __all__ = [
     "OR_AND",
     "KERNEL_SEMIRINGS",
     "kernelizable",
+    "SegmentPlan",
+    "segment_plan",
     "segment_reduce",
 ]
 
@@ -120,23 +122,98 @@ def kernelizable(semiring: Semiring) -> bool:
     )
 
 
+@dataclasses.dataclass
+class SegmentPlan:
+    """A fixed order for a segment sum, built once from the segment ids.
+
+    Segments are grouped by the power of two that bounds their length;
+    ``gather[c]`` is a ``(len(segs[c]), 2**k)`` matrix of positions into
+    the values, each row one segment's values in a fixed order and padded
+    with ``n_values`` (an appended zero row).  Each group is reduced by one
+    ``sum`` over a fixed shape, so a planned sum adds in an order that
+    depends only on the ids (and the tiebreak they were sorted by), never
+    on how the device schedules the work: its float bits repeat from call
+    to call, which ``index_add_`` on CUDA does not promise.  A row holds at
+    most twice its segment's values, so the gathers stay within ``2E``."""
+
+    num_segments: int
+    n_values: int
+    segs: Tuple[torch.Tensor, ...]
+    gather: Tuple[torch.Tensor, ...]
+
+
+def segment_plan(
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    tiebreak: Optional[torch.Tensor] = None,
+) -> SegmentPlan:
+    """The :class:`SegmentPlan` of ``segment_ids``, on their device.
+
+    Within a segment, values are taken in ``tiebreak`` order (stable, so
+    equal keys keep their positions), else in position order.  With the
+    source row of each edge as the tiebreak, a layer's planned sums do not
+    change, bit for bit, when its edge list is permuted."""
+    ids = segment_ids.to(torch.int64).reshape(-1)
+    n = int(ids.shape[0])
+    dev = ids.device
+    if tiebreak is None:
+        order = torch.argsort(ids, stable=True)
+    else:
+        by_tie = torch.argsort(tiebreak.to(torch.int64).reshape(-1), stable=True)
+        order = by_tie[torch.argsort(ids[by_tie], stable=True)]
+    counts = torch.bincount(ids, minlength=num_segments)
+    starts = torch.cumsum(counts, 0) - counts
+    segs = torch.nonzero(counts).reshape(-1)
+    seg_counts = counts[segs]
+    # ceil(log2(count)): a segment of c values takes a row of 2**k >= c
+    klass = torch.ceil(torch.log2(seg_counts.to(torch.float64))).to(torch.int64)
+    out_segs, out_gather = [], []
+    for k in torch.unique(klass).tolist():
+        sel = segs[klass == k]
+        width = torch.arange(1 << k, device=dev)
+        pos = starts[sel][:, None] + width[None, :]
+        valid = width[None, :] < counts[sel][:, None]
+        out_segs.append(sel)
+        out_gather.append(torch.where(valid, order[pos.clamp_(max=max(n - 1, 0))], n))
+    return SegmentPlan(int(num_segments), n, tuple(out_segs), tuple(out_gather))
+
+
+def _planned_sum(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    if values.shape[0] != plan.n_values:
+        raise ValueError(
+            f"segment plan covers {plan.n_values} values, got {values.shape[0]}"
+        )
+    rest = tuple(values.shape[1:])
+    out = torch.zeros((plan.num_segments,) + rest, dtype=values.dtype,
+                      device=values.device)
+    padded = torch.cat([values, values.new_zeros((1,) + rest)])
+    for segs, gather in zip(plan.segs, plan.gather):
+        out.index_copy_(0, segs, padded[gather].sum(dim=1))
+    return out
+
+
 def segment_reduce(
     semiring: Semiring,
     values: torch.Tensor,
     segment_ids: torch.Tensor,
     num_segments: int,
+    plan: Optional[SegmentPlan] = None,
 ) -> torch.Tensor:
     """⊕-reduce ``values`` (``(E,)`` or ``(E, F)``) by ``segment_ids``.
 
     Empty segments follow the JAX package's conventions: ``sum`` gives 0,
     ``min`` leaves ``+inf``, and ``max`` maps every ``-inf`` — a genuine
-    ``-inf`` value included — to the semiring zero.
+    ``-inf`` value included — to the semiring zero.  The sum adds each
+    segment's values in the fixed order of ``plan`` (built from
+    ``segment_ids`` when none is given), so its bits repeat on every
+    device; min and max are order-free already.
     """
     shape = (num_segments,) + tuple(values.shape[1:])
     idx = segment_ids.to(torch.int64)
     if semiring.add_kind == "sum":
-        out = torch.zeros(shape, dtype=values.dtype, device=values.device)
-        return out.index_add_(0, idx, values)
+        if plan is None:
+            plan = segment_plan(idx, num_segments)
+        return _planned_sum(values, plan)
     if semiring.add_kind not in ("min", "max"):
         raise ValueError(semiring.add_kind)
     if values.ndim > 1:

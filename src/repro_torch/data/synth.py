@@ -3,6 +3,8 @@
 * :func:`dblp_catalog`  — Author / Pub / AuthorPub (co-author graphs)
 * :func:`tpch_catalog`  — Customer / Orders / LineItem ("customers who
   bought the same item", the multi-layer Fig 5a example)
+* :func:`univ_catalog`  — Instructor / Student / TaughtCourse / TookCourse
+  (heterogeneous bipartite [Q3])
 * :func:`barabasi_albert_condensed` / :func:`layered_condensed` — condensed
   graphs straight from the App. C.1 / C.2 generators
 
@@ -22,6 +24,7 @@ from ..core.relational import Catalog, Table
 __all__ = [
     "dblp_catalog",
     "tpch_catalog",
+    "univ_catalog",
     "zipf_sizes",
     "barabasi_albert_condensed",
     "layered_condensed",
@@ -108,6 +111,46 @@ def tpch_catalog(
 # ---------------------------------------------------------------------------
 # Condensed-graph generators (paper App. C.1/C.2)
 # ---------------------------------------------------------------------------
+
+def univ_catalog(
+    n_instructors: int = 50,
+    n_students: int = 500,
+    n_courses: int = 80,
+    mean_courses_per_student: float = 4.0,
+    seed: int = 0,
+) -> Catalog:
+    """Instructor / Student / TaughtCourse / TookCourse, a heterogeneous
+    bipartite catalog (paper [Q3]); the JAX package's tables for one
+    seed."""
+    rng = np.random.default_rng(seed)
+    taught_by = rng.integers(0, n_instructors, size=n_courses)
+    sizes = zipf_sizes(n_students, mean_courses_per_student, rng)
+    student_ids = np.repeat(np.arange(n_students), sizes)
+    course_ids = rng.integers(0, n_courses, size=student_ids.size)
+    instructors = Table(
+        "Instructor",
+        {
+            "iid": np.arange(n_instructors) + 10_000_000,
+            "name": np.array([f"instr_{i}" for i in range(n_instructors)]),
+        },
+    )
+    students = Table(
+        "Student",
+        {
+            "sid": np.arange(n_students) + 20_000_000,
+            "name": np.array([f"stud_{i}" for i in range(n_students)]),
+        },
+    )
+    taught = Table(
+        "TaughtCourse",
+        {"iid": taught_by + 10_000_000, "cid": np.arange(n_courses)},
+    )
+    took = Table(
+        "TookCourse",
+        {"sid": student_ids + 20_000_000, "cid": course_ids},
+    )
+    return Catalog([instructors, students, taught, took])
+
 
 def barabasi_albert_condensed(
     n_real: int,

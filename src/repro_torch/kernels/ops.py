@@ -9,14 +9,10 @@ Backend selection: ``backend='cuda'`` runs the K1/K2 wrapper
 frontier, its plain mirror on a CPU one); ``'segment'`` the gather /
 segment-reduce path; ``'auto'`` the kernel when the layer is packed, the
 semiring is kernelizable and the frontier is a CUDA tensor on an sm_90
-device — the engine's policy.  ``reverse=True`` propagates along
-transposed edges using the reverse packing carried by
-:class:`PackedLayer`.
-
-The JAX package's measured-crossover arguments (``measure=`` at pack
-time, ``table=`` / ``config=`` at dispatch) belong to
-``kernels/autotune.py``, which the port does not have yet (ROADMAP.md,
-Queue 1): they raise ``NotImplementedError``.
+device — the engine's policy — unless a crossover table measured at pack
+time (:mod:`repro_torch.kernels.autotune`) covers the cell: then the
+measured winner.  ``reverse=True`` propagates along transposed edges
+using the reverse packing carried by :class:`PackedLayer`.
 """
 from __future__ import annotations
 
@@ -26,10 +22,10 @@ from typing import Optional
 import torch
 
 from ..core.condensed import BipartiteEdges
-from ..core.engine import PackedOperands, _on_hopper, _tensor, _upload_operands
-from ..core.semiring import PLUS_TIMES, Semiring, kernelizable
+from ..core.engine import PackedOperands, _edge_plan, _on_hopper, _tensor, _upload_operands
+from ..core.semiring import PLUS_TIMES, Semiring, kernelizable, segment_reduce
+from .autotune import CrossoverTable, KernelConfig
 from .pack import BlockSparseBitmap, pack_bipartite
-from .ref import segment_semiring_ref
 
 __all__ = [
     "PackedLayer",
@@ -39,12 +35,6 @@ __all__ = [
     "resolve_backend",
 ]
 
-_AUTOTUNE = (
-    "measured-crossover dispatch is not ported yet (ROADMAP.md, Queue 1: "
-    "kernels/autotune.py)"
-)
-
-
 @dataclasses.dataclass
 class PackedLayer:
     """Both kernel operands for one bipartite layer, in both directions.
@@ -52,7 +42,11 @@ class PackedLayer:
     ``bsb`` is the dst-major forward packing (``y = B @ x``) and ``fwd``
     its upload with the row index the kernels read; ``bsb_rev`` / ``rev``
     pack the transposed incidence so ``reverse=True`` dispatches to the
-    kernel too.  ``src`` / ``dst`` drive the segment path."""
+    kernel too.  ``src`` / ``dst`` drive the segment path (its fixed
+    summation orders cached in ``plans``).  ``crossover`` is the optional
+    measured-crossover table recorded at pack time
+    (``from_edges(..., measure=True)``); when present, 'auto' dispatch
+    follows the measurement."""
 
     bsb: BlockSparseBitmap
     bsb_rev: Optional[BlockSparseBitmap]
@@ -62,6 +56,8 @@ class PackedLayer:
     dst: torch.Tensor
     n_src: int
     n_dst: int
+    crossover: Optional[CrossoverTable] = None
+    plans: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def from_edges(
@@ -69,14 +65,14 @@ class PackedLayer:
         edges: BipartiteEdges,
         with_reverse: bool = True,
         measure: bool = False,
+        measure_batch_sizes: "tuple[int, ...]" = (128,),
+        measure_ops: "tuple[str, ...]" = ("sum",),
         device="cuda",
     ) -> "PackedLayer":
-        if measure:
-            raise NotImplementedError(_AUTOTUNE)
         device = torch.device(device)
         bsb = pack_bipartite(edges)
         bsb_rev = pack_bipartite(edges.reversed()) if with_reverse else None
-        return cls(
+        layer = cls(
             bsb=bsb,
             bsb_rev=bsb_rev,
             fwd=_upload_operands(bsb, device),
@@ -86,6 +82,13 @@ class PackedLayer:
             n_src=edges.n_src,
             n_dst=edges.n_dst,
         )
+        if measure:
+            from .autotune import measure_crossover
+
+            layer.crossover = measure_crossover(
+                layer, ops=measure_ops, batch_sizes=measure_batch_sizes
+            )
+        return layer
 
 
 def pack_layer(edges: BipartiteEdges, device="cuda") -> PackedLayer:
@@ -97,19 +100,28 @@ def resolve_backend(
     x: torch.Tensor,
     semiring: Semiring = PLUS_TIMES,
     packable: bool = True,
-    table=None,
+    table: Optional[CrossoverTable] = None,
+    n_src: Optional[int] = None,
 ) -> str:
-    """The one 'auto' resolution: ``'cuda'`` when the layer is packed,
+    """The one 'auto' resolution both dispatch sites agree on.
+
+    Precedence: (1) a measured crossover entry, when a ``table`` recorded
+    at pack time covers this (op, n_src, B) cell — 'auto' never selects a
+    backend the measurement says is slower, and a measured ``'cuda'``
+    cell dispatches the kernel wrapper even for a CPU frontier (which
+    then runs its plain mirror); (2) ``'cuda'`` when the layer is packed,
     the semiring is kernelizable and ``x`` is a CUDA tensor on sm_90;
     ``'segment'`` otherwise.  An explicit ``'cuda'`` / ``'segment'`` is
     returned as given.  Exposed so tests can assert dispatch without
     running a kernel."""
-    if table is not None:
-        raise NotImplementedError(_AUTOTUNE)
     if backend != "auto":
         return backend
     if not packable or not kernelizable(semiring):
         return "segment"
+    if table is not None and n_src is not None:
+        decision = table.decide(semiring.add_kind, n_src, x.shape[-1] if x.ndim > 1 else 1)
+        if decision is not None:
+            return decision
     return "cuda" if _on_hopper(x) else "segment"
 
 
@@ -119,26 +131,31 @@ def bitmap_spmm(
     backend: str = "auto",
     semiring: Semiring = PLUS_TIMES,
     reverse: bool = False,
-    config=None,
+    config: Optional[KernelConfig] = None,
 ) -> torch.Tensor:
     """y[dst] = ⊕ over edges of x[src]; x may be (n_src,) or (n_src, F).
 
     ``reverse=True`` flips the edge direction (x indexed by dst, output
     over src) using the transposed packing.  ``semiring`` selects the
-    ⊕-reduction: K1 for the sum, K2 for min / max."""
+    ⊕-reduction: K1 for the sum, K2 for min / max.  ``config`` pins the
+    kernel's ``range_items``; left None, the layer's crossover table
+    supplies the measured-fastest one for this cell."""
     from . import bitmap_spmm as K
 
-    if config is not None:
-        raise NotImplementedError(_AUTOTUNE)
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
     ops = layer.rev if reverse else layer.fwd
-    backend = resolve_backend(backend, x, semiring=semiring, packable=ops is not None)
+    # n_src of the dispatched direction: the rows the kernel gathers from
+    n_src_dir = layer.n_dst if reverse else layer.n_src
+    backend = resolve_backend(backend, x, semiring=semiring, packable=ops is not None,
+                              table=layer.crossover, n_src=n_src_dir)
     n_out = layer.n_src if reverse else layer.n_dst
     if backend == "segment":
         src, dst = (layer.dst, layer.src) if reverse else (layer.src, layer.dst)
-        y = segment_semiring_ref(src, dst, x, n_out, semiring=semiring)
+        plan = (_edge_plan(layer.plans, src, dst, n_out, reverse)
+                if semiring.add_kind == "sum" else None)
+        y = segment_reduce(semiring, x.index_select(0, src), dst, n_out, plan=plan)
     elif backend == "cuda":
         if ops is None:
             raise ValueError(
@@ -149,8 +166,11 @@ def bitmap_spmm(
             )
         if not kernelizable(semiring):
             raise ValueError(f"semiring {semiring.name!r} has no kernel")
+        if config is None and layer.crossover is not None:
+            config = layer.crossover.config_for(semiring.add_kind, n_src_dir, x.shape[1])
         y = K.bitmap_spmm(ops.row_ptr, ops.col, x.contiguous(), n_out,
-                          op=semiring.add_kind, zero=float(semiring.zero))
+                          op=semiring.add_kind, zero=float(semiring.zero),
+                          range_items=None if config is None else config.range_items)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return y[:, 0] if squeeze else y

@@ -28,6 +28,7 @@ that packs can be served, whatever its slot count.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -45,6 +46,7 @@ _B_BITS = 5                              # bit-in-word (uint32)
 __all__ = [
     "BlockSparseBitmap",
     "pack_bipartite",
+    "merge_block_sparse",
     "TILE",
     "WORDS",
 ]
@@ -104,7 +106,9 @@ class BlockSparseBitmap:
 def _slot_layout(ub_rows: np.ndarray, ub_cols: np.ndarray, n_rt: int):
     """Canonical slot-stream layout from sorted unique (row, src) blocks:
     per row tile, real slots in ascending source order, one all-zero pad
-    slot for each empty row tile."""
+    slot for each empty row tile.  Shared by :func:`pack_bipartite` and
+    :func:`merge_block_sparse` so a merged pack is byte-identical to a
+    one-shot pack."""
     counts = np.bincount(ub_rows, minlength=n_rt)
     empty = np.flatnonzero(counts == 0)
     all_rows = np.concatenate([ub_rows, empty])
@@ -122,7 +126,79 @@ def _slot_layout(ub_rows: np.ndarray, ub_cols: np.ndarray, n_rt: int):
     return slot_row, slot_src, row_start, row_count, slot_of, n_slots
 
 
-def pack_bipartite(edges: BipartiteEdges) -> BlockSparseBitmap:
+def _popcount(bitmaps: np.ndarray) -> int:
+    """Total set bits across a bitmap stack (the packed edge count)."""
+    fn = getattr(np, "bitwise_count", None)
+    if fn is not None:
+        return int(fn(bitmaps).sum())
+    return int(np.unpackbits(bitmaps.view(np.uint8)).sum())
+
+
+def merge_block_sparse(parts: "list[BlockSparseBitmap]") -> BlockSparseBitmap:
+    """Merge per-shard packed incidences into one (DESIGN.md §7).
+
+    Every part must pack a disjoint edge subset of the *same* logical
+    matrix (equal ``n_dst``/``n_src``).  Slots sharing a (row tile, src
+    tile) block are OR-folded; pad slots are dropped and re-derived; the
+    canonical slot ordering is rebuilt — so the result is byte-identical
+    to packing all edges at once, which is what lets sharded extraction
+    build ``DevicePackedLayer`` operands shard-at-a-time without ever
+    sorting the full edge list in one shot.  Overlapping edges (the same
+    (src, dst) cell set in two parts) are rejected, matching
+    :func:`pack_bipartite`'s duplicate check.
+    """
+    if not parts:
+        raise ValueError("merge_block_sparse needs at least one part")
+    n_dst, n_src = parts[0].n_dst, parts[0].n_src
+    for p in parts:
+        if p.n_dst != n_dst or p.n_src != n_src:
+            raise ValueError("parts disagree on logical matrix shape")
+    n_rt = max(-(-n_dst // TILE), 1)
+    n_st = max(-(-n_src // TILE), 1)
+    keys, lives = [], []
+    total_bits = 0
+    for p in parts:
+        live = p.bitmaps.reshape(-1, TILE * WORDS).any(axis=1)  # drop pad slots
+        keys.append(p.slot_row[live].astype(np.int64) * n_st + p.slot_src[live])
+        lives.append(live)
+        total_bits += _popcount(p.bitmaps)  # pad slots hold no bit
+    uniq = np.unique(np.concatenate(keys)) if keys else np.empty(0, np.int64)
+    slot_row, slot_src, row_start, row_count, slot_of, n_slots = _slot_layout(
+        uniq // n_st, uniq % n_st, n_rt
+    )
+    # each part's live blocks go straight to their merged slots (slot_of[j]:
+    # the slot of sorted block j), the first part's copied, the others'
+    # OR-folded in; a part holds each block once, and pad slots stay zero.
+    # Rows of 512 words index faster than (128, 4) blocks.
+    bitmaps = np.zeros((n_slots, TILE * WORDS), dtype=np.uint32)
+    for i, (p, key, live) in enumerate(zip(parts, keys, lives)):
+        dest = slot_of[np.searchsorted(uniq, key)]
+        rows = p.bitmaps.reshape(-1, TILE * WORDS)[live]
+        if i == 0:
+            bitmaps[dest] = rows
+        else:
+            bitmaps[dest] |= rows
+    if _popcount(bitmaps) != total_bits:
+        raise ValueError(
+            "merge_block_sparse requires disjoint edge shards "
+            "(a (src, dst) cell is set in more than one part)"
+        )
+    return BlockSparseBitmap(
+        slot_src=slot_src,
+        slot_row=slot_row,
+        bitmaps=bitmaps.reshape(n_slots, TILE, WORDS),
+        row_start=row_start,
+        row_count=row_count,
+        n_dst=n_dst,
+        n_src=n_src,
+    )
+
+
+def pack_bipartite(
+    edges: BipartiteEdges,
+    method: str = "reduceat",
+    shard_edges: Optional[int] = None,
+) -> BlockSparseBitmap:
     """Pack dst-major: y[dst] += x[src]  ==  y = B @ x with B[dst, src]=1.
 
     Duplicate (src, dst) pairs are rejected with ``ValueError`` — a bitmap
@@ -131,8 +207,39 @@ def pack_bipartite(edges: BipartiteEdges) -> BlockSparseBitmap:
     layer).  One sort by a combined (block, row, word, bit) key yields the
     duplicate check, the block grouping and the word runs, folded with
     one ``np.bitwise_or.reduceat`` pass (the JAX package's default
-    ``'reduceat'`` method).
+    ``'reduceat'`` method, the port's only one: ``'scatter'``, the JAX
+    package's baseline for ``measure_pack_throughput``, waits for
+    ``core/cost.py``, ROADMAP.md Queue 1 item 2, and raises
+    ``NotImplementedError``).
+
+    ``shard_edges`` bounds the edges packed in one shot (DESIGN.md §7):
+    larger edge lists are packed slice by slice and OR-merged
+    *incrementally* with :func:`merge_block_sparse` — byte-identical
+    output, with resident packing state bounded by the accumulated packed
+    form plus one slice's pack.
     """
+    if method == "scatter":
+        raise NotImplementedError(
+            "pack method 'scatter' is not ported yet (ROADMAP.md, Queue 1 "
+            "item 2: core/cost.py with measure_pack_throughput)"
+        )
+    if method != "reduceat":
+        raise ValueError(f"unknown pack method {method!r}")
+    if shard_edges is not None and edges.n_edges > shard_edges:
+        width = max(int(shard_edges), 1)
+        acc: Optional[BlockSparseBitmap] = None
+        for lo in range(0, edges.n_edges, width):
+            part = pack_bipartite(
+                BipartiteEdges(
+                    edges.src[lo : lo + width],
+                    edges.dst[lo : lo + width],
+                    edges.n_src,
+                    edges.n_dst,
+                ),
+            )
+            acc = part if acc is None else merge_block_sparse([acc, part])
+        assert acc is not None
+        return acc
     src = edges.src
     dst = edges.dst
     n_rt = max(-(-edges.n_dst // TILE), 1)

@@ -58,7 +58,7 @@ def main(argv=None) -> int:
     if args.graphs > 0:
         raise NotImplementedError(
             "--graphs: the multi-tenant graph serving tier is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)"
+            "(ROADMAP.md, Queue 1 item 3)"
         )
     return _serve_lm(args)
 

@@ -42,6 +42,8 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import algorithms, dedup, engine, extract, semiring
 from repro_torch.data import synth
 from repro_torch.kernels import ops
+from repro_torch.kernels.autotune import (
+    CrossoverEntry, CrossoverTable, KernelConfig, batch_bucket, src_bucket)
 
 Q1 = """
 Nodes(ID, Name) :- Author(ID, Name).
@@ -481,13 +483,21 @@ def test_ops_dispatch_and_unported_arguments(layer_pair):
         ops.bitmap_spmm(one_way, torch.zeros(one_way.n_dst, 2), backend="cuda", reverse=True)
     with pytest.raises(ValueError, match="unknown backend"):
         ops.bitmap_spmm(layer, x, backend="xla")
-    with pytest.raises(NotImplementedError, match="autotune"):
-        ops.bitmap_spmm(layer, x, config=object())
-    with pytest.raises(NotImplementedError, match="autotune"):
-        ops.resolve_backend("auto", x, table=object())
-    with pytest.raises(NotImplementedError, match="autotune"):
-        ops.PackedLayer.from_edges(_host("dblp")[0].chains[0].edges[0], measure=True,
-                                   device="cpu")
+    # the measured-crossover arguments: a table decides 'auto' for the
+    # cells it covers, a config pins the kernel's range length
+    seg_table = CrossoverTable.from_entries(
+        {("sum", src_bucket(layer.n_src), batch_bucket(4)): CrossoverEntry(9.0, 1.0)})
+    cuda_table = CrossoverTable.from_entries(
+        {("sum", src_bucket(layer.n_src), batch_bucket(4)): CrossoverEntry(1.0, 9.0, 64)})
+    assert ops.resolve_backend("auto", x, table=seg_table, n_src=layer.n_src) == "segment"
+    assert ops.resolve_backend("auto", x, table=cuda_table, n_src=layer.n_src) == "cuda"
+    x_int = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 5, (layer.n_src, 4)).astype(np.float32))
+    want = ops.bitmap_spmm(layer, x_int, backend="segment")
+    assert torch.equal(ops.bitmap_spmm(layer, x_int, backend="cuda",
+                                       config=KernelConfig(64)), want)
+    with pytest.raises(ValueError, match="range_items"):
+        KernelConfig(0)
 
 
 def test_backends_agree_on_the_analytics():
@@ -505,3 +515,38 @@ def test_backends_agree_on_the_analytics():
     for backend in ("segment", "auto"):
         assert np.array_equal(runs[backend][0], runs["cuda"][0])
         assert torch.equal(runs[backend][1], runs["cuda"][1])
+
+
+def test_per_step_triangles_exact_past_float32_sums():
+    """A hub in three cliques of sizes 4101, 3001 and 1001, each clique
+    one virtual node: the hub's ``Σ a1·a2`` is Σ (s−1)(s−2) = 26,801,900,
+    past 2^24, so a float32 reduction of the block may round.  Per_step
+    reduces it in float64: every count is the closed form (a member's
+    C(s−1, 2), the hub's sum of them), Σt ≡ 0 (mod 3), and the block's
+    result is float64."""
+    from math import comb
+
+    from repro_torch.core.condensed import BipartiteEdges, Chain, CondensedGraph
+
+    sizes = (4101, 3001, 1001)
+    members, want = [], [sum(comb(s - 1, 2) for s in sizes)]
+    nxt = 1
+    for v, s in enumerate(sizes):
+        others = np.arange(nxt, nxt + s - 1)
+        nxt += s - 1
+        members.append((np.r_[0, others], v))
+        want += [comb(s - 1, 2)] * (s - 1)
+    src = np.concatenate([m for m, _ in members])
+    dst = np.concatenate([np.full(m.size, v) for m, v in members])
+    n = nxt
+    g = CondensedGraph(n, [Chain([BipartiteEdges(src, dst, n, len(sizes)),
+                                  BipartiteEdges(dst, src, len(sizes), n)])])
+    dev = engine.to_device(g, correction=dedup.build_correction(g), device="cpu")
+    assert 2 * want[0] > 2 ** 24
+    t = algorithms.triangle_counts(dev, block=128)
+    assert np.array_equal(t, np.asarray(want, dtype=np.float64))
+    assert int(t.sum()) % 3 == 0
+    X = torch.zeros((n, 128))
+    X[0, 0] = 1.0
+    block = algorithms._triangle_block(dev, X, None, "per_step")
+    assert block.dtype == torch.float64 and float(block[0]) == want[0]

@@ -572,3 +572,49 @@ def test_cuda_k4_launches_one_kernel_route_per_call(card):
         want.update(kernels, flash_attention=1)
         assert FA.LAUNCHES == want, (dtype, Tq)
         assert FA.PLAIN_CUDA_CALLS["flash_attention"] == 0
+
+
+def test_cuda_segment_sums_repeat_their_bits(packed):
+    """The segment path sums in a fixed order on the card too: ``hits(30)``
+    (1-D frontiers, segment path both ways, DEDUP-C subtraction) run twice
+    in default mode gives the same bits, and the segment backend's batched
+    PageRank step repeats its bits."""
+    import dataclasses
+
+    from repro_torch.core import algorithms
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    seg = dataclasses.replace(packed, backend="segment")
+    first = algorithms.hits(packed, num_iters=30)
+    second = algorithms.hits(seg, num_iters=30)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    x = torch.rand((packed.n_real, 32), device="cuda")
+    assert torch.equal(engine.propagate(seg, x), engine.propagate(seg, x))
+
+
+def test_cuda_sharded_pack_uploads_the_same_bytes(card):
+    """``to_device_packed(pack_shard_edges=)`` packs each layer slice by
+    slice and OR-merges the slices: the uploaded bitmaps, and the row
+    indices built from them on the card, equal an unsharded upload's."""
+    import dataclasses
+
+    g = extract(dblp_catalog(700, 1200, 6.0, seed=5), Q1).graph
+    corr = dedup.build_correction(g)
+    whole = engine.to_device_packed(g, correction=corr, device=card)
+    biggest = max(e.n_edges for e in g.chains[0].edges)
+    sharded = engine.to_device_packed(g, correction=corr, device=card,
+                                      pack_shard_edges=max(biggest // 8, 1))
+
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj]
+        if dataclasses.is_dataclass(obj):
+            return [t for f in dataclasses.fields(obj) for t in tensors(getattr(obj, f.name))]
+        if isinstance(obj, (tuple, list)):
+            return [t for v in obj for t in tensors(v)]
+        return []
+
+    a, b = tensors(whole), tensors(sharded)
+    assert len(a) == len(b) > 20
+    assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))

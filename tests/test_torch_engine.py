@@ -195,8 +195,8 @@ def test_standdown_reasons_match_reference():
 
 def test_to_device_packed_refuses_unported_options():
     g = extract(synth.dblp_catalog(100, 150, 6.0, seed=0), Q1).graph
-    with pytest.raises(NotImplementedError, match="item 10"):
-        engine.to_device_packed(g, measure=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2"):
+        engine.to_device_packed(g, pack_method="scatter", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         engine.to_device_packed(g, backend="pallas", device="cpu")
 
@@ -213,3 +213,55 @@ def test_segment_reduce_empty_segment_conventions(name):
     want = ref_semiring.segment_reduce(rsr, jnp.asarray(vals), jnp.asarray(seg), 4)
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def _permuted(g, rng):
+    """The same condensed graph with every layer's edge list permuted."""
+    from repro_torch.core.condensed import BipartiteEdges, Chain, CondensedGraph
+
+    def perm(e):
+        p = rng.permutation(e.n_edges)
+        return BipartiteEdges(e.src[p], e.dst[p], e.n_src, e.n_dst)
+
+    chains = [Chain([perm(e) for e in c.edges]) for c in g.chains]
+    direct = perm(g.direct) if g.direct is not None else None
+    return CondensedGraph(g.n_real, chains, direct)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["1d", "batched"])
+def test_segment_sum_bits_do_not_depend_on_edge_order(batched):
+    """The segment path sums each destination's values in an order fixed
+    by the edge set (by destination, then source), so permuting a layer's
+    COO edge list, or the correction triples, leaves float outputs bit
+    for bit the same, in both directions and on the expanded graph."""
+    rng = np.random.default_rng(4)
+    g = extract(synth.dblp_catalog(300, 500, 6.0, seed=3), Q1, mode="condensed").graph
+    gp = _permuted(g, rng)
+    cs, cd, cm = dedup.build_correction(g)
+    p = rng.permutation(cs.size)
+    shape = (g.n_real, B) if batched else (g.n_real,)
+    x = torch.from_numpy(rng.random(shape).astype(np.float32))
+    for reverse in (False, True):
+        a = engine.propagate(engine.to_device(g, correction=(cs, cd, cm), device="cpu"),
+                             x, reverse=reverse)
+        b = engine.propagate(engine.to_device(gp, correction=(cs[p], cd[p], cm[p]),
+                                              device="cpu"), x, reverse=reverse)
+        assert torch.equal(a, b)
+        c = engine.propagate(engine.to_device(g, device="cpu"), x, reverse=reverse,
+                             allow_duplicates=True)
+        d = engine.propagate(engine.to_device(gp, device="cpu"), x, reverse=reverse,
+                             allow_duplicates=True)
+        assert torch.equal(c, d)
+    exp = g.expand()
+    q = rng.permutation(exp.n_edges)
+    from repro_torch.core.condensed import ExpandedGraph
+
+    expp = ExpandedGraph(exp.src[q], exp.dst[q], exp.multiplicity[q], exp.n)
+    assert torch.equal(engine.propagate(engine.to_device(exp, device="cpu"), x),
+                       engine.propagate(engine.to_device(expp, device="cpu"), x))
+    # and the planned sum is the sum: the index_add_ result to round-off
+    vals = x if batched else x[:, None]
+    ids = torch.from_numpy(rng.integers(0, 40, g.n_real))
+    want = torch.zeros((40,) + tuple(vals.shape[1:])).index_add_(0, ids, vals)
+    got = semiring.segment_reduce(semiring.PLUS_TIMES, vals, ids, 40)
+    assert torch.allclose(got, want, rtol=1e-6, atol=1e-6)

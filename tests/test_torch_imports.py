@@ -35,6 +35,8 @@ def test_slice_modules_are_all_listed():
         "repro_torch.kernels.flash_attention", "repro_torch.models.layers",
         "repro_torch.models.transformer", "repro_torch.models.interop",
         "repro_torch.launch.serve", "repro_torch.kernels.ops",
+        "repro_torch.kernels.autotune", "repro_torch.core.serialize",
+        "repro_torch.data.pipeline",
     ):
         assert name in MODULES
 

@@ -284,5 +284,5 @@ def test_launcher_serves_on_cpu():
 def test_launcher_graphs_not_ported():
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         serve.main(["--graphs", "2", "--device", "cpu"])
