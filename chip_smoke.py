@@ -25,7 +25,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    path on the card (PPR to ``rtol=1e-5, atol=1e-6``: the two paths add
    float32 values in different orders).
    One more run of the same batches under ``torch.profiler`` gives the
-   device time by kernel and the card's idle share.
+   device time by kernel and the card's idle share; its wrappers must
+   make the counted run's launches and its answers the counted run's, and
+   its trace one range kernel and one carry pass per wrapper call.  Only a
+   trace that holds fewer kernel records than its run's wrapper calls is
+   taken again (up to ``PROFILE_TRIES`` times, the records it lacked and
+   the profiler's dropped-record warnings kept).
 4. Kernels: at the main path's operands, K1-K3 against their plain
    PyTorch versions over the bitmaps (integer frontiers, byte-equal),
    twice on a float frontier (the same bits) and against the plain mirror
@@ -84,7 +89,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    query (1,000 customers; ``--quick`` 300) collapses to one layer that
    DEDUP-1 rewrites, batched PPR on it (K1, never K3) equal to DEDUP-C's
    on the uncollapsed graph and BFS exact.
-6. LM serving: K4 against its plain version on small and cache-path
+6. Live graph, tier, planner (``live_tier_phase``) on phase 3's catalog:
+   ``LiveGraph`` with a write-ahead ``DeltaLog`` (``build/wal``, removed
+   after) takes 4 deltas, each inserting new publications that make
+   ``DELTA_SHARE`` of ``AuthorPub`` and deleting about as many rows by
+   publication (the third also deletes ``TOMBSTONE_AUTHORS`` authors):
+   every graph identical to a fresh ``extract`` of the mutated catalog,
+   and ``LiveGraph.replay`` lands on the same graph and version.  One
+   ``GraphServingTier(device="cuda")`` serves four tenants (the live DBLP
+   graph, packed and pinned, through its version listener; layered_1
+   with per-layer costs and capacities; the DEDUP-1 graph; the TPC-H
+   collapse), sized by one upload each, then under a ``ResidencyBudget``
+   of the DBLP tenant plus the next largest, with one byte less than the
+   smallest to spare (derived again from the DBLP tenant's new bytes when
+   the fifth delta bumps its version).  ``TIER_REQUESTS``
+   requests of every kind, half to DBLP, run through ``run_load`` in two
+   halves, with a fifth delta between them while 4 DBLP requests are in
+   flight (answered at the old version by the quiesce handoff).  The first
+   half arrives at once and gives the tier's service rate under a
+   backlog; the second is offered one request per ``TIER_SPACING_BATCHES``
+   of the first half's mean batch times, so its latencies are those of a
+   bounded queue.  Launch
+   counts are zeroed before the stream and read after: K1, K2 min, K2 max
+   and K3 must each launch, with no ``'vmem_or_backend'`` stand-down.
+   Every answer equals the segment path on the tenant's own upload (PPR
+   to ``rtol=1e-5, atol=1e-6``), the new version's bfs / ppr / common
+   neighbours a fresh ``GraphQueryServer`` on the new graph; every
+   evicted tenant's re-upload is byte-equal to its first.  Then ``plan``
+   with this machine's ``measure_pack_throughput`` and the measured
+   crossover table, its report through ``save_plan_report`` /
+   ``load_plan_report``, ``extract(plan=)`` identical to phase 3's graph,
+   ``sharded_extract_to_device(plan=)`` byte-equal to phase 3's upload,
+   and ``recommend(graph, crossover=table)``.
+7. LM serving: K4 against its plain version on small and cache-path
    shapes (the main path's prefill and decode among them) in float32 to
    2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
    weights serves 16 requests (8 x 4096 + 8 x 1024 prompt tokens, 32 new
@@ -107,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -132,6 +170,10 @@ INDEX_FIELDS = ("row_ptr", "col", "weight")
 FULL_LAUNCHES = {"bitmap_spmm_sum": 22, "bitmap_spmm_min": 10, "bitmap_spmm_max": 10,
                  "bitmap_spmm_fused": 20}
 CSRC = "src/repro_torch/kernels/csrc"
+# traces of the served batches taken before their kernel records must match
+# the counted run's launches; only a trace that came back short of the
+# wrapper calls its own run made is taken again
+PROFILE_TRIES = 3
 
 
 def log(msg: str) -> None:
@@ -255,7 +297,8 @@ def serve_queries(server, nodes, reach_nodes):
     return queries, answers, reach, stats
 
 
-def compare_answers(queries, got, ref, reach, reach_ref) -> None:
+def compare_answers(queries, got, ref, reach, reach_ref,
+                    what: str = "kernel path != segment path") -> None:
     import numpy as np
 
     for q in queries:
@@ -265,16 +308,21 @@ def compare_answers(queries, got, ref, reach, reach_ref) -> None:
         else:
             ok = np.array_equal(a, b)
         if not ok:
-            raise AssertionError(f"{q.kind} query {q.qid}: kernel path != segment path")
+            raise AssertionError(f"{q.kind} query {q.qid}: {what}")
     if not np.array_equal(reach, reach_ref):
-        raise AssertionError("reachable_multi: kernel path != segment path")
+        raise AssertionError(f"reachable_multi: {what}")
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn) -> tuple:
     """Device time by kernel over one call of ``fn`` under
     ``torch.profiler``: the wall time, the summed kernel time and the share
     of the wall time the card sat idle.  Launches made here are restored:
-    they do not count as a path's."""
+    they do not count as a path's.  The record keeps them as
+    ``wrapper_launches`` (each wrapper's count over the call) beside the
+    kernel records the trace holds, and the profiler's native warnings of
+    dropped records.  Returns the record and ``fn``'s result."""
+    import tempfile
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -283,14 +331,30 @@ def profile_call(fn) -> dict:
 
     before = dict(K.LAUNCHES)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t
+    # the profiler's native warnings go to file descriptor 2: copy them
+    # through a file, then pass them on
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as err:
+        os.dup2(err.fileno(), 2)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t
+            events = prof.key_averages()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        err.seek(0)
+        native = err.read().decode(errors="replace")
+    sys.stderr.write(native)
+    wrapper = {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()}
     K.LAUNCHES.update(before)
     by_kernel, calls = {}, {}
-    for e in prof.key_averages():
+    for e in events:
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -309,13 +373,16 @@ def profile_call(fn) -> dict:
         "idle_share": 1.0 - busy_s / wall_s if by_kernel else None,
         "top_kernels_s": dict(top),
         "graph_kernel_launches": graph,
+        "wrapper_launches": wrapper,
+        "dropped_record_warnings": [ln for ln in native.splitlines() if "drop" in ln.lower()],
         "bitmap_kernels_s": sum(t for key, t in by_kernel.items() if "bitmap_spmm::" in key),
         "memcpy_dtoh_s": sum(t for key, t in by_kernel.items() if "DtoH" in key),
-    }
+    }, out
 
 
 def profile_serve(server, nodes, reach_nodes):
-    """:func:`profile_call` over one more run of the served batches."""
+    """:func:`profile_call` over one more run of the served batches;
+    returns the record and the run's ``(queries, answers, reach, stats)``."""
     return profile_call(lambda: serve_queries(server, nodes, reach_nodes))
 
 
@@ -861,7 +928,7 @@ def dblp_analytics(an, exact, g, rng) -> dict:
                 and abs(float(torch.linalg.vector_norm(v).item()) - 1.0) < 1e-4):
             raise AssertionError("hits: scores are not a finite unit vector")
 
-    prof = profile_call(lambda: A._triangle_block(
+    prof, _ = profile_call(lambda: A._triangle_block(
         exact, torch.eye(n, 128, device="cuda"), None, "per_step"))
     rec["triangle_block_profile"] = prof
     log(f"profiled per_step triangle block: {json.dumps(prof)}")
@@ -1944,10 +2011,510 @@ def crossover_phase(args, exact, ctx, record) -> dict:
         raise AssertionError("BFS on the collapsed DEDUP-1 graph != BFS on DEDUP-C")
     col["tpch"]["ppr_max_abs_diff_vs_dedupc"] = float((p1 - pc).abs().max().item())
     rec["collapse"] = col
+    ctx["tpch_collapse"] = tflat
+    ctx["crossover_table"] = tables["exact.chain0.layer0.fwd"]
     log(f"collapse: {json.dumps(col)}")
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"crossover and collapse: {rec['phase_s']:.1f} s")
     record["crossover"] = rec
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: live graph under writes, the serving tier, the planner and advisor
+# ---------------------------------------------------------------------------
+
+WAL_DIR = os.path.join(ROOT, "build", "wal")
+PLAN_PATH = os.path.join(ROOT, "build", "plan", "plan.json")
+LIVE_DELTAS = 4
+DELTA_SHARE = 0.005           # of AuthorPub's rows, inserted and deleted per delta
+TOMBSTONE_AUTHORS = 50        # Author rows the third delta deletes
+AUTHORS_PER_NEW_PUB = 6
+TIER_REQUESTS = {False: 192, True: 96}
+# requests that repeat an earlier (tenant, kind, node), so that the result
+# cache is exercised: a property of this check, not a model of users' traffic
+TIER_REPEAT_SHARE = 0.2
+# the second half of the stream is offered one request per this many of the
+# first half's measured mean batch times: a lone request's batch costs
+# about a mean batch, so the tier is busy about half the time and its queue
+# stays bounded
+TIER_SPACING_BATCHES = 2
+# request kinds per tenant: triangles need a symmetric simple graph (not
+# layered_1) and stay off the DBLP tenant, whose per-node counts the
+# analytics phase already holds to the segment path (one sweep is 1.1 s there,
+# 6.2 s on the segment path)
+TIER_KINDS = {
+    "dblp": ("bfs", "ppr", "common_neighbors", "shortest", "widest", "scc"),
+    "layered": ("bfs", "ppr", "common_neighbors", "shortest", "widest", "scc"),
+    "dedup1": ("bfs", "ppr", "common_neighbors", "shortest", "widest", "scc", "triangles"),
+    "tpch": ("bfs", "ppr", "common_neighbors", "shortest", "widest", "scc", "triangles"),
+}
+TIER_WEIGHTS = {"dblp": 0.5, "layered": 1 / 6, "dedup1": 1 / 6, "tpch": 1 / 6}
+
+
+def delta_batch(rng, catalog, index: int, tombstone: bool, share: float = DELTA_SHARE):
+    """One write batch on the DBLP catalog: new publications whose author
+    rows make ``share`` of AuthorPub (distinct authors each, fresh pids),
+    the deletion of whole existing publications making about the same
+    share, and with ``tombstone`` the deletion of ``TOMBSTONE_AUTHORS``
+    Author rows."""
+    import numpy as np
+
+    ap = catalog.table("AuthorPub")
+    aids = catalog.table("Author").column("aid")
+    n_rows = max(int(len(ap) * share), AUTHORS_PER_NEW_PUB)
+    n_pubs = n_rows // AUTHORS_PER_NEW_PUB
+    new_aid = np.concatenate([rng.choice(aids, AUTHORS_PER_NEW_PUB, replace=False)
+                              for _ in range(n_pubs)]).astype(ap.column("aid").dtype)
+    new_pid = np.repeat(3_000_000 + index * 1_000_000 + np.arange(n_pubs),
+                        AUTHORS_PER_NEW_PUB).astype(ap.column("pid").dtype)
+    pids = np.unique(ap.column("pid"))
+    dels = {"AuthorPub": ("pid", rng.choice(pids, n_pubs, replace=False))}
+    if tombstone:
+        dels["Author"] = ("aid", rng.choice(aids, TOMBSTONE_AUTHORS, replace=False))
+    return {"AuthorPub": {"aid": new_aid, "pid": new_pid}}, dels
+
+
+def live_graph_part(catalog, g, rng) -> tuple:
+    """``LiveGraph`` on phase 3's catalog with a write-ahead ``DeltaLog``:
+    every delta's graph identical to a fresh ``extract`` of the mutated
+    catalog, and ``LiveGraph.replay`` from the log landing on the same graph
+    and version."""
+    import shutil
+
+    from repro_torch.core import (DeltaLog, LiveGraph, extract, graphs_identical,
+                                  mutate_catalog)
+
+    shutil.rmtree(WAL_DIR, ignore_errors=True)
+    t = time.perf_counter()
+    live = LiveGraph(catalog, QUERY, log=DeltaLog(WAL_DIR))
+    rec = {"base_build_s": time.perf_counter() - t, "deltas": []}
+    if not graphs_identical(live.graph, g):
+        raise AssertionError("the live graph's base build != phase 3's graph")
+    mutated = catalog
+    for i in range(LIVE_DELTAS):
+        ins, dels = delta_batch(rng, mutated, i, tombstone=(i == 2))
+        t = time.perf_counter()
+        graph, version = live.apply_delta(inserts=ins, deletes=dels)
+        apply_s = time.perf_counter() - t
+        mutated = mutate_catalog(mutated, inserts=ins, deletes=dels)
+        t = time.perf_counter()
+        fresh = extract(mutated, QUERY).graph
+        fresh_s = time.perf_counter() - t
+        if not graphs_identical(graph, fresh) or int(version) != i + 1:
+            raise AssertionError(f"delta {i}: the live graph != a fresh extract")
+        d = {"version": int(version), "apply_s": apply_s, "fresh_extract_s": fresh_s,
+             "inserted_rows": int(ins["AuthorPub"]["aid"].size),
+             "deleted_pubs": int(dels["AuthorPub"][1].size),
+             "deleted_authors": int(dels["Author"][1].size) if "Author" in dels else 0,
+             "n_real": graph.n_real, "edges_condensed": graph.n_edges_condensed}
+        rec["deltas"].append(d)
+        log(f"delta {i}: {json.dumps(d)}")
+    t = time.perf_counter()
+    replayed = LiveGraph.replay(catalog, QUERY, DeltaLog.open(WAL_DIR))
+    rec["replay_s"] = time.perf_counter() - t
+    if replayed.version != live.version or not graphs_identical(replayed.graph, live.graph):
+        raise AssertionError("LiveGraph.replay from the log != the live graph")
+    return live, rec
+
+
+def tier_reference(tenant, kind, nodes, exact, counts):
+    """The answers of ``kind`` for ``nodes`` on the segment path: the
+    tenant's own uploads with ``backend='segment'``, one batched call."""
+    import numpy as np
+
+    from repro_torch.core import algorithms as A
+
+    exact = dataclasses.replace(exact, backend="segment")
+    if kind == "bfs":
+        out = A.bfs_multi(exact, nodes)
+    elif kind == "ppr":
+        out = A.personalized_pagerank(exact, A.one_hot_frontier(exact.n_real, nodes,
+                                                                device="cuda"))
+    elif kind == "common_neighbors":
+        out = A.common_neighbors_multi(dataclasses.replace(counts, backend="segment"), nodes)
+    elif kind == "shortest":
+        out = A.shortest_paths_multi(exact, nodes, layer_weights=tenant.layer_weights)
+    elif kind == "widest":
+        out = A.widest_paths_multi(exact, nodes, layer_capacities=tenant.layer_capacities)
+    elif kind == "scc":
+        labels = A.scc_labels(exact)
+        return (labels[:, None] == labels[np.asarray(nodes)][None, :]).astype(np.float32)
+    else:
+        t = A.triangle_counts(exact).astype(np.float32)
+        return np.tile(t[:, None], (1, len(nodes)))
+    return out.cpu().numpy()
+
+
+def check_answers(results, refs) -> int:
+    """Every result equals its reference column (PPR to ``FLOAT_TOL``)."""
+    import numpy as np
+
+    n = 0
+    for r in results:
+        want = refs[(r.tenant, r.graph_version, r.kind)][r.node]
+        if r.value.dtype != want.dtype or r.value.shape != want.shape:
+            raise AssertionError(f"qid {r.qid}: answer of shape {r.value.shape} "
+                                 f"{r.value.dtype}, expected {want.shape} {want.dtype}")
+        if r.kind == "ppr":
+            ok = np.allclose(r.value, want, **FLOAT_TOL) and np.isfinite(r.value).all()
+        else:
+            ok = np.array_equal(r.value, want)
+        if not ok:
+            raise AssertionError(f"qid {r.qid} ({r.tenant} {r.kind} {r.node} "
+                                 f"v{r.graph_version}) != the segment path")
+        n += 1
+    return n
+
+
+def add_refs(refs, tier, name, version, requests, exact, counts) -> None:
+    by_kind = {}
+    for q in requests:
+        if q.tenant == name:
+            by_kind.setdefault(q.kind, set()).add(q.node)
+    for kind, nodes in by_kind.items():
+        nodes = sorted(nodes)
+        cols = tier_reference(tier.tenants[name], kind, nodes, exact, counts)
+        refs[(name, version, kind)] = {node: cols[:, i] for i, node in enumerate(nodes)}
+
+
+def tier_stream(rng, tier, n: int, qid0: int, t0: float, spacing_s: float):
+    from repro_torch.serve import ServeRequest
+
+    names = list(TIER_WEIGHTS)
+    p = [TIER_WEIGHTS[k] for k in names]
+    reqs, seen = [], []
+    for i in range(n):
+        if seen and rng.random() < TIER_REPEAT_SHARE:
+            name, kind, node = seen[int(rng.integers(len(seen)))]
+        else:
+            name = names[int(rng.choice(len(names), p=p))]
+            kinds = TIER_KINDS[name]
+            kind = kinds[int(rng.integers(len(kinds)))]
+            node = int(rng.integers(tier.tenants[name].n_nodes))
+            seen.append((name, kind, node))
+        reqs.append(ServeRequest(qid0 + i, name, kind, node,
+                                 arrival_time=t0 + i * spacing_s))
+    return reqs
+
+
+def tier_part(args, live, ctx, rng) -> dict:
+    """One ``GraphServingTier`` on the card serves four tenants (the live
+    DBLP graph, packed and pinned, through its version listener; layered_1
+    with per-layer costs and capacities; the DEDUP-1 graph; the TPC-H
+    collapse) under a ``ResidencyBudget`` that holds the DBLP tenant plus
+    the next largest.  A stream of every request kind, half of it to the
+    DBLP tenant, runs through ``run_load`` in two halves with a fifth delta
+    between them, applied while four DBLP requests are in flight (the
+    quiesce handoff answers them at the old version).  The first half
+    arrives at once and measures the tier's service rate under a backlog;
+    the second is offered at a spacing derived from that rate, and its
+    latencies are the ones of a tier whose queue stays bounded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.engine import ResidencyBudget
+    from repro_torch.kernels import bitmap_spmm as K
+    from repro_torch.serve import GraphQuery, GraphQueryServer, GraphServingTier, ServeRequest
+    from repro_torch.serve.server import ServerStats
+    from repro_torch.serve.tier import ResultCacheStats
+
+    rec = {}
+    lay_host = ctx["layered_host"]
+    sizes = [e.n_dst for e in lay_host.chains[0].edges[:-1]]
+    costs = [rng.integers(1, 9, s).astype(np.float32) for s in sizes]
+    caps = [rng.integers(1, 9, s).astype(np.float32) for s in sizes]
+    tier = GraphServingTier(max_batch=32, device="cuda", budget=ResidencyBudget())
+    t = time.perf_counter()
+    tier.add_tenant("dblp", live, packed=True, pin=True)
+    rec["dblp_correction_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tier.add_tenant("layered", lay_host, packed=True, layer_weights=[costs],
+                    layer_capacities=[caps])
+    tier.add_tenant("dedup1", ctx["dedup1_host"], packed=True)
+    tier.add_tenant("tpch", ctx["tpch_collapse"], packed=True)
+    rec["small_corrections_s"] = time.perf_counter() - t
+
+    # sizing: every tenant uploaded once, then the budget set to hold the
+    # DBLP tenant plus the next largest and the small tenants evicted
+    t = time.perf_counter()
+    for i, name in enumerate(TIER_WEIGHTS):
+        tier.serve([ServeRequest(-1 - i, name, "bfs", 0)])
+    torch.cuda.synchronize()
+    rec["sizing_uploads_s"] = time.perf_counter() - t
+    sizes = {n: tier.tenants[n].resident_bytes for n in TIER_WEIGHTS}
+    first = {n: (tier.tenants[n].device, tier.tenants[n].counts_device)
+             for n in TIER_WEIGHTS if n != "dblp"}
+    others = [v for k, v in sizes.items() if k != "dblp"]
+
+    def holds_dblp_and_next(dblp_bytes: int) -> int:
+        # the DBLP tenant plus the largest other, with one byte less than
+        # the smallest other to spare: no room for a third tenant, so a
+        # switch to a tenant that is not resident evicts
+        return dblp_bytes + max(others) + min(others) - 1
+
+    tier.budget.max_device_bytes = holds_dblp_and_next(sizes["dblp"])
+    for n in first:
+        tier.evict_tenant(n)
+    tier.budget.peak_resident_bytes = tier.budget.resident_bytes
+    tier.invalidate_results()
+    tier.result_stats, tier.stats = ResultCacheStats(), ServerStats()
+    rec["tenant_bytes"] = sizes
+    rec["max_device_bytes"] = tier.budget.max_device_bytes
+    log(f"tier tenants (bytes): {json.dumps(sizes)}; budget {tier.budget.max_device_bytes}")
+
+    # -- the stream: launches zeroed just before, read just after ---------
+    n_req = TIER_REQUESTS[args.quick]
+    t0 = tier.now
+    part1 = tier_stream(rng, tier, n_req // 2, 0, t0, 0.0)
+    inflight = [ServeRequest(10_000 + i, "dblp", "bfs", int(rng.integers(live.graph.n_real)))
+                for i in range(4)]
+    counts_before = (tier.budget.n_uploads, tier.budget.n_evictions)
+    K.reset_launch_counts()
+    engine.reset_kernel_dispatch_count()
+    t = time.perf_counter()
+    res1 = tier.run_load(part1)
+    torch.cuda.synchronize()
+    rec["part1_s"] = time.perf_counter() - t
+    busy = tier.now - t0           # the virtual clock advanced only by batches
+    lat1 = np.array([r.latency for r in res1 if not r.cached])
+    rec["saturated"] = {
+        "requests": len(part1), "batches": tier.stats.n_batches, "busy_s": busy,
+        "requests_per_s": len(part1) / busy, "batches_per_s": tier.stats.n_batches / busy,
+        "mean_batch_s": busy / tier.stats.n_batches,
+        "latency_p50_s": float(np.percentile(lat1, 50)),
+        "latency_p99_s": float(np.percentile(lat1, 99))}
+    for q in inflight:
+        q.arrival_time = tier.now
+        if tier.submit(q) is not None:
+            raise AssertionError("an in-flight request was answered from the cache")
+    launches_1 = dict(K.LAUNCHES)
+    standdowns_1 = dict(engine.KERNEL_STANDDOWN_COUNT)
+    # references for the DBLP tenant at version 4 while it is resident
+    # (segment path: no launches), before the delta replaces its upload
+    refs = {}
+    d = tier.tenants["dblp"]
+    v_old = d.version
+    add_refs(refs, tier, "dblp", v_old, part1 + inflight, d.device, d.counts_device)
+    if dict(K.LAUNCHES) != launches_1:
+        raise AssertionError("the segment path launched a kernel")
+    standdowns_refs = {k: v - standdowns_1.get(k, 0)
+                       for k, v in engine.KERNEL_STANDDOWN_COUNT.items()}
+    ins, dels = delta_batch(rng, live.catalog, LIVE_DELTAS, tombstone=False)
+    t_delta = time.perf_counter()
+    live.apply_delta(inserts=ins, deletes=dels)
+    rec["delta5_refresh_s"] = time.perf_counter() - t_delta
+    handoff = tier.take_handoff()
+    # the new version's first request re-uploads the DBLP tenant, whose
+    # bytes moved with the delta (by 12.5 MB at full size, more than the
+    # smallest tenant): the budget follows it, still DBLP + the next largest
+    bump = ServeRequest(20_000, "dblp", "bfs", int(rng.integers(live.graph.n_real)),
+                        arrival_time=tier.now)
+    t2 = time.perf_counter()
+    tier.submit(bump)
+    res_bump = tier.drain()
+    rec["version_bump_latency_s"] = res_bump[0].latency   # the DBLP re-upload
+    rec["dblp_bytes_new"] = tier.tenants["dblp"].resident_bytes
+    tier.budget.max_device_bytes = holds_dblp_and_next(rec["dblp_bytes_new"])
+    rec["max_device_bytes_new"] = tier.budget.max_device_bytes
+    spacing = TIER_SPACING_BATCHES * rec["saturated"]["mean_batch_s"]
+    t3, w = tier.now, time.perf_counter()
+    part2 = tier_stream(rng, tier, n_req - n_req // 2, 1_000, t3, spacing)
+    res2_load = tier.run_load(part2)
+    torch.cuda.synchronize()
+    rec["part2_s"] = time.perf_counter() - t2     # the DBLP re-upload included
+    rec["stream_s"] = rec["part1_s"] + rec["delta5_refresh_s"] + rec["part2_s"]
+    lat2 = np.array([r.latency for r in res2_load if not r.cached])
+    span = tier.now - t3
+    wall = time.perf_counter() - w
+    rec["offered"] = {
+        "requests": len(part2), "spacing_s": spacing, "span_s": span, "wall_s": wall,
+        "wall_share_of_span": wall / span,
+        "latency_p50_s": float(np.percentile(lat2, 50)),
+        "latency_p99_s": float(np.percentile(lat2, 99))}
+    res2 = res_bump + res2_load
+    launches = dict(K.LAUNCHES)
+    # the tier's stand-downs: the segment-path references' taken out
+    standdowns = {k: v - standdowns_refs.get(k, 0)
+                  for k, v in engine.KERNEL_STANDDOWN_COUNT.items()
+                  if v - standdowns_refs.get(k, 0)}
+    log(f"tier stream: {len(res1) + len(res2)} answers + {len(handoff)} handed off in "
+        f"{rec['stream_s']:.2f} s; launches {json.dumps(launches)}; stand-downs "
+        f"{json.dumps(standdowns)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the tier: {missing}")
+    if standdowns.get("vmem_or_backend"):
+        raise AssertionError("the fused kernel stood down for 'vmem_or_backend' in the tier")
+    if sorted(r.qid for r in handoff) != [q.qid for q in inflight] or any(
+            r.graph_version != v_old for r in handoff):
+        raise AssertionError("the in-flight requests were not answered at the old version")
+    v_new = tier.tenants["dblp"].version
+    if v_new != live.version or any(r.graph_version != v_new for r in res2
+                                    if r.tenant == "dblp"):
+        raise AssertionError("answers after the delta do not carry the new version")
+    if len(res1) != len(part1) or len(res2) != len(part2) + 1:
+        raise AssertionError("the tier did not answer every request")
+
+    # -- answers: the segment path on the card, and a fresh server --------
+    t = time.perf_counter()
+    d = tier.tenants["dblp"]
+    add_refs(refs, tier, "dblp", v_new, part2 + [bump], d.device, d.counts_device)
+    for name, (exact, counts) in first.items():
+        add_refs(refs, tier, name, 0, part1 + part2, exact, counts)
+    n_checked = check_answers(res1 + handoff + res2, refs)
+    fresh = GraphQueryServer.from_condensed(live.graph, packed=False, device="cuda",
+                                            graph_version=v_new)
+    fresh_q = [q for q in part2 + [bump] if q.tenant == "dblp"
+               and q.kind in ("bfs", "ppr", "common_neighbors")]
+    fresh_ans = fresh.run([GraphQuery(q.qid, q.kind, q.node) for q in fresh_q])
+    by_qid = {r.qid: r for r in res2}
+    for q in fresh_q:
+        got, want = by_qid[q.qid].value, fresh_ans[q.qid]
+        ok = (np.allclose(got, want, **FLOAT_TOL) if q.kind == "ppr"
+              else np.array_equal(got, want))
+        if not ok:
+            raise AssertionError(f"qid {q.qid}: != a fresh GraphQueryServer on the new graph")
+    del fresh
+    rec["check_s"] = time.perf_counter() - t
+
+    # -- re-uploads after eviction are byte-equal to the first uploads -----
+    reupload = {}
+    for i, name in enumerate(first):
+        tier.result_cache_enabled = False
+        tier.serve([ServeRequest(-100 - i, name, "bfs", 0)])
+        tn = tier.tenants[name]
+        reupload[name] = {"uploads": tn.n_uploads,
+                          "bytes_compared": same_upload(f"tier {name}", (tn.device,
+                                                        tn.counts_device), first[name])}
+        if tn.n_uploads < 2:
+            raise AssertionError(f"tenant {name} was never evicted and re-uploaded")
+    tier.result_cache_enabled = True
+    # drop the tier's listener, so the live graph no longer holds the tier
+    # and its uploads are freed with it
+    live.remove_version_listener(tier.tenants["dblp"]._listener)
+    all_res = res1 + res2
+    rec.update({
+        "requests": len(part1) + len(part2) + len(inflight) + 1, "answers_checked": n_checked,
+        "fresh_server_checked": len(fresh_q), "launches": launches,
+        "standdowns": standdowns, "launches_part1": launches_1,
+        "occupancy": tier.stats.occupancy, "batches": tier.stats.n_batches,
+        "padding_waste": tier.stats.padding_waste,
+        "result_cache": {"hits": tier.result_stats.hits, "misses": tier.result_stats.misses,
+                         "invalidated": tier.result_stats.invalidated,
+                         "hit_rate": tier.result_stats.hit_rate},
+        "exec_cache": {"hits": tier.exec_stats.hits, "misses": tier.exec_stats.misses,
+                       "evictions": tier.exec_stats.evictions,
+                       "hit_rate": tier.exec_stats.hit_rate},
+        "stream_uploads": tier.budget.n_uploads - counts_before[0],
+        "stream_evictions": tier.budget.n_evictions - counts_before[1],
+        "uploads": tier.budget.n_uploads, "evictions": tier.budget.n_evictions,
+        "peak_resident_bytes": tier.budget.peak_resident_bytes,
+        "resident_bytes": tier.budget.resident_bytes,
+        "tenant_uploads": {n: t.n_uploads for n, t in tier.tenants.items()},
+        "latency_p50_s": rec["offered"]["latency_p50_s"],
+        "latency_p99_s": rec["offered"]["latency_p99_s"],
+        "cached_answers": sum(r.cached for r in all_res),
+        "reupload": reupload, "dblp_versions": [v_old, v_new],
+    })
+    if rec["stream_evictions"] == 0:
+        raise AssertionError("the budget never evicted a tenant during the stream")
+    if tier.budget.peak_resident_bytes > max(rec["max_device_bytes"],
+                                             rec["max_device_bytes_new"]):
+        raise AssertionError("the tier held more bytes than its budget")
+    log(f"tier: {json.dumps({k: v for k, v in rec.items() if k not in ('reupload',)})}")
+    return rec
+
+
+def planner_part(catalog, g, exact, table) -> dict:
+    """``plan`` on phase 3's catalog with this machine's measured pack
+    rates and the measured crossover table, its report through
+    ``save_plan_report`` / ``load_plan_report``; ``extract(plan=)``
+    identical to phase 3's graph and ``sharded_extract_to_device(plan=)``
+    uploading phase 3's operands byte for byte; ``recommend`` with the
+    table and ``device_representation_costs``."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core import (Throughputs, extract, graphs_identical, plan,
+                                  recommend)
+    from repro_torch.core.cost import device_representation_costs
+    from repro_torch.core.serialize import load_plan_report, save_plan_report
+    from repro_torch.data.pipeline import sharded_extract_to_device
+    from repro_torch.kernels.pack import measure_pack_throughput
+
+    rec = {}
+    t = time.perf_counter()
+    rates = measure_pack_throughput(g.chains[0].edges[0])
+    rec["pack_rates_edges_per_s"] = rates
+    rec["pack_edges"] = g.chains[0].edges[0].n_edges
+    rec["measure_pack_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report = plan(catalog, QUERY, throughputs=Throughputs.with_measured_pack(rates),
+                  crossover=table)
+    rec["plan_s"] = time.perf_counter() - t
+    os.makedirs(os.path.dirname(PLAN_PATH), exist_ok=True)
+    back = load_plan_report(save_plan_report(report, PLAN_PATH))
+    if back != report or back.to_json() != report.to_json():
+        raise AssertionError("the plan report changed in its save / load round trip")
+    shutil.rmtree(os.path.dirname(PLAN_PATH), ignore_errors=True)
+    cfg = report.chosen.config
+    rec.update(chosen=cfg.to_json_dict(), predicted_wall_s=report.chosen.cost.wall_s,
+               n_enumerated=report.n_enumerated, n_feasible=len(report.ranked),
+               n_pruned=len(report.pruned))
+    log(report.render())
+    t = time.perf_counter()
+    res = extract(catalog, QUERY, plan=report.chosen)
+    rec["planned_extract_s"] = time.perf_counter() - t
+    if not graphs_identical(res.graph, g):
+        raise AssertionError("extract(plan=) != phase 3's graph")
+    t = time.perf_counter()
+    res, dev = sharded_extract_to_device(catalog, QUERY, n_shards=1, packed=True,
+                                         plan=report.chosen, device="cuda")
+    torch.cuda.synchronize()
+    rec["planned_upload_s"] = time.perf_counter() - t
+    rec["planned_upload_bytes_compared"] = same_upload("sharded_extract_to_device(plan=)",
+                                                       dev, exact)
+    del dev
+    t = time.perf_counter()
+    rec_ = recommend(g, workload="multi_pass", crossover=table)
+    rec["recommend_s"] = time.perf_counter() - t
+    rec["recommendation"] = {
+        "host": rec_.host_representation, "device": rec_.device_representation,
+        "reason": rec_.reason, "expansion_ratio": rec_.expansion_ratio,
+        "duplication_ratio": rec_.duplication_ratio, "device_costs_us": rec_.device_costs,
+        "representation_costs_us": device_representation_costs(
+            rec_.expansion_ratio, rec_.duplication_ratio, table, g.n_real),
+    }
+    log(f"planner and advisor: {json.dumps(rec)}")
+    return rec
+
+
+def live_tier_phase(args, catalog, g, exact, ctx, record) -> dict:
+    """Phase 6: the live graph under writes, the multi-tenant tier through
+    K1-K3, and the planner and advisor, on phase 3's catalog."""
+    import shutil
+
+    import numpy as np
+
+    rng = np.random.default_rng(args.seed + 3)
+    t = time.perf_counter()
+    rec = {}
+    live, rec["live"] = live_graph_part(catalog, g, rng)
+    rec["live"]["phase_s"] = time.perf_counter() - t
+    t1 = time.perf_counter()
+    rec["tier"] = tier_part(args, live, ctx, rng)
+    rec["tier"]["phase_s"] = time.perf_counter() - t1
+    shutil.rmtree(WAL_DIR, ignore_errors=True)
+    del live
+    t1 = time.perf_counter()
+    rec["planner"] = planner_part(catalog, g, exact, ctx["crossover_table"])
+    rec["planner"]["phase_s"] = time.perf_counter() - t1
+    rec["phase_s"] = time.perf_counter() - t
+    log(f"live graph, tier, planner: {rec['phase_s']:.1f} s")
+    record["live_tier"] = rec
     return rec
 
 
@@ -2039,16 +2606,40 @@ def graph_phases(args, record) -> list:
         if a.shape != (g.n_real,) or (q.kind != "bfs" and not np.isfinite(a).all()):
             raise AssertionError(f"malformed answer for {q}")
 
-    prof = profile_serve(server, nodes, reach_nodes)
-    log(f"profiled serve: {json.dumps(prof)}")
-    # each wrapper call is one range kernel and one carry pass, nothing else
+    # each wrapper call is one range kernel and one carry pass, nothing else.
+    # Every profiled run must make the counted run's wrapper calls and give
+    # its answers.  Only a trace that holds fewer kernel records than those
+    # calls launched is taken again, with the records it lacked and the
+    # profiler's dropped-record warnings kept
     k12 = sum(launches[f"bitmap_spmm_{op}"] for op in ("sum", "min", "max"))
     want = {"spmm_kernel": k12, "carry_kernel": k12,
             "fused_kernel": launches["bitmap_spmm_fused"],
             "fused_carry_kernel": launches["bitmap_spmm_fused"]}
-    if prof["device_busy_s"] is not None and prof["graph_kernel_launches"] != want:
+    short_traces = []
+    for attempt in range(1, PROFILE_TRIES + 1):
+        prof, (_, got_p, reach_p, _) = profile_serve(server, nodes, reach_nodes)
+        prof["attempt"] = attempt
+        log(f"profiled serve: {json.dumps(prof)}")
+        if prof["wrapper_launches"] != launches:
+            raise AssertionError(f"the profiled run's wrappers launched "
+                                 f"{prof['wrapper_launches']}, the counted run's {launches}")
+        compare_answers(queries, got, got_p, reach, reach_p,
+                        what="profiled run != counted run")
+        traced = prof["graph_kernel_launches"]
+        if prof["device_busy_s"] is None or traced == want:
+            break
+        missing = {k: want[k] - traced[k] for k in want}
+        if any(v < 0 for v in missing.values()):
+            raise AssertionError(f"graph kernels launched {traced} times in the profiled "
+                                 f"run, more than its wrapper calls make: {want}")
+        short_traces.append({"attempt": attempt, "records_missing": missing,
+                             "dropped_record_warnings": prof["dropped_record_warnings"]})
+        log(f"profiled run {attempt}: its wrappers made every call, its trace lacks "
+            f"{json.dumps(missing)} kernel records")
+    else:
         raise AssertionError(f"graph kernels launched {prof['graph_kernel_launches']} times "
-                             f"in the profiled run, expected {want}")
+                             f"in each of {PROFILE_TRIES} profiled runs, expected {want}")
+    prof["short_traces"] = short_traces
 
     rows = kernel_rows(exact, launches, args.reps, args.seed)
     log(f"K3 operands: {json.dumps(rows[-1]['shape'])}")
@@ -2065,13 +2656,17 @@ def graph_phases(args, record) -> list:
         "upload": sharded_upload(args, catalog, g, exact, counts,
                                  (nodes, reach_nodes, got, reach, launches)),
     }
-    del catalog
     record["scale"]["phase_s"] = time.perf_counter() - t
     log(f"sharded extraction and upload: {record['scale']['phase_s']:.1f} s")
 
     analytic_rows, ctx = analytics_phase(args, exact, g, record)
     rows += analytic_rows
     crossover_phase(args, exact, ctx, record)
+    tier = live_tier_phase(args, catalog, g, exact, ctx, record)["tier"]
+    del catalog
+    for r in rows:
+        if r["name"] in tier["launches"]:
+            r["tier_launches"] = tier["launches"][r["name"]]
 
     record.update({
         "stages": stages, "device_bytes": held,
@@ -2124,6 +2719,10 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     rows = graph_phases(args, record)
+    # a tier and its tenants form a reference cycle (each tenant's version
+    # listener closes over the tier): collect it, so that the LM phase
+    # starts with the graph phases' uploads freed
+    gc.collect()
     torch.cuda.empty_cache()
     lm = lm_phase(args)
     rows += lm.pop("kernels")
@@ -2134,7 +2733,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("layout_bound_ms",)
+    extra = ("layout_bound_ms", "tier_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

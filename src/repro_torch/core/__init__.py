@@ -4,8 +4,9 @@ and the algorithm library.  Names are the JAX package's, so each
 counterpart is found under the name it has in ``repro.core``.
 
     from repro_torch.core import extract, parse, CondensedGraph
-    from repro_torch.core import engine, algorithms, dedup
+    from repro_torch.core import engine, algorithms, dedup, advisor
     from repro_torch.core import propagate, propagate_wedge, triangle_counts
+    from repro_torch.core import LiveGraph, DeltaLog, recommend, plan
 """
 from .algorithms import (
     Condensation,
@@ -48,6 +49,16 @@ from .dedup import (
     is_symmetric_single_layer,
     membership_sets,
 )
+from .advisor import recommend
+from .cost import (
+    ExtractionPlan,
+    PlanConfig,
+    PlanReport,
+    Throughputs,
+    plan,
+    profile_query,
+)
+from .delta import GraphVersion, LiveGraph, apply_delta, mutate_catalog
 from .dsl import ExtractionQuery, ParseError, parse
 from .engine import propagate, propagate_wedge
 from .extract import (
@@ -60,6 +71,7 @@ from .extract import (
 from .planner import ExtractionBudget, ExtractionBudgetError
 from .relational import Catalog, ShardedTable, Table
 from .serialize import (
+    DeltaLog,
     ShardAssembly,
     ShardSpillStore,
     SpillError,
@@ -97,6 +109,20 @@ __all__ = [
     "ShardAssembly",
     "ShardSpillStore",
     "SpillError",
+    # cost-based planner and advisor (DESIGN.md §12)
+    "recommend",
+    "plan",
+    "profile_query",
+    "ExtractionPlan",
+    "PlanConfig",
+    "PlanReport",
+    "Throughputs",
+    # live graphs under writes (DESIGN.md §9)
+    "GraphVersion",
+    "LiveGraph",
+    "apply_delta",
+    "mutate_catalog",
+    "DeltaLog",
     # engine: propagate(..., layer_weights=) and the two-hop wedge path
     "propagate",
     "propagate_wedge",

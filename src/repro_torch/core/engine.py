@@ -64,6 +64,10 @@ __all__ = [
     "DeviceGraph",
     "BACKENDS",
     "device_graph_bytes",
+    "with_graph_version",
+    "graph_shape_signature",
+    "ResidencyBudget",
+    "ResidencyError",
     "self_path_counts",
     "to_device",
     "to_device_packed",
@@ -254,10 +258,27 @@ class DevicePacked:
 DeviceGraph = Union[DeviceExpanded, DeviceCondensed, DevicePacked]
 
 
+# ---------------------------------------------------------------------------
+# Residency accounting and version-keyed dispatch (DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+def with_graph_version(graph: DeviceGraph, version: int) -> DeviceGraph:
+    """The same device graph (the same tensors, not copies) stamped with
+    another delta version.  The serving tier re-stamps an upload after
+    :meth:`~repro_torch.core.delta.LiveGraph.apply_delta`, and normalizes
+    the version to 0 before it calls a cached executable: staleness is
+    enforced by the version-keyed result cache at admission, so one
+    executable serves every version (and every tenant) of one shape."""
+    return dataclasses.replace(graph, graph_version=int(version))
+
+
 def device_graph_bytes(graph) -> int:
     """Device bytes held by one uploaded graph: every tensor reachable
     from the container (edge arrays, packed bitmaps, row indices, fused
-    streams, correction triples)."""
+    streams, correction triples).  This is the unit the serving tier's
+    :class:`ResidencyBudget` charges per resident tenant; unlike the JAX
+    package's count it includes the row indices K1-K3 read, which the
+    card holds too."""
     if isinstance(graph, torch.Tensor):
         return graph.numel() * graph.element_size()
     if dataclasses.is_dataclass(graph):
@@ -268,6 +289,105 @@ def device_graph_bytes(graph) -> int:
     if isinstance(graph, (tuple, list)):
         return sum(device_graph_bytes(g) for g in graph)
     return 0
+
+
+# Fields a shape signature leaves out: the version (churned by every
+# delta), the device, and the segment-order caches built on first use.
+_UNSIGNED_FIELDS = frozenset({"graph_version", "device", "plans", "correction_plans"})
+
+
+def _signature_parts(obj, name: str, parts: list) -> None:
+    if isinstance(obj, torch.Tensor):
+        parts.append(f"{name}:{tuple(obj.shape)}:{obj.dtype}")
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        parts.append(f"{name}:{type(obj).__name__}")
+        for f in dataclasses.fields(obj):
+            if f.name not in _UNSIGNED_FIELDS:
+                _signature_parts(getattr(obj, f.name), f"{name}.{f.name}", parts)
+    elif isinstance(obj, (tuple, list)):
+        parts.append(f"{name}:{type(obj).__name__}[{len(obj)}]")
+        for i, v in enumerate(obj):
+            _signature_parts(v, f"{name}[{i}]", parts)
+    else:
+        parts.append(f"{name}={obj!r}")
+
+
+def graph_shape_signature(graph: DeviceGraph) -> str:
+    """Hashable signature of a device graph's shape: the container's
+    structure, every tensor field's name, shape and dtype, and its
+    non-tensor fields (node counts, flags, dispatch policy, a measured
+    crossover table), with ``graph_version`` left out.
+
+    Two graphs with equal signatures are served by one entry of the
+    serving tier's executable cache ``(kind, bucket, signature)``
+    (DESIGN.md §10); version churn under a live delta stream does not
+    churn that cache (staleness lives in the result cache).  Two graphs
+    share a signature exactly when the JAX package's graphs built from
+    the same host graphs share theirs."""
+    import hashlib
+
+    parts: list = []
+    _signature_parts(graph, "", parts)
+    return hashlib.sha1("|".join(parts).encode()).hexdigest()
+
+
+class ResidencyError(RuntimeError):
+    """A device-graph upload cannot fit the residency budget even after
+    every evictable tenant has been evicted (a single graph larger than
+    ``max_device_bytes`` is unsatisfiable — raise, never thrash)."""
+
+
+@dataclasses.dataclass
+class ResidencyBudget:
+    """Device-byte accounting for multi-graph serving residency.
+
+    The serving twin of :class:`repro_torch.core.planner.ExtractionBudget`'s
+    assembly account (same charge/release discipline, bytes not rows):
+    every resident tenant's device tensors are charged while on device
+    (:func:`device_graph_bytes`, row indices included),
+    ``peak_resident_bytes`` bounds what the device ever held at once, and
+    the LRU eviction traffic is recorded so tests can assert the budget
+    actually did work (``n_evictions > 0`` under pressure).
+
+    :meth:`charge` raises :class:`ResidencyError` on a violating upload;
+    the serving tier evicts least-recently-used tenants *before* charging,
+    so a raise here means a single graph exceeds the whole budget."""
+
+    max_device_bytes: Optional[int] = None
+    resident_bytes: int = 0          # live: bytes currently on device
+    peak_resident_bytes: int = 0     # max resident_bytes ever observed
+    uploaded_bytes: int = 0          # total bytes ever uploaded
+    evicted_bytes: int = 0           # total bytes freed by eviction
+    n_uploads: int = 0
+    n_evictions: int = 0
+
+    def would_fit(self, nbytes: int) -> bool:
+        return (
+            self.max_device_bytes is None
+            or self.resident_bytes + int(nbytes) <= self.max_device_bytes
+        )
+
+    def charge(self, nbytes: int, what: str = "device graph") -> None:
+        nbytes = int(nbytes)
+        if not self.would_fit(nbytes):
+            raise ResidencyError(
+                f"residency budget exceeded: {self.resident_bytes} resident "
+                f"+ {nbytes} uploading ({what}) > max_device_bytes="
+                f"{self.max_device_bytes}; evict a tenant or raise the budget"
+            )
+        self.resident_bytes += nbytes
+        self.uploaded_bytes += nbytes
+        self.n_uploads += 1
+        if self.resident_bytes > self.peak_resident_bytes:
+            self.peak_resident_bytes = self.resident_bytes
+
+    def release(self, nbytes: int, evicted: bool = False) -> None:
+        self.resident_bytes -= int(nbytes)
+        if self.resident_bytes < 0:
+            raise AssertionError("released more bytes than charged")
+        if evicted:
+            self.evicted_bytes += int(nbytes)
+            self.n_evictions += 1
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +693,8 @@ def to_device_packed(
     and records the crossover table on the operands, so ``'auto'``
     dispatch follows the measurement; ``measure_kwargs`` forwards to
     :func:`~repro_torch.kernels.autotune.measure_crossover` (batch sizes,
-    ops).  ``pack_method`` is ``'reduceat'``, the port's only method."""
+    ops).  ``pack_method`` is ``'reduceat'`` or ``'scatter'``, the same
+    bytes (:func:`~repro_torch.kernels.pack.pack_bipartite`)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     device = torch.device(device)

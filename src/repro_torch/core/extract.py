@@ -28,9 +28,8 @@ self-contained: :func:`merge_spilled_graph` rebuilds the identical
 ``CondensedGraph`` from disk alone (and refuses a partial spill).
 
 The port's copy of the JAX package's pipeline, graph for graph and budget
-field for budget field.  ``plan=`` (a ``core/cost.py`` ``ExtractionPlan``)
-is not ported yet (ROADMAP.md, Queue 1 item 2) and raises
-``NotImplementedError``.
+field for budget field, ``plan=`` (an
+:class:`~repro_torch.core.cost.ExtractionPlan`) included.
 """
 from __future__ import annotations
 
@@ -68,12 +67,6 @@ __all__ = [
     "extract_sharded",
     "merge_spilled_graph",
 ]
-
-_PLAN_TODO = (
-    "plan-driven extraction is not ported yet (ROADMAP.md, Queue 1 item 2: "
-    "core/cost.py)"
-)
-
 
 @dataclasses.dataclass
 class NodeSpace:
@@ -405,11 +398,30 @@ def extract_query(
     The result is still byte-identical; assembly-budget violations
     (``budget.max_assembly_bytes``) spill instead of raising.
 
-    ``plan`` (a ``core/cost.py`` ``ExtractionPlan``) is not ported yet
-    and raises ``NotImplementedError``.
+    ``plan`` executes a :class:`repro_torch.core.cost.ExtractionPlan`
+    directly (DESIGN.md §12): the plan's config overrides ``n_shards`` /
+    ``merge_arity`` / ``mode``, its budget caps are installed when the
+    caller did not pass a ``budget``, and a spilling plan without an
+    explicit ``spill_dir`` assembles through a temporary directory.
     """
     if plan is not None:
-        raise NotImplementedError(_PLAN_TODO)
+        cfg = plan.config
+        n_shards = int(cfg.n_shards)
+        merge_arity = int(cfg.merge_arity)
+        mode = plan.mode
+        if budget is None:
+            budget = plan.make_budget()
+        if cfg.spill and spill_dir is None:
+            import os as _os
+            import tempfile as _tempfile
+
+            with _tempfile.TemporaryDirectory(prefix="extract-plan-") as td:
+                return _extract_query_sharded(
+                    catalog, query, mode, preprocess, n_shards, budget,
+                    _os.path.join(td, "spill"), merge_arity,
+                )
+        if not cfg.spill:
+            spill_dir = None
     if n_shards != 1 or budget is not None or spill_dir is not None:
         return _extract_query_sharded(
             catalog, query, mode, preprocess, max(n_shards, 1), budget,
@@ -929,8 +941,10 @@ def extract(
     pipeline (DESIGN.md §7); ``spill_dir`` makes assembly out-of-core
     with a ``merge_arity``-way tree-reduce merge (DESIGN.md §8).
 
-    ``plan`` (a ``core/cost.py`` ``ExtractionPlan``) is not ported yet
-    and raises ``NotImplementedError``."""
+    ``plan`` takes a :class:`repro_torch.core.cost.ExtractionPlan` (from
+    :func:`repro_torch.core.cost.plan`, DESIGN.md §12): its config
+    supplies the sharding / spill / merge-arity knobs and its budget
+    caps."""
     return extract_query(
         catalog, parse(dsl_text), mode=mode, preprocess=preprocess,
         n_shards=n_shards, budget=budget, spill_dir=spill_dir,

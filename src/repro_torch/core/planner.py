@@ -99,7 +99,6 @@ class ExtractionBudget:
     merge_peak_resident_bytes: int = 0  # max operand+output bytes in one merge group
     n_merge_rounds: int = 0
     # -- incremental-extraction account (core/delta.py; DESIGN.md §9) ----
-    # (zero until the port has core/delta.py: ROADMAP.md, Queue 1 item 1)
     n_delta_applies: int = 0
     delta_rows_inserted: int = 0     # insert rows bound across applies
     delta_rows_deleted: int = 0      # tombstoned rows across applies

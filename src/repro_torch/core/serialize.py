@@ -26,9 +26,7 @@ Three formats:
 
 The port's copy of the JAX package's module of the same name: the same
 files, byte for byte, so a directory either package wrote loads in the
-other.  ``save_plan_report`` / ``load_plan_report`` wait for
-``core/cost.py`` (ROADMAP.md, Queue 1 item 2) and ``DeltaLog`` for
-``core/delta.py`` (Queue 1 item 1).
+other: a spill, a delta log or a plan report.
 """
 from __future__ import annotations
 
@@ -47,12 +45,15 @@ __all__ = [
     "load_condensed",
     "save_crossover_table",
     "load_crossover_table",
+    "save_plan_report",
+    "load_plan_report",
     "export_edge_list",
     "SpillError",
     "ShardSpillStore",
     "ShardAssembly",
     "merge_assemblies",
     "tree_merge_records",
+    "DeltaLog",
     "SPILL_MANIFEST",
 ]
 
@@ -143,6 +144,29 @@ def load_crossover_table(path: str):
 
     with open(path) as f:
         return CrossoverTable.from_json(f.read())
+
+
+def save_plan_report(report, path: str) -> str:
+    """Persist an extraction-plan report
+    (:class:`repro_torch.core.cost.PlanReport`) as canonical JSON — same atomic
+    write-replace discipline as :func:`save_crossover_table`, so an
+    audited plan decision can ride next to the artifacts it produced
+    (tests/test_torch_plan.py reads both packages' reports).  Returns ``path``."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(report.to_json())
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def load_plan_report(path: str):
+    """Load a report written by :func:`save_plan_report`."""
+    from .cost import PlanReport
+
+    with open(path) as f:
+        return PlanReport.from_json(f.read())
 
 
 def load_condensed(directory: str) -> CondensedGraph:
@@ -648,6 +672,176 @@ def tree_merge_records(
         current = nxt
         level += 1
     return current[0], (last_merged if len(current) == 1 else None)
+
+
+# ---------------------------------------------------------------------------
+# Crash-safe delta log for incremental extraction (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+class DeltaLog:
+    """A replayable, crash-safe log of table deltas for incremental
+    extraction (:mod:`repro_torch.core.delta`, DESIGN.md §9), built on
+    :class:`ShardSpillStore`'s atomic-commit records.
+
+    One committed entry per :func:`repro_torch.core.delta.apply_delta` call,
+    named ``delta_000000``, ``delta_000001``, ... in apply order.  An
+    append is: write the entry record (payload + fsynced ``record.json``,
+    committed by one atomic rename), then rewrite the closing manifest
+    (fsync + atomic ``os.replace``) — *manifest-last*, so the manifest
+    always certifies a consistent prefix of the log.  A crash can
+    therefore only leave (a) ``*.tmp-*`` litter from a torn record write,
+    or (b) a committed entry the manifest never certified (torn append);
+    :meth:`open` rejects both with :class:`SpillError` — exactly like a
+    partial extraction spill — and ``DeltaLog(dir, recover=True)`` drops
+    the uncertified tail, restoring the last acknowledged state.
+    Truncated or missing payloads of *certified* entries are corruption,
+    rejected by validation and never recovered over.
+
+    Entry payload: the insert rows per table (column arrays) and the
+    delete specs per table (``(key_column, values)``); replaying every
+    certified entry over the base catalog rebuilds the identical graph
+    (asserted byte-for-byte in tests/test_torch_delta.py).
+    """
+
+    _KIND = "delta_log"
+
+    def __init__(
+        self, directory: str, create: bool = True, recover: bool = False
+    ) -> None:
+        if create:
+            os.makedirs(directory, exist_ok=True)
+        self.store = ShardSpillStore(directory, create=False)
+        self.directory = directory
+        has_manifest = os.path.exists(
+            os.path.join(directory, SPILL_MANIFEST)
+        )
+        if not has_manifest:
+            if self.store.list_records() or self._tmp_litter():
+                raise SpillError(
+                    f"{directory!r} has delta records but no {SPILL_MANIFEST}:"
+                    " the log was never certified — refusing to replay it"
+                )
+            # a freshly created log is certified-empty from the start
+            self._n = 0
+            self.store.finalize(meta={"kind": self._KIND, "n_entries": 0})
+            return
+        if recover:
+            self._drop_uncertified()
+        self._n = self._validate()
+
+    # -- integrity ------------------------------------------------------------
+    def _tmp_litter(self) -> List[str]:
+        return sorted(
+            d for d in os.listdir(self.directory)
+            if ".tmp-" in d and os.path.isdir(os.path.join(self.directory, d))
+        )
+
+    def _drop_uncertified(self) -> None:
+        """Recovery: delete ``*.tmp-*`` litter and committed entries the
+        manifest never certified (the torn tail of a crashed append)."""
+        certified = set(self.store.manifest()["records"])
+        for name in self._tmp_litter():
+            shutil.rmtree(
+                os.path.join(self.directory, name), ignore_errors=True
+            )
+        for name in self.store.list_records():
+            if name not in certified:
+                self.store.delete_record(name)
+
+    def _validate(self) -> int:
+        """Full crash-safety gate; returns the certified entry count."""
+        manifest = self.store.validate()
+        meta = manifest.get("meta", {})
+        if meta.get("kind") != self._KIND:
+            raise SpillError(
+                f"{self.directory!r} is not a delta log "
+                f"(kind={meta.get('kind')!r})"
+            )
+        n = int(meta.get("n_entries", -1))
+        expect = [self._entry_name(i) for i in range(n)]
+        listed = sorted(manifest["records"])
+        if listed != expect:
+            raise SpillError(
+                f"delta log manifest is inconsistent: certifies {listed}, "
+                f"expected exactly {expect}"
+            )
+        extra = sorted(set(self.store.list_records()) - set(listed))
+        if extra:
+            raise SpillError(
+                f"uncertified delta records beyond the manifest: {extra} — "
+                "a torn append; reopen with DeltaLog(dir, recover=True) to "
+                "drop the tail"
+            )
+        return n
+
+    @classmethod
+    def open(cls, directory: str) -> "DeltaLog":
+        """Open an existing log for replay/append; validates completeness
+        (raises :class:`SpillError` on any torn or corrupt state)."""
+        return cls(directory, create=False)
+
+    # -- entries --------------------------------------------------------------
+    @staticmethod
+    def _entry_name(index: int) -> str:
+        return f"delta_{index:06d}"
+
+    def __len__(self) -> int:
+        return self._n
+
+    def append(self, inserts=None, deletes=None) -> int:
+        """Durably log one delta; returns its entry index.
+
+        ``inserts``: ``{table: {column: values}}`` rows to append;
+        ``deletes``: ``{table: (key_column, values)}`` — drop every row
+        whose key column takes one of the values.  Write order is
+        entry-record first (atomic commit), manifest last (atomic
+        replace): the entry is acknowledged only once the manifest
+        certifies it.
+        """
+        arrays: Dict[str, np.ndarray] = {}
+        ins_meta: List = []
+        del_meta: List = []
+        for ti, (tname, cols) in enumerate(sorted((inserts or {}).items())):
+            colnames = list(cols)
+            ins_meta.append([tname, colnames])
+            for ci, cname in enumerate(colnames):
+                arrays[f"ins{ti}_{ci}"] = np.asarray(cols[cname])
+        for di, (tname, spec) in enumerate(sorted((deletes or {}).items())):
+            key_col, values = spec
+            del_meta.append([tname, key_col])
+            arrays[f"del{di}"] = np.asarray(values)
+        index = self._n
+        self.store.write_record(
+            self._entry_name(index), arrays,
+            meta={"index": index, "inserts": ins_meta, "deletes": del_meta},
+        )
+        self._n = index + 1
+        self.store.finalize(meta={"kind": self._KIND, "n_entries": self._n})
+        return index
+
+    def read(self, index: int):
+        """Load entry ``index``; returns ``(inserts, deletes)`` in the
+        exact shapes :meth:`append` took them."""
+        if not 0 <= index < self._n:
+            raise IndexError(f"delta log has {self._n} entries, not {index}")
+        arrays, meta, _ = self.store.read_record(self._entry_name(index))
+        inserts = {
+            tname: {
+                cname: arrays[f"ins{ti}_{ci}"]
+                for ci, cname in enumerate(colnames)
+            }
+            for ti, (tname, colnames) in enumerate(meta["inserts"])
+        }
+        deletes = {
+            tname: (key_col, arrays[f"del{di}"])
+            for di, (tname, key_col) in enumerate(meta["deletes"])
+        }
+        return inserts, deletes
+
+    def entries(self):
+        """Iterate certified entries in apply order (the replay order)."""
+        for i in range(self._n):
+            yield self.read(i)
 
 
 def export_edge_list(

@@ -7,11 +7,11 @@ materializes an unbounded transient.
 
 The JAX package's module also holds the LM and recommender batch
 pipelines (``TokenPipeline``, ``sasrec_batches``, ``gnn_batch``); they
-wait for the port's models (ROADMAP.md, Queue 1 item 6).
+wait for the port's models (ROADMAP.md, Queue 1 item 3).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 __all__ = ["sharded_extract_to_device"]
 
@@ -49,34 +49,68 @@ def sharded_extract_to_device(
     duplicate-exact (DEDUP-C) and identical to the one the unsharded
     pipeline would build.
 
-    ``delta_log`` (a replayed ``DeltaLog``) waits for ``core/delta.py``
-    (ROADMAP.md, Queue 1 item 1) and ``plan`` (an ``ExtractionPlan``) for
-    ``core/cost.py`` (Queue 1 item 2): both raise ``NotImplementedError``.
+    ``delta_log``: a :class:`~repro_torch.core.serialize.DeltaLog` of
+    committed writes since the base catalog.  When given, the pipeline
+    resumes from base graph + log via
+    :meth:`~repro_torch.core.delta.LiveGraph.replay` (byte-identical to
+    extracting the mutated catalog from scratch) and the device graph is
+    stamped with the replayed ``graph_version`` — so a restarted server
+    comes back serving the *current* graph, not the base snapshot.
+    Sharded spill staging applies to the base build only (delta batches
+    are small); both paths honor ``max_resident_rows``.
+
+    ``plan``: a :class:`repro_torch.core.cost.ExtractionPlan` from
+    :func:`repro_torch.core.cost.plan` (DESIGN.md §12).  When given, it
+    drives both stages: extraction runs the plan's sharding/spill/budget
+    config (the explicit ``n_shards`` / ``max_*`` / ``spill_dir`` knobs
+    are ignored in its favor), and the device pack honors the plan's
+    ``pack_method`` / ``fuse_correction`` knobs.  Incompatible with
+    ``delta_log`` (a replayed graph's plan came from the base catalog).
     """
     from ..core import dedup, engine
-    from ..core.extract import extract_sharded
+    from ..core.extract import extract, extract_sharded
 
+    pack_kwargs: Dict[str, object] = {}
+    if plan is not None and delta_log is not None:
+        raise ValueError("pass either plan= or delta_log=, not both")
+    if plan is not None and packed:
+        pack_kwargs = dict(plan.device_kwargs())
+
+    graph_version = 0
     if delta_log is not None:
-        raise NotImplementedError(
-            "delta_log= is not ported yet (ROADMAP.md, Queue 1 item 1: core/delta.py)"
+        from ..core.delta import LiveGraph
+        from ..core.planner import ExtractionBudget
+
+        budget = (
+            ExtractionBudget(max_resident_rows=max_resident_rows)
+            if max_resident_rows is not None
+            else None
         )
-    if plan is not None:
-        raise NotImplementedError(
-            "plan= is not ported yet (ROADMAP.md, Queue 1 item 2: core/cost.py)"
+        live = LiveGraph.replay(
+            catalog, dsl_text, delta_log, mode=mode, budget=budget
         )
-    res = extract_sharded(
-        catalog, dsl_text, n_shards=n_shards,
-        max_resident_rows=max_resident_rows, mode=mode,
-        spill_dir=spill_dir, max_assembly_bytes=max_assembly_bytes,
-    )
+        res = live.result()
+        graph_version = live.version
+    elif plan is not None:
+        res = extract(catalog, dsl_text, preprocess=False, plan=plan,
+                      spill_dir=spill_dir)
+    else:
+        res = extract_sharded(
+            catalog, dsl_text, n_shards=n_shards,
+            max_resident_rows=max_resident_rows, mode=mode,
+            spill_dir=spill_dir, max_assembly_bytes=max_assembly_bytes,
+        )
     corr = dedup.build_correction_streaming(
         res.graph, budget_triples=correction_budget_triples
     )
     if packed:
         dev = engine.to_device_packed(
             res.graph, correction=corr, pack_shard_edges=pack_shard_edges,
-            device=device,
+            graph_version=graph_version, device=device, **pack_kwargs,
         )
     else:
-        dev = engine.to_device(res.graph, correction=corr, device=device)
+        dev = engine.to_device(
+            res.graph, correction=corr, graph_version=graph_version,
+            device=device,
+        )
     return res, dev

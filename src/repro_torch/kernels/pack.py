@@ -46,6 +46,7 @@ _B_BITS = 5                              # bit-in-word (uint32)
 __all__ = [
     "BlockSparseBitmap",
     "pack_bipartite",
+    "measure_pack_throughput",
     "merge_block_sparse",
     "TILE",
     "WORDS",
@@ -204,13 +205,15 @@ def pack_bipartite(
     Duplicate (src, dst) pairs are rejected with ``ValueError`` — a bitmap
     holds one bit per cell (condensed incidence layers are duplicate-free
     by construction; multiplicity lives across *paths*, not within a
-    layer).  One sort by a combined (block, row, word, bit) key yields the
-    duplicate check, the block grouping and the word runs, folded with
-    one ``np.bitwise_or.reduceat`` pass (the JAX package's default
-    ``'reduceat'`` method, the port's only one: ``'scatter'``, the JAX
-    package's baseline for ``measure_pack_throughput``, waits for
-    ``core/cost.py``, ROADMAP.md Queue 1 item 2, and raises
-    ``NotImplementedError``).
+    layer).
+
+    ``method`` selects the fold strategy: ``'reduceat'`` (default) sorts
+    edges once by a combined (block, row, word, bit) key — that single
+    sort yields the duplicate check, the block grouping *and* the word
+    runs, folded with one buffered ``np.bitwise_or.reduceat`` pass;
+    ``'scatter'`` is the original algorithm (two ``np.unique`` sorts plus
+    an unbuffered ``np.bitwise_or.at`` scatter), kept as the baseline
+    :func:`measure_pack_throughput` times.  Both give the same bytes.
 
     ``shard_edges`` bounds the edges packed in one shot (DESIGN.md §7):
     larger edge lists are packed slice by slice and OR-merged
@@ -218,12 +221,7 @@ def pack_bipartite(
     output, with resident packing state bounded by the accumulated packed
     form plus one slice's pack.
     """
-    if method == "scatter":
-        raise NotImplementedError(
-            "pack method 'scatter' is not ported yet (ROADMAP.md, Queue 1 "
-            "item 2: core/cost.py with measure_pack_throughput)"
-        )
-    if method != "reduceat":
+    if method not in ("reduceat", "scatter"):
         raise ValueError(f"unknown pack method {method!r}")
     if shard_edges is not None and edges.n_edges > shard_edges:
         width = max(int(shard_edges), 1)
@@ -236,6 +234,7 @@ def pack_bipartite(
                     edges.n_src,
                     edges.n_dst,
                 ),
+                method=method,
             )
             acc = part if acc is None else merge_block_sparse([acc, part])
         assert acc is not None
@@ -252,22 +251,32 @@ def pack_bipartite(
     bit = (c % 32).astype(np.uint32)
     bkey = bd.astype(np.int64) * n_st + bs
 
-    low = _R_BITS + _W_BITS + _B_BITS
-    full = (
-        (bkey << low)
-        | (r << (_W_BITS + _B_BITS))
-        | (word << _B_BITS)
-        | bit
-    )
-    order_e = np.argsort(full, kind="stable")
-    full_s = full[order_e]
-    if full_s.size and np.any(full_s[1:] == full_s[:-1]):
-        raise ValueError("pack_bipartite requires duplicate-free edges")
-    bkey_s = full_s >> low
-    block_bounds = np.flatnonzero(
-        np.r_[True, bkey_s[1:] != bkey_s[:-1]]
-    ) if bkey_s.size else np.empty(0, dtype=np.int64)
-    uniq = bkey_s[block_bounds] if bkey_s.size else np.empty(0, np.int64)
+    if method == "scatter":
+        key = dst.astype(np.int64) * edges.n_src + src
+        if np.unique(key).size != key.size:
+            raise ValueError("pack_bipartite requires duplicate-free edges")
+        uniq, inv = np.unique(bkey, return_inverse=True)
+    else:
+        # one sort does everything: the full key is unique per (src, dst)
+        # cell (duplicate check), its high bits group blocks row-major
+        # with source tiles ascending (the kernel's streaming order), and
+        # its (row, word) middle bits delimit the bitmap-word runs
+        low = _R_BITS + _W_BITS + _B_BITS
+        full = (
+            (bkey << low)
+            | (r << (_W_BITS + _B_BITS))
+            | (word << _B_BITS)
+            | bit
+        )
+        order_e = np.argsort(full, kind="stable")
+        full_s = full[order_e]
+        if full_s.size and np.any(full_s[1:] == full_s[:-1]):
+            raise ValueError("pack_bipartite requires duplicate-free edges")
+        bkey_s = full_s >> low
+        block_bounds = np.flatnonzero(
+            np.r_[True, bkey_s[1:] != bkey_s[:-1]]
+        ) if bkey_s.size else np.empty(0, dtype=np.int64)
+        uniq = bkey_s[block_bounds] if bkey_s.size else np.empty(0, np.int64)
 
     # pad every empty row tile with one all-zero slot so each output tile
     # is visited (and therefore written) by the kernel
@@ -277,18 +286,22 @@ def pack_bipartite(
 
     flat = np.zeros(n_slots * TILE * WORDS, dtype=np.uint32)
     if src.size:
-        # slot_of is monotone over sorted blocks (pads append after each
-        # row's real slots), so the sorted edge order is also sorted by
-        # (slot, row, word): reduceat folds each word run
-        block_of_edge = np.repeat(
-            slot_of[: uniq.size],
-            np.diff(np.r_[block_bounds, full_s.size]),
-        )
-        rw_s = (full_s >> _B_BITS) & (TILE * WORDS - 1)
-        lin_s = (block_of_edge << (_R_BITS + _W_BITS)) | rw_s
-        starts = np.flatnonzero(np.r_[True, lin_s[1:] != lin_s[:-1]])
-        vals_s = np.uint32(1) << bit[order_e]
-        flat[lin_s[starts]] = np.bitwise_or.reduceat(vals_s, starts)
+        if method == "scatter":
+            lin = (slot_of[inv] * TILE + r) * WORDS + word
+            np.bitwise_or.at(flat, lin, np.uint32(1) << bit)
+        else:
+            # slot_of is monotone over sorted blocks (pads append after
+            # each row's real slots), so the sorted edge order is also
+            # sorted by (slot, row, word): reduceat folds each word run
+            block_of_edge = np.repeat(
+                slot_of[: uniq.size],
+                np.diff(np.r_[block_bounds, full_s.size]),
+            )
+            rw_s = (full_s >> _B_BITS) & (TILE * WORDS - 1)
+            lin_s = (block_of_edge << (_R_BITS + _W_BITS)) | rw_s
+            starts = np.flatnonzero(np.r_[True, lin_s[1:] != lin_s[:-1]])
+            vals_s = np.uint32(1) << bit[order_e]
+            flat[lin_s[starts]] = np.bitwise_or.reduceat(vals_s, starts)
     bitmaps = flat.reshape(n_slots, TILE, WORDS)
     return BlockSparseBitmap(
         slot_src=slot_src,
@@ -299,3 +312,35 @@ def pack_bipartite(
         n_dst=edges.n_dst,
         n_src=edges.n_src,
     )
+
+
+def measure_pack_throughput(
+    edges: BipartiteEdges,
+    methods: "tuple[str, ...]" = ("reduceat", "scatter"),
+    repeats: int = 3,
+    time_fn=None,
+) -> "dict[str, float]":
+    """Measured edges/second of ``pack_bipartite`` per fold method, on the
+    host that runs it.
+
+    Feeds the extraction cost model (``repro_torch.core.cost.Throughputs``)
+    the same way ``measure_crossover`` feeds kernel dispatch: a small
+    measured table that overrides the analytic default.  ``time_fn`` is
+    injectable for deterministic tests (same contract as
+    ``autotune.measure_crossover``: it receives a zero-arg callable and
+    returns elapsed seconds).
+    """
+    import time as _time
+
+    out: "dict[str, float]" = {}
+    for method in methods:
+        if time_fn is not None:
+            elapsed = float(time_fn(lambda: pack_bipartite(edges, method=method)))
+        else:
+            elapsed = float("inf")
+            for _ in range(max(1, repeats)):
+                t0 = _time.perf_counter()
+                pack_bipartite(edges, method=method)
+                elapsed = min(elapsed, _time.perf_counter() - t0)
+        out[method] = edges.n_edges / max(elapsed, 1e-9)
+    return out

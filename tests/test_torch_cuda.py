@@ -618,3 +618,88 @@ def test_cuda_sharded_pack_uploads_the_same_bytes(card):
     a, b = tensors(whole), tensors(sharded)
     assert len(a) == len(b) > 20
     assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _tier_tensors(obj):
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj) for t in _tier_tensors(getattr(obj, f.name))]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _tier_tensors(v)]
+    return []
+
+
+def test_cuda_tier_runs_k1_k3_and_matches_segment(card):
+    """A small tier on the card: every propagating kind launches the
+    kernels it needs (K1, K2 min, K2 max, K3), and each answer equals the
+    same request served by a tier whose uploads take the segment path."""
+    import dataclasses
+
+    from repro_torch.core import algorithms
+    from repro_torch.serve import GraphServingTier, ServeRequest
+    from repro_torch.serve import tier as tier_mod
+
+    g = extract(dblp_catalog(700, 1200, 6.0, seed=5), Q1).graph
+    tier = GraphServingTier(max_batch=8, device=card, result_cache=False)
+    tier.add_tenant("dblp", g, packed=True)
+    reqs = [ServeRequest(i * 4 + j, "dblp", kind, node)
+            for i, kind in enumerate(k for k in tier_mod.KINDS if k != "triangles")
+            for j, node in enumerate((3, 17, 41, 99))]
+    K.reset_launch_counts()
+    got = tier.serve(reqs)
+    launches = dict(K.LAUNCHES)
+    assert all(v > 0 for v in launches.values()), launches
+
+    t = tier.tenants["dblp"]
+    exact = dataclasses.replace(t.device, backend="segment")
+    counts = dataclasses.replace(t.counts_device, backend="segment")
+    before = dict(K.LAUNCHES)
+    for kind in {r.kind for r in reqs}:
+        nodes = [r.node for r in reqs if r.kind == kind]
+        qids = [r.qid for r in reqs if r.kind == kind]
+        width = tier._bucket_width(len(nodes))
+        padded = nodes + [nodes[0]] * (width - len(nodes))
+        if kind == "bfs":
+            want = algorithms.bfs_multi(exact, padded)
+        elif kind == "ppr":
+            want = algorithms.personalized_pagerank(
+                exact, algorithms.one_hot_frontier(g.n_real, padded, device=card))
+        elif kind == "common_neighbors":
+            want = algorithms.common_neighbors_multi(counts, padded)
+        elif kind == "shortest":
+            want = algorithms.shortest_paths_multi(exact, padded)
+        elif kind == "widest":
+            want = algorithms.widest_paths_multi(exact, padded)
+        else:  # scc
+            labels = algorithms.scc_labels(exact)
+            want = torch.from_numpy(
+                (labels[:, None] == labels[np.asarray(padded)][None, :]).astype(np.float32))
+        want = want.cpu().numpy()
+        for i, q in enumerate(qids):
+            if kind == "ppr":
+                np.testing.assert_allclose(got[q], want[:, i], rtol=1e-5, atol=1e-6)
+            else:
+                assert np.array_equal(got[q], want[:, i]), (kind, q)
+    assert K.LAUNCHES == before, "the segment path launched a kernel"
+
+
+def test_cuda_tier_reupload_after_eviction_is_byte_equal(card):
+    from repro_torch.serve import GraphServingTier, ServeRequest
+
+    g = extract(dblp_catalog(700, 1200, 6.0, seed=5), Q1).graph
+    tier = GraphServingTier(max_batch=8, device=card, result_cache=False)
+    tier.add_tenant("dblp", g, packed=True)
+    first = tier.serve([ServeRequest(0, "dblp", "ppr", 3)])
+    t = tier.tenants["dblp"]
+    old = [x.clone() for x in _tier_tensors((t.device, t.counts_device))]
+    tier.evict_tenant("dblp")
+    assert t.device is None and tier.budget.n_evictions == 1
+    again = tier.serve([ServeRequest(1, "dblp", "ppr", 3)])
+    new = _tier_tensors((t.device, t.counts_device))
+    assert t.n_uploads == 2 and len(new) == len(old) > 20
+    assert all(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(new, old))
+    assert first[0].tobytes() == again[1].tobytes()

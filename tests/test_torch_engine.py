@@ -194,9 +194,17 @@ def test_standdown_reasons_match_reference():
 
 
 def test_to_device_packed_refuses_unported_options():
+    """Every pack method the JAX package has is ported ('scatter' gives
+    the bytes of 'reduceat'); unknown methods and backends are refused."""
     g = extract(synth.dblp_catalog(100, 150, 6.0, seed=0), Q1).graph
-    with pytest.raises(NotImplementedError, match="item 2"):
-        engine.to_device_packed(g, pack_method="scatter", device="cpu")
+    a = engine.to_device_packed(g, pack_method="scatter", device="cpu")
+    b = engine.to_device_packed(g, device="cpu")
+    for la, lb in zip(a.chains[0], b.chains[0]):
+        for f in ("slot_src", "slot_row", "row_start", "row_count", "bitmaps",
+                  "row_ptr", "col"):
+            assert torch.equal(getattr(la.fwd, f), getattr(lb.fwd, f)), f
+    with pytest.raises(ValueError, match="unknown pack method"):
+        engine.to_device_packed(g, pack_method="bogus", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         engine.to_device_packed(g, backend="pallas", device="cpu")
 

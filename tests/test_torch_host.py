@@ -5,6 +5,8 @@ a budget, and streamed through the torch device fold), packed incidences,
 bit-plane corrections and fused streams are all integer-valued, so every
 comparison here is exact (``np.array_equal`` plus dtype).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -116,16 +118,39 @@ def test_extract_preprocess_equal():
     _same_graph(port.graph, ref.graph)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"n_shards": 2}, {"budget": object()}, {"spill_dir": "spill"},
-    {"plan": object()},
-], ids=["n_shards", "budget", "spill_dir", "plan"])
-def test_extract_unported_pipelines_raise(kwargs):
-    """Plan-driven extraction (``core/cost.py``) is not ported: ``plan=``
-    raises beside every other pipeline knob."""
-    kwargs = {**kwargs, "plan": object()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        extract(CATALOGS["dblp"](synth), Q1, **kwargs)
+@pytest.mark.parametrize("knob", ["n_shards", "budget", "spill_dir", "plan"])
+def test_extract_unported_pipelines_raise(knob):
+    """Plan-driven extraction (``core/cost.py``) is ported: ``plan=``
+    alone, or beside another pipeline knob, runs the plan's configuration
+    (its sharding overrides ``n_shards``, a caller's ``budget`` is kept in
+    place of the plan's caps, a non-spilling plan ignores ``spill_dir``)
+    and gives the graph and the budget accounting of the JAX package's
+    planned extraction under the same knobs."""
+    from repro.core import cost as ref_cost
+    from repro.core import planner as ref_planner
+
+    from repro_torch.core import cost, planner
+
+    cat, ref_cat = CATALOGS["dblp"](synth), CATALOGS["dblp"](ref_synth)
+    report, ref_report = cost.plan(cat, Q1), ref_cost.plan(ref_cat, Q1)
+    cfg = next(c for c, _ in report.ranked if c.n_shards > 1 and not c.spill)
+    kwargs = {"plan": dataclasses.replace(report.chosen, config=cfg)}
+    ref_kwargs = {"plan": dataclasses.replace(ref_report.chosen, config=cfg)}
+    if knob == "n_shards":
+        kwargs["n_shards"] = 2
+    elif knob == "budget":
+        kwargs["budget"] = planner.ExtractionBudget()
+        ref_kwargs["budget"] = ref_planner.ExtractionBudget()
+    elif knob == "spill_dir":
+        kwargs["spill_dir"] = "spill"
+    port = extract(cat, Q1, **kwargs)
+    ref = ref_extract(ref_cat, Q1, **ref_kwargs)
+    _same_graph(port.graph, ref.graph)
+    assert port.n_shards == ref.n_shards == cfg.n_shards
+    assert port.budget.summary() == ref.budget.summary()
+    if knob == "budget":
+        assert port.budget is kwargs["budget"]
+        assert port.budget.max_resident_rows is None
 
 
 @pytest.mark.parametrize("name", ["dblp_q1_condensed", "tpch_q2_condensed"])

@@ -36,7 +36,10 @@ def test_slice_modules_are_all_listed():
         "repro_torch.models.transformer", "repro_torch.models.interop",
         "repro_torch.launch.serve", "repro_torch.kernels.ops",
         "repro_torch.kernels.autotune", "repro_torch.core.serialize",
-        "repro_torch.data.pipeline",
+        "repro_torch.data.pipeline", "repro_torch.core.delta",
+        "repro_torch.core.cost", "repro_torch.core.advisor",
+        "repro_torch.serve.tier", "repro_torch.launch.cells",
+        "repro_torch.launch.report",
     ):
         assert name in MODULES
 

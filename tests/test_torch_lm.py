@@ -279,10 +279,3 @@ def test_launcher_serves_on_cpu():
     )
     assert out.returncode == 0, out.stderr
     assert "served 6 requests" in out.stdout
-
-
-def test_launcher_graphs_not_ported():
-    from repro_torch.launch import serve
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serve.main(["--graphs", "2", "--device", "cpu"])

@@ -262,8 +262,9 @@ def test_pack_shard_at_a_time_byte_identical(shard_edges):
     _same_array(merged.bitmaps, rmerged.bitmaps)
     with pytest.raises(ValueError, match="disjoint"):
         pack.merge_block_sparse([halves[0], halves[0]])
-    with pytest.raises(NotImplementedError, match="item 2"):
-        pack.pack_bipartite(e, method="scatter")
+    scattered = pack.pack_bipartite(e, method="scatter", shard_edges=shard_edges)
+    for f in ("slot_src", "slot_row", "row_start", "row_count", "bitmaps"):
+        _same_array(getattr(scattered, f), getattr(got, f))
 
 
 def _tensors(obj, prefix=""):
@@ -298,7 +299,6 @@ def test_sharded_extract_to_device_uploads_the_one_shot_operands(tmp_path):
         assert got_t[k].dtype == want_t[k].dtype and torch.equal(got_t[k], want_t[k]), k
     _, flat = sharded_extract_to_device(cat, q, n_shards=2, device="cpu")
     assert isinstance(flat, engine.DeviceCondensed)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        sharded_extract_to_device(cat, q, 2, delta_log=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        sharded_extract_to_device(cat, q, 2, plan=object(), device="cpu")
+    with pytest.raises(ValueError, match="either plan= or delta_log="):
+        sharded_extract_to_device(cat, q, 2, delta_log=object(), plan=object(),
+                                  device="cpu")
