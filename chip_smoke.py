@@ -121,7 +121,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``load_plan_report``, ``extract(plan=)`` identical to phase 3's graph,
    ``sharded_extract_to_device(plan=)`` byte-equal to phase 3's upload,
    and ``recommend(graph, crossover=table)``.
-7. LM serving: K4 against its plain version on small and cache-path
+7. Distributed paths (``distributed_phase``) under an NCCL process group
+   of one rank over a ``FileStore`` in ``build/dist`` (one card: no
+   number here is a multi-GPU number; the group is destroyed at the end,
+   so later phases see none, and a failed NCCL init fails the run):
+   ``repro_torch.launch.distributed_analytics.analytics`` at
+   ``configs/graphgen_paper.CONFIG``'s counts (``--quick``: ``SMOKE``'s)
+   times graph generation, the correction, the upload, the out-degrees,
+   ``band_partition`` and the band upload; banded PageRank on 8 bands
+   within 1e-7 of the engine's segment-path PageRank on the same upload;
+   flat (edge-sharded) PageRank on 8 slices, then on the 6 slices that
+   the scripted ``Supervisor``'s ``remesh_plan`` leaves after worker 3
+   dies, each within ``atol=1e-6`` of the engine's; each of the three
+   also within 1e-5 of the engine's largest value (the bound that scales
+   with 1 / n_real: the two absolute ones exceed a typical value at
+   this size); each with its time per iteration.  ``allreduce_int8`` on 64 MB equals quantize-dequantize.
+   ``MultihostSpillExtraction`` on phase 3's catalog, 4 simulated
+   processes × 8 shards and ``run()`` with the default barrier, each
+   byte-identical to phase 3's graph (spill under ``build/``, removed
+   after).  K1-K3 launch counts are zeroed before and must read 0 after;
+   peak device bytes are recorded under ``distributed``.
+8. LM serving: K4 against its plain version on small and cache-path
    shapes (the main path's prefill and decode among them) in float32 to
    2e-5 and bf16 to 0.05; glm4-9b at full width in bf16 with random
    weights serves 16 requests (8 x 4096 + 8 x 1024 prompt tokens, 32 new
@@ -2518,10 +2538,146 @@ def live_tier_phase(args, catalog, g, exact, ctx, record) -> dict:
     return rec
 
 
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+DIST_SPILL = os.path.join(ROOT, "build", "spill_multihost")
+DIST_BANDS = 8                  # banded PageRank's bands on the one rank
+DIST_SHARDS, DIST_PROCS = 8, 4  # multi-process extraction: shards, simulated processes
+INT8_ELEMS = 16 << 20           # allreduce_int8 on 64 MB of float32
+
+
+def multihost_part(catalog, g) -> dict:
+    """``MultihostSpillExtraction`` on phase 3's catalog: ``DIST_PROCS``
+    simulated processes driven phase by phase over one spill directory,
+    then ``run()`` on the NCCL group with its default barrier; every
+    graph byte-identical to phase 3's."""
+    import shutil
+
+    from repro_torch.core import graphs_identical
+    from repro_torch.distributed.sharding import MultihostSpillExtraction
+
+    rec = {}
+    sim_dir, run_dir = os.path.join(DIST_SPILL, "simulated"), os.path.join(DIST_SPILL, "run")
+    shutil.rmtree(DIST_SPILL, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        procs = [MultihostSpillExtraction(catalog, QUERY, DIST_SHARDS, sim_dir,
+                                          process_index=p, process_count=DIST_PROCS,
+                                          barrier=lambda name: None)
+                 for p in range(DIST_PROCS)]
+        for m in procs:
+            m.phase_nodes()
+        for m in procs:
+            m.phase_shards()
+        for r in range(len(procs[0].schedule)):
+            for m in procs:
+                m.phase_merge_round(r)
+        results = [m.phase_finish() for m in procs]
+        rec["simulated_s"] = time.perf_counter() - t
+        if not all(graphs_identical(g, res.graph) for res in results):
+            raise AssertionError("a simulated process's graph != phase 3's graph")
+        rec["merge_rounds"] = len(procs[0].schedule)
+        rec["spilled_bytes"] = [res.budget.spilled_bytes for res in results]
+        t = time.perf_counter()
+        res = MultihostSpillExtraction(catalog, QUERY, DIST_SHARDS, run_dir).run()
+        rec["run_s"] = time.perf_counter() - t
+        if not graphs_identical(g, res.graph):
+            raise AssertionError("MultihostSpillExtraction.run() != phase 3's graph")
+    finally:
+        shutil.rmtree(DIST_SPILL, ignore_errors=True)
+    log(f"multi-process extraction: {DIST_PROCS} simulated processes x {DIST_SHARDS} "
+        f"shards {rec['simulated_s']:.2f} s, run() {rec['run_s']:.2f} s; identical")
+    return rec
+
+
+def int8_part(seed: int) -> dict:
+    """``allreduce_int8`` on a 64 MB tensor over the group: equal to
+    quantize-dequantize (one rank), timed beside it."""
+    import torch
+
+    from repro_torch.distributed import compression as C
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(INT8_ELEMS, generator=gen, device="cuda")
+    got = C.allreduce_int8(x)
+    q, s = C.quantize_int8(x)
+    want = C.dequantize_int8(q, s)
+    if not torch.equal(got, want):
+        raise AssertionError(f"allreduce_int8 != quantize-dequantize by "
+                             f"{float((got - want).abs().max())}")
+    rec = {"bytes": x.numel() * x.element_size(),
+           "ms": time_ms(lambda: C.allreduce_int8(x), reps=5),
+           "quantize_dequantize_ms": time_ms(lambda: C.dequantize_int8(*C.quantize_int8(x)),
+                                             reps=5)}
+    log(f"allreduce_int8 on {rec['bytes']} bytes: {rec['ms']:.3f} ms "
+        f"(quantize-dequantize {rec['quantize_dequantize_ms']:.3f} ms); equal")
+    return rec
+
+
+def distributed_phase(args, catalog, g, record) -> dict:
+    """Phase 7: the distributed paths under an NCCL group of one rank (one
+    card): the launcher's analytics at ``CONFIG``'s counts (banded and
+    flat PageRank, the scripted failure and re-mesh), ``allreduce_int8``,
+    and multi-process extraction on phase 3's catalog; no K1-K3 launch."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.graphgen_paper import CONFIG, SMOKE
+    from repro_torch.core import engine
+    from repro_torch.distributed.world import init_group, initialized
+    from repro_torch.kernels import bitmap_spmm as K
+    from repro_torch.launch import distributed_analytics as DA
+
+    cfg = SMOKE if args.quick else CONFIG
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    engine.reset_kernel_dispatch_count()
+    t = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    init_group("nccl", os.path.join(DIST_DIR, "store"), 0, 1)
+    try:
+        rec = {"config": cfg.name, "backend": dist.get_backend(),
+               "init_s": time.perf_counter() - t}
+        rec["analytics"] = DA.analytics(0, 1, cfg, DIST_BANDS, "cuda:0", seed=0, log=log)
+        rec["int8"] = int8_part(args.seed)
+        rec["multihost"] = multihost_part(catalog, g)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    if initialized():
+        raise AssertionError("the distributed phase left a process group behind")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if any(launches.values()) or engine.KERNEL_DISPATCH_COUNT:
+        raise AssertionError(f"the distributed phase launched K1-K3: {launches}")
+    a = rec["analytics"]
+    if not a["banded"]["divides"]:
+        raise AssertionError(f"{DIST_BANDS} bands do not divide {cfg.n_real} nodes")
+    rec.update(launches=launches, held_bytes_at_start=held,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               phase_s=time.perf_counter() - t)
+    rec["phase_peak_bytes"] = rec["peak_device_bytes"] - held
+    log("distributed: max |diff| / bound flat {max_abs_diff:.3e} / {bound:.3e}, ".format(**a["flat"])
+        + "banded {max_abs_diff:.3e} / {bound:.3e}, ".format(**a["banded"])
+        + "survivors {max_abs_diff:.3e} / {bound:.3e}".format(**a["survivors"]))
+    log(f"distributed: PageRank ms/iter engine {a['engine']['ms_per_iter']:.3f}, flat "
+        f"{a['flat']['ms_per_iter']:.3f}, banded {a['banded']['ms_per_iter']:.3f}, survivors "
+        f"{a['survivors']['ms_per_iter']:.3f}; peak {rec['phase_peak_bytes']} bytes above "
+        f"{held} held; K1-K3 launches {launches}")
+    log(f"distributed phase: {rec['phase_s']:.1f} s")
+    record["distributed"] = rec
+    return rec
+
+
 def graph_phases(args, record) -> list:
-    """Phases 2-5: the small oracle check, the served main path with its
-    profile, the graph kernels' rows, and the analytics phase on the
-    served graph."""
+    """Phases 2-7: the small oracle check, the served main path with its
+    profile, the graph kernels' rows, the analytics phase on the served
+    graph, the live graph and tier, and the distributed paths."""
     import numpy as np
     import torch
 
@@ -2663,10 +2819,13 @@ def graph_phases(args, record) -> list:
     rows += analytic_rows
     crossover_phase(args, exact, ctx, record)
     tier = live_tier_phase(args, catalog, g, exact, ctx, record)["tier"]
+    dist_launches = distributed_phase(args, catalog, g, record)["launches"]
     del catalog
     for r in rows:
         if r["name"] in tier["launches"]:
             r["tier_launches"] = tier["launches"][r["name"]]
+        if r["name"] in dist_launches:
+            r["distributed_launches"] = dist_launches[r["name"]]
 
     record.update({
         "stages": stages, "device_bytes": held,
@@ -2733,7 +2892,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("layout_bound_ms", "tier_launches")
+    extra = ("layout_bound_ms", "tier_launches", "distributed_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

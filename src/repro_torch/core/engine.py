@@ -48,6 +48,7 @@ import torch
 
 from .condensed import BipartiteEdges, CondensedGraph, ExpandedGraph
 from .semiring import PLUS_TIMES, Semiring, kernelizable, segment_plan, segment_reduce
+from ..distributed.world import all_reduce
 
 __all__ = [
     "DeviceBipartite",
@@ -140,6 +141,12 @@ class DeviceCondensed:
                     propagation so self-loops never contribute).
     ``deduplicated``True when path multiplicity is structurally 1.
     ``graph_version`` source graph's delta version (a plain int).
+    ``edge_slices`` 0 for a whole graph; on this rank's share of an
+                    edge-sharded graph (:func:`repro_torch.distributed.
+                    sharding.shard_condensed`) the number ``k`` of slices
+                    it holds: every layer's ``src`` / ``dst`` and the
+                    correction's tensors are then ``(k, E / S)``, and each
+                    hop is all-reduced over ``group``.
     """
 
     chains: Tuple[Tuple[DeviceBipartite, ...], ...]
@@ -151,6 +158,8 @@ class DeviceCondensed:
     graph_version: int = 0
     device: torch.device = torch.device("cpu")
     correction_plans: dict = _plans()
+    group: object = None
+    edge_slices: int = 0
 
 
 @dataclasses.dataclass
@@ -292,8 +301,10 @@ def device_graph_bytes(graph) -> int:
 
 
 # Fields a shape signature leaves out: the version (churned by every
-# delta), the device, and the segment-order caches built on first use.
-_UNSIGNED_FIELDS = frozenset({"graph_version", "device", "plans", "correction_plans"})
+# delta), the device, the segment-order caches built on first use, and a
+# sharded graph's process group.
+_UNSIGNED_FIELDS = frozenset({"graph_version", "device", "plans", "correction_plans",
+                              "group"})
 
 
 def _signature_parts(obj, name: str, parts: list) -> None:
@@ -756,10 +767,19 @@ def _edge_propagate(
     x: torch.Tensor,
     reverse: bool,
 ) -> torch.Tensor:
+    """One hop along ``edges`` as a fixed-order segment reduce.  A layer of
+    an edge-sharded graph holds this rank's ``k`` slices as ``(k, E / S)``
+    rows; their partial results are ⊕-added in slice order."""
     src, dst = (edges.dst, edges.src) if reverse else (edges.src, edges.dst)
     n_out = edges.n_src if reverse else edges.n_dst
-    plan = _edge_plan(edges.plans, src, dst, n_out, reverse) if sr.add_kind == "sum" else None
-    return segment_reduce(sr, x.index_select(0, src), dst, n_out, plan=plan)
+    sliced = src.ndim == 2
+    y = None
+    for i, (s, d) in enumerate(zip(src, dst) if sliced else [(src, dst)]):
+        key = (reverse, i) if sliced else reverse
+        plan = _edge_plan(edges.plans, s, d, n_out, key) if sr.add_kind == "sum" else None
+        part = segment_reduce(sr, x.index_select(0, s), d, n_out, plan=plan)
+        y = part if y is None else sr.add(y, part)
+    return y
 
 
 def _edge_plan(plans: dict, src, dst, n_out: int, key):
@@ -1014,6 +1034,12 @@ def propagate(
             "allow_duplicates=True (paper §4.1 duplication problem)"
         )
 
+    # On this rank's slices of an edge-sharded graph every hop yields a
+    # partial sum: ``h`` is all-reduced after each inner hop, and ``y``
+    # less the correction's partial after the last -- the collectives
+    # GSPMD inserts for the JAX package's edge-sharded graph.
+    sharded = bool(getattr(graph, "edge_slices", 0))
+
     # Fused DEDUP-C epilogue: the last chain's final layer and the
     # correction subtraction run as one kernel launch; the trailing
     # segment correction below is then skipped.
@@ -1041,6 +1067,8 @@ def propagate(
         fuse_here = fused is not None and ci == len(graph.chains) - 1
         for si, e in enumerate(seq[:-1] if fuse_here else seq):
             h = _layer_propagate(graph, semiring, e, h, reverse)
+            if sharded and si < len(seq) - 1:
+                h = all_reduce(h, semiring.add_kind, graph.group)
             if w_seq is not None and si < len(seq) - 1:
                 h = semiring.mul(h, _bcast(torch.as_tensor(w_seq[si], device=h.device), h))
         if fuse_here:
@@ -1055,18 +1083,19 @@ def propagate(
         zero_shape = (graph.n_real,) + tuple(x.shape[1:])
         y = torch.full(zero_shape, semiring.zero, dtype=x.dtype, device=x.device)
 
-    if semiring.name == "plus_times":
-        # Exactness corrections only make sense in the ring.
-        if graph.correction is not None and fused is not None:
-            pass  # already subtracted inside the fused kernel epilogue
-        elif graph.correction is not None:
-            corr = _correction_apply(graph.correction, x, graph.n_real, reverse,
-                                     graph.correction_plans)
-            y = y - _apply_hop(semiring, corr, hop_weight)
-        elif graph.diag_mult is not None:
-            y = y - _apply_hop(
-                semiring, x * _bcast(graph.diag_mult, x), hop_weight
-            )
+    # Exactness corrections only make sense in the ring; a fused kernel
+    # has already subtracted the correction in its epilogue.
+    ring = semiring.name == "plus_times"
+    if ring and graph.correction is not None and fused is None:
+        corr = _correction_apply(graph.correction, x, graph.n_real, reverse,
+                                 graph.correction_plans)
+        y = y - _apply_hop(semiring, corr, hop_weight)
+    if sharded:
+        y = all_reduce(y, semiring.add_kind, graph.group)
+    if ring and graph.correction is None and graph.diag_mult is not None:
+        y = y - _apply_hop(
+            semiring, x * _bcast(graph.diag_mult, x), hop_weight
+        )
     return y
 
 
@@ -1081,18 +1110,24 @@ def _correction_apply(
     summed in the triples' fixed order.  ``plans`` (the graph's
     ``correction_plans``) keeps that order for the graph's own triples,
     keyed by the tensors' identities; the tensors are held beside it so an
-    identity is never reused while its key lives."""
+    identity is never reused while its key lives.  An edge-sharded graph's
+    ``(k, E / S)`` triples are summed slice by slice in slice order."""
     cs, cd, cm = triples
     src, dst = (cd, cs) if reverse else (cs, cd)
-    msgs = x.index_select(0, src)
-    if plans is None:
-        plan = segment_plan(dst, n_real, tiebreak=src)
-    else:
-        key = (id(cs), id(cd), reverse)
-        if key not in plans:
-            plans[key] = (cs, cd, segment_plan(dst, n_real, tiebreak=src))
-        plan = plans[key][2]
-    return segment_reduce(PLUS_TIMES, msgs * _bcast(cm, msgs), dst, n_real, plan=plan)
+    sliced = src.ndim == 2
+    y = None
+    for i, (s, d, m) in enumerate(zip(src, dst, cm) if sliced else [(src, dst, cm)]):
+        msgs = x.index_select(0, s)
+        if plans is None:
+            plan = segment_plan(d, n_real, tiebreak=s)
+        else:
+            key = (id(cs), id(cd), reverse) + ((i,) if sliced else ())
+            if key not in plans:
+                plans[key] = (cs, cd, segment_plan(d, n_real, tiebreak=s))
+            plan = plans[key][2]
+        part = segment_reduce(PLUS_TIMES, msgs * _bcast(m, msgs), d, n_real, plan=plan)
+        y = part if y is None else y + part
+    return y
 
 
 def propagate_wedge(

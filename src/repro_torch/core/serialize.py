@@ -6,7 +6,7 @@ Three formats:
 * :func:`save_condensed` / :func:`load_condensed` — the *condensed*
   structure itself (chains + direct edges + properties) as raw little-
   endian buffers + a JSON manifest (same discipline as
-  the JAX package's ``train/checkpoint.py``: atomic rename,
+  :mod:`repro_torch.train.checkpoint`: atomic rename,
   restart-safe).  This is
   what "store the deduplicated graph back into the database" (paper §6.5)
   maps to.

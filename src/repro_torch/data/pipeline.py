@@ -7,7 +7,7 @@ materializes an unbounded transient.
 
 The JAX package's module also holds the LM and recommender batch
 pipelines (``TokenPipeline``, ``sasrec_batches``, ``gnn_batch``); they
-wait for the port's models (ROADMAP.md, Queue 1 item 3).
+wait for the port's models (ROADMAP.md, Queue 1 item 2).
 """
 from __future__ import annotations
 

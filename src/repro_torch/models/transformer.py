@@ -21,7 +21,7 @@ The cache is updated in place: a forward with a cache writes the new keys
 and values into ``cache.k`` / ``cache.v`` and returns a :class:`KVCache`
 over the same storage with ``length`` advanced.  The MoE FFN
 (``cfg.moe``) and the reference's auxiliary MoE loss wait for
-``models/moe.py`` (ROADMAP.md, Queue 1 item 3).
+``models/moe.py`` (ROADMAP.md, Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ def _check_dense(cfg: TransformerConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 6: models/moe.py)"
+            f"item 2: models/moe.py)"
         )
 
 

@@ -703,3 +703,37 @@ def test_cuda_tier_reupload_after_eviction_is_byte_equal(card):
     assert all(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
                for a, b in zip(new, old))
     assert first[0].tobytes() == again[1].tobytes()
+
+
+def _nccl_banded_rank(rank, world):
+    """Banded PageRank at ``SMOKE``'s counts on the card, inside an NCCL
+    group, against the engine's segment-path PageRank on the same upload."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.graphgen_paper import SMOKE
+    from repro_torch.core import algorithms
+    from repro_torch.core.banding import band_partition, make_banded_pagerank
+    from repro_torch.launch.distributed_analytics import build_graph
+
+    g = build_graph(SMOKE.n_real, SMOKE.n_virtual, SMOKE.n_in_edges)
+    corr = dedup.build_correction(g)
+    dev = engine.to_device(g, correction=corr, device="cuda")
+    ref = algorithms.pagerank(dev, num_iters=SMOKE.pagerank_iters)
+    banded = band_partition(g, corr, 8, algorithms.out_degrees(dev).cpu().numpy())
+    K.reset_launch_counts()
+    fn = make_banded_pagerank(None, banded.n_real, banded.n_virtual, 8,
+                              iters=SMOKE.pagerank_iters)
+    got = fn(banded.local(0, 8, "cuda"))
+    torch.cuda.synchronize()
+    return (dist.get_backend(), got.device.type, float((got[: g.n_real] - ref).abs().max()),
+            dict(K.LAUNCHES))
+
+
+def test_cuda_banded_pagerank_on_an_nccl_world_of_one(card, tmp_path):
+    from repro_torch.distributed.world import spawn_world
+
+    backend, where, diff, launches = spawn_world(
+        _nccl_banded_rank, 1, backend="nccl", timeout_s=300, store_dir=str(tmp_path))[0]
+    assert (backend, where) == ("nccl", "cuda")
+    assert diff < 1e-7
+    assert not any(launches.values())  # segment sums: K1-K3 never launch

@@ -39,7 +39,12 @@ def test_slice_modules_are_all_listed():
         "repro_torch.data.pipeline", "repro_torch.core.delta",
         "repro_torch.core.cost", "repro_torch.core.advisor",
         "repro_torch.serve.tier", "repro_torch.launch.cells",
-        "repro_torch.launch.report",
+        "repro_torch.launch.report", "repro_torch.distributed",
+        "repro_torch.distributed.world", "repro_torch.distributed.sharding",
+        "repro_torch.distributed.compression", "repro_torch.core.banding",
+        "repro_torch.launch.mesh", "repro_torch.launch.orchestrator",
+        "repro_torch.launch.distributed_analytics", "repro_torch.train",
+        "repro_torch.train.checkpoint", "repro_torch.configs.graphgen_paper",
     ):
         assert name in MODULES
 
