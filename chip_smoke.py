@@ -155,6 +155,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16, the decode row timed over four distinct caches in turn (cold
    L2) with its warm time logged beside; the count of tensor-core
    instructions in the bf16 kernels' SASS where ``cuobjdump`` exists.
+9. Training (``training_phase``), after the LM phase's weights are freed:
+   glm4-9b at ``CONFIG``'s widths and ``LM_TRAIN_LAYERS`` of its layers,
+   float32 params, AdamW on ``launch/train.py``'s schedule,
+   ``TRAIN_STEPS`` steps of ``LM_TRAIN_BATCH`` x 4096 tokens in
+   ``CONFIG``'s 4 microbatches with full remat: step 0's loss and
+   gradient norm equal those through the plain attention (plain forward
+   and backward) within ``TRAIN_RTOL``; K4's prefill kernel with lse
+   launches exactly layers x microbatches x 2 (the remat recompute) a
+   step, no other K4 kernel and no plain forward; the params are
+   unchanged by step 0 (the schedule's lr is 0 there) and move at step
+   1; one more step is profiled and its device time split by the port's
+   profiler ranges (the plain attention backward, the optimizer), K4,
+   GEMMs and the rest.  SASRec at ``CONFIG`` (1,000,000 items):
+   ``train_batch`` (65,536) for ``TRAIN_STEPS`` steps (one lse launch per
+   block a step), ``serve_p99`` and ``serve_bulk`` (262,144 users,
+   ``batch_chunk`` 4096; one prefill launch per block), their first and
+   last 64 users scored alone within ``REC_RTOL``, and ``retrieval_cand``
+   (every item a candidate: its best score is ``score_all``'s top 1).
+   The four GNNs at their ``CONFIG``s (meshgraphnet and graphcast on
+   ``full_graph_sm``, schnet and dimenet on ``molecule`` with
+   ``triplet_count(shape, 8)`` triplets), ``TRAIN_STEPS`` steps each, the
+   first loss on the card within ``TRAIN_RTOL`` of the port's float32
+   loss on the CPU.  ``launch/recsys_serve.run`` at the example's sizes,
+   its answers equal to the segment path's (its interaction layers repeat
+   edges, so sums there take the segment path, as the reference's take
+   XLA).  Last, K4's lse rows at glm4-9b's and SASRec's training shapes
+   against the plain version (output at the bf16 bound, lse within
+   ``LSE_ATOL``) and ``aten._scaled_dot_product_flash_attention``.
+   ``--quick`` runs the ``SMOKE`` configs, SASRec's batches / 64.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -166,6 +195,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1531,7 +1561,8 @@ def lm_phase(args) -> dict:
     expected = {"flash_attention_prefill": cfg.n_layers * n_prefill,
                 "flash_attention_decode": cfg.n_layers * n_steps,
                 "flash_attention_combine": cfg.n_layers * n_steps,
-                "flash_attention_f32": 0}
+                "flash_attention_f32": 0, "flash_attention_prefill_lse": 0,
+                "flash_attention_f32_lse": 0}
     log(f"K4 kernel launches: {json.dumps(kernel_launches)}")
     if kernel_launches != expected:
         raise AssertionError(f"K4 kernel launches {kernel_launches}, expected {expected}")
@@ -1565,7 +1596,7 @@ def lm_phase(args) -> dict:
             cache = transformer.init_cache(cfg, 1, max_len, "cuda")
             attention = FA.flash_attention if which == "k4" else FA.flash_attention_plain
             with unittest.mock.patch.object(transformer, "flash_attention", attention):
-                full, _ = transformer.forward(params, prompt, cfg, cache)
+                full, _, _ = transformer.forward(params, prompt, cfg, cache)
             logits[which] = full[0, -1].clone()
             del full, cache
     FA.reset_launch_counts()
@@ -2839,6 +2870,566 @@ def graph_phases(args, record) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training (the optimizers, the train steps, K4 with lse)
+# ---------------------------------------------------------------------------
+
+# K4's lse (float32) against the plain version's, at the training shapes
+LSE_ATOL = 1e-3
+# glm4-9b's training cell: CONFIG's widths at 4 of its 40 layers, and
+# train_4k's sequence at a global batch of 4 (one sequence per microbatch)
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_BATCH = 4
+TRAIN_STEPS = 3
+# a first step's loss and gradient norm through K4 against the plain
+# attention (bf16 activations both: different rounding of p and of the
+# output, carried through 4 layers), and a GNN's first loss on the card
+# (bf16) against the port's on the CPU (float32)
+TRAIN_RTOL = 0.05
+# SASRec users scored alone against the same users in a bulk call: the
+# GEMMs take other shapes, so bf16 states differ by round-off
+REC_RTOL = 0.02
+# the profiler ranges the port opens around its plain attention backward
+# and its optimizer update
+BACKWARD_RANGE = "repro_torch.flash_attention_backward"
+OPTIMIZER_RANGE = "repro_torch.optimizer_update"
+
+
+def k4_lse_row(name, q, k, v, launches, reps, atol=K4_BF16_ATOL) -> dict:
+    """K4's training forward (prefill kernel with its lse output) at one
+    training shape: held to the plain version element by element (output
+    within ``atol + K4_BF16_RTOL |plain|``, lse within ``LSE_ATOL``),
+    timed against its bound and against
+    ``aten._scaled_dot_product_flash_attention``, which also returns the
+    log-sum-exp.  Launches made here do not count."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    out, lse = FA._launch(q, k, v, True, 0, None, with_lse=True)
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    diff = (out.float() - want.float()).abs()
+    excess = float((diff - K4_BF16_RTOL * want.float().abs()).max().item())
+    lse_err = float((lse - want_lse).abs().max().item())
+    log(f"{name}: out max abs err {float(diff.max())}, |err| - {K4_BF16_RTOL} |plain| "
+        f"{excess} (bound {atol}); lse max abs err {lse_err} (bound {LSE_ATOL})")
+    if not (excess <= atol and lse_err <= LSE_ATOL):
+        raise AssertionError(f"K4 {name}: out excess {excess}, lse err {lse_err}")
+    ms = time_ms(lambda: FA._launch(q, k, v, True, 0, None, with_lse=True), reps)
+    plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, causal=True,
+                                                        return_lse=True), 2, 1)
+    FA.LAUNCHES.update(before[0])
+    FA.PLAIN_CUDA_CALLS.update(before[1])
+    B, T, H, D = q.shape
+    G = H // k.shape[2]
+    # the library call: heads-major, k / v repeated over the group, D padded
+    # to a multiple of 8 with zeros (scores and outputs unchanged)
+    pad = (-D) % 8
+    qs, ks, vs = (F.pad(t.transpose(1, 2), (0, pad)).contiguous() for t in
+                  (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    library_ms, library_note = None, None
+    try:
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qs, ks, vs, 0.0, True, False, scale=1.0 / math.sqrt(D))
+        ref = library()
+        lib_err = float((ref[0][..., :D].transpose(1, 2).float() - want.float()).abs().max())
+        library_ms = time_ms(library, reps)
+        log(f"{name}: SDPA flash with lse {library_ms:.4f} ms (max abs diff to plain {lib_err})")
+    except (RuntimeError, NotImplementedError) as e:  # the library's own limits
+        library_note = str(e).splitlines()[0][:200]
+        log(f"{name}: no library time: {library_note}")
+    del qs, ks, vs
+    n_bytes = nbytes(q, k, v, out, lse)
+    n_ops = 4 * H * D * B * T * (T + 1) // 2
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_OPS_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by {b_by}), "
+        f"{launches} launches in the training runs")
+    return {
+        "name": name, "route": "cuda", "source": f"{CSRC}/flash_prefill.cu",
+        "replaces": FLASH_TPU_KERNEL, "launches": launches,
+        "max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True,
+                  "lse_max_abs_err": lse_err, "bf16_excess_over_rtol": excess,
+                  "atol": atol,
+                  "bytes": n_bytes, "flops": n_ops, "library_note": library_note},
+    }
+
+
+def split_device_time(trace: dict) -> dict:
+    """Device seconds of one profiled step (its exported Chrome trace) by
+    what launched them: kernels launched inside the port's profiler
+    ranges around the plain attention backward and the optimizer update
+    (matched through each kernel's launch call: same thread, inside the
+    range), then K4, matrix products and the rest.  Kernels whose launch
+    call the trace lacks are counted under ``unmatched_s``."""
+    import re
+    from collections import defaultdict
+
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    ranges = defaultdict(list)
+    launches = {}
+    for e in events:
+        cat = e.get("cat", "")
+        if cat == "user_annotation" and e["name"] in (BACKWARD_RANGE, OPTIMIZER_RANGE):
+            ranges[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = ((e["pid"], e["tid"]), e["ts"])
+    cats = dict.fromkeys(("attention_backward_s", "optimizer_s", "k4_s", "gemm_s",
+                          "other_s", "unmatched_s"), 0.0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        sec = e["dur"] / 1e6
+        where = launches.get(e.get("args", {}).get("correlation"))
+        inside = None
+        if where is not None:
+            inside = next((name for a, b, name in ranges[where[0]] if a <= where[1] <= b),
+                          None)
+        low = e["name"].lower()
+        if inside == BACKWARD_RANGE:
+            cats["attention_backward_s"] += sec
+        elif inside == OPTIMIZER_RANGE:
+            cats["optimizer_s"] += sec
+        elif "flash_prefill" in low:
+            cats["k4_s"] += sec
+        elif re.search(r"gemm|nvjet|cutlass|xmma|sm90_", low):
+            cats["gemm_s"] += sec
+        else:
+            cats["other_s"] += sec
+        if where is None:
+            cats["unmatched_s"] += sec
+    cats["device_busy_s"] = sum(v for k, v in cats.items() if k != "unmatched_s")
+    return cats
+
+
+def lm_training(args) -> dict:
+    """glm4-9b at full width (``LM_TRAIN_LAYERS`` layers; ``SMOKE`` at
+    --quick): float32 params, AdamW, ``TRAIN_STEPS`` steps of
+    ``LM_TRAIN_BATCH`` x 4096 tokens in ``cfg.microbatches`` microbatches
+    with full remat, every attention through K4's training route."""
+    import unittest.mock
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import glm4_9b
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import build_lm_training
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps as steps_lib
+
+    if args.quick:
+        cfg, seq, batch = glm4_9b.SMOKE, 32, 4
+    else:
+        cfg = dataclasses.replace(glm4_9b.CONFIG, n_layers=LM_TRAIN_LAYERS)
+        seq, batch = LM_SHAPES["train_4k"].seq_len, LM_TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state, step_fn, pipe = build_lm_training(cfg, smoke_batch=batch, smoke_seq=seq,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    rec = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+                      "vocab_size": cfg.vocab_size, "microbatches": cfg.microbatches,
+                      "remat_policy": cfg.remat_policy, "n_params": cfg.n_params()},
+           "seq_len": seq, "global_batch": batch, "init_s": time.perf_counter() - t}
+    batches = [next(pipe) for _ in range(TRAIN_STEPS + 1)]
+
+    # step 0's loss and gradient norm through the plain attention (plain
+    # forward with lse, the same plain backward), on the same params and batch
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, block_q, block_kv):
+            out, lse = FA.flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                                block_kv=block_kv, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.blocks = (causal, block_q, block_kv)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            causal, block_q, block_kv = ctx.blocks
+            return (*FA.flash_attention_backward_plain(
+                *ctx.saved_tensors, do, causal=causal, block_q=block_q,
+                block_kv=block_kv), None, None, None)
+
+    def plain_attention(q, k, v, *, causal=True, block_q=512, block_kv=1024, **kw):
+        return PlainAttention.apply(q, k, v, causal, block_q, block_kv)
+
+    grad_fn = steps_lib.make_grad_fn(lambda p, b: steps_lib.lm_loss(p, b, cfg),
+                                     cfg.microbatches)
+    with unittest.mock.patch.object(transformer, "flash_attention", plain_attention):
+        loss_plain, _, grads = grad_fn(state["params"], batches[0])
+        norm_plain = float(opt_lib.global_norm(grads))
+    loss_plain = float(loss_plain)
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the counted steps
+    torch.cuda.reset_peak_memory_stats()
+    ln1 = state["params"]["layers"]["ln1"].clone()
+    wq = state["params"]["layers"]["attn"]["wq"][0, :8].clone()
+    FA.reset_launch_counts()
+    losses, norms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_s.append(time.perf_counter() - t)
+        if i == 0:
+            unchanged = (torch.equal(ln1, state["params"]["layers"]["ln1"])
+                         and torch.equal(wq, state["params"]["layers"]["attn"]["wq"][0, :8]))
+        if i == 1:
+            moved = not torch.equal(wq, state["params"]["layers"]["attn"]["wq"][0, :8])
+    launches, plain = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = cfg.n_layers * cfg.microbatches * (2 if cfg.remat_policy != "none" else 1)
+    log(f"{cfg.name} training ({cfg.n_layers} layers, {batch} x {seq} tokens, "
+        f"{cfg.microbatches} microbatches, remat {cfg.remat_policy}): losses {losses}, "
+        f"grad norms {norms}, step s {step_s}; K4 {json.dumps(launches)}; plain "
+        f"{json.dumps(plain)}; peak {peak / 1e9:.2f} GB")
+    log(f"step 0 through the plain attention: loss {loss_plain}, grad norm {norm_plain} "
+        f"(K4: {losses[0]}, {norms[0]}; rtol {TRAIN_RTOL})")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{cfg.name}: non-finite loss or norm {losses} {norms}")
+    if not (abs(losses[0] - loss_plain) <= TRAIN_RTOL * abs(loss_plain)
+            and abs(norms[0] - norm_plain) <= TRAIN_RTOL * abs(norm_plain)):
+        raise AssertionError(f"{cfg.name}: step 0 through K4 ({losses[0]}, {norms[0]}) "
+                             f"!= plain ({loss_plain}, {norm_plain})")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=TRAIN_STEPS * per_step,
+                flash_attention_prefill_lse=TRAIN_STEPS * per_step)
+    if launches != want:
+        raise AssertionError(f"K4 launches {launches}, expected {want}")
+    if plain != {"flash_attention": 0,
+                 "flash_attention_backward": TRAIN_STEPS * cfg.n_layers * cfg.microbatches}:
+        raise AssertionError(f"plain attention calls on the card: {plain}")
+    if not (unchanged and moved):
+        raise AssertionError(f"the schedule's lr is 0 at step 0: params unchanged after "
+                             f"step 0 {unchanged}, moved after step 1 {moved}")
+
+    # one more step under the profiler (its launches do not count)
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[TRAIN_STEPS])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    FA.LAUNCHES.update(before[0])
+    FA.PLAIN_CUDA_CALLS.update(before[1])
+    trace_path = os.path.join(ROOT, "build", "train_step_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        split = split_device_time(json.load(f))
+    os.remove(trace_path)
+    split.update(wall_s=wall, idle_share=1.0 - split["device_busy_s"] / wall)
+    log(f"profiled step: {json.dumps(split)}")
+    tokens = batch * seq
+    rec.update({"losses": losses, "grad_norms": norms, "step_s": step_s,
+                "tokens_per_s": [tokens / s_ for s_ in step_s], "peak_memory_bytes": peak,
+                "plain_step0": {"loss": loss_plain, "grad_norm": norm_plain},
+                "k4_launches": launches, "plain_cuda_calls": plain,
+                "k4_launches_per_step": per_step, "profiled_step": split})
+    del state, step_fn, pipe, batches
+    return rec
+
+
+def rec_training(args) -> dict:
+    """SASRec (``CONFIG``: 1,000,000 items, d 50; ``SMOKE`` at --quick):
+    ``train_batch`` for ``TRAIN_STEPS`` steps, then ``serve_p99``,
+    ``serve_bulk`` (in ``batch_chunk`` 4096) and ``retrieval_cand``, with
+    their K4 launches; bulk rows scored alone equal their bulk scores, and
+    the best of every item as candidates is ``score_all``'s top 1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import sasrec as sasrec_cfg
+    from repro_torch.configs.shapes import REC_SHAPES
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import build_sasrec_training
+    from repro_torch.models import sasrec
+
+    cfg = sasrec_cfg.SMOKE if args.quick else sasrec_cfg.CONFIG
+    scale = 64 if args.quick else 1
+    sizes = {k: max(1, v.batch // scale) for k, v in REC_SHAPES.items()}
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, pipe = build_sasrec_training(cfg, batch=sizes["train_batch"],
+                                                 device="cuda")
+    FA.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next(pipe)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t)
+    train_launches = dict(FA.LAUNCHES)
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"SASRec losses {losses}")
+    if train_launches["flash_attention_prefill_lse"] != TRAIN_STEPS * cfg.n_blocks:
+        raise AssertionError(f"SASRec training K4 launches {train_launches}")
+    params = state["params"]
+    rng = np.random.default_rng(args.seed)
+
+    def seqs_of(n):
+        return torch.from_numpy(rng.integers(1, cfg.n_items, (n, cfg.seq_len))).cuda()
+
+    out = {"train": {"batch": sizes["train_batch"], "losses": losses, "step_s": step_s,
+                     "k4_launches": train_launches}}
+    with torch.no_grad():
+        for name, chunk in (("serve_p99", None), ("serve_bulk", 4096)):
+            seqs = seqs_of(sizes[name])
+            FA.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s_all, ids = sasrec.score_all(params, seqs, cfg, top_k=10, batch_chunk=chunk)
+            torch.cuda.synchronize()
+            out[name] = {"batch": sizes[name], "s": time.perf_counter() - t,
+                         "k4_launches": dict(FA.LAUNCHES)}
+            if FA.LAUNCHES["flash_attention_prefill"] != cfg.n_blocks:
+                raise AssertionError(f"{name}: K4 launches {dict(FA.LAUNCHES)}, expected "
+                                     f"one prefill launch per block")
+            if ids.shape != (sizes[name], 10) or not torch.isfinite(s_all).all():
+                raise AssertionError(f"{name}: {tuple(ids.shape)} ids, finite "
+                                     f"{bool(torch.isfinite(s_all).all())}")
+            # the first and the last 64 users scored alone (other GEMM shapes:
+            # bf16 round-off apart, so scores to REC_RTOL and most ids equal)
+            n = sizes[name]
+            for rows in (slice(0, min(64, n)), slice(max(0, n - 64), n)):
+                s1, i1 = sasrec.score_all(params, seqs[rows], cfg, top_k=10)
+                same_ids = float((i1 == ids[rows]).float().mean())
+                if not (torch.allclose(s1, s_all[rows], rtol=REC_RTOL,
+                                       atol=REC_RTOL * float(s1.abs().max()))
+                        and same_ids >= 0.9):
+                    raise AssertionError(f"{name}: rows {rows} scored alone differ "
+                                         f"({same_ids:.3f} of the ids equal)")
+        seqs = seqs_of(1)
+        cands = torch.from_numpy(rng.permutation(cfg.n_items)[None, :]).cuda()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cs = sasrec.score_candidates(params, seqs, cands, cfg)
+        torch.cuda.synchronize()
+        out["retrieval_cand"] = {"candidates": cfg.n_items, "s": time.perf_counter() - t}
+        top, _ = sasrec.score_all(params, seqs, cfg, top_k=1)
+        best = float(cs.max())
+        if not abs(best - float(top[0, 0])) <= 1e-5 * abs(float(top[0, 0])):
+            raise AssertionError(f"retrieval_cand's best score {best} is not score_all's "
+                                 f"top 1 {float(top[0, 0])}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"SASRec ({cfg.name}, {cfg.n_items:,} items): {json.dumps(out)}")
+    del state, step_fn, pipe, params
+    return out
+
+
+def padded_graph(shape, kind, d_out, seed, device):
+    """A graph at ``shape``'s padded sizes (masks off on the padding): a
+    random graph at its raw counts, or 128 molecules with triplets up to
+    ``triplet_count(shape, 8)``; and a random regression target."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import triplet_count
+    from repro_torch.data import graphs
+
+    rng = np.random.default_rng(seed)
+    if shape.n_graphs > 1:
+        atoms, edges = shape.raw_nodes // shape.n_graphs, shape.raw_edges // shape.n_graphs
+        g = graphs.batch_molecules(shape.n_graphs, atoms, edges, shape.d_feat, seed=seed,
+                                   device="cpu")
+        target = rng.standard_normal((shape.n_graphs, d_out)).astype(np.float32)
+    else:
+        src, dst, feats, pos = graphs.random_graph(shape.raw_nodes, shape.raw_edges,
+                                                   shape.d_feat, seed=seed,
+                                                   with_positions=True)
+        g = graphs.graph_batch_from_numpy(src, dst, feats, positions=pos, device="cpu")
+        target = rng.standard_normal((shape.n_nodes, d_out)).astype(np.float32)
+    n_pad, e_pad = shape.n_nodes - g.n_nodes, shape.n_edges - g.n_edges
+
+    def pad(t, n, value=0):
+        return torch.cat([t, torch.full((n, *t.shape[1:]), value, dtype=t.dtype)])
+
+    g.nodes, g.positions = pad(g.nodes, n_pad), pad(g.positions, n_pad)
+    g.node_mask = pad(g.node_mask, n_pad, False)
+    g.edge_src, g.edge_dst = pad(g.edge_src, e_pad), pad(g.edge_dst, e_pad)
+    g.edge_mask = pad(g.edge_mask, e_pad, False)
+    if g.graph_ids is not None:
+        g.graph_ids = pad(g.graph_ids, n_pad)
+    if kind == "dimenet":
+        n_tri = triplet_count(shape, 8)
+        g.triplets, g.triplet_mask = g.triplets[:n_tri], g.triplet_mask[:n_tri]
+        t_pad = n_tri - g.triplets.shape[0]
+        g.triplets, g.triplet_mask = pad(g.triplets, t_pad), pad(g.triplet_mask, t_pad, False)
+    else:
+        g.triplets = g.triplet_mask = None
+    return g, torch.from_numpy(target)
+
+
+def gnn_training(args) -> dict:
+    """Each GNN at its ``CONFIG`` (``SMOKE`` at --quick): meshgraphnet and
+    graphcast on ``full_graph_sm``, schnet and dimenet on ``molecule``;
+    ``TRAIN_STEPS`` AdamW steps; the first loss on the card equals the
+    port's float32 loss on the CPU, same params and batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps as steps_lib
+
+    out = {}
+    for kind, shape_name in (("meshgraphnet", "full_graph_sm"), ("graphcast", "full_graph_sm"),
+                             ("schnet", "molecule"), ("dimenet", "molecule")):
+        mod = registry.get_arch(kind)
+        cfg = mod.SMOKE if args.quick else mod.CONFIG
+        shape = GNN_SHAPES[shape_name]
+        g_cpu, target = padded_graph(shape, kind, cfg.d_out, args.seed, "cpu")
+        params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                                 shape.d_feat, device="cuda")
+        with torch.no_grad():
+            cpu_loss = float(steps_lib.gnn_loss(
+                opt_lib.tree_map(lambda t: t.cpu(), params),
+                {"graph": g_cpu, "target": target},
+                dataclasses.replace(cfg, dtype="float32"))[0])
+        optimizer = opt_lib.adamw(1e-3)
+        state = steps_lib.init_train_state(params, optimizer)
+        step_fn = steps_lib.build_gnn_train_step(cfg, optimizer)
+        batch = {"graph": g_cpu.to("cuda"), "target": target.cuda()}
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t)
+        rec = {"shape": shape_name, "nodes": shape.n_nodes, "edges": shape.n_edges,
+               "triplets": None if batch["graph"].triplets is None
+               else int(batch["graph"].triplets.shape[0]),
+               "n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden, "losses": losses,
+               "cpu_float32_loss": cpu_loss, "step_s": step_s,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        log(f"{cfg.name} on {shape_name}: {json.dumps(rec)}")
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{cfg.name}: losses {losses}")
+        if abs(losses[0] - cpu_loss) > TRAIN_RTOL * abs(cpu_loss):
+            raise AssertionError(f"{cfg.name}: first loss {losses[0]} on the card, "
+                                 f"{cpu_loss} on the CPU")
+        out[kind] = rec
+        del state, step_fn, params, batch
+    return out
+
+
+def recsys_part(args) -> dict:
+    """``launch/recsys_serve.run`` at the example's sizes on the card: K1
+    and K3 must launch, and the served answers equal the segment path's
+    on the same upload."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import extract
+    from repro_torch.kernels import bitmap_spmm as K
+    from repro_torch.launch import recsys_serve
+    from repro_torch.models import sasrec
+    from repro_torch.serve.server import GraphQueryServer
+
+    params = sasrec.init_params(recsys_serve.DEMO,
+                                torch.Generator(device="cuda").manual_seed(args.seed), "cuda")
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    got = recsys_serve.run(recsys_serve.DEMO, params, "cuda", log=lambda _: None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    catalog, rng = recsys_serve.co_interaction_catalog()
+    g = extract(catalog, recsys_serve.GRAPH_QUERY).graph
+    seg = GraphQueryServer.from_condensed(g, budget_bytes=2 << 20, max_batch=32, packed=True,
+                                          backend="segment", device="cuda")
+    # A user who interacted with an item twice makes a repeated user ->
+    # item edge; sums over such a layer go to the segment path, as the
+    # reference sends them to XLA, so K1 / K3 launch only where no layer
+    # repeats an edge.
+    repeats = [layer.repeats for chain in seg.graph.chains for layer in chain]
+    if not all(repeats) and not (launches["bitmap_spmm_sum"] and launches["bitmap_spmm_fused"]):
+        raise AssertionError(f"recsys_serve: K1 / K3 did not launch: {launches}")
+    want = seg.run(recsys_serve.example_queries(rng))
+    if K.LAUNCHES != launches:
+        raise AssertionError("the segment backend launched a kernel")
+    for qid, a in want.items():
+        if not np.allclose(got["answers"][qid], np.asarray(a), rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"recsys_serve: query {qid} differs from the segment path")
+    out = {"run_s": run_s, "launches": launches, "layers_with_repeated_edges": repeats,
+           "losses": got["losses"][::10], "served": got["served"], "edges": got["edges"]}
+    log(f"recsys_serve on the card: {json.dumps(out)}")
+    return out
+
+
+def training_phase(args) -> tuple:
+    """Phase 9: K4's training rows, then glm4-9b, SASRec, the GNNs and
+    the recsys launcher.  Returns the record and K4's lse rows (their
+    launches are the glm4-9b and SASRec training runs')."""
+    import torch
+
+    from repro_torch.configs import sasrec as sasrec_cfg
+
+    t0 = time.perf_counter()
+    rec = {"lm": lm_training(args)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["sasrec"] = rec_training(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["gnn"] = gnn_training(args)
+    rec["recsys_serve"] = recsys_part(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    from repro_torch.configs import glm4_9b
+
+    lm = glm4_9b.CONFIG
+    T = 4096
+    rows = [k4_lse_row("flash_attention_prefill_lse", randn(1, T, lm.n_heads, 128),
+                       randn(1, T, lm.n_kv_heads, 128), randn(1, T, lm.n_kv_heads, 128),
+                       rec["lm"]["k4_launches"]["flash_attention_prefill_lse"], args.reps)]
+    rc = sasrec_cfg.CONFIG
+    B = 65_536
+    v = randn(B, rc.seq_len, 1, rc.d)
+    # A SASRec row averages at most 50 keys, so its output keeps |v|'s
+    # size (up to ~6 here) where glm4's late rows average thousands: a p
+    # whose bf16 rounding flips between the kernel's exp2 and the plain
+    # exp moves the output by up to one bf16 step of p (2^-8 relative)
+    # times max |v|, which K4_BF16_ATOL (set at glm4's shape) undercounts.
+    # A dropped key tile here changes a whole row by O(|v|).
+    rows.append(k4_lse_row("flash_attention_prefill_lse_sasrec",
+                           randn(B, rc.seq_len, 1, rc.d), randn(B, rc.seq_len, 1, rc.d), v,
+                           rec["sasrec"]["train"]["k4_launches"]["flash_attention_prefill_lse"],
+                           args.reps, atol=2.0 ** -8 * float(v.float().abs().max())))
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"training phase: {rec['phase_s']:.1f} s")
+    return rec, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--authors", type=int, default=50_000)
@@ -2885,7 +3476,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm = lm_phase(args)
     rows += lm.pop("kernels")
-    record.update({"card": card, "lm": lm, "args": vars(args), "kernels": rows})
+    gc.collect()
+    torch.cuda.empty_cache()
+    training, train_rows = training_phase(args)
+    rows += train_rows
+    record.update({"card": card, "lm": lm, "training": training, "args": vars(args),
+                   "kernels": rows})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,19 +1,80 @@
-"""Data pipelines: the graph side's sharded host -> device build.
+"""Data pipelines: synthetic corpora and batches, and the graph side's
+sharded host -> device build.
+
+A port of the JAX package's ``data/pipeline.py``.  :class:`TokenPipeline`
+draws a Zipf-token corpus deterministically per ``(seed, shard)`` so
+every data-parallel process draws a disjoint stream, byte for byte the
+reference's batches (NumPy draws them in both packages);
+:meth:`TokenPipeline.device_iter` hands them over as tensors on a device.
+:func:`sasrec_batches` and :func:`gnn_batch` are the other families'
+batches.
 
 :func:`sharded_extract_to_device` (DESIGN.md §7): relational catalog ->
 budgeted sharded extraction -> device graph, with the per-layer bitmap
 packing also done shard-at-a-time so no stage of the host pipeline
 materializes an unbounded transient.
-
-The JAX package's module also holds the LM and recommender batch
-pipelines (``TokenPipeline``, ``sasrec_batches``, ``gnn_batch``); they
-wait for the port's models (ROADMAP.md, Queue 1 item 2).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Iterator, Optional
 
-__all__ = ["sharded_extract_to_device"]
+import numpy as np
+import torch
+
+__all__ = ["TokenPipeline", "sasrec_batches", "gnn_batch", "sharded_extract_to_device"]
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    shard_index: int = 0
+    num_shards: int = 1
+    zipf_a: float = 1.3
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.shard_index])
+        )
+        batch = self.global_batch // self.num_shards
+        while True:
+            toks = rng.zipf(self.zipf_a, size=(batch, self.seq_len + 1))
+            toks = (toks - 1) % self.vocab_size
+            # structure: repeat bigrams so the model has signal to learn
+            toks[:, 2::3] = toks[:, 1:-1:3]
+            yield {
+                "tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32),
+            }
+
+    def device_iter(self, device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+        for batch in self:
+            yield {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def sasrec_batches(
+    n_items: int, seq_len: int, batch: int, seed: int = 0
+) -> Iterator[Dict[str, np.ndarray]]:
+    rng = np.random.default_rng(seed)
+    while True:
+        seqs = rng.integers(1, n_items, size=(batch, seq_len), dtype=np.int64)
+        pos = np.roll(seqs, -1, axis=1)
+        pos[:, -1] = rng.integers(1, n_items, size=batch)
+        neg = rng.integers(1, n_items, size=(batch, seq_len), dtype=np.int64)
+        yield {
+            "seqs": seqs.astype(np.int32),
+            "pos": pos.astype(np.int32),
+            "neg": neg.astype(np.int32),
+        }
+
+
+def gnn_batch(graph, target: np.ndarray) -> Dict:
+    """A GNN train batch: ``graph`` (a :class:`~repro_torch.models.gnn.GraphBatch`)
+    and ``target`` as a tensor on the graph's device."""
+    return {"graph": graph, "target": torch.as_tensor(target, device=graph.nodes.device)}
 
 
 def sharded_extract_to_device(

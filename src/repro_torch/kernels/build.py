@@ -55,11 +55,11 @@ LIBRARIES = {
     ),
     "flash_attention": (
         "flash_attention.cu",
-        {"flash_attention_launch": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
+        {"flash_attention_launch": [_P] * 6 + [_I] * 8 + [_F, _I, _P]},
     ),
     "flash_prefill": (
         "flash_prefill.cu",
-        {"flash_prefill_launch": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
+        {"flash_prefill_launch": [_P] * 6 + [_I] * 8 + [_F, _I, _P]},
     ),
     "flash_decode": (
         "flash_decode.cu",

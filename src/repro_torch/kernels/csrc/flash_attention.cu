@@ -20,7 +20,10 @@
 //   out[b, t, h]  = sum_j softmax(s)[j] * v[b, j, h / G]
 // in float32 throughout, the output acc / max(l, 1e-20).  A row whose
 // every key is masked gives 0.  Keys at or past kv_length are never read,
-// so a ragged key tail needs no padding.
+// so a ragged key tail needs no padding.  On request (the training
+// forward) it also writes each row's log-sum-exp lse = m + ln(l), fp32,
+// +inf for a row whose every key is masked.  The launcher walks the batch
+// in chunks of 65,535 rows (CUDA's cap on grid.z).
 //
 // What bounds it on the H100: prefill is bound by operations (float32 at
 // 67 TFLOP/s outside the tensor cores), decode by bytes.  What it does:
@@ -52,6 +55,7 @@ constexpr int RPT = 4;                // rows per thread  (16 row groups x 4 = R
 constexpr int KPT = BKV / 16;         // keys per thread  (16 lanes x 2 = BKV)
 constexpr int PS = BKV + 4;           // row stride of the P tile
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_GRID_Z = 65535;     // batch rows per launch
 
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
@@ -79,8 +83,9 @@ constexpr size_t smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, const int32_t* __restrict__ kv_length, int Tq, int Tk, int H,
-    int KV, int D, int G, int bq, int q_offset, int causal, float scale) {
+    float* __restrict__ o, float* __restrict__ lse, const int32_t* __restrict__ kv_length,
+    int Tq, int Tk, int H, int KV, int D, int G, int bq, int q_offset, int causal,
+    float scale) {
   constexpr int QS = DP + 4;          // row stride of the Q and K tiles
   constexpr int NC = DP / 64;         // float4 accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -228,8 +233,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
     const int t = t0 + r / G;
     if (r >= rows || t >= Tq) continue;
     const float den = fmaxf(l[i], 1e-20f);
-    const int h = kvh * G + r % G;
-    float* out = o + ((b * Tq + t) * H + h) * D;
+    const int64_t row = (b * Tq + t) * H + kvh * G + r % G;
+    if (lse != nullptr && tx == 0) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
+    float* out = o + row * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const float vals[4] = {acc[i][c].x, acc[i][c].y, acc[i][c].z, acc[i][c].w};
@@ -243,9 +249,9 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, const int32_t* kv_length,
-           int B, int Tq, int Tk, int H, int KV, int D, int q_offset, int causal,
-           float scale, int device, cudaStream_t st) {
+int launch(const float* q, const float* k, const float* v, float* o, float* lse,
+           const int32_t* kv_length, int B, int Tq, int Tk, int H, int KV, int D, int q_offset,
+           int causal, float scale, int device, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DP>();
   // The shared-memory limit is a per-device attribute of the kernel: set
   // it at the first launch on each device, not at every launch.
@@ -260,23 +266,31 @@ int launch(const void* q, const void* k, const void* v, void* o, const int32_t* 
   }
   const int G = H / KV;
   const int bq = ROWS / G;
-  const dim3 grid((Tq + bq - 1) / bq, KV, B);
-  flash_attention_kernel<DP><<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), kv_length, Tq, Tk, H, KV, D, G, bq, q_offset, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  for (int64_t b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+    const int nb = static_cast<int>(B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z);
+    const dim3 grid((Tq + bq - 1) / bq, KV, nb);
+    flash_attention_kernel<DP><<<grid, THREADS, smem, st>>>(
+        q + b0 * Tq * H * D, k + b0 * Tk * KV * D, v + b0 * Tk * KV * D, o + b0 * Tq * H * D,
+        lse != nullptr ? lse + b0 * Tq * H : nullptr,
+        kv_length != nullptr ? kv_length + b0 : nullptr, Tq, Tk, H, KV, D, G, bq, q_offset,
+        causal, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace flash_attention
 
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
 // q and o are contiguous float32 (B, Tq, H, D), k and v contiguous float32
-// (B, Tk, KV, D); kv_length is a device array of B int32 or null (every
-// key valid).  Needs H % KV == 0, H / KV <= 64 and 0 < D <= 128.
+// (B, Tk, KV, D); lse is a device array of B * Tq * H float32, or null (not
+// written); kv_length is a device array of B int32 or null (every key
+// valid).  Needs H % KV == 0, H / KV <= 64 and 0 < D <= 128.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const int32_t* kv_length, int B, int Tq, int Tk, int H,
-                                      int KV, int D, int q_offset, int causal, float scale,
-                                      int device, void* stream) {
+                                      void* lse, const int32_t* kv_length, int B, int Tq,
+                                      int Tk, int H, int KV, int D, int q_offset, int causal,
+                                      float scale, int device, void* stream) {
   using namespace flash_attention;
   if (KV <= 0 || H % KV != 0 || H / KV > ROWS || D <= 0 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -287,8 +301,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     if (set != cudaSuccess) return static_cast<int>(set);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch<64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset, causal,
-                              scale, device, st)
-                 : launch<128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset, causal,
-                               scale, device, st);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  auto* lf = static_cast<float*>(lse);
+  return D <= 64 ? launch<64>(qf, kf, vf, of, lf, kv_length, B, Tq, Tk, H, KV, D, q_offset,
+                              causal, scale, device, st)
+                 : launch<128>(qf, kf, vf, of, lf, kv_length, B, Tq, Tk, H, KV, D, q_offset,
+                               causal, scale, device, st);
 }

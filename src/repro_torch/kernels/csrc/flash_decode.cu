@@ -31,7 +31,8 @@
 // key and value once per kv head (33.6 MB for 8 slots over ~4100 keys at
 // glm4-9b's shape), so bytes bound it (~0.010 ms at 3.35 TB/s).  What the
 // design does about it:
-//  * split-KV: the grid is (n_split, KV x ceil(G / 16), B), n_split
+//  * split-KV: the grid is (n_split, KV x ceil(G / 16), B) (B in chunks
+//    of 65,535, CUDA's cap on grid.z), n_split
 //    chosen by the wrapper from the cache's static length Tk (never from
 //    kv_length, which would need a device sync) so that the grid holds at
 //    least two blocks per SM at the main path's shape (352 blocks for 8
@@ -66,6 +67,7 @@ constexpr int WARPS = 4;              // each scores and multiplies 16 keys of a
 constexpr int THREADS = 32 * WARPS;
 constexpr int NK = BKV / WARPS;
 constexpr int COMBINE_THREADS = 128;  // one per output dim (D <= 128)
+constexpr int MAX_GRID_Z = 65535;     // batch rows per launch of the split kernel
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -275,12 +277,23 @@ int launch(const void* q, const void* k, const void* v, const int32_t* kv_length
   }
   const int G = H / KV;
   const int n_chunks = (G + ROWS - 1) / ROWS;
-  const dim3 grid(n_split, KV * n_chunks, B);
-  flash_decode_kernel<DP><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), kv_length, part_o, part_m, part_l, Tk, H, KV, D, G,
-      n_chunks, split_keys, n_split, q_offset, causal, vec ? 1 : 0, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  // CUDA caps grid.z at 65,535: walk the batch in chunks of that many rows
+  for (int64_t b0 = 0; b0 < B; b0 += MAX_GRID_Z) {
+    const int nb = static_cast<int>(B - b0 < MAX_GRID_Z ? B - b0 : MAX_GRID_Z);
+    const int64_t part = b0 * H * n_split;
+    const dim3 grid(n_split, KV * n_chunks, nb);
+    flash_decode_kernel<DP><<<grid, THREADS, smem, st>>>(
+        qb + b0 * H * D, kb + b0 * Tk * KV * D, vb + b0 * Tk * KV * D,
+        kv_length != nullptr ? kv_length + b0 : nullptr, part_o + part * D, part_m + part,
+        part_l + part, Tk, H, KV, D, G, n_chunks, split_keys, n_split, q_offset, causal,
+        vec ? 1 : 0, scale_log2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace flash_decode

@@ -19,6 +19,16 @@
 // acc / max(l, 1e-20) cast once to bf16.  A row whose every key is masked
 // gives 0.  Keys at or past kv_length are never read.
 //
+// Training (the JAX package's _flash_train forward) also asks for the
+// row's log-sum-exp: lse[b, t, h] = m + ln(l) in natural log, fp32, and
+// +inf for a row whose every key is masked (layers.py's convention, so
+// that the backward's recomputed p is 0 there).  The kernel keeps m in
+// the base-2 domain (m2 = max_j s * scale * log2 e), so it writes
+// m2 * ln 2 + ln(l).  A null lse writes nothing.
+//
+// CUDA caps grid.y at 65,535: the launcher walks the batch in chunks of
+// that many rows (SASRec's bulk scoring runs 262,144).
+//
 // What bounds it on the H100: at glm4-9b's 4096-token prefill the causal
 // half is ~137 GFLOP per layer against ~6 MB of q/k/v/out, so operations
 // bound it (0.139 ms at 989 TFLOP/s bf16).  What the design does about it
@@ -46,6 +56,7 @@
 
 #include "flash_mma.cuh"
 
+#include <algorithm>
 #include <atomic>
 
 namespace flash_prefill {
@@ -56,6 +67,8 @@ constexpr int WARPS = 4;
 constexpr int MT = 2;                 // m-tiles of 16 rows per warp
 constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 16 * MT * WARPS; // query rows (position x head of the group) per block
+constexpr int MAX_GRID_Y = 65535;     // batch rows per launch
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -66,7 +79,8 @@ template <int DP>
 __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    const int32_t* __restrict__ kv_length, int Tq, int Tk, int H, int KV, int D, int G,
+    float* __restrict__ lse, const int32_t* __restrict__ kv_length, int Tq, int Tk, int H,
+    int KV, int D, int G,
     int bq, int n_qtiles, int q_offset, int causal, int vec, float scale_log2) {
   using T = Tile<DP>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -152,10 +166,14 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = row0 + 16 * mt + g + 8 * i;
-      const float den = fmaxf(st.row_sum(mt, i), 1e-20f);
+      const float l = st.row_sum(mt, i);
+      const float den = fmaxf(l, 1e-20f);
       const int t = t0 + r / G;
       if (r >= rows || t >= Tq) continue;
-      __nv_bfloat16* out = o + ((b * Tq + t) * H + kvh * G + r % G) * D;
+      const int64_t row = (b * Tq + t) * H + kvh * G + r % G;
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[row] = l > 0.f ? st.m[mt][i] * LN2 + logf(l) : INFINITY;
+      __nv_bfloat16* out = o + row * D;
 #pragma unroll
       for (int n = 0; n < T::ONT; ++n) {
         const int d = 8 * n + 2 * (lane & 3);
@@ -172,9 +190,10 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, const int32_t* kv_length,
-           int B, int Tq, int Tk, int H, int KV, int D, int q_offset, int causal, bool vec,
-           float scale_log2, int device, cudaStream_t st) {
+int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+           __nv_bfloat16* o, float* lse, const int32_t* kv_length, int B, int Tq, int Tk, int H,
+           int KV, int D, int q_offset, int causal, bool vec, float scale_log2, int device,
+           cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DP>();
   // The shared-memory limit is a per-device attribute of the kernel: set
   // it at the first launch on each device, not at every launch.
@@ -190,25 +209,31 @@ int launch(const void* q, const void* k, const void* v, void* o, const int32_t* 
   const int G = H / KV;
   const int bq = ROWS / G;
   const int n_qtiles = (Tq + bq - 1) / bq;
-  const dim3 grid(n_qtiles * KV, B);
-  flash_prefill_kernel<DP><<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), kv_length, Tq, Tk,
-      H, KV, D, G, bq, n_qtiles, q_offset, causal, vec ? 1 : 0, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  for (int64_t b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    const dim3 grid(n_qtiles * KV, static_cast<unsigned>(std::min<int64_t>(MAX_GRID_Y, B - b0)));
+    flash_prefill_kernel<DP><<<grid, THREADS, smem, st>>>(
+        q + b0 * Tq * H * D, k + b0 * Tk * KV * D, v + b0 * Tk * KV * D, o + b0 * Tq * H * D,
+        lse != nullptr ? lse + b0 * Tq * H : nullptr,
+        kv_length != nullptr ? kv_length + b0 : nullptr, Tq, Tk, H, KV, D, G, bq, n_qtiles,
+        q_offset, causal, vec ? 1 : 0, scale_log2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace flash_prefill
 
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
 // q and o are contiguous bf16 (B, Tq, H, D), k and v contiguous bf16
-// (B, Tk, KV, D); kv_length is a device array of B int32 or null (every
-// key valid).  Needs H % KV == 0, H / KV <= 128 and 0 < D <= 128.
-// scale_log2 is the softmax scale times log2(e).
+// (B, Tk, KV, D); lse is a device array of B * Tq * H fp32, or null (not
+// written); kv_length is a device array of B int32 or null (every key
+// valid).  Needs H % KV == 0, H / KV <= 128 and 0 < D <= 128.  scale_log2
+// is the softmax scale times log2(e).
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
-                                    const int32_t* kv_length, int B, int Tq, int Tk, int H,
-                                    int KV, int D, int q_offset, int causal, float scale_log2,
-                                    int device, void* stream) {
+                                    void* lse, const int32_t* kv_length, int B, int Tq, int Tk,
+                                    int H, int KV, int D, int q_offset, int causal,
+                                    float scale_log2, int device, void* stream) {
   using namespace flash_prefill;
   if (KV <= 0 || H % KV != 0 || H / KV > ROWS || D <= 0 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -222,8 +247,13 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
   const bool vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  return D <= 64 ? launch<64>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset, causal,
-                              vec, scale_log2, device, st)
-                 : launch<128>(q, k, v, o, kv_length, B, Tq, Tk, H, KV, D, q_offset, causal,
-                               vec, scale_log2, device, st);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  auto* lf = static_cast<float*>(lse);
+  return D <= 64 ? launch<64>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D, q_offset,
+                              causal, vec, scale_log2, device, st)
+                 : launch<128>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D, q_offset,
+                               causal, vec, scale_log2, device, st);
 }

@@ -24,12 +24,26 @@ float32, any shape        ``csrc/flash_attention.cu``: CUDA-core fp32
                           (TF32 tensor cores cannot hold 2e-5)
 ========================  ==============================================
 
+Training (no cache: ``q_offset == 0``, ``kv_length is None``, and some
+of ``q``, ``k``, ``v`` requiring grad, under grad mode) goes through
+:class:`FlashAttentionFn`, the counterpart of the reference's custom-VJP
+``layers._flash_train``: its forward launches the same kernels with a
+log-sum-exp output (``lse``, natural log, ``+inf`` on a row whose every
+key is masked), and its backward is the reference's
+``_flash_train_bwd`` in plain PyTorch (:func:`flash_attention_backward_plain`,
+which recomputes ``p`` block by block from ``lse``; the reference's
+backward is XLA code, not a Pallas kernel).  A call with a cache that
+requires grad raises: no call goes through a kernel without autograd.
+
 ``LAUNCHES['flash_attention']`` counts wrapper calls on the card, one
 per attention call; ``flash_attention_prefill``, ``_decode``,
-``_combine`` and ``_f32`` count each kernel's launches.  A call of a
-plain version on a CUDA tensor (a comparison, never the wrapper) adds
-one to ``PLAIN_CUDA_CALLS`` instead, so a run can show that its
-attention went through the kernels.
+``_combine`` and ``_f32`` count each kernel's launches, and
+``_prefill_lse`` / ``_f32_lse`` the launches that also write ``lse``
+(training's forward).  A call of a plain forward on a CUDA tensor (a
+comparison, never the wrapper) adds one to
+``PLAIN_CUDA_CALLS['flash_attention']`` instead, so a run can show that
+its attention went through the kernels; each plain backward on the card
+adds one to ``PLAIN_CUDA_CALLS['flash_attention_backward']``.
 
 Numbers: scores and softmax sums in float32, ``p`` rounded to the value
 type before the P·V product, the output ``acc / max(l, 1e-20)`` cast to
@@ -50,14 +64,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.profiler
 
 __all__ = [
     "LAUNCHES",
     "PLAIN_CUDA_CALLS",
     "reset_launch_counts",
     "decode_split",
+    "FlashAttentionFn",
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_backward_plain",
     "flash_attention_split_plain",
 ]
 
@@ -68,10 +85,12 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_decode": 0,
     "flash_attention_combine": 0,
     "flash_attention_f32": 0,
+    "flash_attention_prefill_lse": 0,
+    "flash_attention_f32_lse": 0,
 }
-# plain-version calls on CUDA tensors (comparisons only; the wrapper never
-# makes one)
-PLAIN_CUDA_CALLS: Dict[str, int] = {"flash_attention": 0}
+# plain forwards on CUDA tensors (comparisons only; the wrapper never makes
+# one), and plain backwards on CUDA tensors (every training step's)
+PLAIN_CUDA_CALLS: Dict[str, int] = {"flash_attention": 0, "flash_attention_backward": 0}
 
 _MAX_GROUP = 64      # query heads per kv head
 _MAX_HEAD_DIM = 128
@@ -190,9 +209,12 @@ def flash_attention_plain(
     kv_length: Optional[torch.Tensor] = None,
     block_q: int = 512,
     block_kv: int = 1024,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch K4: a port of the reference's ``_flash_impl`` (padded
-    blocks, online softmax ``(acc, m, l)`` over key blocks in order)."""
+    blocks, online softmax ``(acc, m, l)`` over key blocks in order).
+    With ``return_lse``, also each row's log-sum-exp ``m + log(l)``,
+    float32 ``(B, Tq, H)``, ``+inf`` where every key is masked."""
     _check(q, k, v, kv_length)
     if q.is_cuda:
         PLAIN_CUDA_CALLS["flash_attention"] += 1
@@ -210,15 +232,93 @@ def flash_attention_plain(
     scale = 1.0 / math.sqrt(D)
     dev = q.device
     kv_valid = _kv_valid(kv_length, B, Tk, dev)
-    blocks = []
+    blocks, lses = [], []
     for qi in range(nq):
         q_pos = q_offset + qi * bq + torch.arange(bq, device=dev)
-        acc, _, l = _partials(qg[:, qi].float(), q_pos, k, v, kv_valid, causal, scale,
+        acc, m, l = _partials(qg[:, qi].float(), q_pos, k, v, kv_valid, causal, scale,
                               0, k.shape[1], bkv)
         out = acc / torch.clamp(l[..., None], min=1e-20)
         blocks.append(out.to(q.dtype))
-    out = torch.stack(blocks, dim=1).reshape(B, nq * bq, H, D)
-    return out[:, :Tq]
+        if return_lse:
+            lses.append(torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                                    float("inf")))
+    out = torch.stack(blocks, dim=1).reshape(B, nq * bq, H, D)[:, :Tq]
+    if not return_lse:
+        return out
+    return out, torch.stack(lses, dim=1).reshape(B, nq * bq, H)[:, :Tq]
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor,             # (B, Tq, H, D)
+    k: torch.Tensor,             # (B, Tk, KV, D)
+    v: torch.Tensor,
+    out: torch.Tensor,           # (B, Tq, H, D), the forward's output
+    lse: torch.Tensor,           # (B, Tq, H) float32, the forward's log-sum-exp
+    do: torch.Tensor,            # (B, Tq, H, D), the output's gradient
+    *,
+    causal: bool = True,
+    block_q: int = 512,
+    block_kv: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of attention without a cache: a port of the
+    reference's ``_flash_train_bwd``.  ``p`` is recomputed per
+    ``(block_q, block_kv)`` block from ``lse`` (nothing quadratic is
+    saved), ``delta = rowsum(do * out)``, everything in float32 over the
+    reference's padding, and the gradients cast to the inputs' dtypes.
+    Under ``causal``, a key block that starts past the query block's last
+    position is skipped: the reference adds exact zeros there."""
+    if q.is_cuda:
+        PLAIN_CUDA_CALLS["flash_attention_backward"] += 1
+    B, Tq, H, D = q.shape
+    _, Tk, KV, _ = k.shape
+    G = H // KV
+    bq = min(block_q, Tq)
+    bkv = min(block_kv, Tk)
+    pad_q = (-Tq) % bq
+    dev = q.device
+
+    def pad_rows(t, value=0.0):
+        return F.pad(t, (0, 0, 0, 0, 0, pad_q), value=value) if pad_q else t
+
+    nq = (Tq + pad_q) // bq
+    qg = pad_rows(q).reshape(B, nq, bq, KV, G, D)
+    dog = pad_rows(do).reshape(B, nq, bq, KV, G, D)
+    outg = pad_rows(out).reshape(B, nq, bq, KV, G, D)
+    lseg = pad_rows(lse.reshape(B, Tq, KV, G), float("inf")).reshape(B, nq, bq, KV, G)
+    kp, vp = _pad_keys(k, v, bkv)
+    Tk_p = kp.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.empty((B, nq, bq, KV, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Tk_p, KV, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Tk_p, KV, D), dtype=torch.float32, device=dev)
+    for qi in range(nq):
+        qb = qg[:, qi].float()
+        dob = dog[:, qi].float()
+        lseb = lseg[:, qi]
+        deltab = (dob * outg[:, qi].float()).sum(dim=-1)
+        q_pos = qi * bq + torch.arange(bq, device=dev)
+        dqb = torch.zeros((B, bq, KV, G, D), dtype=torch.float32, device=dev)
+        for k0 in range(0, Tk_p, bkv):
+            if causal and k0 > qi * bq + bq - 1:
+                break
+            kb = kp[:, k0:k0 + bkv].float()
+            vb = vp[:, k0:k0 + bkv].float()
+            s = torch.einsum("bqkgd,bskd->bqkgs", qb, kb) * scale
+            kv_pos = k0 + torch.arange(bkv, device=dev)
+            mask = (kv_pos < Tk)[None, :]                         # padding keys
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos[:, None])  # (bq, bkv)
+            s = torch.where(mask[None, :, None, None, :], s, float("-inf"))
+            p = torch.exp(s - lseb[..., None])        # rows with lse = inf give 0
+            p = torch.where(torch.isneginf(s), 0.0, p)
+            dp = torch.einsum("bqkgd,bskd->bqkgs", dob, vb)
+            ds = p * (dp - deltab[..., None])
+            dqb = dqb + scale * torch.einsum("bqkgs,bskd->bqkgd", ds, kb)
+            dk[:, k0:k0 + bkv] += scale * torch.einsum("bqkgs,bqkgd->bskd", ds, qb)
+            dv[:, k0:k0 + bkv] += torch.einsum("bqkgs,bqkgd->bskd", p, dob)
+        dq[:, qi] = dqb
+    dq = dq.reshape(B, nq * bq, H, D)[:, :Tq].to(q.dtype)
+    return dq, dk[:, :Tk].to(k.dtype), dv[:, :Tk].to(v.dtype)
 
 
 def flash_attention_split_plain(
@@ -265,32 +365,12 @@ def flash_attention_split_plain(
     return out.to(q.dtype).reshape(B, Tq, H, D)
 
 
-def flash_attention(
-    q: torch.Tensor,             # (B, Tq, H, D)
-    k: torch.Tensor,             # (B, Tk, KV, D)
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    q_offset: int = 0,
-    kv_length: Optional[torch.Tensor] = None,
-    block_q: int = 512,
-    block_kv: int = 1024,
-) -> torch.Tensor:
-    """Blockwise GQA attention, ``(B, Tq, H, D)`` in ``q.dtype``; never
-    materializes ``(Tq, Tk)``.  Query head ``h`` reads kv head ``h // G``.
-
-    ``q_offset``: absolute position of ``q[:, 0]`` (the cache length at
-    prefill).  ``kv_length``: ``(B,)`` valid key prefix per batch row, or
-    ``None`` for all ``Tk`` keys.  A CPU tensor runs
-    :func:`flash_attention_plain`; a CUDA tensor (float32 or bfloat16,
-    contiguous, ``D <= 128``, ``H / KV <= 64``) launches the K4 kernel its
-    dtype and shape select (see the module docstring)."""
-    _check(q, k, v, kv_length)
-    if q.device.type == "cpu":
-        return flash_attention_plain(
-            q, k, v, causal=causal, q_offset=q_offset, kv_length=kv_length,
-            block_q=block_q, block_kv=block_kv,
-        )
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset: int,
+            kv_length: Optional[torch.Tensor], with_lse: bool):
+    """Launch the K4 kernel that ``q``'s dtype and shape select, on the
+    current stream; returns ``(out, lse or None)``.  ``with_lse`` (the
+    training forward) also writes the float32 ``(B, Tq, H)`` log-sum-exp,
+    through the prefill kernel in bf16 whatever ``Tq``."""
     if q.device.type != "cuda":
         raise ValueError(f"q lies on {q.device}: only cpu and cuda are served")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -320,19 +400,23 @@ def flash_attention(
         LAUNCHES[kernel] += 1
 
     o = torch.empty_like(q)
+    lse = (torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    suffix = "_lse" if with_lse else ""
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     scale = 1.0 / math.sqrt(D)
     common = (B, Tq, Tk, H, KV, D, int(q_offset), int(bool(causal)))
     if q.dtype == torch.float32:
         check(load("flash_attention").flash_attention_launch(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lengths), *common, scale, dev, stream,
-        ), "flash_attention_f32")
-    elif Tq > 1:
-        check(load("flash_prefill").flash_prefill_launch(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lengths), *common, scale * _LOG2E, dev,
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common, scale, dev,
             stream,
-        ), "flash_attention_prefill")
+        ), "flash_attention_f32" + suffix)
+    elif Tq > 1 or with_lse:  # the decode kernel writes no lse
+        check(load("flash_prefill").flash_prefill_launch(
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common, scale * _LOG2E,
+            dev, stream,
+        ), "flash_attention_prefill" + suffix)
     else:
         lib = load("flash_decode")
         pairs = B * KV * -(-G // _DECODE_ROWS)
@@ -351,4 +435,72 @@ def flash_attention(
             part_o, part_m, part_l, ptr(o), B * H, D, n_split, dev, stream,
         ), "flash_attention_combine")
     LAUNCHES["flash_attention"] += 1
-    return o
+    return o, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention without a cache under autograd: the port of the
+    reference's ``_flash_train`` custom VJP.  The forward runs K4 with its
+    ``lse`` output on a CUDA tensor (the plain version on a CPU one) and
+    saves ``(q, k, v, out, lse)``; the backward is
+    :func:`flash_attention_backward_plain` on either device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: int, block_kv: int):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
+                                             block_kv=block_kv, return_lse=True)
+        else:
+            out, lse = _launch(q, k, v, causal, 0, None, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, block_q, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, block_q, block_kv = ctx.blocks
+        with torch.profiler.record_function("repro_torch.flash_attention_backward"):
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, out, lse, do, causal=causal, block_q=block_q, block_kv=block_kv)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,             # (B, Tq, H, D)
+    k: torch.Tensor,             # (B, Tk, KV, D)
+    v: torch.Tensor,             # (B, Tk, KV, D)
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_length: Optional[torch.Tensor] = None,
+    block_q: int = 512,
+    block_kv: int = 1024,
+) -> torch.Tensor:
+    """Blockwise GQA attention, ``(B, Tq, H, D)`` in ``q.dtype``; never
+    materializes ``(Tq, Tk)``.  Query head ``h`` reads kv head ``h // G``.
+
+    ``q_offset``: absolute position of ``q[:, 0]`` (the cache length at
+    prefill).  ``kv_length``: ``(B,)`` valid key prefix per batch row, or
+    ``None`` for all ``Tk`` keys.  A CPU tensor runs
+    :func:`flash_attention_plain`; a CUDA tensor (float32 or bfloat16,
+    contiguous, ``D <= 128``, ``H / KV <= 64``) launches the K4 kernel its
+    dtype and shape select (see the module docstring).  A call without a
+    cache whose inputs require grad (grad mode on) goes through
+    :class:`FlashAttentionFn`, as the reference's ``train_path`` goes
+    through its custom VJP; a call with a cache that requires grad
+    raises."""
+    _check(q, k, v, kv_length)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if kv_length is not None or q_offset != 0:
+            raise ValueError(
+                "attention over a KV cache (q_offset > 0 or kv_length given) has no "
+                "backward: call it without grad, or without a cache to train"
+            )
+        return FlashAttentionFn.apply(q, k, v, causal, block_q, block_kv)
+    if q.device.type == "cpu":
+        return flash_attention_plain(
+            q, k, v, causal=causal, q_offset=q_offset, kv_length=kv_length,
+            block_q=block_q, block_kv=block_kv,
+        )
+    return _launch(q, k, v, causal, q_offset, kv_length, with_lse=False)[0]

@@ -1,24 +1,38 @@
-"""Neural building blocks of the LM serving path.
+"""Neural building blocks of the port's models.
 
 Ports of the JAX package's ``models/layers.py``, with its rounding points:
-``rms_norm`` normalizes in float32, casts to the input dtype and then
-multiplies by the weight in that dtype; ``rope`` rotates in float32 (a
-bf16 input times float32 cos/sin promotes, as in JAX) and casts once.
-:func:`flash_attention` is the K4 wrapper of
-:mod:`repro_torch.kernels.flash_attention`.  ``layer_norm``, ``mlp_*``,
-``embedding_bag`` and the training path's custom backward wait for the
-slices that run them (ROADMAP.md, Queue 1).
+``rms_norm`` and ``layer_norm`` normalize in float32, cast to the input
+dtype and then apply the weight (and bias) in that dtype; ``rope``
+rotates in float32 (a bf16 input times float32 cos/sin promotes, as in
+JAX) and casts once; ``mlp_apply`` casts each weight to the activation's
+dtype at use.  :func:`flash_attention` is the K4 wrapper of
+:mod:`repro_torch.kernels.flash_attention`, whose training route
+(:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`) carries
+the reference's custom backward.  :func:`embedding_bag` is gather +
+segment reduce; its sums go through ``index_add_``, which on the card
+adds in no fixed order (atomics), so a sum's last bits may change from
+run to run there.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from ..kernels.flash_attention import flash_attention
 
-__all__ = ["dense_init", "rms_norm", "rope", "flash_attention"]
+__all__ = [
+    "dense_init",
+    "rms_norm",
+    "layer_norm",
+    "gelu",
+    "mlp_init",
+    "mlp_apply",
+    "rope",
+    "flash_attention",
+    "embedding_bag",
+]
 
 
 def dense_init(
@@ -49,6 +63,53 @@ def rms_norm(
     return (x32 * torch.rsqrt(var + eps)).to(dtype) * weight.to(dtype)
 
 
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """Layer norm with float32 statistics (population variance), cast to
+    ``x.dtype``, then times ``weight`` plus ``bias`` in that dtype."""
+    dtype = x.dtype
+    x32 = x.float()
+    centered = x32 - torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return y.to(dtype) * weight.to(dtype) + bias.to(dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def mlp_init(
+    generator: torch.Generator,
+    dims: Sequence[int],
+    dtype: torch.dtype = torch.float32,
+    device: Optional[torch.device] = None,
+) -> Dict[str, torch.Tensor]:
+    """Plain MLP parameter stack for ``dims = [in, hidden..., out]``:
+    ``w{i}`` from :func:`dense_init`, ``b{i}`` zeros."""
+    params = {f"w{i}": dense_init(generator, dims[i], dims[i + 1], dtype, device=device)
+              for i in range(len(dims) - 1)}
+    params.update({f"b{i}": torch.zeros((dims[i + 1],), dtype=dtype, device=device)
+                   for i in range(len(dims) - 1)})
+    return params
+
+
+def mlp_apply(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    activation: Callable[[torch.Tensor], torch.Tensor] = gelu,
+    final_activation: bool = False,
+) -> torch.Tensor:
+    n = sum(1 for k in params if k.startswith("w"))
+    for i in range(n):
+        x = x @ params[f"w{i}"].to(x.dtype) + params[f"b{i}"].to(x.dtype)
+        if i < n - 1 or final_activation:
+            x = activation(x)
+    return x
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, llama split-half convention.
 
@@ -63,3 +124,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def embedding_bag(
+    table: torch.Tensor,         # (n_items, d)
+    indices: torch.Tensor,       # (n_lookups,)
+    segment_ids: torch.Tensor,   # (n_lookups,) -> bag id
+    num_bags: int,
+    mode: str = "sum",
+    weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Gather + segment reduce (``sum``, ``mean`` or ``max``; an empty bag
+    is 0), as the reference's ``embedding_bag``."""
+    rows = table[indices]
+    if weights is not None:
+        rows = rows * weights[:, None].to(rows.dtype)
+    d = rows.shape[1:]
+    if mode in ("sum", "mean"):
+        s = torch.zeros((num_bags, *d), dtype=rows.dtype, device=rows.device)
+        s.index_add_(0, segment_ids, rows)
+        if mode == "sum":
+            return s
+        n = torch.zeros((num_bags,), dtype=rows.dtype, device=rows.device)
+        n.index_add_(0, segment_ids, torch.ones_like(segment_ids, dtype=rows.dtype))
+        return s / torch.clamp(n, min=1.0)[:, None]
+    if mode == "max":
+        out = torch.full((num_bags, *d), float("-inf"), dtype=rows.dtype, device=rows.device)
+        idx = segment_ids.reshape(-1, *([1] * len(d))).expand_as(rows)
+        out = out.scatter_reduce(0, idx, rows, reduce="amax")
+        return torch.where(torch.isneginf(out), 0.0, out)
+    raise ValueError(mode)

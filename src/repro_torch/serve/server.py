@@ -169,7 +169,7 @@ class BatchedServer:
             v = self.cache.v[:, slot:slot + 1]
             k.zero_()
             v.zero_()
-            logits, _ = transformer.forward(
+            logits, _, _ = transformer.forward(
                 self.params, prompt, self.cfg, transformer.KVCache(k=k, v=v, length=0)
             )
             first = int(torch.argmax(logits[0, -1]))
@@ -194,7 +194,7 @@ class BatchedServer:
             k=self.cache.k, v=self.cache.v, length=self._active_length()
         )
         with torch.inference_mode():
-            logits, _ = transformer.forward(
+            logits, _, _ = transformer.forward(
                 self.params, torch.from_numpy(tokens).to(self.device), self.cfg, cache
             )
             nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()

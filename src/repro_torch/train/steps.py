@@ -1,0 +1,262 @@
+"""Train and serve steps for the LM, GNN and SASRec families.
+
+A port of the JAX package's ``train/steps.py``.  A train step::
+
+    state = {"params": ..., "opt": ..., "step": int32 tensor}
+    state, metrics = step(state, batch)
+
+Features, as in the reference: microbatch gradient accumulation
+(``microbatches``: the batch split into ``B / mb`` slices along its first
+axis, gradients summed in ``accum_dtype`` and divided once, the loss
+averaged, the metrics of the last microbatch), optional int8
+error-feedback gradient compression (:mod:`repro_torch.distributed.compression`,
+its residuals under ``state["grad_err"]``), global-norm clipping, then the
+optimizer.
+
+Unlike the reference's pure step, the port's step updates ``state`` in
+place and returns it: gradients, then params and optimizer state, are
+replaced one leaf at a time, so that at glm4-9b's width the step holds
+params, moments and one gradient tree plus one leaf's transients, not two
+copies of the state.  The arithmetic is the reference's (the same float32
+operations in the same order per leaf).  Gradients come from
+``torch.autograd.grad`` on a detached, grad-requiring view of each param;
+nothing is traced or compiled.  ``param_axes`` (the reference's sharding
+constraint on gradients) is accepted and ignored: the port trains on one
+device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.profiler
+
+from ..configs.base import GNNConfig, RecsysConfig, TransformerConfig
+from ..distributed import compression
+from ..models import gnn, sasrec, transformer
+from .optimizer import (Optimizer, apply_update, clip_scale, global_norm, tree_get, tree_paths,
+                        tree_set)
+
+__all__ = [
+    "init_train_state",
+    "make_grad_fn",
+    "make_update_fn",
+    "lm_loss",
+    "build_lm_train_step",
+    "build_lm_prefill_step",
+    "build_lm_decode_step",
+    "gnn_loss",
+    "build_gnn_train_step",
+    "build_gnn_infer_step",
+    "sasrec_loss",
+    "build_sasrec_train_step",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def init_train_state(params, optimizer: Optimizer) -> Dict:
+    first = next(leaf for _, leaf in tree_paths(params))
+    return {
+        "params": params,
+        "opt": optimizer.init(params),
+        "step": torch.zeros((), dtype=torch.int32, device=first.device),
+    }
+
+
+def _split(batch, microbatches: int, i: int):
+    """Microbatch ``i`` of ``batch``: each tensor's first axis cut into
+    ``microbatches`` equal slices (a GNN batch's graph is shared)."""
+    if isinstance(batch, dict):
+        return {k: _split(v, microbatches, i) for k, v in batch.items()}
+    if not isinstance(batch, torch.Tensor):
+        return batch
+    n = batch.shape[0] // microbatches
+    return batch[i * n:(i + 1) * n]
+
+
+def make_grad_fn(
+    loss_fn: Callable,                  # (params, batch) -> (loss, metrics)
+    microbatches: int = 1,
+    accum_dtype: Optional[torch.dtype] = None,
+) -> Callable:
+    """``fn(params, batch) -> (loss, metrics, grads)``: the reference's
+    ``value_and_grad`` with its microbatch accumulation (gradients summed
+    in ``accum_dtype``, default float32, then divided once; the loss
+    averaged; the last microbatch's metrics)."""
+
+    def grads_of(params, batch):
+        paths = list(tree_paths(params))
+        leaves = [p.detach().requires_grad_() for _, p in paths]
+        tree: Dict = {}
+        for (path, _), leaf in zip(paths, leaves):
+            tree_set(tree, path, leaf)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(tree, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out: Dict = {}
+        for (path, p), g in zip(paths, grads):
+            tree_set(out, path, torch.zeros_like(p) if g is None else g)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
+
+    def fn(params, batch):
+        if microbatches == 1:
+            return grads_of(params, batch)
+        adt = accum_dtype or torch.float32
+        grads, loss = None, 0.0
+        for i in range(microbatches):
+            l, metrics, g = grads_of(params, _split(batch, microbatches, i))
+            if grads is None:
+                grads = {}
+                for path, leaf in tree_paths(g):
+                    tree_set(grads, path, torch.zeros(leaf.shape, dtype=adt, device=leaf.device))
+            for path, leaf in tree_paths(g):
+                tree_get(grads, path).add_(leaf.to(adt))
+            del g
+            loss = loss + l
+        for path, leaf in tree_paths(grads):
+            tree_set(grads, path, leaf / microbatches)
+        return loss / microbatches, metrics, grads
+
+    return fn
+
+
+def make_update_fn(
+    loss_fn: Callable,                  # (params, batch) -> (loss, metrics)
+    optimizer: Optimizer,
+    clip_norm: float = 1.0,
+    microbatches: int = 1,
+    compress_grads: bool = False,
+    accum_dtype: Optional[torch.dtype] = None,
+    param_axes=None,
+) -> Callable:
+    del param_axes  # one device: no sharding constraint
+    grad_fn = make_grad_fn(loss_fn, microbatches, accum_dtype)
+
+    def step(state, batch):
+        params = state["params"]
+        loss, metrics, grads = grad_fn(params, batch)
+        if compress_grads:
+            grads, state["grad_err"] = compression.compress_decompress(
+                grads, state.get("grad_err"))
+        with torch.profiler.record_function("repro_torch.optimizer_update"):
+            gnorm = global_norm(grads)
+            scale = clip_scale(gnorm, clip_norm)
+            opt = state["opt"]
+            ctx = optimizer.prepare(state["step"], params)
+            for path, g in tree_paths(grads):
+                g = g * scale.to(g.dtype)
+                sub = {key: tree_get(opt[key], path) for key in opt}
+                p = tree_get(params, path)
+                u, new = optimizer.leaf_update(path, g, sub, p, ctx)
+                tree_set(params, path, apply_update(p, u))
+                for key in opt:
+                    tree_set(opt[key], path, new[key])
+                tree_set(grads, path, None)
+                del g, u, new, sub, p
+        state["step"] = state["step"] + 1
+        metrics = dict(metrics)
+        metrics.update({"loss": loss, "grad_norm": gnorm})
+        return state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, batch: Dict, cfg: TransformerConfig):
+    logits, _, aux = transformer.forward(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    labels_safe = torch.clamp(labels, min=0).to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def build_lm_train_step(
+    cfg: TransformerConfig,
+    optimizer: Optimizer,
+    clip_norm: float = 1.0,
+    compress_grads: bool = False,
+) -> Callable:
+    return make_update_fn(
+        lambda p, b: lm_loss(p, b, cfg),
+        optimizer,
+        clip_norm=clip_norm,
+        microbatches=cfg.microbatches,
+        compress_grads=compress_grads,
+        accum_dtype=_DTYPES[cfg.grad_accum_dtype],
+    )
+
+
+def build_lm_prefill_step(cfg: TransformerConfig, max_len: int) -> Callable:
+    def prefill(params, tokens):
+        cache = transformer.init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+        logits, cache, _ = transformer.forward(params, tokens, cfg, cache)
+        return logits[:, -1], cache
+
+    return prefill
+
+
+def build_lm_decode_step(cfg: TransformerConfig) -> Callable:
+    def decode(params, cache, token):
+        logits, cache, _ = transformer.forward(params, token, cfg, cache)
+        return logits[:, -1], cache
+
+    return decode
+
+
+# ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
+
+def gnn_loss(params, batch: Dict, cfg: GNNConfig):
+    g = batch["graph"]
+    out = gnn.forward(params, g, cfg)
+    target = batch["target"]
+    if target.dtype in (torch.int32, torch.int64):  # node classification
+        logp = torch.log_softmax(out.float(), dim=-1)
+        mask = (target >= 0).to(torch.float32)
+        ll = torch.gather(logp, -1, torch.clamp(target, min=0).long()[..., None])[..., 0]
+        loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:  # regression
+        err = (out.float() - target.float()) ** 2
+        if out.ndim == 2 and g.graph_ids is None:
+            err = err * g.node_mask[:, None].to(torch.float32)
+            loss = torch.sum(err) / torch.clamp(torch.sum(g.node_mask), min=1.0)
+        else:
+            loss = torch.mean(err)
+    return loss, {"mse_or_ce": loss}
+
+
+def build_gnn_train_step(
+    cfg: GNNConfig, optimizer: Optimizer, clip_norm: float = 1.0
+) -> Callable:
+    return make_update_fn(lambda p, b: gnn_loss(p, b, cfg), optimizer, clip_norm=clip_norm)
+
+
+def build_gnn_infer_step(cfg: GNNConfig) -> Callable:
+    def infer(params, graph):
+        return gnn.forward(params, graph, cfg)
+
+    return infer
+
+
+# ---------------------------------------------------------------------------
+# SASRec
+# ---------------------------------------------------------------------------
+
+def sasrec_loss(params, batch: Dict, cfg: RecsysConfig):
+    loss = sasrec.train_loss(params, batch["seqs"], batch["pos"], batch["neg"], cfg)
+    return loss, {"bce": loss}
+
+
+def build_sasrec_train_step(
+    cfg: RecsysConfig, optimizer: Optimizer, clip_norm: float = 1.0
+) -> Callable:
+    return make_update_fn(lambda p, b: sasrec_loss(p, b, cfg), optimizer, clip_norm=clip_norm)

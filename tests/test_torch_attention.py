@@ -215,7 +215,8 @@ def test_wrapper_counts_every_kernel_key_at_zero_on_cpu():
     K.flash_attention(q.float(), kv.float(), kv.float(), causal=False)
     assert set(K.LAUNCHES) == {"flash_attention", "flash_attention_prefill",
                                "flash_attention_decode", "flash_attention_combine",
-                               "flash_attention_f32"}
+                               "flash_attention_f32", "flash_attention_prefill_lse",
+                               "flash_attention_f32_lse"}
     assert not any(K.LAUNCHES.values()) and not any(K.PLAIN_CUDA_CALLS.values())
     with pytest.raises(ValueError, match="multiple of 64"):
         K.flash_attention_split_plain(q, kv, kv, split_keys=100)

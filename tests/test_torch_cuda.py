@@ -574,6 +574,127 @@ def test_cuda_k4_launches_one_kernel_route_per_call(card):
         assert FA.PLAIN_CUDA_CALLS["flash_attention"] == 0
 
 
+# ---------------------------------------------------------------------------
+# K4 on the training path: the lse output, the backward, batches past 65,535
+# ---------------------------------------------------------------------------
+
+# (B, T, H, KV, D, causal): glm4-9b's heads at D = 128, SASRec's one head at
+# D = 50 (the prefill kernel's element loads), GQA, not causal
+LSE_CASES = [
+    (1, 300, 32, 2, 128, True),
+    (4, 50, 1, 1, 50, True),
+    (2, 77, 6, 2, 50, True),
+    (2, 65, 4, 4, 128, False),
+]
+# lse is float32: the float32 kernel sums exactly as the plain version up to
+# order; the bf16 kernel's exp2 approximation and order move it by < 1e-3
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_k4_lse_matches_plain(card, full_fp32, case, dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    B, T, H, KV, D, causal = case
+    q, k, v = _qkv(T + D + H, B, T, T, H, KV, D, dtype)
+    before = dict(FA.LAUNCHES)
+    out, lse = FA._launch(q, k, v, causal, 0, None, with_lse=True)
+    route = "flash_attention_f32_lse" if dtype == torch.float32 else "flash_attention_prefill_lse"
+    assert FA.LAUNCHES[route] == before[route] + 1
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert lse.shape == (B, T, H) and lse.dtype == torch.float32
+    assert float((lse - want_lse).abs().max()) < LSE_TOL[dtype]
+    if dtype == torch.float32:
+        assert float((out - want).abs().max()) < FLASH_TOL[dtype]
+    else:
+        _within(out, want, BF16_ATOL)
+    # the same call without lse gives the same output
+    assert torch.equal(FA._launch(q, k, v, causal, 0, None, with_lse=False)[0], out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_k4_lse_is_inf_on_fully_masked_rows(card, dtype):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv(3, 2, 6, 40, 4, 2, 50, dtype)
+    lengths = torch.tensor([0, 17], dtype=torch.int32, device="cuda")
+    out, lse = FA._launch(q, k, v, False, 0, lengths, with_lse=True)
+    assert torch.isinf(lse[0]).all() and bool((lse[0] > 0).all())
+    assert float(out[0].abs().max()) == 0.0
+    _, want = FA.flash_attention_plain(q, k, v, causal=False, kv_length=lengths,
+                                       return_lse=True)
+    assert float((lse[1] - want[1]).abs().max()) < LSE_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", LSE_CASES[:3])
+def test_cuda_flash_backward_matches_cpu(card, full_fp32, case):
+    """The training route on the card (K4 with lse, then the plain backward
+    on the card) gives the CPU's gradients in float32; one prefill-with-lse
+    launch per forward, the plain forward never."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, T, H, KV, D, causal = case
+    q, k, v = _qkv(T * 3 + D, B, T, T, H, KV, D, torch.float32)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                     device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        FA.reset_launch_counts()
+        out = FA.flash_attention(*leaves, causal=causal, block_q=64, block_kv=128)
+        out.backward(do.to(dev))
+        grads[dev] = [out.detach()] + [t.grad for t in leaves]
+        if dev == "cuda":
+            assert FA.LAUNCHES["flash_attention_f32_lse"] == 1
+            assert FA.PLAIN_CUDA_CALLS == {"flash_attention": 0, "flash_attention_backward": 1}
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got.cpu() - want).abs().max()) < 1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_cuda_flash_backward_bf16_against_float32(card, full_fp32):
+    """glm4-9b's heads in bf16 through the training route: gradients within
+    bf16 round-off of the float32 route's."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv(21, 1, 256, 256, 32, 2, 128, torch.float32)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                     device="cuda")
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        FA.flash_attention(*leaves, causal=True).backward(do.to(dtype))
+        grads[dtype] = [t.grad.float() for t in leaves]
+    for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
+        assert float((got - want).abs().max()) < 0.05 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,Tq", [(torch.bfloat16, 50), (torch.float32, 50),
+                                      (torch.bfloat16, 1)], ids=["prefill", "f32", "decode"])
+def test_cuda_k4_launches_past_65535_batch_rows(card, full_fp32, dtype, Tq):
+    """SASRec's ``train_batch`` (65,536 sequences of 50, one head, D = 50):
+    every K4 kernel walks the batch in chunks of CUDA's 65,535 grid rows,
+    and the last row is computed like the first."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tk = 65_536, 50
+    q, k, v = _qkv(5, B, Tq, Tk, 1, 1, 50, dtype)
+    kw = dict(causal=Tq > 1, q_offset=Tk - Tq)
+    got = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rows = torch.tensor([0, 1, 65_534, 65_535], device="cuda")
+    want = FA.flash_attention_plain(q[rows], k[rows], v[rows], **kw)
+    if dtype == torch.float32:
+        assert float((got[rows] - want).abs().max()) < FLASH_TOL[dtype]
+    else:
+        _within(got[rows], want, BF16_ATOL)
+    if Tq > 1:
+        _, lse = FA._launch(q, k, v, True, 0, None, with_lse=True)
+        _, want_lse = FA.flash_attention_plain(q[rows], k[rows], v[rows], causal=True,
+                                               return_lse=True)
+        assert float((lse[rows] - want_lse).abs().max()) < LSE_TOL[dtype]
+
+
 def test_cuda_segment_sums_repeat_their_bits(packed):
     """The segment path sums in a fixed order on the card too: ``hits(30)``
     (1-D frontiers, segment path both ways, DEDUP-C subtraction) run twice

@@ -45,6 +45,13 @@ def test_slice_modules_are_all_listed():
         "repro_torch.launch.mesh", "repro_torch.launch.orchestrator",
         "repro_torch.launch.distributed_analytics", "repro_torch.train",
         "repro_torch.train.checkpoint", "repro_torch.configs.graphgen_paper",
+        "repro_torch.train.optimizer", "repro_torch.train.steps",
+        "repro_torch.models.sasrec", "repro_torch.models.gnn",
+        "repro_torch.data.graphs", "repro_torch.configs.sasrec",
+        "repro_torch.configs.meshgraphnet", "repro_torch.configs.graphcast",
+        "repro_torch.configs.schnet", "repro_torch.configs.dimenet",
+        "repro_torch.configs.shapes", "repro_torch.launch.train",
+        "repro_torch.launch.recsys_serve",
     ):
         assert name in MODULES
 

@@ -82,9 +82,13 @@ def test_configs_carry_the_reference_numbers(arch):
 
 
 def test_registry_rejects_unported_arch():
-    assert registry.list_archs() == ARCHS
+    assert registry.list_archs() == ARCHS + [
+        "meshgraphnet", "graphcast", "schnet", "dimenet", "sasrec"]
     with pytest.raises(KeyError, match="glm4-9b"):
         registry.get_arch("granite-moe-3b-a800m")
+    for arch in ("granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "llama3-405b"):
+        with pytest.raises(KeyError, match="Queue 1 item 1"):
+            registry.get_arch(arch)
 
 
 def test_moe_config_is_not_ported():
@@ -139,8 +143,8 @@ def test_forward_matches_jax_without_cache(arch, dtype):
     jcfg, jparams, cfg, params = _models(arch, dtype)
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12))
     want, _, _ = jtransformer.forward(jparams, jnp.asarray(toks, jnp.int32), jcfg)
-    got, cache = transformer.forward(params, torch.from_numpy(toks), cfg)
-    assert cache is None and got.dtype == torch.float32
+    got, cache, aux = transformer.forward(params, torch.from_numpy(toks), cfg)
+    assert cache is None and got.dtype == torch.float32 and float(aux) == 0.0
     assert got.shape == (2, 12, cfg.vocab_size)
     _close(got, want, dtype)
 
@@ -158,9 +162,9 @@ def test_forward_matches_jax_with_cache(arch, dtype):
     want_dec, jcache, _ = jtransformer.forward(
         jparams, jnp.asarray(toks[:, 8:], jnp.int32), jcfg, jcache)
     cache = transformer.init_cache(cfg, 2, 16, "cpu")
-    got_pre, cache = transformer.forward(params, torch.from_numpy(toks[:, :8]), cfg, cache)
+    got_pre, cache, _ = transformer.forward(params, torch.from_numpy(toks[:, :8]), cfg, cache)
     assert cache.length == 8
-    got_dec, cache = transformer.forward(params, torch.from_numpy(toks[:, 8:]), cfg, cache)
+    got_dec, cache, _ = transformer.forward(params, torch.from_numpy(toks[:, 8:]), cfg, cache)
     assert cache.length == int(jcache.length) == 9
     _close(got_pre, want_pre, dtype)
     _close(got_dec, want_dec, dtype)
@@ -177,9 +181,9 @@ def test_lm_smoke_decode_matches_full(arch):
     params = transformer.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 9)))
     cache = transformer.init_cache(cfg, 2, 16, "cpu")
-    _, cache = transformer.forward(params, toks[:, :8], cfg, cache)
-    dec, _ = transformer.forward(params, toks[:, 8:9], cfg, cache)
-    full, _ = transformer.forward(params, toks, cfg)
+    _, cache, _ = transformer.forward(params, toks[:, :8], cfg, cache)
+    dec, _, _ = transformer.forward(params, toks[:, 8:9], cfg, cache)
+    full, _, _ = transformer.forward(params, toks, cfg)
     assert float((dec[:, 0] - full[:, 8]).abs().max()) < 2e-2
 
 
