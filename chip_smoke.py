@@ -184,6 +184,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the plain version (output at the bf16 bound, lse within
    ``LSE_ATOL``) and ``aten._scaled_dot_product_flash_attention``.
    ``--quick`` runs the ``SMOKE`` configs, SASRec's batches / 64.
+10. The MoE LMs (``moe_phase``), after phase 9 frees its weights.
+   granite-moe-3b-a800m at ``CONFIG`` (full width, all 32 layers, bf16
+   random weights) serves ``MOE_EACH`` x 4096 + ``MOE_EACH`` x 1024
+   prompt tokens, 32 new each, on 8 slots (``serve_counted``: K4's
+   prefill kernel n_layers x prefills times, decode and combine n_layers
+   x steps, the plain attention never), each prefill's drop fraction
+   printed; the same requests again give the same tokens bit for bit;
+   one prefill's last-position logits through K4 and the plain attention
+   agree within ``LOGITS_RTOL``; a profiled prefill and decode step split
+   by the MoE layer's profiler ranges (expert products against routing,
+   sorts, gathers and writes).  K4's rows at granite's shapes (D = 64,
+   24 heads over 8).  Then granite trained as phase 9 trains glm4-9b:
+   ``CONFIG``'s widths at ``LM_TRAIN_LAYERS`` layers, 8 x 4096 tokens in
+   its 8 microbatches, ``aux`` in the loss, step 0 within ``TRAIN_RTOL``
+   of the plain attention, the router's gradient non-zero and the router
+   moved by step 1.  moonshot-v1-16b-a3b at full width and
+   ``MOONSHOT_LAYERS`` of its 48 layers serves the same batch; one of its
+   layers runs ``_moe_a2a`` on 4096 tokens under a (1, 1) ``DeviceMesh``
+   over an NCCL group of one rank (no collective runs at one rank), equal
+   to ``_moe_sort`` within ``A2A_RTOL`` with nothing dropped; K4's rows at
+   its shapes (D = 128, 16 heads over 16).  llama3-405b at full width and
+   ``LLAMA_LAYERS`` of its 126 layers serves the same batch.
+   ``--quick`` runs the three ``SMOKE`` configs.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -483,6 +506,11 @@ def plane_skew(fused):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def leaf_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict (a param tree)."""
+    return sum(leaf_bytes(v) if isinstance(v, dict) else nbytes(v) for v in tree.values())
 
 
 def index_bytes(graph) -> int:
@@ -1241,7 +1269,9 @@ def device_time_by_kind(prof) -> dict:
 
     out = {"k4_s": 0.0, "gemm_s": 0.0, "other_s": 0.0, "k4_by_kernel_s": {}}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the port's profiler ranges also show as device spans over their
+        # kernels: counting them would count those kernels twice
+        if e.device_type != DeviceType.CUDA or e.key in RANGES:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1288,9 +1318,22 @@ def profile_lm(server, requests) -> dict:
         kinds = device_time_by_kind(prof)
         busy = kinds["k4_s"] + kinds["gemm_s"] + kinds["other_s"]
         out[phase] = {"wall_s": wall_s, **kinds, "device_busy_s": busy,
-                      "idle_share": 1.0 - busy / wall_s}
+                      "idle_share": 1.0 - busy / wall_s, "by_range": trace_split(prof)}
     FA.LAUNCHES.update(before)
     return out
+
+
+def trace_split(prof) -> dict:
+    """:func:`split_device_time` of a finished profile, through its
+    exported trace (written under ``build/`` and removed)."""
+    trace_path = os.path.join(ROOT, "build", "profile_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    try:
+        with open(trace_path) as f:
+            return split_device_time(json.load(f))
+    finally:
+        os.remove(trace_path)
 
 
 def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
@@ -1368,11 +1411,12 @@ def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
     }
 
 
-def k4_rows(T, max_len, H, KV, hd, launches, reps, seed) -> list:
+def k4_rows(T, max_len, H, KV, hd, launches, reps, seed, tag="") -> list:
     """K4's two rows at the served run's shapes: a causal prefill of ``T``
     tokens into a ``max_len`` cache, and a decode step of 8 slots over
     ``T + 4`` cached positions, timed over ``DECODE_CACHES`` distinct
-    caches in turn.  ``launches``: the served run's per-kernel counts."""
+    caches in turn.  ``launches``: the served run's per-kernel counts;
+    ``tag`` suffixes the rows' names."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
@@ -1383,14 +1427,14 @@ def k4_rows(T, max_len, H, KV, hd, launches, reps, seed) -> list:
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     rows = [k4_row(
-        "flash_attention_prefill", "flash_prefill.cu", randn(1, T, H, hd),
+        "flash_attention_prefill" + tag, "flash_prefill.cu", randn(1, T, H, hd),
         [(randn(1, max_len, KV, hd), randn(1, max_len, KV, hd))],
         dict(causal=True, q_offset=0,
              kv_length=torch.full((1,), T, dtype=torch.int32, device="cuda")),
         T * (T + 1) // 2, launches["flash_attention_prefill"], reps)]
     kv = T + 4
     rows.append(k4_row(
-        "flash_attention_decode", "flash_decode.cu", randn(8, 1, H, hd),
+        "flash_attention_decode" + tag, "flash_decode.cu", randn(8, 1, H, hd),
         [(randn(8, max_len, KV, hd), randn(8, max_len, KV, hd))
          for _ in range(DECODE_CACHES)],
         dict(causal=False, q_offset=kv - 1,
@@ -1459,47 +1503,24 @@ def mma_instruction_counts() -> dict:
     return counts
 
 
-def lm_phase(args) -> dict:
-    """glm4-9b (CONFIG: 40 layers, d_model 4096, vocab 151552) in bf16
-    with random weights: 16 requests through ``BatchedServer.run`` on 8
-    slots, counted K4 launches, the K4-vs-plain logits check, a profile
-    and K4's rows."""
-    import unittest.mock
-
+def serve_counted(cfg, server, requests) -> tuple:
+    """``server.run(requests)`` with K4's launch counts zeroed just before
+    and read just after: every prefill and decode step timed, the served
+    tokens checked, K4 launched at every attention call (the prefill
+    kernel n_layers x prefills times, the decode kernel and its combine
+    n_layers x decode steps times each, nothing else) and the plain
+    attention never.  ``requests``: n long then n short prompts (n at most
+    the slots), so the batch drains once.  Returns the record and K4's
+    per-kernel launches."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import glm4_9b
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.models import transformer
-    from repro_torch.serve.server import BatchedServer
 
-    cfg = glm4_9b.CONFIG
-    rec = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-                      "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
-                      "n_params": cfg.n_params()}}
-    rec["k4_small_worst_err"] = flash_small_check()
-
-    t = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    params = transformer.init_params(cfg, gen, "cuda")
-    torch.cuda.synchronize()
-    rec["init_s"] = time.perf_counter() - t
-
-    def leaves(tree):
-        for v in tree.values():
-            yield from leaves(v) if isinstance(v, dict) else (v,)
-
-    rec["weight_bytes"] = nbytes(*leaves(params))
-    log(f"glm4-9b: {cfg.n_params():,} parameters, {rec['weight_bytes'] / 1e9:.2f} GB of "
-        f"bf16 weights, drawn in {rec['init_s']:.1f} s")
-
-    long_len, short_len, new_tokens = LM_QUICK if args.quick else LM_FULL
-    max_len, n_each = long_len + new_tokens, 8
-    server = BatchedServer(params, cfg, batch_slots=8, max_len=max_len)
-    requests = lm_requests(cfg, args.seed, long_len, short_len,
-                           n_each, new_tokens)
+    lengths = sorted({int(r.prompt.size) for r in requests}, reverse=True)
+    long_len, short_len = lengths[0], lengths[-1]
+    new_tokens = requests[0].max_new_tokens
+    n_each = len(requests) // 2
     prefill_s = {long_len: [], short_len: []}
     step_s, step_len = [], []
     split = {"prefill": 0, "decode": 0}
@@ -1530,21 +1551,23 @@ def lm_phase(args) -> dict:
     FA.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    out = server.run(requests)
-    torch.cuda.synchronize()
+    try:
+        out = server.run(requests)
+        torch.cuda.synchronize()
+    finally:
+        server.admit, server.step = admit, step
     run_s = time.perf_counter() - t
     launches = FA.LAUNCHES["flash_attention"]
     plain_calls = FA.PLAIN_CUDA_CALLS["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
-    server.admit, server.step = admit, step
 
     n_prefill = sum(len(v) for v in prefill_s.values())
     n_steps = len(step_s)
-    log(f"served {len(out)} requests ({n_each} x {long_len} + {n_each} x "
+    log(f"{cfg.name}: served {len(out)} requests ({n_each} x {long_len} + {n_each} x "
         f"{short_len} prompt tokens, {new_tokens} new each) in {run_s:.2f} s: "
         f"{n_prefill} prefills, {n_steps} decode steps, {launches} K4 launches, "
         f"{plain_calls} plain attention calls on the card")
-    if sorted(out) != list(range(2 * n_each)):
+    if sorted(out) != sorted(r.rid for r in requests):
         raise AssertionError(f"served {sorted(out)}")
     for rid, toks in out.items():
         if len(toks) != new_tokens or not all(0 <= t_ < cfg.vocab_size for t_ in toks):
@@ -1567,10 +1590,10 @@ def lm_phase(args) -> dict:
     if kernel_launches != expected:
         raise AssertionError(f"K4 kernel launches {kernel_launches}, expected {expected}")
 
-    long_steps = [s for s, n in zip(step_s, step_len) if n >= long_len]
-    short_steps = [s for s, n in zip(step_s, step_len) if n < long_len]
-    rec.update({
-        "requests": len(out), "slots": 8, "max_len": max_len,
+    long_steps = [s_ for s_, n in zip(step_s, step_len) if n >= long_len]
+    short_steps = [s_ for s_, n in zip(step_s, step_len) if n < long_len]
+    rec = {
+        "requests": len(out), "slots": len(server.slots), "max_len": server.max_len,
         "prompt_tokens": [long_len, short_len], "new_tokens": new_tokens,
         "run_s": run_s, "generated_tokens_per_s": len(out) * new_tokens / run_s,
         "prefill_s_mean": {str(n): float(np.mean(v)) for n, v in prefill_s.items()},
@@ -1582,14 +1605,27 @@ def lm_phase(args) -> dict:
         "k4_launches_split": dict(split), "k4_kernel_launches": kernel_launches,
         "plain_attention_cuda_calls": plain_calls,
         "peak_memory_bytes": peak,
-    })
-    log(f"prefill s/request: {json.dumps(rec['prefill_s_mean'])}; decode ms/step at 8 "
-        f"slots: {json.dumps(rec['decode_ms_per_step_mean'])}; "
+    }
+    log(f"prefill s/request: {json.dumps(rec['prefill_s_mean'])}; decode ms/step at "
+        f"{len(server.slots)} slots: {json.dumps(rec['decode_ms_per_step_mean'])}; "
         f"{rec['generated_tokens_per_s']:.1f} generated tokens/s; peak memory "
         f"{peak / 1e9:.2f} GB")
+    return rec, kernel_launches, out
 
-    # -- the same 4096-token prefill through K4 and through the plain attention
-    prompt = torch.as_tensor(requests[0].prompt, device="cuda")[None, :]
+
+def logits_check(cfg, params, prompt, max_len) -> dict:
+    """One prefill's last-position logits through K4 and through the plain
+    attention, both bf16 end to end: the largest difference must stay
+    within ``LOGITS_RTOL`` of the largest |logit|."""
+    import unittest.mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer
+
+    prompt = torch.as_tensor(prompt, device="cuda")[None, :]
     logits = {}
     with torch.inference_mode():
         for which in ("k4", "plain"):
@@ -1603,13 +1639,51 @@ def lm_phase(args) -> dict:
     err = float((logits["k4"] - logits["plain"]).abs().max().item())
     scale = float(logits["plain"].abs().max().item())
     same_argmax = int(logits["k4"].argmax()) == int(logits["plain"].argmax())
-    log(f"last-position logits, K4 vs plain attention on the card: max abs err {err:.5f} "
-        f"(largest |logit| {scale:.4f}, tolerance {LOGITS_RTOL} x that); argmax agrees: "
-        f"{same_argmax}")
+    log(f"{cfg.name}: last-position logits, K4 vs plain attention on the card: max abs err "
+        f"{err:.5f} (largest |logit| {scale:.4f}, tolerance {LOGITS_RTOL} x that); argmax "
+        f"agrees: {same_argmax}")
     if not (np.isfinite(err) and err <= LOGITS_RTOL * scale):
-        raise AssertionError(f"K4 logits differ from the plain attention's by {err}")
-    rec["logits_check"] = {"max_abs_err": err, "max_abs_logit": scale,
-                           "rtol": LOGITS_RTOL, "argmax_agrees": same_argmax}
+        raise AssertionError(f"{cfg.name}: K4 logits differ from the plain attention's by {err}")
+    return {"max_abs_err": err, "max_abs_logit": scale, "rtol": LOGITS_RTOL,
+            "argmax_agrees": same_argmax}
+
+
+def lm_phase(args) -> dict:
+    """glm4-9b (CONFIG: 40 layers, d_model 4096, vocab 151552) in bf16
+    with random weights: 16 requests through ``BatchedServer.run`` on 8
+    slots, counted K4 launches, the K4-vs-plain logits check, a profile
+    and K4's rows."""
+    import torch
+
+    from repro_torch.configs import glm4_9b
+    from repro_torch.models import transformer
+    from repro_torch.serve.server import BatchedServer
+
+    cfg = glm4_9b.CONFIG
+    rec = {"config": {"name": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                      "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "dtype": cfg.dtype,
+                      "n_params": cfg.n_params()}}
+    rec["k4_small_worst_err"] = flash_small_check()
+
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    params = transformer.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t
+
+    rec["weight_bytes"] = leaf_bytes(params)
+    log(f"glm4-9b: {cfg.n_params():,} parameters, {rec['weight_bytes'] / 1e9:.2f} GB of "
+        f"bf16 weights, drawn in {rec['init_s']:.1f} s")
+
+    long_len, short_len, new_tokens = LM_QUICK if args.quick else LM_FULL
+    max_len, n_each = long_len + new_tokens, 8
+    server = BatchedServer(params, cfg, batch_slots=8, max_len=max_len)
+    requests = lm_requests(cfg, args.seed, long_len, short_len,
+                           n_each, new_tokens)
+    served, kernel_launches, _ = serve_counted(cfg, server, requests)
+    rec.update(served)
+    rec["logits_check"] = logits_check(cfg, params, requests[0].prompt, max_len)
 
     rec["profile"] = profile_lm(server, lm_requests(
         cfg, args.seed + 1, long_len, short_len, n_each, new_tokens))
@@ -2889,10 +2963,15 @@ TRAIN_RTOL = 0.05
 # SASRec users scored alone against the same users in a bulk call: the
 # GEMMs take other shapes, so bf16 states differ by round-off
 REC_RTOL = 0.02
-# the profiler ranges the port opens around its plain attention backward
-# and its optimizer update
+# the profiler ranges the port opens around its plain attention backward,
+# its optimizer update, an MoE layer and that layer's expert products, and
+# the key each one's kernels are counted under (the innermost range wins)
 BACKWARD_RANGE = "repro_torch.flash_attention_backward"
 OPTIMIZER_RANGE = "repro_torch.optimizer_update"
+RANGES = {BACKWARD_RANGE: "attention_backward_s", OPTIMIZER_RANGE: "optimizer_s",
+          "repro_torch.moe": "moe_dispatch_s", "repro_torch.moe_experts": "moe_experts_s"}
+# kernels (by category and name) listed with their device time in a split
+TOP_KERNELS = 12
 
 
 def k4_lse_row(name, q, k, v, launches, reps, atol=K4_BF16_ATOL) -> dict:
@@ -2961,12 +3040,14 @@ def k4_lse_row(name, q, k, v, launches, reps, atol=K4_BF16_ATOL) -> dict:
 
 
 def split_device_time(trace: dict) -> dict:
-    """Device seconds of one profiled step (its exported Chrome trace) by
-    what launched them: kernels launched inside the port's profiler
-    ranges around the plain attention backward and the optimizer update
-    (matched through each kernel's launch call: same thread, inside the
-    range), then K4, matrix products and the rest.  Kernels whose launch
-    call the trace lacks are counted under ``unmatched_s``."""
+    """Device seconds of a profiled window (its exported Chrome trace) by
+    what launched them: kernels launched inside the port's profiler ranges
+    (``RANGES``: the plain attention backward, the optimizer update, an MoE
+    layer's routing / sorts / gathers / writes, its expert products;
+    matched through each kernel's launch call: same thread, inside the
+    range, the innermost range counting), then K4, matrix products and the
+    rest, with the ``TOP_KERNELS`` kernels that took the most.  Kernels
+    whose launch call the trace lacks are counted under ``unmatched_s``."""
     import re
     from collections import defaultdict
 
@@ -2975,12 +3056,13 @@ def split_device_time(trace: dict) -> dict:
     launches = {}
     for e in events:
         cat = e.get("cat", "")
-        if cat == "user_annotation" and e["name"] in (BACKWARD_RANGE, OPTIMIZER_RANGE):
+        if cat == "user_annotation" and e["name"] in RANGES:
             ranges[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"], e["name"]))
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
             launches[e["args"]["correlation"]] = ((e["pid"], e["tid"]), e["ts"])
-    cats = dict.fromkeys(("attention_backward_s", "optimizer_s", "k4_s", "gemm_s",
-                          "other_s", "unmatched_s"), 0.0)
+    cats = dict.fromkeys(list(RANGES.values()) + ["k4_s", "gemm_s", "other_s", "unmatched_s"],
+                         0.0)
+    by_kernel = defaultdict(float)
     for e in events:
         if e.get("cat") != "kernel":
             continue
@@ -2988,37 +3070,39 @@ def split_device_time(trace: dict) -> dict:
         where = launches.get(e.get("args", {}).get("correlation"))
         inside = None
         if where is not None:
-            inside = next((name for a, b, name in ranges[where[0]] if a <= where[1] <= b),
-                          None)
+            around = [(a, name) for a, b, name in ranges[where[0]] if a <= where[1] <= b]
+            inside = max(around)[1] if around else None
         low = e["name"].lower()
-        if inside == BACKWARD_RANGE:
-            cats["attention_backward_s"] += sec
-        elif inside == OPTIMIZER_RANGE:
-            cats["optimizer_s"] += sec
-        elif "flash_prefill" in low:
-            cats["k4_s"] += sec
+        if inside is not None:
+            cat = RANGES[inside]
+        elif "flash_prefill" in low or "flash_decode" in low or "flash_combine" in low:
+            cat = "k4_s"
         elif re.search(r"gemm|nvjet|cutlass|xmma|sm90_", low):
-            cats["gemm_s"] += sec
+            cat = "gemm_s"
         else:
-            cats["other_s"] += sec
+            cat = "other_s"
+        cats[cat] += sec
+        by_kernel[(cat, e["name"][:100])] += sec
         if where is None:
             cats["unmatched_s"] += sec
     cats["device_busy_s"] = sum(v for k, v in cats.items() if k != "unmatched_s")
+    cats["top_kernels"] = [[cat, name, sec] for (cat, name), sec in
+                           sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]]
     return cats
 
 
-def lm_training(args) -> dict:
-    """glm4-9b at full width (``LM_TRAIN_LAYERS`` layers; ``SMOKE`` at
-    --quick): float32 params, AdamW, ``TRAIN_STEPS`` steps of
-    ``LM_TRAIN_BATCH`` x 4096 tokens in ``cfg.microbatches`` microbatches
-    with full remat, every attention through K4's training route."""
+def lm_training(args, mod, global_batch: int) -> dict:
+    """An LM (``mod``: its config module) at full width
+    (``LM_TRAIN_LAYERS`` layers; ``SMOKE`` at --quick): float32 params,
+    AdamW, ``TRAIN_STEPS`` steps of ``global_batch`` x 4096 tokens in
+    ``cfg.microbatches`` microbatches with full remat, every attention
+    through K4's training route, an MoE's ``aux`` in the loss."""
     import unittest.mock
 
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import glm4_9b
     from repro_torch.configs.shapes import LM_SHAPES
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.train import build_lm_training
@@ -3027,10 +3111,10 @@ def lm_training(args) -> dict:
     from repro_torch.train import steps as steps_lib
 
     if args.quick:
-        cfg, seq, batch = glm4_9b.SMOKE, 32, 4
+        cfg, seq, batch = mod.SMOKE, 32, 4
     else:
-        cfg = dataclasses.replace(glm4_9b.CONFIG, n_layers=LM_TRAIN_LAYERS)
-        seq, batch = LM_SHAPES["train_4k"].seq_len, LM_TRAIN_BATCH
+        cfg = dataclasses.replace(mod.CONFIG, n_layers=LM_TRAIN_LAYERS)
+        seq, batch = LM_SHAPES["train_4k"].seq_len, global_batch
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     state, step_fn, pipe = build_lm_training(cfg, smoke_batch=batch, smoke_seq=seq,
@@ -3067,9 +3151,17 @@ def lm_training(args) -> dict:
     grad_fn = steps_lib.make_grad_fn(lambda p, b: steps_lib.lm_loss(p, b, cfg),
                                      cfg.microbatches)
     with unittest.mock.patch.object(transformer, "flash_attention", plain_attention):
-        loss_plain, _, grads = grad_fn(state["params"], batches[0])
+        loss_plain, metrics_plain, grads = grad_fn(state["params"], batches[0])
         norm_plain = float(opt_lib.global_norm(grads))
     loss_plain = float(loss_plain)
+    if cfg.moe is not None:
+        router_norm = float(grads["layers"]["moe"]["router"].norm())
+        aux_plain = float(metrics_plain["aux"])
+        log(f"{cfg.name}: step 0 (plain attention) router gradient norm {router_norm}, "
+            f"aux of the last microbatch {aux_plain}")
+        if not (router_norm > 0 and aux_plain > 0):
+            raise AssertionError(f"{cfg.name}: router gradient norm {router_norm}, "
+                                 f"aux {aux_plain}: the MoE losses reach no gradient")
     del grads
     gc.collect()
     torch.cuda.empty_cache()
@@ -3078,6 +3170,8 @@ def lm_training(args) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ln1 = state["params"]["layers"]["ln1"].clone()
     wq = state["params"]["layers"]["attn"]["wq"][0, :8].clone()
+    router = (state["params"]["layers"]["moe"]["router"].clone() if cfg.moe is not None
+              else None)
     FA.reset_launch_counts()
     losses, norms, step_s = [], [], []
     for i in range(TRAIN_STEPS):
@@ -3092,6 +3186,9 @@ def lm_training(args) -> dict:
                          and torch.equal(wq, state["params"]["layers"]["attn"]["wq"][0, :8]))
         if i == 1:
             moved = not torch.equal(wq, state["params"]["layers"]["attn"]["wq"][0, :8])
+            if router is not None:
+                moved = moved and not torch.equal(router,
+                                                  state["params"]["layers"]["moe"]["router"])
     launches, plain = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
     peak = torch.cuda.max_memory_allocated()
     per_step = cfg.n_layers * cfg.microbatches * (2 if cfg.remat_policy != "none" else 1)
@@ -3130,12 +3227,7 @@ def lm_training(args) -> dict:
         wall = time.perf_counter() - t
     FA.LAUNCHES.update(before[0])
     FA.PLAIN_CUDA_CALLS.update(before[1])
-    trace_path = os.path.join(ROOT, "build", "train_step_trace.json")
-    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        split = split_device_time(json.load(f))
-    os.remove(trace_path)
+    split = trace_split(prof)
     split.update(wall_s=wall, idle_share=1.0 - split["device_busy_s"] / wall)
     log(f"profiled step: {json.dumps(split)}")
     tokens = batch * seq
@@ -3144,6 +3236,8 @@ def lm_training(args) -> dict:
                 "plain_step0": {"loss": loss_plain, "grad_norm": norm_plain},
                 "k4_launches": launches, "plain_cuda_calls": plain,
                 "k4_launches_per_step": per_step, "profiled_step": split})
+    if cfg.moe is not None:
+        rec["plain_step0"].update(router_grad_norm=router_norm, aux=aux_plain)
     del state, step_fn, pipe, batches
     return rec
 
@@ -3388,8 +3482,10 @@ def training_phase(args) -> tuple:
 
     from repro_torch.configs import sasrec as sasrec_cfg
 
+    from repro_torch.configs import glm4_9b
+
     t0 = time.perf_counter()
-    rec = {"lm": lm_training(args)}
+    rec = {"lm": lm_training(args, glm4_9b, LM_TRAIN_BATCH)}
     gc.collect()
     torch.cuda.empty_cache()
     rec["sasrec"] = rec_training(args)
@@ -3404,8 +3500,6 @@ def training_phase(args) -> tuple:
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-
-    from repro_torch.configs import glm4_9b
 
     lm = glm4_9b.CONFIG
     T = 4096
@@ -3427,6 +3521,235 @@ def training_phase(args) -> tuple:
                            args.reps, atol=2.0 ** -8 * float(v.float().abs().max())))
     rec["phase_s"] = time.perf_counter() - t0
     log(f"training phase: {rec['phase_s']:.1f} s")
+    return rec, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the MoE LMs and llama3-405b's widths
+# ---------------------------------------------------------------------------
+
+# the served runs of phase 10: 8 slots, MOE_EACH long and MOE_EACH short
+# prompts (LM_FULL's lengths and new tokens; LM_QUICK's at --quick)
+MOE_EACH = 4
+# the depths of the two models whose full depth does not fit the card with
+# a 4096-token batch beside it (moonshot: 28.06 B params, 56.1 GB in bf16;
+# llama3-405b: 405.9 B)
+MOONSHOT_LAYERS = 12
+LLAMA_LAYERS = 2
+# moonshot's one-layer a2a check: a capacity factor at which neither path
+# drops a slot on 4096 tokens (sort: C = 1536 a expert; a2a on one rank:
+# C = 98,304 and C2 = 6,144), and the tokens' bound against the sort path:
+# the two add a token's 6 bf16 contributions in another order (expert id
+# against k), each add rounding at 2^-9 of its partial sum
+A2A_CAPACITY = 4.0
+A2A_TOKENS = 4096
+A2A_RTOL = 2.0 ** -6
+
+
+class DropRecorder:
+    """Wraps ``models.moe.moe_apply`` for the duration of a ``with``: the
+    token count and drop fraction (a device tensor, read afterwards) of
+    every MoE layer call."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.apply, self.calls = moe, moe.moe_apply, []
+
+    def __enter__(self):
+        def recorded(params, x, cfg):
+            y, metrics = self.apply(params, x, cfg)
+            self.calls.append((x.shape[0], metrics["moe_drop_fraction"]))
+            return y, metrics
+
+        self.moe.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.apply
+
+    def prefills(self, n_layers: int, decode_tokens: int) -> list:
+        """Per prefill, its layers' drop fractions (calls of more or fewer
+        tokens than a decode step's, in groups of ``n_layers``)."""
+        drops = [float(d) for t, d in self.calls if t != decode_tokens]
+        if len(drops) % n_layers:
+            raise AssertionError(f"{len(drops)} prefill MoE calls: not {n_layers} a prefill")
+        return [drops[i:i + n_layers] for i in range(0, len(drops), n_layers)]
+
+
+def serve_model(args, cfg, tag: str, repeat: bool = False, profile: bool = False) -> tuple:
+    """``cfg`` in bf16 with random weights from ``--seed`` through
+    ``BatchedServer.run`` on 8 slots (``serve_counted``), each prefill's
+    MoE drop fractions, the K4-vs-plain logits check; with ``repeat`` the
+    same requests again on the same server must give the same tokens bit
+    for bit; with ``profile`` one prefill and one decode step are
+    profiled.  Returns the record, the params and the served run's K4
+    launches (the caller frees the params)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serve.server import BatchedServer
+
+    long_len, short_len, new_tokens = LM_QUICK if args.quick else LM_FULL
+    max_len = long_len + new_tokens
+    rec = {"config": {**{k: v for k, v in dataclasses.asdict(cfg).items()
+                         if k != "sharding_rules"}, "n_params": cfg.n_params()}}
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+                                     "cuda")
+    torch.cuda.synchronize()
+    rec.update(init_s=time.perf_counter() - t, weight_bytes=leaf_bytes(params))
+    log(f"{tag}: {cfg.name} at {cfg.n_layers} layers, {cfg.n_params():,} parameters, "
+        f"{rec['weight_bytes'] / 1e9:.2f} GB of bf16 weights, drawn in {rec['init_s']:.1f} s")
+    server = BatchedServer(params, cfg, batch_slots=8, max_len=max_len)
+    requests = lm_requests(cfg, args.seed, long_len, short_len, MOE_EACH, new_tokens)
+    with DropRecorder() as drops:
+        served, launches, out = serve_counted(cfg, server, requests)
+    rec.update(served)
+    if cfg.moe is not None:
+        per = drops.prefills(cfg.n_layers, len(server.slots))
+        rec["prefill_drop_fraction"] = [
+            {"tokens": int(r.prompt.size), "mean": sum(d) / len(d), "max": max(d)}
+            for r, d in zip(sorted(requests, key=lambda r: -int(r.prompt.size)), per)]
+        log(f"{tag}: drop fraction of each prefill (mean / max over its {cfg.n_layers} "
+            f"layers): " + ", ".join(f"{d['tokens']} tokens {d['mean']:.5f} / {d['max']:.5f}"
+                                     for d in rec["prefill_drop_fraction"]))
+    if repeat:
+        t = time.perf_counter()
+        again = server.run(lm_requests(cfg, args.seed, long_len, short_len, MOE_EACH,
+                                       new_tokens))
+        torch.cuda.synchronize()
+        rec["repeat_run_s"] = time.perf_counter() - t
+        same = again == out
+        log(f"{tag}: the same requests again in {rec['repeat_run_s']:.2f} s: tokens bit "
+            f"for bit the same: {same}")
+        if not same:
+            raise AssertionError(f"{tag}: a second run of the same requests served other "
+                                 f"tokens")
+        rec["repeat_identical"] = True
+    rec["logits_check"] = logits_check(cfg, params, requests[0].prompt, max_len)
+    if profile:
+        rec["profile"] = profile_lm(server, lm_requests(
+            cfg, args.seed + 1, long_len, short_len, len(server.slots), new_tokens))
+        log(f"{tag}: profiled prefill / decode step: {json.dumps(rec['profile'])}")
+    del server
+    return rec, params, launches
+
+
+def a2a_check(args, cfg, params) -> dict:
+    """One layer's ``moe_apply`` on ``A2A_TOKENS`` tokens through
+    ``_moe_a2a`` under a (1, 1) ``DeviceMesh`` on an NCCL group of one rank
+    (``make_host_mesh`` over the group, the config's rules), at
+    ``A2A_CAPACITY``, against ``_moe_sort`` at the same capacity factor:
+    neither drops a slot, and the tokens agree within ``A2A_RTOL`` of the
+    largest |y|."""
+    import shutil
+    import unittest.mock
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.distributed.world import init_group, initialized
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+
+    layer = {k: w[0] for k, w in params["layers"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    x = torch.randn((A2A_TOKENS, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=A2A_CAPACITY, dispatch="a2a")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    init_group("nccl", os.path.join(DIST_DIR, "store"), 0, 1)
+    try:
+        mesh = make_host_mesh("cuda")
+        spy = unittest.mock.patch.object(moe, "_moe_a2a", wraps=moe._moe_a2a)
+        with torch.inference_mode(), use_mesh_rules(mesh, dict(cfg.sharding_rules)), \
+                spy as a2a:
+            y, m = moe.moe_apply(layer, x, mcfg)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            moe.moe_apply(layer, x, mcfg)
+            torch.cuda.synchronize()
+            a2a_s = time.perf_counter() - t
+        rec = {"backend": dist.get_backend(), "mesh": list(mesh.shape),
+               "mesh_dim_names": list(mesh.mesh_dim_names), "a2a_calls": a2a.call_count}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    if initialized():
+        raise AssertionError("the a2a check left a process group behind")
+    with torch.inference_mode():
+        want, wm = moe._moe_sort(layer, x, dataclasses.replace(mcfg, dispatch="sort"))
+    err = float((y.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    drops = (float(m["moe_drop_fraction"]), float(wm["moe_drop_fraction"]))
+    rec.update(tokens=A2A_TOKENS, capacity_factor=A2A_CAPACITY, max_abs_err=err,
+               max_abs_y=scale, rtol=A2A_RTOL, drop_fraction=drops, a2a_s=a2a_s)
+    log(f"a2a on a (1, 1) mesh over NCCL ({rec['a2a_calls']} calls): max abs err {err} against "
+        f"the sort path (largest |y| {scale}, bound {A2A_RTOL} x that), drop fractions "
+        f"{drops}, {a2a_s * 1e3:.2f} ms")
+    if rec["a2a_calls"] != 2 or rec["backend"] != "nccl":
+        raise AssertionError(f"the a2a path did not run under NCCL: {rec}")
+    if drops != (0.0, 0.0) or not err <= A2A_RTOL * scale:
+        raise AssertionError(f"a2a against sort: drops {drops}, max abs err {err}")
+    return rec
+
+
+def moe_phase(args) -> tuple:
+    """Phase 10: granite-moe-3b-a800m served at full width and depth
+    (repeat run bit for bit, profiled), then trained at 4 layers;
+    moonshot-v1-16b-a3b at ``MOONSHOT_LAYERS`` layers served, with its
+    one-layer a2a check; llama3-405b at ``LLAMA_LAYERS`` layers served;
+    K4's rows at granite's and moonshot's shapes.  ``SMOKE`` configs at
+    --quick.  Returns the record and the K4 rows."""
+    import torch
+
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.configs import llama3_405b as llama
+    from repro_torch.configs import moonshot_v1_16b_a3b as moonshot
+
+    t0 = time.perf_counter()
+    long_len, _, new_tokens = LM_QUICK if args.quick else LM_FULL
+    max_len = long_len + new_tokens
+    rec, rows = {}, []
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = granite.SMOKE if args.quick else granite.CONFIG
+    rec["granite"], params, launches = serve_model(args, cfg, "granite", repeat=True,
+                                                   profile=True)
+    del params
+    free()
+    rows += k4_rows(long_len, max_len, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                    launches, args.reps, args.seed, tag="_granite")
+    free()
+    rec["granite_training"] = lm_training(args, granite, granite.CONFIG.microbatches)
+    free()
+
+    cfg = moonshot.SMOKE if args.quick else dataclasses.replace(
+        moonshot.CONFIG, n_layers=MOONSHOT_LAYERS)
+    rec["moonshot"], params, launches = serve_model(args, cfg, "moonshot")
+    rec["moonshot"]["a2a"] = a2a_check(args, cfg, params)
+    del params
+    free()
+    rows += k4_rows(long_len, max_len, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                    launches, args.reps, args.seed, tag="_moonshot")
+    free()
+
+    cfg = llama.SMOKE if args.quick else dataclasses.replace(llama.CONFIG,
+                                                             n_layers=LLAMA_LAYERS)
+    rec["llama"], params, _ = serve_model(args, cfg, "llama3-405b")
+    del params
+    free()
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA {r['library_ms']:.4f}), "
+            f"{r['launches']} launches in the served run")
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"MoE phase: {rec['phase_s']:.1f} s")
     return rec, rows
 
 
@@ -3480,8 +3803,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     training, train_rows = training_phase(args)
     rows += train_rows
-    record.update({"card": card, "lm": lm, "training": training, "args": vars(args),
-                   "kernels": rows})
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rec, moe_rows = moe_phase(args)
+    rows += moe_rows
+    record.update({"card": card, "lm": lm, "training": training, "moe": moe_rec,
+                   "args": vars(args), "kernels": rows})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -2,8 +2,11 @@
 
 A self-contained copy of the JAX package's ``configs/base.py``: the same
 fields, defaults and parameter counts, so a configuration reads the same
-numbers in both packages.  ``sharding_rules`` is carried as data only:
-the port runs on one card and reads no sharding rule yet.
+numbers in both packages.  The port reads ``sharding_rules`` where the
+reference does: ``launch/train.py`` trains under
+``use_mesh_rules(make_host_mesh(), cfg.sharding_rules)``, and
+``models/moe.py`` takes its all-to-all dispatch where the ``"experts"``
+rule names a mesh dim (:mod:`repro_torch.distributed.sharding`).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-The archs whose path the port runs are listed; each of the JAX
-package's others raises with the ROADMAP.md Queue 1 item that brings it.
+The archs whose path the port runs are listed; the JAX package's one
+other (graphgen-paper, whose cells wait for the dry-run tooling) raises
+with the ROADMAP.md Queue 1 item that brings it.
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ ARCH_MODULES: Dict[str, str] = {
     "schnet": "repro_torch.configs.schnet",
     "dimenet": "repro_torch.configs.dimenet",
     "sasrec": "repro_torch.configs.sasrec",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
 }
 
 # the reference's other archs, and what brings each
 NOT_PORTED: Dict[str, str] = {
-    "granite-moe-3b-a800m": "Queue 1 item 1 (models/moe.py with model sharding)",
-    "moonshot-v1-16b-a3b": "Queue 1 item 1 (models/moe.py with model sharding)",
-    "llama3-405b": "Queue 1 item 1 (model sharding: 405B does not fit one card)",
     "graphgen-paper": "Queue 1 item 2 (launch/*: its cells; the analytics run through "
                       "repro_torch.launch.distributed_analytics)",
 }

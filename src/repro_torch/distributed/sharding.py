@@ -20,19 +20,48 @@ place the work; the port makes the same placements explicit over a
 
 Where the JAX package reads ``jax.process_index()`` /
 ``jax.process_count()``, the port reads the group's rank and size, ``0``
-and ``1`` when no group is initialised.  The logical-axis rules for
-models wait for the model-sharding slice.
+and ``1`` when no group is initialised.
+
+The model half: logical-axis rules (MaxText-style, as in the JAX
+package).  Model code names tensor dims logically (``"batch"``,
+``"experts"``, ...); a rules mapping (each arch config's
+``sharding_rules``) resolves them to the dims of a
+``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names``::
+
+    with use_mesh_rules(mesh, cfg.sharding_rules):
+        state, metrics = step(state, batch)
+
+    # inside model code
+    x = shard(x, "batch", "seq", "embed")
+
+:func:`logical_spec`, :func:`_dedup_axes` and :func:`specs_for_tree`
+read the mesh's dim names alone and return a :class:`Spec` (one entry per
+tensor dim: a mesh-dim name, a tuple of names, or ``None``, as a JAX
+``PartitionSpec`` holds); :func:`named_sharding` turns one into DTensor
+placements.  The port's layouts are explicit: :func:`shard` returns a
+plain tensor unchanged and redistributes a DTensor, and
+``models/moe.py`` reads the ``"experts"`` rule to choose its all-to-all
+dispatch.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
-from typing import Optional
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from .world import initialized, rank_world
 
 __all__ = [
+    "Spec",
+    "use_mesh_rules",
+    "current_mesh",
+    "shard",
+    "logical_spec",
+    "named_sharding",
+    "specs_for_tree",
     "GRAPH_RULES",
     "shard_frontier",
     "extraction_shard_range",
@@ -40,6 +69,166 @@ __all__ = [
     "MultihostSpillExtraction",
     "shard_condensed",
 ]
+
+# ---------------------------------------------------------------------------
+# Logical-axis rules for models
+# ---------------------------------------------------------------------------
+
+class Spec(tuple):
+    """A tensor's placement on a mesh: one entry per tensor dim, each a
+    mesh-dim name, a tuple of names (the dim split over several mesh dims,
+    major first) or ``None`` (replicated); ``Spec()`` replicates every
+    dim.  The port's counterpart of a JAX ``PartitionSpec``, which it
+    equals entry for entry (a one-name tuple is stored as the name, as
+    ``PartitionSpec`` stores it)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+_state = threading.local()
+
+
+def _ctx() -> Tuple[Optional[object], Optional[Mapping]]:
+    return getattr(_state, "mesh", None), getattr(_state, "rules", None)
+
+
+@contextlib.contextmanager
+def use_mesh_rules(mesh, rules: Optional[Mapping]):
+    """Activate a (mesh, logical-axis rules) context for :func:`shard` /
+    :func:`logical_spec` calls in the dynamic scope (thread-local,
+    re-entrant).  ``None`` for either disables annotations: the same
+    model code then runs unconstrained."""
+    old = _ctx()
+    _state.mesh, _state.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _state.mesh, _state.rules = old
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh_rules` context, if any."""
+    return _ctx()[0]
+
+
+def _resolve(axis: Optional[str], rules: Mapping, mesh):
+    """Logical axis -> mesh-dim name (or tuple), filtered to the mesh's
+    dims."""
+    if axis is None:
+        return None
+    target = rules.get(axis, None)
+    if target is None:
+        return None
+    names = mesh.mesh_dim_names
+    if isinstance(target, (tuple, list)):
+        present = tuple(t for t in target if t in names)
+        return present if present else None
+    return target if target in names else None
+
+
+def logical_spec(
+    logical_axes: Sequence[Optional[str]],
+    rules: Optional[Mapping] = None,
+    mesh=None,
+) -> Spec:
+    """Resolve logical axis names to a :class:`Spec` under the given (or
+    ambient) rules and mesh; ``Spec()`` outside any context."""
+    m, r = _ctx()
+    mesh = mesh or m
+    rules = rules or r
+    if mesh is None or rules is None:
+        return Spec()
+    return Spec(*[_resolve(a, rules, mesh) for a in logical_axes])
+
+
+def named_sharding(
+    logical_axes: Sequence[Optional[str]],
+    rules: Optional[Mapping] = None,
+    mesh=None,
+):
+    """The DTensor placements of :func:`logical_spec`, one per mesh dim
+    (``Shard(i)`` where tensor dim ``i`` names that mesh dim, else
+    ``Replicate()``), for ``distribute_tensor`` / ``redistribute``;
+    ``None`` outside a context."""
+    m, r = _ctx()
+    mesh = mesh or m
+    rules = rules or r
+    if mesh is None or rules is None:
+        return None
+    return _placements(logical_spec(logical_axes, rules, mesh), mesh)
+
+
+def _placements(spec: Spec, mesh) -> tuple:
+    """``Shard(i)`` for each mesh dim that tensor dim ``i`` of ``spec``
+    names, ``Replicate()`` for the rest (a tuple entry shards its dim over
+    its mesh dims in the mesh's order)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {}
+    for i, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                dims.setdefault(name, i)
+    return tuple(Shard(dims[n]) if n in dims else Replicate() for n in mesh.mesh_dim_names)
+
+
+def _dedup_axes(spec: Spec) -> Spec:
+    """Drop later duplicate mesh-dim uses (keep-first priority): lets
+    model code annotate e.g. ("batch", "act_seq", "vocab") and stay legal
+    when an arch maps act_seq and vocab to the same mesh dim (SP)."""
+    seen = set()
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        kept = tuple(a for a in axes if a not in seen)
+        seen.update(kept)
+        out.append(kept if len(kept) > 1 else (kept[0] if kept else None))
+    return Spec(*out)
+
+
+def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """Place ``x`` by its logical axes if a mesh context is active.
+
+    A no-op outside a context or on a one-device mesh.  Otherwise the
+    rank is checked; a plain tensor is returned unchanged (the port's
+    layouts are explicit: each rank already holds its part) and a DTensor
+    is redistributed to the placements the rules give."""
+    mesh, rules = _ctx()
+    if mesh is None or rules is None or mesh.size() == 1:
+        return x
+    if x.ndim != len(logical_axes):
+        raise ValueError(f"rank {x.ndim} tensor got {len(logical_axes)} logical axes")
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    spec = _dedup_axes(logical_spec(logical_axes, rules, mesh))
+    return x.redistribute(mesh, _placements(spec, mesh))
+
+
+def _is_axes(v) -> bool:
+    return isinstance(v, tuple) and all(isinstance(a, str) or a is None for a in v)
+
+
+def specs_for_tree(axes_tree, rules: Mapping, mesh):
+    """Nested dict of logical-axis tuples -> the same structure of
+    :class:`Spec`."""
+    if _is_axes(axes_tree):
+        return logical_spec(axes_tree, rules, mesh)
+    return {k: specs_for_tree(v, rules, mesh) for k, v in axes_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Graph sharding
+# ---------------------------------------------------------------------------
 
 # Logical-axis rules for the condensed-graph engine (DESIGN.md §3/§5):
 # frontier matrices are (graph_nodes, graph_batch); the *batch* axis is the

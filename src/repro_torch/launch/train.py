@@ -1,9 +1,12 @@
 """Training launcher: ``--arch <id>`` end-to-end training on one device.
 
 The port of the JAX package's ``launch/train.py``, with its flags and its
-three families (the dense LMs, SASRec, the GNNs) at their ``SMOKE``
-configs.  One process trains on one device (``--device``, the card by
-default; ``--device cpu`` runs the plain attention); there is no mesh.
+three families (the LMs, dense and MoE; SASRec; the GNNs) at their
+``SMOKE`` configs.  One process trains on one device (``--device``, the
+card by default; ``--device cpu`` runs the plain attention), under
+``use_mesh_rules(make_host_mesh(), cfg.sharding_rules)`` as the
+reference trains: the host mesh is ``(n, 1)`` over an initialised
+process group's ranks, one rank without one.
 The port's :class:`~repro_torch.launch.orchestrator.Supervisor` decides
 when to checkpoint and :class:`~repro_torch.train.checkpoint.CheckpointManager`
 writes the reference's checkpoint layout, so ``--resume`` also takes a
@@ -24,6 +27,8 @@ import torch
 
 from ..configs import registry
 from ..data.pipeline import TokenPipeline, sasrec_batches
+from ..distributed.sharding import use_mesh_rules
+from ..launch.mesh import make_host_mesh
 from ..launch.orchestrator import Supervisor
 from ..models import gnn, sasrec, transformer
 from ..train import optimizer as opt_lib
@@ -38,7 +43,7 @@ def _generator(device) -> torch.Generator:
 
 
 def build_lm_training(cfg, smoke_batch=4, smoke_seq=32, device="cuda"):
-    """``(state, step_fn, batches)`` for a dense LM: float32 params drawn
+    """``(state, step_fn, batches)`` for an LM: float32 params drawn
     from seed 0, AdamW on the reference's cosine schedule, Zipf token
     batches of ``smoke_batch x smoke_seq``."""
     optimizer = opt_lib.adamw(opt_lib.cosine_schedule(3e-4, 20, 1000))
@@ -116,17 +121,19 @@ def main(argv=None) -> int:
         state, start = mgr.restore_latest(device=args.device)
         print(f"resumed from step {start}")
 
-    for i in range(start, args.steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch_of())
-        dt = time.perf_counter() - t0
-        if i % 5 == 0 or i == args.steps - 1:
-            print(f"step {i:5d} loss {float(metrics['loss']):.4f} ({dt * 1e3:.0f} ms)")
-        if mgr is not None and supervisor.should_checkpoint(i + 1):
-            mgr.save(i + 1, state)
-    if mgr is not None:
-        mgr.save(args.steps, state)
-        mgr.wait()
+    mesh = make_host_mesh(torch.device(args.device).type)
+    with use_mesh_rules(mesh, dict(cfg.sharding_rules)):
+        for i in range(start, args.steps):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch_of())
+            dt = time.perf_counter() - t0
+            if i % 5 == 0 or i == args.steps - 1:
+                print(f"step {i:5d} loss {float(metrics['loss']):.4f} ({dt * 1e3:.0f} ms)")
+            if mgr is not None and supervisor.should_checkpoint(i + 1):
+                mgr.save(i + 1, state)
+        if mgr is not None:
+            mgr.save(args.steps, state)
+            mgr.wait()
     print("done")
     return 0
 

@@ -115,34 +115,13 @@ def transformer_params_from_arrays(
     """The port's param dict from path-keyed arrays, every weight cast to
     ``dtype``: by default ``cfg.dtype`` once, for serving (the reference
     casts at each use: same numbers); training passes ``cfg.param_dtype``'s
-    and the forward casts at use."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN is not ported yet")
+    and the forward casts at use.  The paths and shapes are checked against
+    the port's layout at ``cfg``: ``layers/mlp/*`` for a dense FFN,
+    ``layers/moe/{router, w_gate, w_up, w_down}`` where ``cfg.moe`` is
+    set."""
+    from . import transformer
+
+    _check_layout(arrays, transformer.init_params(cfg, None, device="meta"), cfg.name)
     dt = dtype or torch_dtype(cfg.dtype)
-    expected = {"embed", "final_norm", "layers/ln1", "layers/ln2"}
-    expected |= {f"layers/attn/{n}" for n in ("wq", "wk", "wv", "wo")}
-    expected |= {f"layers/mlp/{n}" for n in ("w_gate", "w_up", "w_down")}
-    if not cfg.tie_embeddings:
-        expected.add("lm_head")
-    if set(arrays) != expected:
-        raise ValueError(
-            f"param paths differ: missing {sorted(expected - set(arrays))}, "
-            f"unexpected {sorted(set(arrays) - expected)}"
-        )
-
-    def tensor(path: str) -> torch.Tensor:
-        return _tensor(np.asarray(arrays[path], dtype=np.float32), device, dt)
-
-    params: Dict = {
-        "embed": tensor("embed"),
-        "final_norm": tensor("final_norm"),
-        "layers": {
-            "ln1": tensor("layers/ln1"),
-            "ln2": tensor("layers/ln2"),
-            "attn": {n: tensor(f"layers/attn/{n}") for n in ("wq", "wk", "wv", "wo")},
-            "mlp": {n: tensor(f"layers/mlp/{n}") for n in ("w_gate", "w_up", "w_down")},
-        },
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = tensor("lm_head")
-    return params
+    return tree_from_arrays(
+        {path: np.asarray(a, dtype=np.float32) for path, a in arrays.items()}, device, dt)

@@ -20,9 +20,12 @@ params, moments and one gradient tree plus one leaf's transients, not two
 copies of the state.  The arithmetic is the reference's (the same float32
 operations in the same order per leaf).  Gradients come from
 ``torch.autograd.grad`` on a detached, grad-requiring view of each param;
-nothing is traced or compiled.  ``param_axes`` (the reference's sharding
-constraint on gradients) is accepted and ignored: the port trains on one
-device.
+nothing is traced or compiled.  ``param_axes`` (a tree of logical axes,
+``transformer.logical_axes(cfg)`` for the LM step) places each
+microbatch's gradients with
+:func:`~repro_torch.distributed.sharding.shard` where the reference
+constrains them: a no-op outside a mesh context, on a one-device mesh and
+for the plain tensors of the port's explicit layouts.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch.profiler
 
 from ..configs.base import GNNConfig, RecsysConfig, TransformerConfig
 from ..distributed import compression
+from ..distributed.sharding import shard
 from ..models import gnn, sasrec, transformer
 from .optimizer import (Optimizer, apply_update, clip_scale, global_norm, tree_get, tree_paths,
                         tree_set)
@@ -79,11 +83,13 @@ def make_grad_fn(
     loss_fn: Callable,                  # (params, batch) -> (loss, metrics)
     microbatches: int = 1,
     accum_dtype: Optional[torch.dtype] = None,
+    param_axes=None,
 ) -> Callable:
     """``fn(params, batch) -> (loss, metrics, grads)``: the reference's
     ``value_and_grad`` with its microbatch accumulation (gradients summed
     in ``accum_dtype``, default float32, then divided once; the loss
-    averaged; the last microbatch's metrics)."""
+    averaged; the last microbatch's metrics), each microbatch's gradients
+    placed by ``param_axes`` where given."""
 
     def grads_of(params, batch):
         paths = list(tree_paths(params))
@@ -96,7 +102,10 @@ def make_grad_fn(
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         out: Dict = {}
         for (path, p), g in zip(paths, grads):
-            tree_set(out, path, torch.zeros_like(p) if g is None else g)
+            g = torch.zeros_like(p) if g is None else g
+            if param_axes is not None:
+                g = shard(g, *tree_get(param_axes, path))
+            tree_set(out, path, g)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
 
     def fn(params, batch):
@@ -130,8 +139,7 @@ def make_update_fn(
     accum_dtype: Optional[torch.dtype] = None,
     param_axes=None,
 ) -> Callable:
-    del param_axes  # one device: no sharding constraint
-    grad_fn = make_grad_fn(loss_fn, microbatches, accum_dtype)
+    grad_fn = make_grad_fn(loss_fn, microbatches, accum_dtype, param_axes)
 
     def step(state, batch):
         params = state["params"]
@@ -191,6 +199,7 @@ def build_lm_train_step(
         microbatches=cfg.microbatches,
         compress_grads=compress_grads,
         accum_dtype=_DTYPES[cfg.grad_accum_dtype],
+        param_axes=transformer.logical_axes(cfg),
     )
 
 

@@ -478,7 +478,7 @@ def _within(got, want, atol, rtol=BF16_RTOL):
 
 
 @pytest.mark.parametrize("D", [8, 16, 64, 128])
-@pytest.mark.parametrize("G", [1, 2, 16])
+@pytest.mark.parametrize("G", [1, 2, 3, 16])
 def test_cuda_prefill_kernel_matches_plain(card, D, G):
     """A causal prefill of 100 positions (not a multiple of any tile) after
     30 cached ones, over a 160-position cache with a ragged valid prefix."""
@@ -523,6 +523,8 @@ DECODE_CASES = [
     ("g32_two_head_chunks", 2, 300, 64, 2, 64, False, 0, [300, 201]),
     ("causal_one_query", 1, 200, 4, 1, 16, True, 90, [200]),
     ("main_path", 8, 4128, 32, 2, 128, False, 4099, [4100] * 8),
+    ("granite_moe", 8, 4128, 24, 8, 64, False, 4099, [4100] * 8),
+    ("moonshot_moe", 8, 4128, 16, 16, 128, False, 4099, [4100] * 8),
 ]
 
 
@@ -858,3 +860,27 @@ def test_cuda_banded_pagerank_on_an_nccl_world_of_one(card, tmp_path):
     assert (backend, where) == ("nccl", "cuda")
     assert diff < 1e-7
     assert not any(launches.values())  # segment sums: K1-K3 never launch
+
+
+def test_cuda_moe_layer_repeats_its_bits_and_matches_cpu(card):
+    """The MoE layer on the card in bf16 at granite's widths: two runs give
+    the same bits (no atomics on its path), and the inference route
+    (cuBLAS writing float32) and the autograd route (operands widened)
+    route alike and agree within the bf16 tolerance, at a capacity that
+    drops slots."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    # capacity factor 0.5: C = 128 slots an expert under a mean load of 205
+    cfg = MoEConfig(n_experts=40, top_k=8, d_expert=512, capacity_factor=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = moe.moe_init(gen, 1536, cfg, "cuda", torch.bfloat16)
+    x = torch.randn((1024, 1536), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        first, m = moe.moe_apply(params, x, cfg)
+        again, _ = moe.moe_apply(params, x, cfg)
+    assert torch.equal(first, again) and float(m["moe_drop_fraction"]) > 0
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    widened, wm = moe.moe_apply(leaves, x, cfg)
+    assert float(wm["moe_drop_fraction"]) == float(m["moe_drop_fraction"])
+    assert float((widened.float() - first.float()).abs().max()) < 2e-2

@@ -51,7 +51,9 @@ def test_slice_modules_are_all_listed():
         "repro_torch.configs.meshgraphnet", "repro_torch.configs.graphcast",
         "repro_torch.configs.schnet", "repro_torch.configs.dimenet",
         "repro_torch.configs.shapes", "repro_torch.launch.train",
-        "repro_torch.launch.recsys_serve",
+        "repro_torch.launch.recsys_serve", "repro_torch.models.moe",
+        "repro_torch.configs.granite_moe_3b_a800m",
+        "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.llama3_405b",
     ):
         assert name in MODULES
 

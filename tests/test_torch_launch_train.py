@@ -1,5 +1,5 @@
 """The port's training launchers on the CPU: ``launch/train.py`` for the
-three families (3 steps, a checkpoint, then ``--resume``), and
+three families and an MoE LM (3 steps, a checkpoint, then ``--resume``), and
 ``launch/recsys_serve.py`` against the JAX package's
 ``examples/recsys_serve.py`` path with the same SASRec weights.
 
@@ -44,7 +44,7 @@ def test_configs_carry_the_reference_numbers(arch):
     assert registry.shapes_for(arch) == jregistry.shapes_for(arch)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "sasrec", "schnet"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "sasrec", "schnet", "granite-moe-3b-a800m"])
 def test_train_launcher_checkpoints_and_resumes(arch, tmp_path, capsys):
     ckpt = str(tmp_path / "ckpt")
     args = ["--arch", arch, "--device", "cpu", "--checkpoint-dir", ckpt]
@@ -65,8 +65,8 @@ def test_train_launcher_checkpoints_and_resumes(arch, tmp_path, capsys):
 
 
 def test_train_launcher_refuses_unported_arch():
-    with pytest.raises(KeyError, match="Queue 1"):
-        launch_train.main(["--arch", "granite-moe-3b-a800m", "--device", "cpu"])
+    with pytest.raises(KeyError, match="Queue 1 item 2"):
+        launch_train.main(["--arch", "graphgen-paper", "--device", "cpu"])
 
 
 def _flatten(tree) -> dict:
