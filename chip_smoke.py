@@ -207,6 +207,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its shapes (D = 128, 16 heads over 16).  llama3-405b at full width and
    ``LLAMA_LAYERS`` of its 126 layers serves the same batch.
    ``--quick`` runs the three ``SMOKE`` configs.
+11. The sharded train step (``sharded_phase``), after phase 10 frees its
+   weights: an NCCL group of one rank over a ``FileStore`` under
+   ``build/dist`` and a (1, 1) ``DeviceMesh``; granite-moe-3b-a800m at
+   ``CONFIG``'s widths and ``LM_TRAIN_LAYERS`` layers, its float32
+   params and AdamW state DTensors placed by its ``sharding_rules``, 8 x
+   4096 tokens in its 8 microbatches, the batch a DTensor.  Step 0's
+   loss and gradient norm equal phase 10's plain-tensor step (same seed
+   and batch) bit for bit, or within ``TRAIN_RTOL`` (recorded); K4's lse
+   prefill kernel launches layers x microbatches x 2 a step and the plain
+   forward never; the state saved after step 1 and restored with
+   ``restore_checkpoint(shardings=)`` gives step 2 bit for bit; step
+   seconds and peak bytes beside phase 10's.  Then ``python -m
+   torch.distributed.run --nproc-per-node 1 -m repro_torch.launch.train
+   --arch granite-moe-3b-a800m --steps 3`` runs as a subprocess and must
+   exit 0.  One card: no number from it is a multi-GPU number.
+   ``--quick`` runs granite's ``SMOKE`` config.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -3377,7 +3393,9 @@ def gnn_training(args) -> dict:
     """Each GNN at its ``CONFIG`` (``SMOKE`` at --quick): meshgraphnet and
     graphcast on ``full_graph_sm``, schnet and dimenet on ``molecule``;
     ``TRAIN_STEPS`` AdamW steps; the first loss on the card equals the
-    port's float32 loss on the CPU, same params and batch."""
+    port's float32 loss on the CPU, same params and batch; step 0 run
+    again from the same params gives the same loss, norm and params bit
+    for bit (the segment sums add in a fixed order)."""
     import numpy as np
     import torch
 
@@ -3405,18 +3423,31 @@ def gnn_training(args) -> dict:
         state = steps_lib.init_train_state(params, optimizer)
         step_fn = steps_lib.build_gnn_train_step(cfg, optimizer)
         batch = {"graph": g_cpu.to("cuda"), "target": target.cuda()}
+        first = opt_lib.tree_map(torch.clone, params)
         torch.cuda.reset_peak_memory_stats()
-        losses, step_s = [], []
-        for _ in range(TRAIN_STEPS):
+        losses, norms, step_s = [], [], []
+        for i in range(TRAIN_STEPS):
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step_fn(state, batch)
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
             step_s.append(time.perf_counter() - t)
+            if i == 0:
+                after_0 = opt_lib.tree_map(torch.clone, state["params"])
+        # step 0 again from the same params: the same bits (fixed-order sums)
+        again, m = step_fn(steps_lib.init_train_state(first, optimizer), batch)
+        repeats = (float(m["loss"]) == losses[0] and float(m["grad_norm"]) == norms[0]
+                   and all(torch.equal(a, b) for a, b in zip(
+                       opt_lib.tree_leaves(again["params"]), opt_lib.tree_leaves(after_0))))
+        del again, first, after_0
+        if not repeats:
+            raise AssertionError(f"{cfg.name}: step 0 again gives other bits")
         rec = {"shape": shape_name, "nodes": shape.n_nodes, "edges": shape.n_edges,
                "triplets": None if batch["graph"].triplets is None
                else int(batch["graph"].triplets.shape[0]),
                "n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden, "losses": losses,
+               "grad_norms": norms, "step0_repeats_bits": repeats,
                "cpu_float32_loss": cpu_loss, "step_s": step_s,
                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
         log(f"{cfg.name} on {shape_name}: {json.dumps(rec)}")
@@ -3753,6 +3784,195 @@ def moe_phase(args) -> tuple:
     return rec, rows
 
 
+SHARDED_CKPT = os.path.join(ROOT, "build", "ckpt_sharded")
+LAUNCH_CKPT = os.path.join(ROOT, "build", "ckpt_launch")
+LAUNCH_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _local_leaves(tree) -> dict:
+    from repro_torch.train import optimizer as opt_lib
+
+    return {"/".join(p): v.to_local() for p, v in opt_lib.tree_paths(tree)}
+
+
+def _state_leaves(state) -> list:
+    """The params' and the optimizer state's leaves."""
+    from repro_torch.train import optimizer as opt_lib
+
+    return [v for key in ("params", "opt") for _, v in opt_lib.tree_paths(state[key])]
+
+
+def launcher_run(args) -> dict:
+    """``python -m torch.distributed.run --nproc-per-node 1 -m
+    repro_torch.launch.train --arch granite-moe-3b-a800m --steps 3`` as a
+    subprocess (its own NCCL group of one, on the card): its return code
+    and its printed losses."""
+    import shutil
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+           "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+           "-m", "repro_torch.launch.train", "--arch", "granite-moe-3b-a800m",
+           "--steps", "3", "--checkpoint-dir", LAUNCH_CKPT]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    shutil.rmtree(LAUNCH_CKPT, ignore_errors=True)
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=LAUNCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    saved = os.listdir(LAUNCH_CKPT) if os.path.isdir(LAUNCH_CKPT) else []
+    shutil.rmtree(LAUNCH_CKPT, ignore_errors=True)
+    out = proc.stdout.strip().splitlines()
+    log(f"torch.distributed.run launcher: rc {proc.returncode} in {seconds:.1f} s: "
+        f"{' | '.join(out[-4:])}")
+    if proc.returncode != 0 or "done" not in out or "step_0000000003" not in saved:
+        raise AssertionError(f"the launcher failed (rc {proc.returncode}, checkpoints "
+                             f"{saved}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return {"cmd": " ".join(cmd[1:]), "returncode": proc.returncode, "seconds": seconds,
+            "stdout_tail": out[-4:], "checkpoints": sorted(saved)}
+
+
+def sharded_phase(args, plain: dict) -> dict:
+    """Phase 11: the sharded train step on the card.  An NCCL group of one
+    rank over a ``FileStore`` under ``build/``, a (1, 1) ``DeviceMesh``;
+    granite-moe-3b-a800m at ``CONFIG``'s widths and ``LM_TRAIN_LAYERS``
+    layers (``SMOKE`` at --quick) with float32 params and AdamW state
+    held as DTensors by its rules, the batch a DTensor, in ``CONFIG``'s
+    microbatches.  ``plain`` is phase 10's plain-tensor run of the same
+    config, seed and batches: step 0's loss and gradient norm must equal
+    it bit for bit (within ``TRAIN_RTOL`` at worst, recorded).  K4's lse
+    prefill kernel launches layers x microbatches x 2 a step, the plain
+    forward never.  The state saved after step 1 and restored with
+    ``restore_checkpoint(shardings=)`` gives step 2 bit for bit.  Then the
+    ``torch.distributed.run`` launcher (:func:`launcher_run`)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import granite_moe_3b_a800m as granite
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.world import init_group, initialized
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train import build_lm_training
+    from repro_torch.models import transformer
+    from repro_torch.train import checkpoint
+
+    t0 = time.perf_counter()
+    if args.quick:
+        cfg, seq, batch = granite.SMOKE, 32, 4
+    else:
+        cfg = dataclasses.replace(granite.CONFIG, n_layers=LM_TRAIN_LAYERS)
+        seq, batch = LM_SHAPES["train_4k"].seq_len, granite.CONFIG.microbatches
+    rules = dict(cfg.sharding_rules)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    shutil.rmtree(SHARDED_CKPT, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    init_group("nccl", os.path.join(DIST_DIR, "store"), 0, 1)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        state, step_fn, pipe = build_lm_training(cfg, smoke_batch=batch, smoke_seq=seq,
+                                                 device="cuda")
+        shardings = sharding.state_placements(state, transformer.logical_axes(cfg), rules, mesh)
+        state = sharding.place_tree(state, shardings, mesh, src_data_rank=None)
+        rows = sharding.batch_placements(rules, mesh)
+        batches = [sharding.place_tree(next(pipe), {"tokens": rows, "labels": rows}, mesh,
+                                       src_data_rank=None) for _ in range(TRAIN_STEPS)]
+        kinds = {type(v).__name__ for v in _state_leaves(state)}
+        if kinds != {"DTensor"}:
+            raise AssertionError(f"params and optimizer state are {kinds}, not DTensors")
+        placements = sorted({str(tuple(v.placements)) for v in _state_leaves(state)})
+        FA.reset_launch_counts()
+        losses, norms, step_s = [], [], []
+        with sharding.use_mesh_rules(mesh, rules):
+            for i in range(TRAIN_STEPS - 1):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = step_fn(state, batches[i])
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                step_s.append(time.perf_counter() - t)
+            launches, plain_calls = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+            peak = torch.cuda.max_memory_allocated()
+            checkpoint.save_checkpoint(SHARDED_CKPT, TRAIN_STEPS - 1, state)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batches[-1])
+            last = (float(m["loss"]), float(m["grad_norm"]))
+            step_s.append(time.perf_counter() - t)
+            want_params = _local_leaves(state["params"])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            restored, at = checkpoint.restore_checkpoint(SHARDED_CKPT, shardings=shardings,
+                                                         mesh=mesh)
+            restored, m = step_fn(restored, batches[-1])
+            again = (float(m["loss"]), float(m["grad_norm"]))
+            got_params = _local_leaves(restored["params"])
+        restored_equal = again == last and all(
+            torch.equal(got_params[k], v) for k, v in want_params.items())
+        del restored, got_params, want_params, batches, step_fn, pipe
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        shutil.rmtree(SHARDED_CKPT, ignore_errors=True)
+    if initialized():
+        raise AssertionError("the sharded phase left a process group behind")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_step = cfg.n_layers * cfg.microbatches * (2 if cfg.remat_policy != "none" else 1)
+    n_counted = TRAIN_STEPS - 1
+    step0 = (plain["losses"][0], plain["grad_norms"][0])
+    bit_equal = (losses[0], norms[0]) == step0
+    log(f"sharded {cfg.name} on a (1, 1) mesh over {backend} ({cfg.n_layers} layers, "
+        f"{batch} x {seq} tokens, {cfg.microbatches} microbatches): losses {losses + [last[0]]}"
+        f", grad norms {norms + [last[1]]}, step s {step_s} (plain: {plain['step_s']}); "
+        f"step 0 {'bit-equal to' if bit_equal else 'differs from'} the plain step {step0}; "
+        f"K4 {json.dumps(launches)}; peak {peak / 1e9:.2f} GB (plain "
+        f"{plain['peak_memory_bytes'] / 1e9:.2f} GB); restored step 2 {again} "
+        f"{'bit-equal' if restored_equal else 'differs'}; placements {placements}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"sharded step: non-finite loss or norm {losses} {norms}")
+    if not bit_equal and not (
+            abs(losses[0] - step0[0]) <= TRAIN_RTOL * abs(step0[0])
+            and abs(norms[0] - step0[1]) <= TRAIN_RTOL * abs(step0[1])):
+        raise AssertionError(f"sharded step 0 {(losses[0], norms[0])} != plain {step0}")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=n_counted * per_step,
+                flash_attention_prefill_lse=n_counted * per_step)
+    if launches != want or plain_calls["flash_attention"] != 0:
+        raise AssertionError(f"K4 launches {launches} (expected {want}), plain {plain_calls}")
+    if not restored_equal or at != TRAIN_STEPS - 1:
+        raise AssertionError(f"restored step {at}: {again} != uninterrupted {last}")
+    rec = {"config": {"name": cfg.name, "n_layers": cfg.n_layers,
+                      "microbatches": cfg.microbatches, "remat_policy": cfg.remat_policy},
+           "mesh": [1, 1], "backend": backend, "seq_len": seq, "global_batch": batch,
+           "placements": placements, "losses": losses + [last[0]],
+           "grad_norms": norms + [last[1]], "step_s": step_s, "plain_step_s": plain["step_s"],
+           "peak_memory_bytes": peak, "plain_peak_memory_bytes": plain["peak_memory_bytes"],
+           "step0_bit_equal": bit_equal, "plain_step0": list(step0),
+           "k4_launches": launches, "k4_launches_per_step": per_step,
+           "restored_step": at, "restored_bit_equal": restored_equal}
+    rec["launcher"] = launcher_run(args)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"sharded phase: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--authors", type=int, default=50_000)
@@ -3807,8 +4027,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_rec, moe_rows = moe_phase(args)
     rows += moe_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(args, moe_rec["granite_training"])
     record.update({"card": card, "lm": lm, "training": training, "moe": moe_rec,
-                   "args": vars(args), "kernels": rows})
+                   "sharded": sharded, "args": vars(args), "kernels": rows})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -197,6 +197,11 @@ class StreamedCorrection:
     def __getitem__(self, i):
         return (self.src, self.dst, self.count)[i]
 
+    @property
+    def nnz(self) -> int:
+        """The number of correction triples."""
+        return int(self.src.size)
+
     def nbytes(self) -> int:
         return int(self.src.nbytes + self.dst.nbytes + self.count.nbytes)
 

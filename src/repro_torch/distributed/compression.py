@@ -55,10 +55,11 @@ def compress_decompress(grads, err_state: Optional[dict]):
 
     ``grads`` is a tensor or a nested dict of tensors; ``err_state`` the
     residuals of the same shape (``None`` on step 0).  Returns
-    ``(dequantized, new_err_state)``."""
+    ``(dequantized, new_err_state)``.  DTensor leaves (the sharded
+    step's) keep their placements: the scale is each leaf's global
+    max |g|."""
     if err_state is None:
-        err_state = _map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
-                         grads)
+        err_state = _map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
 
     def one(g, e):
         corrected = g.to(torch.float32) + e

@@ -38,17 +38,25 @@ package).  Model code names tensor dims logically (``"batch"``,
 read the mesh's dim names alone and return a :class:`Spec` (one entry per
 tensor dim: a mesh-dim name, a tuple of names, or ``None``, as a JAX
 ``PartitionSpec`` holds); :func:`named_sharding` turns one into DTensor
-placements.  The port's layouts are explicit: :func:`shard` returns a
-plain tensor unchanged and redistributes a DTensor, and
-``models/moe.py`` reads the ``"experts"`` rule to choose its all-to-all
-dispatch.
+placements.  :func:`shard` returns a plain tensor unchanged and
+redistributes a DTensor: the reference's ``with_sharding_constraint``.
+
+The sharded train step's state is laid out as the reference's
+``in_shardings`` lay it out (``launch/cells.py``): :func:`distribute_tree`
+makes each param a DTensor placed by its logical axes,
+:func:`opt_placements` gives the optimizer state's placements from the
+params' (``cells._opt_shardings``), :func:`state_placements` those of a
+whole train state, which :func:`distribute_state` (or
+``train.checkpoint.restore_checkpoint(shardings=)``) places, and
+:func:`batch_placements` is the batch's ``("batch", None)``.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,12 +64,21 @@ from .world import initialized, rank_world
 
 __all__ = [
     "Spec",
+    "is_dtensor",
     "use_mesh_rules",
     "current_mesh",
     "shard",
     "logical_spec",
     "named_sharding",
     "specs_for_tree",
+    "placements_for",
+    "placements_for_tree",
+    "distribute_tree",
+    "opt_placements",
+    "state_placements",
+    "place_tree",
+    "distribute_state",
+    "batch_placements",
     "GRAPH_RULES",
     "shard_frontier",
     "extraction_shard_range",
@@ -88,6 +105,14 @@ class Spec(tuple):
 
     def __repr__(self) -> str:
         return f"Spec{tuple.__repr__(self)}"
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor, without importing DTensor's module (a
+    tensor can be one only once that module is loaded; importing it takes
+    about a second, which plain paths do not pay)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
 
 
 _state = threading.local()
@@ -206,9 +231,7 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         return x
     if x.ndim != len(logical_axes):
         raise ValueError(f"rank {x.ndim} tensor got {len(logical_axes)} logical axes")
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(x, DTensor):
+    if not is_dtensor(x):
         return x
     spec = _dedup_axes(logical_spec(logical_axes, rules, mesh))
     return x.redistribute(mesh, _placements(spec, mesh))
@@ -224,6 +247,123 @@ def specs_for_tree(axes_tree, rules: Mapping, mesh):
     if _is_axes(axes_tree):
         return logical_spec(axes_tree, rules, mesh)
     return {k: specs_for_tree(v, rules, mesh) for k, v in axes_tree.items()}
+
+
+def placements_for(logical_axes: Sequence[Optional[str]], rules: Mapping, mesh) -> tuple:
+    """The DTensor placements of a tensor with these logical axes:
+    ``_placements(_dedup_axes(logical_spec(...)))``."""
+    return _placements(_dedup_axes(logical_spec(logical_axes, rules, mesh)), mesh)
+
+
+def placements_for_tree(axes_tree, rules: Mapping, mesh):
+    """Nested dict of logical-axis tuples -> the same structure of
+    placements (:func:`placements_for`)."""
+    if _is_axes(axes_tree):
+        return placements_for(axes_tree, rules, mesh)
+    return {k: placements_for_tree(v, rules, mesh) for k, v in axes_tree.items()}
+
+
+def distribute_tree(tree, axes_tree, rules: Mapping, mesh):
+    """Each leaf of ``tree`` (plain tensors, the same on every rank) as a
+    DTensor on ``mesh`` placed by its logical axes in ``axes_tree``: the
+    reference's params ``in_shardings``,
+    ``specs_for_tree(logical_axes(cfg), rules, mesh)``, with a mesh dim
+    named twice kept on its first tensor dim."""
+    return place_tree(tree, placements_for_tree(axes_tree, rules, mesh), mesh)
+
+
+def _factored(placements: tuple, ndim: int, drop: int) -> tuple:
+    """The placements of a param's moment with tensor dim ``drop`` (``-1``
+    or ``-2``) reduced away: a split of that dim is replicated, a split of
+    a later dim moves down one."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    gone = ndim + drop
+    out = []
+    for p in placements:
+        if isinstance(p, Shard) and p.dim == gone:
+            out.append(Replicate())
+        elif isinstance(p, Shard) and p.dim > gone:
+            out.append(Shard(p.dim - 1))
+        else:
+            out.append(p)
+    return tuple(out)
+
+
+def opt_placements(opt_state, param_placements, mesh):
+    """The optimizer state's placements from the params' (the port of the
+    reference's ``cells._opt_shardings``): adamw / sgdm ``m``, ``v``,
+    ``mom`` mirror the params; adafactor's ``f`` keeps ``v`` as its param,
+    ``r`` without the param's last dim and ``c`` without its second to
+    last; any other entry is replicated."""
+    from torch.distributed.tensor import Replicate
+
+    def factored(sub, placements):
+        if any(isinstance(v, dict) for v in sub.values()):     # an inner node
+            return {k: factored(sub[k], placements[k]) for k in sub}
+        if "v" in sub:
+            return {"v": placements}
+        ndim = sub["r"].ndim + 1
+        return {"r": _factored(placements, ndim, -1), "c": _factored(placements, ndim, -2)}
+
+    def replicated(sub):
+        if isinstance(sub, dict):
+            return {k: replicated(v) for k, v in sub.items()}
+        return (Replicate(),) * mesh.ndim
+
+    out = {}
+    for key, sub in opt_state.items():
+        if key in ("m", "v", "mom"):
+            out[key] = param_placements
+        elif key == "f":
+            out[key] = factored(sub, param_placements)
+        else:
+            out[key] = replicated(sub)
+    return out
+
+
+def state_placements(state, param_axes, rules: Mapping, mesh) -> Dict:
+    """The placements of a train state ``{"params", "opt", "step", ...}``
+    (its structure is read, not its values): the params by their logical
+    axes, the optimizer state by :func:`opt_placements`, ``grad_err``
+    (int8 compression's residuals) as the params; any other entry
+    (``step``) ``None``: a plain tensor, the same on every rank, as the
+    reference replicates it."""
+    pp = placements_for_tree(param_axes, rules, mesh)
+    out = {k: None for k in state}
+    out["params"] = pp
+    out["opt"] = opt_placements(state["opt"], pp, mesh)
+    if state.get("grad_err") is not None:
+        out["grad_err"] = pp
+    return out
+
+
+def place_tree(tree, placements, mesh, src_data_rank: Optional[int] = 0):
+    """Each leaf of ``tree`` as a DTensor on ``mesh`` with the placements
+    at its path in ``placements`` (a leaf whose placements are ``None``,
+    or missing, stays as it is).  ``src_data_rank=None`` keeps each
+    rank's own copy (every rank holds the same values) instead of
+    broadcasting rank 0's."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, dict):
+        placements = placements or {}
+        return {k: place_tree(v, placements.get(k), mesh, src_data_rank)
+                for k, v in tree.items()}
+    if placements is None:
+        return tree
+    return distribute_tensor(tree, mesh, list(placements), src_data_rank=src_data_rank)
+
+
+def distribute_state(state, param_axes, rules: Mapping, mesh):
+    """A train state of plain tensors (the same on every rank) as the
+    sharded step holds it, placed by :func:`state_placements`."""
+    return place_tree(state, state_placements(state, param_axes, rules, mesh), mesh)
+
+
+def batch_placements(rules: Mapping, mesh) -> tuple:
+    """The placements of a ``(B, T)`` batch: ``("batch", None)``."""
+    return placements_for(("batch", None), rules, mesh)
 
 
 # ---------------------------------------------------------------------------

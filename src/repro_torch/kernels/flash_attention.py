@@ -66,6 +66,8 @@ import torch
 import torch.nn.functional as F
 import torch.profiler
 
+from ..distributed.sharding import is_dtensor
+
 __all__ = [
     "LAUNCHES",
     "PLAIN_CUDA_CALLS",
@@ -76,6 +78,7 @@ __all__ = [
     "flash_attention_plain",
     "flash_attention_backward_plain",
     "flash_attention_split_plain",
+    "sharded_flash_attention",
 ]
 
 # wrapper calls on the card, then each kernel's launches
@@ -489,7 +492,16 @@ def flash_attention(
     cache whose inputs require grad (grad mode on) goes through
     :class:`FlashAttentionFn`, as the reference's ``train_path`` goes
     through its custom VJP; a call with a cache that requires grad
-    raises."""
+    raises.
+
+    DTensor ``q``, ``k``, ``v`` (the sharded train step's) run through
+    :func:`sharded_flash_attention`: each rank calls this function on its
+    own shards."""
+    if is_dtensor(q):
+        if kv_length is not None or q_offset != 0:
+            raise ValueError("attention over a KV cache takes plain tensors, not DTensors")
+        return sharded_flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                       block_kv=block_kv)
     _check(q, k, v, kv_length)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if kv_length is not None or q_offset != 0:
@@ -504,3 +516,85 @@ def flash_attention(
             block_q=block_q, block_kv=block_kv,
         )
     return _launch(q, k, v, causal, q_offset, kv_length, with_lse=False)[0]
+
+
+def _attention_placements(q, k):
+    """Per mesh dim, the placements K4's shards need: ``q`` split over its
+    batch (dim 0) or heads (dim 2), or replicated; ``k`` / ``v`` split as
+    ``q``'s batch, over their own heads where those line up with ``q``'s
+    head blocks (``KV`` divides as ``H`` does), or replicated; and the
+    gradient placements of ``k`` / ``v``: ``Partial`` where they are
+    replicated beside ``q``'s head split (each rank's query heads add
+    their share to the same kv heads)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    qp, kp, kgp = [], [], []
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if a in (Shard(0), Shard(2)) and n > 1:
+            qp.append(a)
+        else:
+            qp.append(Replicate())
+        if qp[-1] == Shard(0):
+            kp.append(Shard(0))
+            kgp.append(Shard(0))
+        elif qp[-1] == Shard(2):
+            aligned = b == Shard(2) and KV % n == 0 and H % n == 0
+            kp.append(Shard(2) if aligned else Replicate())
+            kgp.append(Shard(2) if aligned else Partial())
+        else:
+            kp.append(Replicate())
+            kgp.append(Replicate())
+    return tuple(qp), tuple(kp), tuple(kgp)
+
+
+def sharded_flash_attention(
+    q, k, v, *, causal: bool = True, block_q: int = 512, block_kv: int = 1024,
+):
+    """:func:`flash_attention` of DTensor ``q`` ``(B, Tq, H, D)`` and
+    ``k``, ``v`` ``(B, Tk, KV, D)`` without a cache, under
+    ``torch.distributed.tensor.experimental.local_map``: each rank runs
+    K4 (its plain version on a CPU tensor) and :class:`FlashAttentionFn`'s
+    backward on its own batch rows and query heads, so no DTensor reaches
+    the kernel's ``ctypes`` call or the backward's in-place adds.
+
+    Inputs are redistributed to :func:`_attention_placements`' layout.
+    A rank whose query heads are ``[h0, h0 + H_loc)`` reads kv heads
+    ``[h0 // G, (h0 + H_loc - 1) // G]`` of its ``k`` / ``v`` shard (``G =
+    H / KV``), so that each query head meets its own kv head as in the
+    unsharded call; a head split that cuts a group unevenly raises.
+    Each rank launches K4 once per call, as the unsharded step does."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qp, kp, kgp = _attention_placements(q, k)
+    q = q.redistribute(mesh, qp)
+    k = k.redistribute(mesh, kp)
+    v = v.redistribute(mesh, kp)
+    G = q.shape[2] // k.shape[2]
+    q_shape, q_off = compute_local_shape_and_global_offset(q.shape, mesh, qp)
+    k_shape, k_off = compute_local_shape_and_global_offset(k.shape, mesh, kp)
+    h0, h_loc, kv0, kv_loc = q_off[2], q_shape[2], k_off[2], k_shape[2]
+    lo, hi = h0 // G, (h0 + h_loc - 1) // G + 1
+    g_loc = h_loc // (hi - lo) if h_loc else 1
+    if h_loc and (lo < kv0 or hi > kv0 + kv_loc or h_loc % (hi - lo) or any(
+            (h0 + j) // G - lo != j // g_loc for j in range(h_loc))):
+        raise ValueError(
+            f"query heads [{h0}, {h0 + h_loc}) of a {G}-head group size cannot meet "
+            f"kv heads [{kv0}, {kv0 + kv_loc}) on this rank"
+        )
+
+    def local(q_l, k_l, v_l):
+        if (lo, hi) != (kv0, kv0 + kv_loc):
+            k_l = k_l[:, :, lo - kv0:hi - kv0].contiguous()
+            v_l = v_l[:, :, lo - kv0:hi - kv0].contiguous()
+        return flash_attention(q_l.contiguous(), k_l, v_l, causal=causal,
+                               block_q=block_q, block_kv=block_kv)
+
+    # a tuple of placements would read as one per output: lists here
+    qp, kp, kgp = list(qp), list(kp), list(kgp)
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kgp, kgp), device_mesh=mesh)(q, k, v)

@@ -74,9 +74,19 @@ class BlockSparseBitmap:
         return int(self.row_start.shape[0])
 
     @property
+    def max_k(self) -> int:
+        """The most slots of any row tile (0 for an empty layer)."""
+        return int(self.row_count.max()) if self.row_count.size else 0
+
+    @property
     def n_src_tiles(self) -> int:
         # min 1: pad slots index source tile 0
         return max(-(-self.n_src // TILE), 1)
+
+    @property
+    def n_nonzero_blocks(self) -> int:
+        """Slots whose 128 x 128 block holds at least one edge."""
+        return int((self.bitmaps.any(axis=(1, 2))).sum())
 
     def nbytes(self) -> int:
         return int(

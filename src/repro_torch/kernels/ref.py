@@ -10,6 +10,7 @@ from .pack import BlockSparseBitmap
 
 __all__ = [
     "bitmap_spmm_ref",
+    "segment_spmm_ref",
     "segment_semiring_ref",
     "two_hop_ref",
 ]
@@ -23,6 +24,16 @@ def bitmap_spmm_ref(bsb: BlockSparseBitmap, x: np.ndarray) -> np.ndarray:
     xp = np.zeros((n_src_pad, x.shape[1]), dtype=np.float64)
     xp[: x.shape[0]] = x
     return (dense.astype(np.float64) @ xp)[: bsb.n_dst]
+
+
+def segment_spmm_ref(
+    src: torch.Tensor, dst: torch.Tensor, x: torch.Tensor, n_dst: int
+) -> torch.Tensor:
+    """Edge-list oracle: ``y[dst] += x[src]``, a segment sum of the
+    gathered rows (``(n_dst, F)``, 0 where no edge lands)."""
+    rows = x.index_select(0, src.to(torch.int64))
+    out = torch.zeros((n_dst,) + tuple(rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, dst.to(torch.int64), rows)
 
 
 def segment_semiring_ref(

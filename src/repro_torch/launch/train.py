@@ -1,4 +1,5 @@
-"""Training launcher: ``--arch <id>`` end-to-end training on one device.
+"""Training launcher: ``--arch <id>`` end-to-end training on one device,
+or an LM over the ranks of a process group.
 
 The port of the JAX package's ``launch/train.py``, with its flags and its
 three families (the LMs, dense and MoE; SASRec; the GNNs) at their
@@ -16,10 +17,27 @@ reachable from the command line).  Example::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --steps 20 \\
         --device cpu --checkpoint-dir /tmp/ckpt
+
+Under a process group (one that is initialised already, or the one that
+``torch.distributed.run``'s environment describes, which :func:`main`
+initialises: NCCL with one card per rank, gloo with ``--device cpu``)::
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch glm4-9b --device cpu
+
+an LM's state is distributed by ``cfg.sharding_rules`` over
+:func:`~repro_torch.launch.mesh.make_host_mesh` (each param a DTensor,
+the optimizer state placed as its param), each rank feeds its rows of
+every batch (every rank draws the same global batch from the seeded
+pipeline), a checkpoint is gathered and written by rank 0, and
+``--resume`` restores it with ``shardings=``.  SASRec and the GNNs train
+on one rank only: their sharded steps come with the dry-run cells
+(ROADMAP.md Queue 1 item 2).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -27,7 +45,9 @@ import torch
 
 from ..configs import registry
 from ..data.pipeline import TokenPipeline, sasrec_batches
+from ..distributed import sharding
 from ..distributed.sharding import use_mesh_rules
+from ..distributed.world import initialized, rank_world
 from ..launch.mesh import make_host_mesh
 from ..launch.orchestrator import Supervisor
 from ..models import gnn, sasrec, transformer
@@ -101,14 +121,60 @@ def main(argv=None) -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
 
+    own_group = _init_launched_group(args.device)
+    try:
+        return _train(args)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _init_launched_group(device: str) -> bool:
+    """Initialise the process group that ``torch.distributed.run``'s
+    environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``) describes, when there is one and no group is
+    initialised yet: NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU.
+    Returns whether it did."""
+    import torch.distributed as dist
+
+    if initialized() or "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl", init_method="env://")
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    return True
+
+
+def _train(args) -> int:
     mod = registry.get_arch(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
     supervisor = Supervisor(n_workers=1, checkpoint_interval=args.checkpoint_every)
     mgr = CheckpointManager(args.checkpoint_dir, keep_last=2) if args.checkpoint_dir else None
+    mesh = make_host_mesh(torch.device(args.device).type)
+    rules = dict(cfg.sharding_rules)
+    distributed = initialized()
+    if distributed and mod.SHAPE_FAMILY != "lm" and rank_world()[1] > 1:
+        raise ValueError(
+            f"{args.arch} trains on one rank: the SASRec and GNN sharded steps come with the "
+            "dry-run cells (ROADMAP.md Queue 1 item 2)"
+        )
+    shardings = None
 
     if mod.SHAPE_FAMILY == "lm":
         state, step_fn, pipe = build_lm_training(cfg, device=args.device)
         batch_of = lambda: next(pipe)  # noqa: E731
+        if distributed:
+            # the state laid out by the rules; each rank feeds its rows
+            shardings = sharding.state_placements(state, transformer.logical_axes(cfg), rules,
+                                                  mesh)
+            state = sharding.place_tree(state, shardings, mesh)
+            rows = sharding.batch_placements(rules, mesh)
+            batch_of = lambda: sharding.place_tree(  # noqa: E731
+                next(pipe), {"tokens": rows, "labels": rows}, mesh, src_data_rank=None)
     elif mod.SHAPE_FAMILY == "recsys":
         state, step_fn, pipe = build_sasrec_training(cfg, device=args.device)
         batch_of = lambda: next(pipe)  # noqa: E731
@@ -118,11 +184,14 @@ def main(argv=None) -> int:
 
     start = 0
     if args.resume and mgr is not None and mgr.latest_step() is not None:
-        state, start = mgr.restore_latest(device=args.device)
+        if shardings is not None:
+            state, start = mgr.restore_latest(device=args.device, shardings=shardings,
+                                              mesh=mesh)
+        else:
+            state, start = mgr.restore_latest(device=args.device)
         print(f"resumed from step {start}")
 
-    mesh = make_host_mesh(torch.device(args.device).type)
-    with use_mesh_rules(mesh, dict(cfg.sharding_rules)):
+    with use_mesh_rules(mesh, rules):
         for i in range(start, args.steps):
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch_of())

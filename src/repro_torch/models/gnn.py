@@ -1,19 +1,23 @@
 """GNN zoo: MeshGraphNet, GraphCast, SchNet, DimeNet.
 
 A port of the JAX package's ``models/gnn.py``.  All message passing is
-gather + segment sum over an edge index, as in the reference.  The
-segment sums go through ``index_add_``: on the CPU it adds in edge order;
-on the card it adds with atomics in no fixed order, so a float sum's last
-bits can change from run to run there (the tests and the smoke run hold
-them to a tolerance, never to bits).
+gather + segment sum over an edge index, as in the reference.  Each sum
+adds a segment's values in a fixed order, on every device: the index is
+sorted once per graph (the order kept on the :class:`GraphBatch`) and
+``torch.segment_reduce`` adds each segment's run, so a step repeats its
+bits on the card (``index_add_`` there adds with atomics in no fixed
+order).  Of the fixed orders it is the quicker: a sort per graph beats
+a segment plan per graph in every GNN step on an H100
+(``scripts/gnn_segsum_times.py``).
 
 Input container: :class:`GraphBatch`, one (possibly batched, padded)
 graph as tensors.  SchNet and DimeNet need ``positions``; DimeNet needs
 ``triplets`` (the edge pairs k->j->i of
 :func:`repro_torch.data.graphs.build_triplets`).  Masks make padding
 inert.  ``cfg.remat_policy != "none"`` recomputes the whole forward in
-the backward (``torch.utils.checkpoint``, non-reentrant), where the
-reference checkpoints it with a dots-saveable policy.
+the backward and keeps the outputs of its matmuls without batch dims
+(:func:`~repro_torch.models.layers.remat`), as the reference's
+``dots_with_no_batch_dims_saveable`` policy does.
 """
 from __future__ import annotations
 
@@ -23,10 +27,9 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from ..configs.base import GNNConfig
-from .layers import layer_norm, mlp_apply, mlp_init
+from .layers import layer_norm, mlp_apply, mlp_init, remat
 
 __all__ = ["GraphBatch", "init_params", "forward"]
 
@@ -62,9 +65,23 @@ class GraphBatch:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def _seg_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
-    return out.index_add(0, ids.long(), vals)
+def _segment_ids(g: GraphBatch, name: str) -> torch.Tensor:
+    return g.triplets[:, 1] if name == "ji" else getattr(g, name)
+
+
+def _seg_sum(vals: torch.Tensor, g: GraphBatch, name: str, n: int) -> torch.Tensor:
+    """Sum of ``vals`` over the ``n`` segments of ``g``'s index ``name``
+    (``"edge_dst"``, ``"graph_ids"`` or ``"ji"``, the triplets' target
+    edges): the values in the index's stable sort order, which is built
+    at the first sum and kept on ``g``, each segment's run added in that
+    order (edge order within a segment, as ``index_add_`` adds on the
+    CPU)."""
+    orders = g.__dict__.setdefault("_segment_orders", {})
+    if (name, n) not in orders:
+        ids = _segment_ids(g, name).long()
+        orders[name, n] = (torch.argsort(ids, stable=True), torch.bincount(ids, minlength=n))
+    order, lengths = orders[name, n]
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths, axis=0)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -149,9 +166,9 @@ def _epd_forward(params, g: GraphBatch, cfg: GNNConfig):
         dst_h = _take(h, g.edge_dst)
         e_upd = mlp_apply(bp["edge_mlp"], torch.cat([he, src_h, dst_h], dim=-1))
         he = layer_norm(he + e_upd * emask, bp["ln_e"], bp["ln_e_b"])
-        agg = _seg_sum(he * emask, g.edge_dst, n)
+        agg = _seg_sum(he * emask, g, "edge_dst", n)
         if cfg.aggregator == "mean":
-            deg = _seg_sum(emask, g.edge_dst, n)
+            deg = _seg_sum(emask, g, "edge_dst", n)
             agg = agg / torch.clamp(deg, min=1.0)
         n_upd = mlp_apply(bp["node_mlp"], torch.cat([h, agg], dim=-1))
         h = layer_norm(h + n_upd * nmask, bp["ln_n"], bp["ln_n_b"])
@@ -196,13 +213,13 @@ def _schnet_forward(params, g: GraphBatch, cfg: GNNConfig):
         w = mlp_apply(bp["filter"], rbf, activation=F.softplus)     # (E, h)
         src = _take(mlp_apply(bp["in_lin"], h), g.edge_src)
         msg = src * w * emask[:, None]
-        agg = _seg_sum(msg, g.edge_dst, n)
+        agg = _seg_sum(msg, g, "edge_dst", n)
         h = h + mlp_apply(bp["post"], agg, activation=F.softplus)
 
     out = mlp_apply(params["out"], h, activation=F.softplus)
     out = out * g.node_mask[:, None].to(adt)
     if g.graph_ids is not None:
-        return _seg_sum(out, g.graph_ids, g.n_graphs)  # per-molecule energy
+        return _seg_sum(out, g, "graph_ids", g.n_graphs)  # per-molecule energy
     return out
 
 
@@ -281,16 +298,16 @@ def _dimenet_forward(params, g: GraphBatch, cfg: GNNConfig):
         # bilinear: sum_b a_b * (mk @ W_b)
         mw = torch.einsum("th,bhg->tbg", mk, bp["bilinear"].to(m.dtype))
         tri_msg = torch.einsum("tb,tbg->tg", a, mw) * tmask[:, None]
-        agg = _seg_sum(tri_msg, idx_ji, e)                           # per target edge
+        agg = _seg_sum(tri_msg, g, "ji", e)                           # per target edge
         m = m + mlp_apply(bp["update"], agg, activation=_silu)
         m = m * emask[:, None]
 
     w = mlp_apply(params["rbf_out"], rbf)
-    node_out = _seg_sum(m * w * emask[:, None], g.edge_dst, n)
+    node_out = _seg_sum(m * w * emask[:, None], g, "edge_dst", n)
     out = mlp_apply(params["out"], node_out, activation=_silu)
     out = out * g.node_mask[:, None].to(adt)
     if g.graph_ids is not None:
-        return _seg_sum(out, g.graph_ids, g.n_graphs)
+        return _seg_sum(out, g, "graph_ids", g.n_graphs)
     return out
 
 
@@ -326,6 +343,5 @@ _FORWARD = {
 def forward(params: Dict, g: GraphBatch, cfg: GNNConfig) -> torch.Tensor:
     fwd = _FORWARD[cfg.kind]
     if cfg.remat_policy != "none" and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(
-            lambda p: fwd(p, g, cfg), params, use_reentrant=False)
+        return remat(lambda p: fwd(p, g, cfg), params, save_matmuls=True)
     return fwd(params, g, cfg)

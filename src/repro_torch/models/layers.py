@@ -11,15 +11,18 @@ dtype at use.  :func:`flash_attention` is the K4 wrapper of
 the reference's custom backward.  :func:`embedding_bag` is gather +
 segment reduce; its sums go through ``index_add_``, which on the card
 adds in no fixed order (atomics), so a sum's last bits may change from
-run to run there.
+run to run there.  :func:`remat` is the reference's ``jax.checkpoint``
+under its two policies.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention import flash_attention
 
 __all__ = [
@@ -32,6 +35,7 @@ __all__ = [
     "rope",
     "flash_attention",
     "embedding_bag",
+    "remat",
 ]
 
 
@@ -114,12 +118,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """Rotary embedding, llama split-half convention.
 
     x: ``(..., T, n_heads, head_dim)``; positions: broadcastable to
-    ``(..., T)``."""
+    ``(..., T)``.  For a DTensor ``x`` the tables are replicated DTensors
+    on its mesh (every rank computes them whole)."""
     half = x.shape[-1] // 2
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
     angles = positions[..., :, None].to(torch.float32) * freqs    # (..., T, half)
     cos = torch.cos(angles)[..., :, None, :]                       # (..., T, 1, half)
     sin = torch.sin(angles)[..., :, None, :]
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        rep = [Replicate()] * x.device_mesh.ndim
+        cos, sin = (DTensor.from_local(t, x.device_mesh, rep, run_check=False)
+                    for t in (cos, sin))
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
@@ -154,3 +165,49 @@ def embedding_bag(
         out = out.scatter_reduce(0, idx, rows, reduce="amax")
         return torch.where(torch.isneginf(out), 0.0, out)
     raise ValueError(mode)
+
+
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable: the outputs of
+# matmuls without batch dims (bmm has one, and is recomputed)
+_SAVED_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_matmuls():
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def remat(fn: Callable, *args, save_matmuls: bool):
+    """``fn(*args)`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``).  ``save_matmuls`` keeps the outputs of
+    ``mm`` / ``addmm`` (the reference's ``dots_with_no_batch_dims_saveable``
+    policy) and recomputes the rest; otherwise only the inputs are kept
+    (``nothing_saveable``).  The recompute runs under the caller's mesh
+    and rules (``use_mesh_rules`` is thread-local, and the card's backward
+    runs on autograd's own thread)."""
+    import torch.utils.checkpoint
+
+    from ..distributed.sharding import _ctx, use_mesh_rules
+
+    mesh, rules = _ctx()
+
+    def context_fn():
+        fwd, rec = (_save_matmuls() if save_matmuls
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _entered(rec, use_mesh_rules(mesh, rules))
+
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             context_fn=context_fn)

@@ -48,7 +48,7 @@ import torch.distributed as dist
 import torch.profiler
 
 from ..configs.base import MoEConfig
-from ..distributed.sharding import _ctx, shard
+from ..distributed.sharding import _ctx, is_dtensor, shard
 
 __all__ = ["moe_init", "moe_apply", "moe_logical_axes", "MOE_RANGE", "EXPERTS_RANGE"]
 
@@ -202,6 +202,126 @@ def _moe_sort(params, x: torch.Tensor, cfg: MoEConfig):
     return y, _metrics(aux_loss, z_loss, keep)
 
 
+def _replicated(mesh) -> list:
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate()] * mesh.ndim
+
+
+def _expert_layout(mesh):
+    """Placements of the expert products on ``mesh`` under the ambient
+    rules: ``(buf, w_gate / w_up, w_down, out, buf grad)``.  A mesh dim
+    that the ``"experts"`` rule names splits the buffer, the weights and
+    the output over experts (EP: each rank runs its own experts); one that
+    ``"expert_ff"`` names (and ``"experts"`` does not) splits the weights
+    over ``F`` with the buffer whole, so each rank's down product is a
+    partial sum; any other dim holds everything whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..distributed.sharding import _dedup_axes, logical_spec
+
+    _, rules = _ctx()
+    spec = _dedup_axes(logical_spec(("experts", None, "expert_ff"), rules or {}, mesh))
+
+    def names(entry):
+        return set(entry if isinstance(entry, tuple) else (entry,)) - {None}
+
+    ep, ff = names(spec[0]), names(spec[2])
+    lay = []
+    for name in mesh.mesh_dim_names:
+        if name in ep:
+            lay.append((Shard(0), Shard(0), Shard(0), Shard(0), Shard(0)))
+        elif name in ff:
+            lay.append((Replicate(), Shard(2), Shard(1), Partial(), Partial()))
+        else:
+            lay.append((Replicate(),) * 5)
+    return tuple(list(col) for col in zip(*lay))
+
+
+def _moe_sort_dtensor(params, x, cfg: MoEConfig):
+    """:func:`_moe_sort` of a DTensor ``x`` and DTensor weights (the
+    sharded train step's).  The capacity and the drops come from the
+    global tokens, as in the reference: the tokens and the router are
+    gathered, and each rank routes, sorts and fills the ``(E, C, D)``
+    buffer under ``local_map`` (the same work on every rank).  The
+    expert products run on each rank's own experts (a mesh dim under
+    ``"experts"``, EP) or its ``F`` slice (under ``"expert_ff"``, the
+    down product a partial sum), the gathers back and the combine on the
+    whole buffer in the reference's scatter order."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(int(T * K / E * cfg.capacity_factor), min(T, 128), 1)
+    rep = _replicated(mesh)
+    dt = x.dtype
+
+    def dispatch(x_l, router):
+        eids, gates, aux_loss, z_loss = _route({"router": router}, x_l, cfg)
+        se, _, st, sg, pos_c, keep, order = _sort_positions(eids, gates, E, C, lambda e: e)
+        row = se * C + pos_c
+        buf = _write_rows(x_l[st], torch.where(keep, row, E * C), E * C).view(E, C, D)
+        drop = 1.0 - torch.mean(keep.float())
+        return (buf, (sg * keep).to(dt), torch.where(keep, row, 0), order,
+                aux_loss, z_loss, drop)
+
+    buf, w, rows, order, aux_loss, z_loss, drop = local_map(
+        dispatch, out_placements=(rep,) * 7, in_placements=(rep, rep), device_mesh=mesh,
+    )(x.redistribute(mesh, rep), params["router"].redistribute(mesh, rep))
+
+    buf_p, wgu_p, wd_p, out_p, buf_gp = _expert_layout(mesh)
+    # each weight whole on the dims its products do not split (the FSDP
+    # gather over "embed_param"), its gradient summed back by the reverse
+    wg, wu, wd = (params[n].redistribute(mesh, p) for n, p in
+                  (("w_gate", wgu_p), ("w_up", wgu_p), ("w_down", wd_p)))
+    out_buf = local_map(
+        lambda b, g, u, d: _expert_ffn({"w_gate": g, "w_up": u, "w_down": d}, b, dt,
+                                       constrain=False),
+        out_placements=out_p, in_placements=(buf_p, wgu_p, wgu_p, wd_p),
+        in_grad_placements=(buf_gp, wgu_p, wgu_p, wd_p), device_mesh=mesh,
+    )(buf.redistribute(mesh, buf_p), wg, wu, wd)
+
+    def combine(out_l, w_l, rows_l, order_l):
+        expert_out = torch.index_select(out_l.reshape(E * C, D), 0, rows_l) * w_l[:, None]
+        return _combine(expert_out, order_l, T, K)
+
+    y = local_map(combine, out_placements=rep, in_placements=(rep, rep, rep, rep),
+                  device_mesh=mesh)(out_buf.redistribute(mesh, rep), w, rows, order)
+    metrics = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss, "moe_drop_fraction": drop}
+    return shard(y, None, "embed"), metrics
+
+
+def _moe_a2a_dtensor(params, x, cfg: MoEConfig, mesh, ep_axis: str):
+    """:func:`_moe_a2a` of a DTensor ``x`` and DTensor weights under
+    ``local_map``: the tokens split over every mesh dim in rank order,
+    the router whole, each expert weight this rank's block on
+    ``ep_axis``.  A weight's gradient is each rank's share summed over
+    the other dims (each rank routed its own tokens)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    tok = [Shard(0)] * mesh.ndim
+    rep = _replicated(mesh)
+    w_p = [Shard(0) if n == ep_axis else Replicate() for n in mesh.mesh_dim_names]
+    w_gp = [Shard(0) if n == ep_axis else Partial() for n in mesh.mesh_dim_names]
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def local(x_l, router, wg, wu, wd):
+        y, m = _moe_a2a({"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}, x_l,
+                        cfg, mesh, ep_axis, mean_grad="local")
+        return y, m["moe_aux_loss"], m["moe_z_loss"], m["moe_drop_fraction"]
+
+    y, aux_loss, z_loss, drop = local_map(
+        local, out_placements=(tok, rep, rep, rep),
+        in_placements=(tok, rep, w_p, w_p, w_p),
+        in_grad_placements=(tok, [Partial()] * mesh.ndim, w_gp, w_gp, w_gp),
+        device_mesh=mesh,
+    )(x.redistribute(mesh, tok), *(params[n].redistribute(mesh, rep if n == "router" else w_p)
+                                   for n in names))
+    return y, {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss, "moe_drop_fraction": drop}
+
+
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_single`` of equal row blocks over ``group``; its
     backward is the same exchange of the gradient (the reverse
@@ -242,38 +362,62 @@ class _AllReduceSum(torch.autograd.Function):
         return grad, None
 
 
-def _mesh_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+class _AllReduceLocalGrad(torch.autograd.Function):
+    """Sum over ``group`` whose backward passes each rank's gradient
+    through unreduced: the sum is one value held on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _mesh_mean(t: torch.Tensor, mesh, grad: str = "sum") -> torch.Tensor:
     """The mean of ``t`` over every rank of ``mesh`` (the reference's
     ``pmean`` over all axes): a sum over each mesh dim's group in turn,
-    divided by the mesh's size."""
+    divided by the mesh's size.  ``grad='sum'`` all-reduces the gradient
+    too (:class:`_AllReduceSum`), ``'local'`` does not
+    (:class:`_AllReduceLocalGrad`)."""
     if mesh.size() == 1:
         return t
+    fn = _AllReduceSum if grad == "sum" else _AllReduceLocalGrad
     for i, name in enumerate(mesh.mesh_dim_names):
         if mesh.size(i) > 1:
-            t = _AllReduceSum.apply(t, mesh.get_group(name))
+            t = fn.apply(t, mesh.get_group(name))
     return t / mesh.size()
 
 
-def _moe_a2a(params, x: torch.Tensor, cfg: MoEConfig, mesh, ep_axis: str):
+def _moe_a2a(params, x: torch.Tensor, cfg: MoEConfig, mesh, ep_axis: str,
+             mean_grad: str = "sum"):
     """Expert-parallel all-to-all dispatch.
 
     ``x`` is this rank's block of the tokens, which are split over every
     mesh dim in the mesh's rank order (the reference's
-    ``P(token_axes, None)`` over all axes); experts are split over
-    ``ep_axis`` and replicated elsewhere (each rank uses its block of the
-    full weights).  Each rank routes its local tokens, buckets them by
-    destination EP rank, and one all-to-all over ``ep_axis`` moves
-    ``T_local * K * D`` values there and back.  On a one-rank EP dim no
-    collective runs, but the path keeps its own capacities ``C`` and
-    ``C2``.  The metrics are averaged over every rank of the mesh."""
+    ``P(token_axes, None)`` over all axes); ``params`` are the router
+    (whole) and the expert block that this rank holds on ``ep_axis``
+    (experts ``[r * E_loc, (r + 1) * E_loc)`` of EP rank ``r``, the
+    reference's ``P(ep_axis, None, None)`` shard).  Each rank routes its
+    local tokens, buckets them by destination EP rank, and one all-to-all
+    over ``ep_axis`` moves ``T_local * K * D`` values there and back.  On
+    a one-rank EP dim no collective runs, but the path keeps its own
+    capacities ``C`` and ``C2``.  The metrics are averaged over every rank
+    of the mesh (``mean_grad='sum'`` sums their gradients over the ranks,
+    as when each rank differentiates its own loss; ``'local'`` keeps each
+    rank's share, as under ``local_map``, where the mean is one value)."""
     E, K = cfg.n_experts, cfg.top_k
     n_ranks = mesh.size(mesh.mesh_dim_names.index(ep_axis))
     E_loc = E // n_ranks
+    if params["w_gate"].shape[0] != E_loc:
+        raise ValueError(f"_moe_a2a takes this rank's {E_loc} experts, got "
+                         f"{params['w_gate'].shape[0]}")
     group = mesh.get_group(ep_axis) if n_ranks > 1 else None
     rank = mesh.get_local_rank(ep_axis) if n_ranks > 1 else 0
-    lo, hi = rank * E_loc, (rank + 1) * E_loc
-    p_loc = {"router": params["router"], "w_gate": params["w_gate"][lo:hi],
-             "w_up": params["w_up"][lo:hi], "w_down": params["w_down"][lo:hi]}
+    p_loc = params
 
     T_loc, D = x.shape
     eids, gates, aux_loss, z_loss = _route(p_loc, x, cfg)
@@ -313,7 +457,7 @@ def _moe_a2a(params, x: torch.Tensor, cfg: MoEConfig, mesh, ep_axis: str):
         sg * keep).to(x.dtype)[:, None]
     y = _combine(contrib, order, T_loc, K)
     metrics = _metrics(aux_loss, z_loss, keep)
-    return y, {k: _mesh_mean(v, mesh) for k, v in metrics.items()}
+    return y, {k: _mesh_mean(v, mesh, mean_grad) for k, v in metrics.items()}
 
 
 def moe_apply(
@@ -325,10 +469,16 @@ def moe_apply(
     :func:`~repro_torch.distributed.sharding.use_mesh_rules` context whose
     ``"experts"`` rule names a mesh dim that divides the experts; without
     one (or with the ``'sort'`` dispatch) the sort path runs, as in the
-    reference.  Both run wherever ``x`` lies."""
+    reference.  Both run wherever ``x`` lies.  A DTensor ``x`` (with
+    DTensor weights) takes :func:`_moe_sort_dtensor` or
+    :func:`_moe_a2a_dtensor`; a plain ``x`` on the a2a path is this rank's
+    block of the tokens, with this rank's expert block."""
+    sharded = is_dtensor(x)
     with torch.profiler.record_function(MOE_RANGE):
         if cfg.dispatch == "a2a":
             mesh, rules = _ctx()
+            if sharded:
+                mesh = x.device_mesh
             ep_axis = rules.get("experts") if rules else None
             if (
                 mesh is not None
@@ -336,6 +486,10 @@ def moe_apply(
                 and ep_axis in mesh.mesh_dim_names
                 and cfg.n_experts % mesh.size(mesh.mesh_dim_names.index(ep_axis)) == 0
             ):
+                if sharded:
+                    return _moe_a2a_dtensor(params, x, cfg, mesh, ep_axis)
                 return _moe_a2a(params, x, cfg, mesh, ep_axis)
             # no mesh / incompatible sharding: fall through to the baseline
+        if sharded:
+            return _moe_sort_dtensor(params, x, cfg)
         return _moe_sort(params, x, cfg)

@@ -24,8 +24,19 @@ serving holds them in ``cfg.dtype`` already (18.8 GB for glm4-9b instead
 of 37.6 GB), where the cast is a no-op.
 
 ``cfg.remat_policy != "none"`` recomputes each layer in the backward
-(``torch.utils.checkpoint``, non-reentrant): only the layer's input is
-kept, and its attention runs K4 again there.
+(:func:`~repro_torch.models.layers.remat`), and its attention runs K4
+again there: ``"full"`` keeps only the layer's input, ``"minimal"`` also
+the outputs of its matmuls without batch dims (the reference's
+``dots_with_no_batch_dims_saveable``).
+
+The forward runs sharded on DTensor params and tokens (the sharded
+train step's, :func:`~repro_torch.distributed.sharding.distribute_state`)
+under ``use_mesh_rules``: each layer's weights are constrained to their
+logical axes (the reference's ``_constrain_lp``), the activations where
+the reference constrains them, K4 and the MoE dispatch run on each rank's
+shards under ``local_map``, and rope's tables are replicated DTensors
+beside DTensor activations (so the backward meets no plain tensor
+either; the other constants are 0-d, which DTensor takes as they are).
 
 The cache is updated in place: a forward with a cache writes the new keys
 and values into ``cache.k`` / ``cache.v`` and returns a :class:`KVCache`
@@ -40,11 +51,12 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.utils.checkpoint
 
 from ..configs.base import TransformerConfig
+from ..distributed.sharding import is_dtensor, shard
 from . import moe as moe_lib
 from .layers import dense_init, flash_attention, rms_norm, rope
+from .layers import remat as remat_fn
 
 __all__ = ["torch_dtype", "init_params", "logical_axes", "KVCache", "init_cache", "forward"]
 
@@ -172,9 +184,11 @@ def _attention(
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    q = rope((x @ lp["wq"].to(x.dtype)).reshape(B, T, H, hd), positions, cfg.rope_theta)
-    k = rope((x @ lp["wk"].to(x.dtype)).reshape(B, T, KV, hd), positions, cfg.rope_theta)
-    v = (x @ lp["wv"].to(x.dtype)).reshape(B, T, KV, hd)
+    q = shard((x @ lp["wq"].to(x.dtype)).reshape(B, T, H, hd), "batch", "seq", "heads", None)
+    k = shard((x @ lp["wk"].to(x.dtype)).reshape(B, T, KV, hd), "batch", "seq", "kv_heads", None)
+    v = shard((x @ lp["wv"].to(x.dtype)).reshape(B, T, KV, hd), "batch", "seq", "kv_heads", None)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
     if cache_kv is not None:
         ck, cv = cache_kv                                   # (B, max_len, KV, hd)
         ck[:, cache_len:cache_len + T] = k
@@ -189,27 +203,57 @@ def _attention(
             q, k, v, causal=True,
             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
         )
-    return out.reshape(B, T, H * hd) @ lp["wo"].to(x.dtype)
+    out = shard(out, "batch", "seq", "heads", None)
+    return shard(out.reshape(B, T, H * hd) @ lp["wo"].to(x.dtype), "batch", "act_seq", "embed")
 
 
 def _mlp(mlp: Dict, x: torch.Tensor) -> torch.Tensor:
-    g = x @ mlp["w_gate"].to(x.dtype)
-    u = x @ mlp["w_up"].to(x.dtype)
+    g = shard(x @ mlp["w_gate"].to(x.dtype), "batch", "seq", "ff")
+    u = shard(x @ mlp["w_up"].to(x.dtype), "batch", "seq", "ff")
     # jax.nn.silu is x * sigmoid(x) with sigmoid = 1 / (1 + exp(-x)), each
     # op rounded to x's dtype (torch.sigmoid rounds once: other bf16 bits)
-    return ((g * (1.0 / (1.0 + torch.exp(-g)))) * u) @ mlp["w_down"].to(x.dtype)
+    y = ((g * (1.0 / (1.0 + torch.exp(-g)))) * u) @ mlp["w_down"].to(x.dtype)
+    return shard(y, "batch", "act_seq", "embed")
+
+
+def _layer_weights(layers: Dict, group: str, i: int, cfg: TransformerConfig) -> Dict:
+    """Layer ``i``'s weights of ``group``, each constrained to its logical
+    axes (the reference's ``_constrain_lp``: a no-op without a mesh)."""
+    axes = logical_axes(cfg)["layers"][group]
+    return {name: shard(w[i], *axes[name][1:]) for name, w in layers[group].items()}
 
 
 def _ffn(layers: Dict, i: int, x: torch.Tensor, cfg: TransformerConfig):
     """Layer ``i``'s FFN of ``x`` (B, T, D): ``(y, aux)``, the MoE's
     ``moe_aux_loss + moe_z_loss`` or a float32 zero for a dense layer."""
     if cfg.moe is None:
-        mlp = {name: w[i] for name, w in layers["mlp"].items()}
+        mlp = _layer_weights(layers, "mlp", i, cfg)
         return _mlp(mlp, x), torch.zeros((), dtype=torch.float32, device=x.device)
     B, T, D = x.shape
-    moe = {name: w[i] for name, w in layers["moe"].items()}
+    moe = _layer_weights(layers, "moe", i, cfg)
     y, metrics = moe_lib.moe_apply(moe, x.reshape(B * T, D), cfg.moe)
     return y.reshape(B, T, D), metrics["moe_aux_loss"] + metrics["moe_z_loss"]
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table is gathered whole and each rank
+    looks up its own tokens under ``local_map`` (the table's gradient a
+    partial sum over the dims that split the tokens), so the lookup and
+    its backward are the plain step's ops on every rank."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in tokens.placements]
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+    out = [Shard(0) if isinstance(p, Shard) else Replicate() for p in rows]
+    return local_map(lambda t, i: t[i], out_placements=out, in_placements=(rep, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh)(
+        table.redistribute(mesh, rep), tokens.redistribute(mesh, rows))
 
 
 def forward(
@@ -237,11 +281,10 @@ def forward(
             )
         kv_len = torch.full((B,), cache_len + T, dtype=torch.int32, device=dev)
     positions = cache_len + torch.arange(T, device=dev)
-    x = params["embed"][tokens].to(adt)
     layers = params["layers"]
 
     def layer(x: torch.Tensor, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        attn = {name: w[i] for name, w in layers["attn"].items()}
+        attn = _layer_weights(layers, "attn", i, cfg)
         cache_kv = (cache.k[i], cache.v[i]) if cache is not None else None
         h = _attention(
             attn, rms_norm(x, layers["ln1"][i], cfg.norm_eps), cfg, positions,
@@ -256,17 +299,20 @@ def forward(
         return x + y, aux
 
     remat = cfg.remat_policy != "none" and cache is None and torch.is_grad_enabled()
+    x = shard(_embed(params["embed"], tokens).to(adt), "batch", "act_seq", "embed")
     auxs = []
     for i in range(cfg.n_layers):
         if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(layer, x, i, use_reentrant=False)
+            x, aux = remat_fn(layer, x, i, save_matmuls=cfg.remat_policy == "minimal")
         else:
             x, aux = layer(x, i)
         auxs.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head.to(x.dtype)).float()
+    x = shard(x, "batch", "seq", "embed")
+    logits = shard((x @ head.to(x.dtype)).float(), "batch", "seq", "vocab")
+    aux = torch.sum(torch.stack(auxs))
     new_cache = None
     if cache is not None:
         new_cache = KVCache(k=cache.k, v=cache.v, length=cache_len + T)
-    return logits, new_cache, torch.sum(torch.stack(auxs))
+    return logits, new_cache, aux

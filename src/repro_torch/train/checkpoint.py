@@ -21,6 +21,15 @@ Dtypes are named as NumPy / ``ml_dtypes`` name them (``float32``,
 ``ml_dtypes``; a ``bfloat16`` buffer is read through an ``int16`` view.
 Leaves are torch tensors (NumPy arrays are accepted on save); restore
 returns CPU tensors unless a ``device`` is given.
+
+A sharded state (DTensor leaves, the sharded train step's) saves as full
+arrays in the same layout: every rank gathers each leaf (a collective,
+so every rank saves), rank 0 writes, and the others wait at a barrier
+(after the write in :func:`save_checkpoint`, in
+:meth:`CheckpointManager.wait` for the manager's background write).
+``restore_checkpoint(..., shardings=, mesh=)`` places each leaf by a
+tree of placements (``distributed.sharding.state_placements``) on
+``mesh``, which need not be the mesh that wrote it.
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import is_dtensor
 
 __all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint", "latest_step"]
 
@@ -71,8 +82,30 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _sharded(tree) -> bool:
+    return any(is_dtensor(leaf) for _, leaf in _flatten(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes a sharded state's files: rank 0 of the
+    default group (the only process without one)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def _host_tensor(leaf) -> torch.Tensor:
-    """A CPU copy of a leaf (a tensor or anything NumPy takes)."""
+    """A CPU copy of a leaf (a tensor, the full array of a DTensor, or
+    anything NumPy takes)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).contiguous()
     return torch.from_numpy(np.array(leaf, copy=True))
@@ -87,6 +120,18 @@ def _leaf_bytes(t: torch.Tensor) -> Tuple[bytes, str]:
 
 
 def save_checkpoint(directory: str, step: int, state) -> str:
+    """Commit ``state`` as ``<directory>/step_<step>``; returns its path.
+    A sharded state is gathered on every rank, written by rank 0, and
+    every rank returns after the commit."""
+    if _sharded(state):
+        snapshot = _map(_host_tensor, state)
+        final = _commit(directory, step, snapshot) if _writer() else None
+        _barrier()
+        return final or os.path.join(directory, f"step_{step:010d}")
+    return _commit(directory, step, state)
+
+
+def _commit(directory: str, step: int, state) -> str:
     os.makedirs(directory, exist_ok=True)
     name = f"step_{step:010d}"
     tmp = os.path.join(directory, name + ".tmp")
@@ -155,9 +200,16 @@ def restore_checkpoint(
     directory: str,
     step: Optional[int] = None,
     device=None,
+    shardings=None,
+    mesh=None,
 ):
     """Restore a state tree of tensors (on ``device`` when given) and its
-    step; the latest committed step unless ``step`` is given."""
+    step; the latest committed step unless ``step`` is given.
+
+    ``shardings`` (a tree of DTensor placements, ``None`` for a leaf kept
+    plain; ``mesh`` required with it) places each leaf on ``mesh`` (on
+    ``mesh``'s device type, or ``device``), every rank from the full array
+    it read: the reference's ``device_put`` with a shardings tree."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint in {directory}")
@@ -166,6 +218,14 @@ def restore_checkpoint(
         manifest = json.load(f)
     items = {path: _read_leaf(d, path, meta) for path, meta in manifest["arrays"].items()}
     tree = _unflatten(items)
+    if shardings is not None:
+        from ..distributed.sharding import place_tree
+
+        if mesh is None:
+            raise ValueError("restore_checkpoint(shardings=) needs the mesh to place them on")
+        dev = device if device is not None else mesh.device_type
+        return place_tree(_map(lambda t: t.to(dev), tree), shardings, mesh,
+                          src_data_rank=None), step
     if device is not None:
         tree = _map(lambda t: t.to(device), tree)
     return tree, step
@@ -185,13 +245,19 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state) -> None:
         self.wait()
-        # snapshot on the caller thread (values may be mutated after)
+        # snapshot on the caller thread (values may be mutated after); a
+        # sharded state is gathered on every rank and written by rank 0
+        sharded = _sharded(state)
         snapshot = _map(_host_tensor, state)
+        self._sharded = sharded
+        if sharded and not _writer():
+            return
         if not self.async_save:
             self._commit(step, snapshot)
             return
@@ -202,15 +268,20 @@ class CheckpointManager:
 
     def _commit(self, step: int, snapshot) -> None:
         try:
-            save_checkpoint(self.directory, step, snapshot)
+            _commit(self.directory, step, snapshot)
             self._gc()
         except BaseException as e:  # surfaced on next wait()
             self._error = e
 
     def wait(self) -> None:
+        """Wait for the last save's commit (every rank, after a sharded
+        save), then raise its error if it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -227,9 +298,10 @@ class CheckpointManager:
             )
 
     # -- restore --------------------------------------------------------------
-    def restore_latest(self, device=None):
+    def restore_latest(self, device=None, shardings=None, mesh=None):
         self.wait()
-        return restore_checkpoint(self.directory, device=device)
+        return restore_checkpoint(self.directory, device=device, shardings=shardings,
+                                  mesh=mesh)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)

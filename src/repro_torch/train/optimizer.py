@@ -18,7 +18,9 @@ state's or the param's dtype, at the reference's rounding points:
 
 Each rule is a per-leaf function applied over the trees (``leaf_update``),
 so that a train step can update a large state one leaf at a time
-(:func:`repro_torch.train.steps.make_update_fn`).
+(:func:`repro_torch.train.steps.make_update_fn`).  The rules run on
+DTensor leaves as they are (the sharded step's), each op placed by
+DTensor, the step's scalars plain tensors beside them.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import math
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+
+from ..distributed.sharding import is_dtensor
 
 __all__ = [
     "Optimizer",
@@ -107,9 +111,16 @@ def linear_warmup(base_lr: float, warmup: int):
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves (in sorted-key order) of each leaf's
-    float32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+    float32 sum of squares.  Over DTensor leaves the sum is each rank's
+    partial sum (``Partial``), reduced once to ``Replicate`` before the
+    root, which is a plain tensor, the same on every rank."""
+    total = sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree))
+    if is_dtensor(total):
+        from torch.distributed.tensor import Replicate
+
+        total = total.redistribute(total.device_mesh,
+                                   [Replicate()] * total.device_mesh.ndim).to_local()
+    return torch.sqrt(total)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

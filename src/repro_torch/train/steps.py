@@ -24,8 +24,18 @@ nothing is traced or compiled.  ``param_axes`` (a tree of logical axes,
 ``transformer.logical_axes(cfg)`` for the LM step) places each
 microbatch's gradients with
 :func:`~repro_torch.distributed.sharding.shard` where the reference
-constrains them: a no-op outside a mesh context, on a one-device mesh and
-for the plain tensors of the port's explicit layouts.
+constrains them: a no-op outside a mesh context and on a one-device mesh.
+
+The same step runs sharded when the state and the batch are DTensors
+(:func:`~repro_torch.distributed.sharding.distribute_state`, the batch
+placed by ``batch_placements``) under ``use_mesh_rules``: each gradient
+is redistributed to its param's placements (the reduce over ``"data"``:
+an all-reduce for a replicated leaf, a reduce-scatter for an FSDP one),
+then compressed, clipped by a global norm summed over the ranks, and
+applied leaf by leaf, each new leaf kept in its old placements.
+Microbatch ``i`` holds the reference's global rows ``[i B / mb, (i + 1)
+B / mb)``, whichever rank holds them.  The returned metrics are plain
+tensors, the same on every rank.
 """
 from __future__ import annotations
 
@@ -36,7 +46,7 @@ import torch.profiler
 
 from ..configs.base import GNNConfig, RecsysConfig, TransformerConfig
 from ..distributed import compression
-from ..distributed.sharding import shard
+from ..distributed.sharding import is_dtensor, shard
 from ..models import gnn, sasrec, transformer
 from .optimizer import (Optimizer, apply_update, clip_scale, global_norm, tree_get, tree_paths,
                         tree_set)
@@ -70,13 +80,43 @@ def init_train_state(params, optimizer: Optimizer) -> Dict:
 
 def _split(batch, microbatches: int, i: int):
     """Microbatch ``i`` of ``batch``: each tensor's first axis cut into
-    ``microbatches`` equal slices (a GNN batch's graph is shared)."""
+    ``microbatches`` equal slices (a GNN batch's graph is shared).  A
+    DTensor's slice is cut from its global rows and placed as the batch
+    was (:func:`_gathered` gathers the rows once per step)."""
     if isinstance(batch, dict):
         return {k: _split(v, microbatches, i) for k, v in batch.items()}
+    if isinstance(batch, tuple):                # (global rows, mesh, placements)
+        from torch.distributed.tensor import distribute_tensor
+
+        full, mesh, placements = batch
+        n = full.shape[0] // microbatches
+        return distribute_tensor(full[i * n:(i + 1) * n], mesh, placements,
+                                 src_data_rank=None)
     if not isinstance(batch, torch.Tensor):
         return batch
     n = batch.shape[0] // microbatches
     return batch[i * n:(i + 1) * n]
+
+
+def _gathered(batch):
+    """``batch`` with each DTensor replaced by ``(its global rows, mesh,
+    placements)`` for :func:`_split`."""
+    if isinstance(batch, dict):
+        return {k: _gathered(v) for k, v in batch.items()}
+    if is_dtensor(batch):
+        return batch.full_tensor(), batch.device_mesh, batch.placements
+    return batch
+
+
+def _placed_like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new`` in ``old``'s placements where ``old`` is a DTensor."""
+    if is_dtensor(old) and tuple(new.placements) != tuple(old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def make_grad_fn(
@@ -105,7 +145,7 @@ def make_grad_fn(
             g = torch.zeros_like(p) if g is None else g
             if param_axes is not None:
                 g = shard(g, *tree_get(param_axes, path))
-            tree_set(out, path, g)
+            tree_set(out, path, _placed_like(g, p))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
 
     def fn(params, batch):
@@ -113,12 +153,13 @@ def make_grad_fn(
             return grads_of(params, batch)
         adt = accum_dtype or torch.float32
         grads, loss = None, 0.0
+        batch = _gathered(batch)
         for i in range(microbatches):
             l, metrics, g = grads_of(params, _split(batch, microbatches, i))
             if grads is None:
                 grads = {}
                 for path, leaf in tree_paths(g):
-                    tree_set(grads, path, torch.zeros(leaf.shape, dtype=adt, device=leaf.device))
+                    tree_set(grads, path, torch.zeros_like(leaf, dtype=adt))
             for path, leaf in tree_paths(g):
                 tree_get(grads, path).add_(leaf.to(adt))
             del g
@@ -157,14 +198,16 @@ def make_update_fn(
                 sub = {key: tree_get(opt[key], path) for key in opt}
                 p = tree_get(params, path)
                 u, new = optimizer.leaf_update(path, g, sub, p, ctx)
-                tree_set(params, path, apply_update(p, u))
+                tree_set(params, path, _placed_like(apply_update(p, u), p))
                 for key in opt:
-                    tree_set(opt[key], path, new[key])
+                    for sub_path, leaf in tree_paths(new[key]):
+                        tree_set(opt[key], path + sub_path,
+                                 _placed_like(leaf, tree_get(sub[key], sub_path)))
                 tree_set(grads, path, None)
                 del g, u, new, sub, p
         state["step"] = state["step"] + 1
-        metrics = dict(metrics)
-        metrics.update({"loss": loss, "grad_norm": gnorm})
+        metrics = {k: _plain(v) for k, v in metrics.items()}
+        metrics.update({"loss": _plain(loss), "grad_norm": gnorm})
         return state, metrics
 
     return step

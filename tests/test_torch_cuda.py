@@ -884,3 +884,94 @@ def test_cuda_moe_layer_repeats_its_bits_and_matches_cpu(card):
     widened, wm = moe.moe_apply(leaves, x, cfg)
     assert float(wm["moe_drop_fraction"]) == float(m["moe_drop_fraction"])
     assert float((widened.float() - first.float()).abs().max()) < 2e-2
+
+
+def _nccl_sharded_step_rank(rank, world):
+    """granite-moe-3b-a800m SMOKE (float32, its ``CONFIG`` rules, minimal
+    remat: the recompute runs on autograd's thread): two steps on the
+    card, plain, then with its state as DTensors on a (1, 1) mesh over the
+    NCCL group of one."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps
+
+    mod = registry.get_arch("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(mod.SMOKE, dtype="float32", microbatches=2,
+                              remat_policy="minimal",
+                              sharding_rules=dict(mod.CONFIG.sharding_rules))
+    axes = transformer.logical_axes(cfg)
+    mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+    rules = dict(cfg.sharding_rules)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=gen, device="cuda")
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    out = []
+    for sharded in (False, True):
+        params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                         "cuda", dtype=torch.float32)
+        o = opt_lib.adamw(1e-3)
+        state, b = steps.init_train_state(params, o), batch
+        if sharded:
+            state = sharding.distribute_state(state, axes, rules, mesh)
+            rows = sharding.batch_placements(rules, mesh)
+            b = sharding.place_tree(batch, {"tokens": rows, "labels": rows}, mesh)
+        step = steps.build_lm_train_step(cfg, o)
+        ms = []
+        with sharding.use_mesh_rules(mesh, rules):
+            for _ in range(2):
+                state, m = step(state, b)
+                ms.append((float(m["loss"]), float(m["grad_norm"])))
+        leaves = {"/".join(p): (v.to_local() if sharded else v).cpu()
+                  for p, v in opt_lib.tree_paths(state["params"])}
+        out.append((ms, leaves))
+    return out
+
+
+def test_cuda_sharded_step_on_an_nccl_mesh_of_one_equals_the_plain_step(card, tmp_path):
+    """On a (1, 1) mesh every DTensor op runs the local op of the plain
+    step: two steps (2 microbatches each) give the same losses, norms and
+    params bit for bit."""
+    from repro_torch.distributed.world import spawn_world
+
+    (plain, plain_params), (dt, dt_params) = spawn_world(
+        _nccl_sharded_step_rank, 1, backend="nccl", timeout_s=300, store_dir=str(tmp_path))[0]
+    assert plain == dt
+    for k, v in plain_params.items():
+        assert torch.equal(v, dt_params[k]), k
+
+
+def test_cuda_gnn_step_repeats_its_bits(card):
+    """A meshgraphnet step on the card twice from the same state: the same
+    loss, norm and params bit for bit (the segment sums add in a fixed
+    order; ``index_add_`` would add with atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data.graphs import graph_batch_from_numpy, random_graph
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(registry.get_arch("meshgraphnet").SMOKE, dtype="float32")
+    src, dst, feats, pos = random_graph(2000, 30000, 6, seed=1, with_positions=True)
+    target = torch.randn((2000, cfg.d_out), generator=torch.Generator().manual_seed(2))
+    runs = []
+    for _ in range(2):
+        g = graph_batch_from_numpy(src, dst, feats, positions=pos, device="cuda")
+        params = gnn.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), 6,
+                                 device="cuda")
+        o = opt_lib.adamw(1e-3)
+        state, m = steps.build_gnn_train_step(cfg, o)(
+            steps.init_train_state(params, o), {"graph": g, "target": target.cuda()})
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     {"/".join(p): v.cpu() for p, v in opt_lib.tree_paths(state["params"])}))
+    assert runs[0][:2] == runs[1][:2]
+    for k, v in runs[0][2].items():
+        assert torch.equal(v, runs[1][2][k]), k

@@ -136,3 +136,11 @@ def test_membership_helpers_identical(name):
     pairs = [(0, 3), (5, 1)]
     assert graphs_identical(dedup.graph_from_membership(g.n_real, sets, pairs),
                             ref_dedup.graph_from_membership(rg.n_real, sets, pairs))
+
+
+@pytest.mark.parametrize("name", SYMMETRIC)
+def test_streamed_correction_nnz_equals_the_reference(name):
+    g, rg = _graph(name)
+    got = dedup.build_correction_streaming(g, budget_triples=64, device="cpu")
+    want = ref_dedup.build_correction_streaming(rg, budget_triples=64)
+    assert got.nnz == want.nnz == len(got.src) > 0

@@ -187,3 +187,59 @@ def test_fused_stream_names_each_bitmap_once(graphs, reverse):
         n_main, n_corr = np.asarray(fused.bitmaps).shape[0], np.asarray(fused.planes).shape[0]
         assert np.array_equal(np.sort(main_idx[kind == 0]), np.arange(n_main))
         assert np.array_equal(np.sort(corr_idx[kind == 1]), np.arange(n_corr))
+
+
+# ---------------------------------------------------------------------------
+# public members of the kernels and configs packages, against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_dst", [450, 0])
+def test_block_sparse_bitmap_max_k_and_nonzero_blocks_equal_the_reference(n_dst):
+    from repro_torch.core.condensed import BipartiteEdges
+    from repro_torch.kernels.pack import pack_bipartite
+
+    rng = np.random.default_rng(5)
+    n = 900 if n_dst else 0
+    key = np.unique(rng.integers(0, max(n_dst, 1), n) * 260 + rng.integers(0, 260, n))
+    s, d = key % 260, key // 260
+    got = pack_bipartite(BipartiteEdges(s, d, 260, n_dst))
+    want = ref_pack.pack_bipartite(RefEdges(s, d, 260, n_dst))
+    assert (got.max_k, got.n_nonzero_blocks) == (want.max_k, want.n_nonzero_blocks)
+    if n_dst:
+        assert got.max_k > 1 and 0 < got.n_nonzero_blocks <= got.n_slots
+
+
+def test_segment_spmm_ref_equals_the_reference():
+    from repro.kernels.ref import segment_spmm_ref as ref_segment_spmm
+
+    from repro_torch.kernels.ref import segment_spmm_ref
+
+    rng = np.random.default_rng(6)
+    src = rng.integers(0, 70, 500)
+    dst = rng.integers(0, 90, 500)
+    x = rng.standard_normal((70, 5)).astype(np.float32)
+    got = segment_spmm_ref(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(x), 95)
+    want = ref_segment_spmm(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(x), 95)
+    assert got.shape == (95, 5)
+    assert np.allclose(got.numpy(), np.asarray(want))
+    assert not got[90:].any()
+
+
+def test_kernels_and_configs_export_the_reference_names():
+    import repro.configs as ref_configs
+    import repro.kernels as ref_kernels
+
+    import repro_torch.configs as configs
+    import repro_torch.kernels as kernels
+
+    # ops.bitmap_spmm stays in repro_torch.kernels.ops (the module docstring)
+    assert set(ref_kernels.__all__) - {"bitmap_spmm"} <= set(kernels.__all__)
+    for name in kernels.__all__:
+        assert getattr(kernels, name) is not None, name
+    assert isinstance(kernels.DEFAULT_CONFIG, kernels.KernelConfig)
+    assert all(isinstance(c, kernels.KernelConfig) for c in kernels.CANDIDATES)
+    assert configs.__all__ == ref_configs.__all__
+    assert set(configs.list_archs()) <= set(ref_configs.list_archs())
+    arch = configs.get_arch("glm4-9b")
+    assert isinstance(arch.CONFIG, configs.TransformerConfig)
+    assert configs.shapes_for("glm4-9b") == ref_configs.shapes_for("glm4-9b")

@@ -227,7 +227,10 @@ def _a2a_rank(rank, world, shape, weights, x, w_out):
     host = make_host_mesh("cpu")
     out = {"host_mesh": (tuple(host.shape), host.mesh_dim_names)}
     x_loc = torch.from_numpy(x).chunk(world)[rank]
-    params = {k: torch.from_numpy(v) for k, v in weights.items()}
+    # the router whole, the expert block of this rank's EP ("model") index
+    ep = mesh.get_local_rank("model")
+    params = {k: torch.from_numpy(v) if k == "router" else
+              torch.from_numpy(v).chunk(shape[1])[ep] for k, v in weights.items()}
     with sharding.use_mesh_rules(mesh, RULES):
         for tag, cf in CAPACITY.items():
             cfg = MoEConfig(**MOE, capacity_factor=cf, dispatch="a2a")
@@ -240,11 +243,39 @@ def _a2a_rank(rank, world, shape, weights, x, w_out):
         loss = (y * torch.from_numpy(w_out).chunk(world)[rank]).sum()
         grads = torch.autograd.grad(loss, [xl] + list(leaves.values()))
         out["grads"] = dict(zip(["x"] + list(leaves), (g.numpy() for g in grads)))
+        out["dtensor_a2a"] = _a2a_on_dtensors(mesh, weights, x, w_out)
         full = distribute_tensor(torch.arange(16.0).reshape(8, 2), mesh,
                                  [Replicate(), Replicate()])
         placed = sharding.shard(full, "batch", None)
         out["dtensor"] = (tuple(placed.placements), placed.to_local().numpy())
     assert out["dtensor"][0] == (Shard(0), Shard(0))
+    return out
+
+
+def _a2a_on_dtensors(mesh, weights, x, w_out):
+    """``moe_apply``'s a2a dispatch on DTensors (the sharded step's): the
+    tokens split over both mesh dims, the router replicated, the experts
+    over ``"model"``; the outputs at each capacity and the gradients of
+    ``sum(y * w_out)`` at ample capacity, as full arrays."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    tok = [Shard(0), Shard(0)]
+    params = {k: distribute_tensor(torch.from_numpy(v), mesh,
+                                   [Replicate(), Replicate() if k == "router" else Shard(0)])
+              for k, v in weights.items()}
+    xd = distribute_tensor(torch.from_numpy(x), mesh, tok)
+    out = {}
+    for tag, cf in CAPACITY.items():
+        cfg = MoEConfig(**MOE, capacity_factor=cf, dispatch="a2a")
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xl = xd.detach().requires_grad_()
+        y, m = moe.moe_apply(leaves, xl, cfg)
+        out[tag] = (y.full_tensor().detach().numpy(), {k: float(v) for k, v in m.items()})
+        if tag == "ample":
+            loss = (y * distribute_tensor(torch.from_numpy(w_out), mesh, tok)).sum()
+            grads = torch.autograd.grad(loss, [xl] + list(leaves.values()))
+            out["grads"] = dict(zip(["x"] + list(leaves),
+                                    (g.full_tensor().numpy() for g in grads)))
     return out
 
 
@@ -299,9 +330,9 @@ def test_a2a_on_gloo_equals_the_sort_path_where_nothing_drops(a2a_runs, world):
 
 def test_a2a_gradients_at_world_2_equal_the_sort_path(a2a_runs):
     """Each rank differentiates its tokens' share of the loss; the reverse
-    all-to-all hands each expert's gradient to its owner, so the sum over
-    ranks of every weight gradient (zero outside a rank's experts) and the
-    ranks' token gradients in order equal the sort path's."""
+    all-to-all hands each expert's gradient to its owner, so the ranks'
+    expert-block gradients in order, the sum over ranks of the router's,
+    and the ranks' token gradients in order equal the sort path's."""
     weights, x, w_out, _, got = a2a_runs
     leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in weights.items()}
     xs = torch.from_numpy(x).requires_grad_()
@@ -313,10 +344,34 @@ def test_a2a_gradients_at_world_2_equal_the_sort_path(a2a_runs):
                                rtol=1e-5, atol=1e-6)
     E_loc = MOE["n_experts"] // 2
     for k in weights:
-        np.testing.assert_allclose(sum(g[k] for g in ranks), want[k], rtol=1e-5, atol=1e-6,
-                                   err_msg=k)
-        if k != "router":   # a rank's gradient lives on its own experts only
-            for r, g in enumerate(ranks):
-                others = np.delete(g[k], np.s_[r * E_loc:(r + 1) * E_loc], axis=0)
-                assert not others.any(), k
+        got = (sum(g[k] for g in ranks) if k == "router"      # each rank's share
+               else np.concatenate([g[k] for g in ranks]))     # each rank's experts
+        np.testing.assert_allclose(got, want[k], rtol=1e-5, atol=1e-6, err_msg=k)
+        if k != "router":
+            assert all(g[k].shape[0] == E_loc for g in ranks), k
     assert all(np.abs(g["router"]).sum() > 0 for g in ranks)
+
+
+@pytest.mark.parametrize("world", sorted(MESHES))
+def test_a2a_on_dtensors_equals_the_reference_and_the_sort_gradients(a2a_runs, world):
+    """The a2a dispatch of DTensor tokens and weights (``local_map`` over
+    ``_moe_a2a``, each rank its own token block and expert block) gives
+    the JAX package's ``shard_map`` outputs and metrics where capacity
+    drops, and the sort path's gradients (the router's summed over the
+    ranks) where it does not."""
+    weights, x, w_out, want, got = a2a_runs
+    for r in got[world]:
+        d = r["dtensor_a2a"]
+        np.testing.assert_allclose(d["binding"][0], want[f"{world}/binding/y"], rtol=1e-5,
+                                   atol=1e-6)
+        for k, v in d["binding"][1].items():
+            np.testing.assert_allclose(v, float(want[f"{world}/binding/{k}"]), rtol=1e-5,
+                                       atol=1e-7, err_msg=k)
+        assert d["binding"][1]["moe_drop_fraction"] > 0
+    leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in weights.items()}
+    xs = torch.from_numpy(x).requires_grad_()
+    y, _ = moe.moe_apply(leaves, xs, MoEConfig(**MOE, capacity_factor=CAPACITY["ample"]))
+    grads = torch.autograd.grad((y * torch.from_numpy(w_out)).sum(), [xs] + list(leaves.values()))
+    for k, g in zip(["x"] + list(leaves), grads):
+        np.testing.assert_allclose(got[world][0]["dtensor_a2a"]["grads"][k], g.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)

@@ -29,6 +29,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._python_dispatch
+import torch.utils.checkpoint
 
 from repro.configs import registry as jregistry
 from repro.data import graphs as jgraphs
@@ -42,7 +44,7 @@ from repro.train import steps as jsteps
 from repro_torch.configs import registry
 from repro_torch.data import graphs
 from repro_torch.kernels import flash_attention as FA
-from repro_torch.models import gnn, interop, sasrec
+from repro_torch.models import gnn, interop, sasrec, transformer
 from repro_torch.train import checkpoint
 from repro_torch.train import optimizer as opt
 from repro_torch.train import steps
@@ -349,6 +351,120 @@ def test_gnn_remat_equals_no_remat():
             steps.init_train_state(params, o), {"graph": g, "target": torch.from_numpy(target)})
         out.append((float(m["loss"]), float(m["grad_norm"])))
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# remat keeps what the reference's policies keep
+# ---------------------------------------------------------------------------
+
+class _CountMatmuls(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts ``mm`` / ``addmm`` calls (the reference's dots without batch
+    dims) while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _matmul_counts(loss_fn, params):
+    """``(forward mm count, backward mm count, grads)`` of ``loss_fn``."""
+    leaves = {"/".join(k): v.detach().requires_grad_() for k, v in opt.tree_paths(params)}
+    tree = _nest(leaves)
+    # without early stop a recompute runs its whole region, so a count
+    # sees every mm that the policy does not keep
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        with _CountMatmuls() as fwd:
+            loss = loss_fn(tree)
+        with _CountMatmuls() as bwd:
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return fwd.n, bwd.n, dict(zip(leaves, grads))
+
+
+def _nest(flat):
+    out = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def _lm_matmul_counts(remat):
+    _, cfg = _lm_cfgs(remat_policy=remat)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                                     dtype=torch.float32)
+    b = {k: torch.from_numpy(v) for k, v in _lm_batches(cfg.vocab_size, n=1)[0].items()}
+    return _matmul_counts(lambda p: steps.lm_loss(p, b, cfg)[0], params)
+
+
+def _gnn_matmul_counts(kind, remat):
+    cfg = dataclasses.replace(registry.get_arch(kind).SMOKE, dtype="float32",
+                              remat_policy=remat)
+    _, g, target = _gnn_inputs(kind, cfg.d_out)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), 6, device="cpu")
+    batch = {"graph": g, "target": torch.from_numpy(target)}
+    return _matmul_counts(lambda p: steps.gnn_loss(p, batch, cfg)[0], params)
+
+
+@pytest.mark.parametrize("policy", ["minimal", "full"])
+def test_lm_remat_policies_keep_what_the_reference_keeps(policy):
+    """The reference's ``minimal`` (``dots_with_no_batch_dims_saveable``)
+    keeps every matmul output: its backward runs no more ``mm`` than the
+    backward without remat; ``full`` (``nothing_saveable``) recomputes
+    every one.  The gradients are those without remat, bit for bit."""
+    n_fwd, n_bwd, want = _lm_matmul_counts("none")
+    f, b, got = _lm_matmul_counts(policy)
+    assert f == n_fwd > 0
+    in_layers = n_fwd - 1                   # the lm_head's runs outside the layers
+    assert b == (n_bwd if policy == "minimal" else n_bwd + in_layers)
+    for k in want:
+        assert (got[k] is None and want[k] is None) or torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("kind", ["meshgraphnet", "schnet", "dimenet"])
+def test_gnn_remat_keeps_matmul_outputs_as_the_reference(kind):
+    """Every GNN policy but ``none`` is the reference's
+    ``dots_with_no_batch_dims_saveable``: no ``mm`` recomputed."""
+    n_fwd, n_bwd, want = _gnn_matmul_counts(kind, "none")
+    f, b, got = _gnn_matmul_counts(kind, "full")
+    assert f == n_fwd > 0 and b == n_bwd
+    for k in want:
+        assert (got[k] is None and want[k] is None) or torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("kind", ["meshgraphnet", "dimenet"])
+def test_gnn_segment_sums_repeat_their_bits_and_match_the_reference(kind):
+    """The GNN segment sums add in a fixed order (a sort per graph, kept
+    on it): two runs of a step, each on a fresh graph, are equal bit for
+    bit, and the forward is within float32 rounding of the JAX package's."""
+    jcfg = dataclasses.replace(jregistry.get_arch(kind).SMOKE, dtype="float32")
+    cfg = dataclasses.replace(registry.get_arch(kind).SMOKE, dtype="float32")
+    jg, _, target = _gnn_inputs(kind, cfg.d_out)
+    jparams = jgnn.init_params(jax.random.PRNGKey(0), jcfg, d_in=6)
+    want = np.asarray(jgnn.forward(jparams, jg, jcfg))
+    runs = []
+    for _ in range(2):
+        _, g, _ = _gnn_inputs(kind, cfg.d_out)
+        params = interop.gnn_params_from_arrays(_flatten(jparams), cfg, 6, device="cpu")
+        with torch.no_grad():
+            out = gnn.forward(params, g, cfg)
+        assert g._segment_orders                    # built once, kept on the graph
+        o = opt.adamw(1e-3)
+        state, m = steps.build_gnn_train_step(cfg, o)(
+            steps.init_train_state(params, o), {"graph": g, "target": torch.from_numpy(target)})
+        runs.append((out, float(m["loss"]), float(m["grad_norm"]), _flatten(state["params"])))
+    np.testing.assert_allclose(runs[0][0].numpy(), want, rtol=1e-5,
+                               atol=1e-6 * np.abs(want).max())
+    assert torch.equal(runs[0][0], runs[1][0]) and runs[0][1:3] == runs[1][1:3]
+    for k, v in runs[0][3].items():
+        assert np.array_equal(v, runs[1][3][k]), k
 
 
 # ---------------------------------------------------------------------------
