@@ -223,6 +223,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --arch granite-moe-3b-a800m --steps 3`` runs as a subprocess and must
    exit 0.  One card: no number from it is a multi-GPU number.
    ``--quick`` runs granite's ``SMOKE`` config.
+12. The dry-run (``dryrun_phase``): each of ``DRYRUN_HOST_CELLS`` (glm4-9b
+   ``prefill_32k`` at batch 1, ``decode_32k`` at batch 8, ``train_4k`` at
+   phase 9's cut, granite ``train_4k`` at phase 10's, SASRec
+   ``train_batch``; widths never cut) is traced by
+   ``repro_torch.launch.dryrun`` on a one-rank host mesh over fake CUDA
+   tensors, then the same ``Cell.fn`` runs for real on the card under the
+   same count: the FLOPs counted there must equal the prediction, K4's
+   launches the op count traced, and the predicted peak be within
+   ``PEAK_RTOL`` of ``max_memory_allocated`` (from just before the
+   arguments are made); the roofline's time beside a second, uncounted
+   step's time is printed, not gated.  Then ``python -m
+   repro_torch.launch.dryrun --mesh single --cells DRYRUN_MESH_CELLS`` as
+   a subprocess (a fake group of 256 ranks): rc 0 and every record
+   ``ok``.  ``--quick`` runs the ``SMOKE`` configs; ``--only-dryrun``
+   builds the kernels and runs this phase alone (no result line).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -3973,6 +3988,158 @@ def sharded_phase(args, plain: dict) -> dict:
     return rec
 
 
+# phase 12: the dry-run cells that one card holds, each (arch, shape, depth,
+# batch): depth and batch cut, widths never
+DRYRUN_HOST_CELLS = [
+    ("glm4-9b", "prefill_32k", None, 1),
+    ("glm4-9b", "decode_32k", None, 8),
+    ("glm4-9b", "train_4k", LM_TRAIN_LAYERS, LM_TRAIN_BATCH),
+    ("granite-moe-3b-a800m", "train_4k", LM_TRAIN_LAYERS, 8),
+    ("sasrec", "train_batch", None, None),
+]
+# one production-mesh cell per family and step kind (the 41 take minutes
+# of host time; PERF.md records each one's time on the CPU)
+DRYRUN_MESH_CELLS = ("glm4-9b:train_4k,glm4-9b:prefill_32k,glm4-9b:decode_32k,"
+                     "schnet:molecule,sasrec:train_batch,sasrec:serve_p99,"
+                     "graphgen-paper:pagerank:banded")
+DRYRUN_TIMEOUT_S = 600
+PEAK_RTOL = 0.10            # the predicted peak against max_memory_allocated
+
+
+def dryrun_host_cell(args, arch, shape, depth, batch) -> dict:
+    """One host-mesh cell: the dry-run's prediction over fake tensors, then
+    the same ``Cell.fn`` run for real on the card under the same count
+    (K4's launches zeroed before, read after), the peak of the allocator
+    from just before the arguments are made, and a second, uncounted run
+    for the step time."""
+    import torch
+
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import cells as cells_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_cost import measure
+
+    smoke = args.quick
+    if smoke:
+        depth, batch = None, (2 if batch is not None else None)
+    rec = dryrun.run_cell(arch, shape, "host", verbose=False, smoke=smoke, depth=depth,
+                          batch=batch, device_type="cuda")
+    predicted_k4 = rec["op_counts"].get("repro_torch.flash_attention", 0)
+    mesh = dryrun.make_mesh("host", "cuda")
+    cell = cells_lib.build_cell(arch, shape, mesh, smoke=smoke, depth=depth, batch=batch)
+    grad = torch.enable_grad if cell.kind == "train" else torch.no_grad
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real = cells_lib.materialize(cell, "cuda", fill=True, seed=args.seed)
+    FA.reset_launch_counts()
+    with use_mesh_rules(mesh, cell.rules), grad():
+        cost, out = measure(cell.fn, real)
+        torch.cuda.synchronize()
+    launches = dict(FA.LAUNCHES)
+    plain = dict(FA.PLAIN_CUDA_CALLS)
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    # the donated state / cache was updated in place: the same arguments run again
+    with use_mesh_rules(mesh, cell.rules), grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = cell.fn(*real)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+    del again, real
+    gc.collect()
+    torch.cuda.empty_cache()
+    roof_s = max(rec["compute_s"], rec["memory_s"], rec["collective_s"])
+    row = {"arch": arch, "shape": shape, "depth": depth, "batch": batch,
+           "predicted_flops": rec["flops_per_device"], "real_flops": cost.flops,
+           "predicted_k4": predicted_k4, "k4_launches": launches["flash_attention"],
+           "k4_kernels": launches, "plain_calls": plain,
+           "predicted_peak_bytes": rec["memory_stats"]["peak_bytes_per_device"],
+           "tracked_peak_bytes": cost.peak_bytes, "max_memory_allocated": peak,
+           "roofline_s": roof_s, "dominant": rec["dominant"], "step_s": step_s,
+           "roofline_over_step": roof_s / step_s, "trace_s": rec["lower_s"],
+           "bytes_per_device": rec["bytes_per_device"]}
+    log(f"dry-run {arch} {shape} (depth {depth}, batch {batch}): FLOPs predicted "
+        f"{rec['flops_per_device']:.6e} counted {cost.flops:.6e}; K4 {predicted_k4} predicted, "
+        f"{launches['flash_attention']} launched; peak predicted "
+        f"{row['predicted_peak_bytes'] / 1e9:.3f} GB, max_memory_allocated {peak / 1e9:.3f} GB; "
+        f"roofline {roof_s * 1e3:.2f} ms ({rec['dominant']}) against {step_s * 1e3:.2f} ms "
+        f"measured (ratio {row['roofline_over_step']:.3f})")
+    if cost.flops != rec["flops_per_device"]:
+        raise AssertionError(f"{arch} {shape}: counted FLOPs {cost.flops} != predicted "
+                             f"{rec['flops_per_device']}")
+    if launches["flash_attention"] != predicted_k4 or plain["flash_attention"]:
+        raise AssertionError(f"{arch} {shape}: K4 launched {launches} (plain {plain}), "
+                             f"predicted {predicted_k4}")
+    if abs(row["predicted_peak_bytes"] - peak) > PEAK_RTOL * peak:
+        raise AssertionError(f"{arch} {shape}: predicted peak {row['predicted_peak_bytes']} "
+                             f"not within {PEAK_RTOL} of max_memory_allocated {peak}")
+    return row
+
+
+def dryrun_mesh_cells(args) -> dict:
+    """``python -m repro_torch.launch.dryrun --mesh single`` over
+    :data:`DRYRUN_MESH_CELLS` in a subprocess (a fake group of 256 ranks
+    in its own process): rc 0 and every record ``ok``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single",
+           "--cells", DRYRUN_MESH_CELLS] + (["--smoke"] if args.quick else [])
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("[", "  "))]
+    for ln in lines:
+        log(f"  {ln}")
+    if proc.returncode != 0 or "all dry-run cells OK" not in proc.stdout:
+        raise AssertionError(f"the production-mesh dry-run failed (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    recs = {}
+    for cell in DRYRUN_MESH_CELLS.split(","):
+        arch, shape, *variant = cell.split(":")
+        tag = "__".join(["single"] + variant + (["smoke"] if args.quick else []))
+        with open(os.path.join(ROOT, "results", "dryrun_torch",
+                               f"{arch}__{shape}__{tag}.json")) as f:
+            r = json.load(f)
+        if not r["ok"] or r["n_chips"] != 256:
+            raise AssertionError(f"{cell}: {r}")
+        recs[cell] = {k: r[k] for k in ("flops_per_device", "bytes_per_device", "nvlink_bytes",
+                                        "network_bytes", "compute_s", "memory_s",
+                                        "collective_s", "dominant", "lower_s")}
+        recs[cell]["peak_bytes"] = r["memory_stats"]["peak_bytes_per_device"]
+    log(f"production-mesh dry-run: {len(recs)} cells ok in {seconds:.1f} s")
+    return {"cells": recs, "seconds": seconds, "cmd": " ".join(cmd[1:])}
+
+
+def dryrun_phase(args) -> dict:
+    """Phase 12: the dry-run.  (a) Each of :data:`DRYRUN_HOST_CELLS` on a
+    one-rank host mesh: predicted over fake tensors, then run for real on
+    the card through K4 (:func:`dryrun_host_cell`): the FLOPs counted on
+    the real run must equal the prediction, K4's launches the op count the
+    dry-run traced, and the predicted peak be within ``PEAK_RTOL`` of
+    ``max_memory_allocated``; the roofline's time beside the measured step
+    time is printed, not gated.  (b) :func:`dryrun_mesh_cells` on the
+    production mesh of 256 ranks.  ``--quick`` runs the ``SMOKE``
+    configs."""
+    import torch
+
+    t0 = time.perf_counter()
+    # the first GEMM on a stream allocates cuBLAS's workspace (32 MiB on
+    # Hopper) through the caching allocator: let that happen before a peak
+    # is read, as the earlier phases do in the full run
+    torch.ones(8, 8, device="cuda") @ torch.ones(8, 8, device="cuda")
+    torch.cuda.synchronize()
+    rec = {"host": [dryrun_host_cell(args, *c) for c in DRYRUN_HOST_CELLS]}
+    rec["production"] = dryrun_mesh_cells(args)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"dry-run phase: {rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--authors", type=int, default=50_000)
@@ -3984,6 +4151,9 @@ def main() -> int:
                     help="a first check of changed kernels: DBLP 3000 authors / 6000 "
                          "pubs, layered_1 at 600 nodes, DEDUP-1 at 300 / 600, and "
                          "256 / 64-token prompts with 4 new tokens")
+    ap.add_argument("--only-dryrun", action="store_true",
+                    help="build the kernels and run phase 12 alone (a first check of "
+                         "the dry-run; prints no result line)")
     args = ap.parse_args()
     if args.quick:
         args.authors, args.pubs = 3000, 6000
@@ -4011,6 +4181,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if args.only_dryrun:
+        record["dryrun"] = dryrun_phase(args)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_dryrun.json"), "w") as f:
+            json.dump(record, f, indent=1)
+        log("phase 12 alone: no result line")
+        return 0
+
     rows = graph_phases(args, record)
     # a tier and its tenants form a reference cycle (each tenant's version
     # listener closes over the tier): collect it, so that the LM phase
@@ -4030,8 +4208,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharded = sharded_phase(args, moe_rec["granite_training"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(args)
     record.update({"card": card, "lm": lm, "training": training, "moe": moe_rec,
-                   "sharded": sharded, "args": vars(args), "kernels": rows})
+                   "sharded": sharded, "dryrun": dry, "args": vars(args), "kernels": rows})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -140,6 +140,7 @@ class SegmentPlan:
     n_values: int
     segs: Tuple[torch.Tensor, ...]
     gather: Tuple[torch.Tensor, ...]
+    traced: bool = False
 
 
 def segment_plan(
@@ -152,9 +153,18 @@ def segment_plan(
     Within a segment, values are taken in ``tiebreak`` order (stable, so
     equal keys keep their positions), else in position order.  With the
     source row of each edge as the tiebreak, a layer's planned sums do not
-    change, bit for bit, when its edge list is permuted."""
+    change, bit for bit, when its edge list is permuted.
+
+    Fake ids (a dry-run's trace, :mod:`repro_torch.launch.op_cost`) have
+    no values to plan from: the plan is marked ``traced`` and the sum is
+    traced as a scatter-add of the same values, whose shapes do not depend
+    on the ids."""
+    from torch._subclasses.fake_tensor import is_fake
+
     ids = segment_ids.to(torch.int64).reshape(-1)
     n = int(ids.shape[0])
+    if is_fake(ids):
+        return SegmentPlan(int(num_segments), n, (), (), traced=True)
     dev = ids.device
     if tiebreak is None:
         order = torch.argsort(ids, stable=True)
@@ -213,6 +223,8 @@ def segment_reduce(
     if semiring.add_kind == "sum":
         if plan is None:
             plan = segment_plan(idx, num_segments)
+        if plan.traced:
+            return values.new_zeros(shape).index_add_(0, idx, values)
         return _planned_sum(values, plan)
     if semiring.add_kind not in ("min", "max"):
         raise ValueError(semiring.add_kind)

@@ -67,6 +67,9 @@ __all__ = [
     "is_dtensor",
     "use_mesh_rules",
     "current_mesh",
+    "rules_in_use",
+    "splits_evenly",
+    "split_count",
     "shard",
     "logical_spec",
     "named_sharding",
@@ -79,6 +82,7 @@ __all__ = [
     "place_tree",
     "distribute_state",
     "batch_placements",
+    "local_shape_and_offset",
     "GRAPH_RULES",
     "shard_frontier",
     "extraction_shard_range",
@@ -139,6 +143,11 @@ def use_mesh_rules(mesh, rules: Optional[Mapping]):
 def current_mesh():
     """The mesh of the innermost :func:`use_mesh_rules` context, if any."""
     return _ctx()[0]
+
+
+def rules_in_use():
+    """The rules of the innermost :func:`use_mesh_rules` context, if any."""
+    return _ctx()[1]
 
 
 def _resolve(axis: Optional[str], rules: Mapping, mesh):
@@ -202,6 +211,26 @@ def _placements(spec: Spec, mesh) -> tuple:
     return tuple(Shard(dims[n]) if n in dims else Replicate() for n in mesh.mesh_dim_names)
 
 
+def local_shape_and_offset(shape, mesh, placements) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """This rank's shard of a tensor of global ``shape`` placed on ``mesh``:
+    ``(local shape, global offset)``, as ``torch.chunk`` splits each
+    sharded dim (``ceil(n / k)`` rows per rank, the last ones short or
+    empty), in plain ints (no tensor is made: a trace over fake tensors
+    can call it)."""
+    from torch.distributed.tensor import Shard
+
+    size, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d, n = p.dim, mesh.size(i)
+            chunk = -(-size[d] // n)
+            start = min(coord[i] * chunk, size[d])
+            off[d] += start
+            size[d] = max(0, min(chunk, size[d] - start))
+    return tuple(size), tuple(off)
+
+
 def _dedup_axes(spec: Spec) -> Spec:
     """Drop later duplicate mesh-dim uses (keep-first priority): lets
     model code annotate e.g. ("batch", "act_seq", "vocab") and stay legal
@@ -225,7 +254,8 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     A no-op outside a context or on a one-device mesh.  Otherwise the
     rank is checked; a plain tensor is returned unchanged (the port's
     layouts are explicit: each rank already holds its part) and a DTensor
-    is redistributed to the placements the rules give."""
+    is redistributed to the placements the rules give, a dim that they
+    would split unevenly kept whole (:func:`_even`)."""
     mesh, rules = _ctx()
     if mesh is None or rules is None or mesh.size() == 1:
         return x
@@ -233,8 +263,42 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         raise ValueError(f"rank {x.ndim} tensor got {len(logical_axes)} logical axes")
     if not is_dtensor(x):
         return x
-    spec = _dedup_axes(logical_spec(logical_axes, rules, mesh))
+    spec = _even(_dedup_axes(logical_spec(logical_axes, rules, mesh)), x.shape, mesh)
     return x.redistribute(mesh, _placements(spec, mesh))
+
+
+def splits_evenly(n: int, axis: Optional[str]) -> bool:
+    """Whether ``n`` entries on logical ``axis`` split evenly over its mesh
+    dims under the ambient rules (true outside a context)."""
+    mesh, rules = _ctx()
+    if mesh is None or rules is None or axis is None:
+        return True
+    entry = logical_spec((axis,), rules, mesh)[0]
+    return entry is None or _even(Spec(entry), (n,), mesh)[0] is not None
+
+
+def split_count(entry, mesh) -> int:
+    """How many ways a :class:`Spec` entry (a mesh-dim name, a tuple of
+    them, or ``None``) splits its tensor dim on ``mesh``."""
+    n = 1
+    for name in (entry if isinstance(entry, tuple) else (entry,)):
+        if name is not None:
+            n *= mesh.size(mesh.mesh_dim_names.index(name))
+    return n
+
+
+def _even(spec: Spec, shape, mesh) -> Spec:
+    """``spec`` with each dim that its mesh dims do not divide evenly
+    replicated: where GSPMD pads a ragged split (a decode step's one
+    position over a 16-way sequence split), a DTensor could not be
+    reshaped, so the port keeps that dim whole.  A split over mesh dims of
+    one rank, which splits nothing, is dropped as well (DTensor cannot
+    merge such a dim into the one before it)."""
+    out = []
+    for size, entry in zip(shape, spec):
+        n = split_count(entry, mesh)
+        out.append(entry if size % n == 0 and n > 1 else None)
+    return Spec(*out)
 
 
 def _is_axes(v) -> bool:

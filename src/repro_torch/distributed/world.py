@@ -11,6 +11,9 @@ This module holds what every distributed path shares:
   — collectives that are no-ops without a group (the gather and the
   scatter call ``all_gather_into_tensor`` / ``reduce_scatter_tensor``,
   which every supported torch has);
+* :func:`init_fake_group` — a fake group of any size in one process:
+  every rank's collectives are shapes only (the dry-run's 256 / 512-rank
+  worlds, which hold fake tensors);
 * :func:`init_group` / :func:`spawn_world` — a group over a ``FileStore``
   (no network), and a local world of ``world`` processes that each run
   one function and hand back its result, joined under a timeout that
@@ -35,6 +38,7 @@ __all__ = [
     "all_reduce",
     "all_gather_into",
     "reduce_scatter_into",
+    "init_fake_group",
     "init_group",
     "spawn_world",
     "WorldError",
@@ -105,6 +109,18 @@ def init_group(backend: str, store_path: str, rank: int, world: int,
         backend, store=store, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
+
+
+def init_fake_group(world: int, rank: int = 0) -> None:
+    """Initialise the default process group as ``torch.distributed``'s
+    ``fake`` backend over a ``HashStore``: ``world`` ranks in this one
+    process, seen from ``rank``.  Its collectives move no data (they give
+    outputs of the right shapes), so a step over fake tensors runs as
+    ``rank`` would run it in a real world of that size."""
+    # the backend registers itself when its module is first imported
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank, world_size=world)
 
 
 def _rank_main(fn, rank, world, backend, store_dir, args, threads):

@@ -11,7 +11,13 @@ of each batch row): prefill into a KV cache (``causal=True``) and decode
 
 A CPU tensor runs :func:`flash_attention_plain`.  A CUDA tensor launches
 one of K4's kernels on the current stream, chosen by dtype and shape, or
-raises: there is no fallback.
+raises: there is no fallback.  The launch is the registered op
+``repro_torch::flash_attention`` (:func:`flash_attention_op`, returning
+``(out, lse)``): its fake implementation lets a step be traced over fake
+tensors (the dry-run), and its FLOP formula lets ``torch.utils.flop_counter``
+count it.  Over a sharded KV cache, :func:`sharded_cached_attention` runs
+the op on each rank's key range and :func:`combine_key_ranges` merges the
+ranges.
 
 ========================  ==============================================
 bfloat16, ``Tq > 1``      ``csrc/flash_prefill.cu``: mma.sync tensor
@@ -79,6 +85,10 @@ __all__ = [
     "flash_attention_backward_plain",
     "flash_attention_split_plain",
     "sharded_flash_attention",
+    "flash_attention_op",
+    "causal_pairs",
+    "sharded_cached_attention",
+    "combine_key_ranges",
 ]
 
 # wrapper calls on the card, then each kernel's launches
@@ -441,6 +451,84 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_o
     return o, lse
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_length: Optional[torch.Tensor],
+    causal: bool, q_offset: int, with_lse: bool, block_q: int, block_kv: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 as a registered op, ``repro_torch::flash_attention``: ``(out,
+    lse)``.  On a CUDA tensor it launches the kernel that ``q``'s dtype and
+    shape select (:func:`_launch`); on a CPU tensor it is
+    :func:`flash_attention_plain` with ``block_q`` / ``block_kv``.  ``lse``
+    is float32 ``(B, Tq, H)`` under ``with_lse`` and empty ``(0,)``
+    otherwise.  Its fake implementation gives these shapes and dtypes
+    without touching memory, so a step traced over fake tensors meets no
+    ``ctypes`` launch (a fake tensor's ``data_ptr()`` is 0), and its FLOP
+    formula (:func:`_flash_flops`) lets a FLOP count see the kernel."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                         kv_length=kv_length, block_q=block_q,
+                                         block_kv=block_kv, return_lse=True)
+        out = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                    kv_length=kv_length, block_q=block_q, block_kv=block_kv)
+        return out, q.new_empty((0,), dtype=torch.float32)
+    out, lse = _launch(q, k, v, causal, q_offset, kv_length, with_lse)
+    return out, (lse if lse is not None else q.new_empty((0,), dtype=torch.float32))
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, kv_length, causal, q_offset, with_lse, block_q, block_kv):
+    B, Tq, H, _ = q.shape
+    lse_shape = (B, Tq, H) if with_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _runs_plain(q: torch.Tensor) -> bool:
+    """Whether the wrapper runs the plain version: a CPU tensor that holds
+    data.  A fake tensor (a dry-run's trace, on either device) goes through
+    the op, whose fake implementation carries the kernel's shapes and
+    FLOPs."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return q.device.type == "cpu" and not is_fake(q)
+
+
+def causal_pairs(Tq: int, Tk: int, q_offset: int, causal: bool) -> int:
+    """The (query, key) pairs K4 scores for one (batch row, head): every
+    ``Tq x Tk`` pair, or under ``causal`` the keys at or before each query's
+    position ``q_offset + i``, at most ``Tk`` of them (none before key 0:
+    a rank's key range can start past a query)."""
+    if not causal:
+        return Tq * Tk
+    z = min(max(-q_offset, 0), Tq)                 # rows before the first key: none
+    Tq, q_offset = Tq - z, q_offset + z
+    tri = min(max(Tk - q_offset, 0), Tq)           # rows i whose keys q_offset + i + 1 <= Tk
+    return tri * (q_offset + 1) + tri * (tri - 1) // 2 + (Tq - tri) * Tk
+
+
+def _flash_flops(q_shape, k_shape, v_shape, kv_length_shape, causal, q_offset, with_lse,
+                 block_q, block_kv, out_shape=None, **kwargs) -> int:
+    """FLOPs of one K4 call: ``4 · B · H · D`` per (query, key) pair that
+    :func:`causal_pairs` counts (``q·k`` and ``p·v``, two FLOPs per
+    multiply-add each), the work of the causal triangle and not of the
+    masked tiles; softmax exponentials are not counted, as the matmul
+    formulas of ``torch.utils.flop_counter`` count none.  ``kv_length``
+    lives on the device and is not read: the count covers the cache's
+    ``Tk`` positions."""
+    B, Tq, H, D = q_shape
+    return 4 * B * H * D * causal_pairs(Tq, k_shape[1], q_offset, causal)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    register_flop_formula(torch.ops.repro_torch.flash_attention)(_flash_flops)
+
+
+_register_flops()
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention without a cache under autograd: the port of the
     reference's ``_flash_train`` custom VJP.  The forward runs K4 with its
@@ -450,11 +538,11 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, block_q: int, block_kv: int):
-        if q.device.type == "cpu":
+        if _runs_plain(q):
             out, lse = flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
                                              block_kv=block_kv, return_lse=True)
         else:
-            out, lse = _launch(q, k, v, causal, 0, None, with_lse=True)
+            out, lse = flash_attention_op(q, k, v, None, causal, 0, True, block_q, block_kv)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.blocks = (causal, block_q, block_kv)
         return out
@@ -499,7 +587,8 @@ def flash_attention(
     own shards."""
     if is_dtensor(q):
         if kv_length is not None or q_offset != 0:
-            raise ValueError("attention over a KV cache takes plain tensors, not DTensors")
+            raise ValueError("attention over a sharded KV cache is sharded_cached_attention's: "
+                             "it writes the cache and runs K4 on each rank's key range")
         return sharded_flash_attention(q, k, v, causal=causal, block_q=block_q,
                                        block_kv=block_kv)
     _check(q, k, v, kv_length)
@@ -510,12 +599,13 @@ def flash_attention(
                 "backward: call it without grad, or without a cache to train"
             )
         return FlashAttentionFn.apply(q, k, v, causal, block_q, block_kv)
-    if q.device.type == "cpu":
+    if _runs_plain(q):
         return flash_attention_plain(
             q, k, v, causal=causal, q_offset=q_offset, kv_length=kv_length,
             block_q=block_q, block_kv=block_kv,
         )
-    return _launch(q, k, v, causal, q_offset, kv_length, with_lse=False)[0]
+    return flash_attention_op(q, k, v, kv_length, causal, int(q_offset), False, block_q,
+                              block_kv)[0]
 
 
 def _attention_placements(q, k):
@@ -566,8 +656,9 @@ def sharded_flash_attention(
     H / KV``), so that each query head meets its own kv head as in the
     unsharded call; a head split that cuts a group unevenly raises.
     Each rank launches K4 once per call, as the unsharded step does."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import local_shape_and_offset
 
     mesh = q.device_mesh
     qp, kp, kgp = _attention_placements(q, k)
@@ -575,8 +666,8 @@ def sharded_flash_attention(
     k = k.redistribute(mesh, kp)
     v = v.redistribute(mesh, kp)
     G = q.shape[2] // k.shape[2]
-    q_shape, q_off = compute_local_shape_and_global_offset(q.shape, mesh, qp)
-    k_shape, k_off = compute_local_shape_and_global_offset(k.shape, mesh, kp)
+    q_shape, q_off = local_shape_and_offset(q.shape, mesh, qp)
+    k_shape, k_off = local_shape_and_offset(k.shape, mesh, kp)
     h0, h_loc, kv0, kv_loc = q_off[2], q_shape[2], k_off[2], k_shape[2]
     lo, hi = h0 // G, (h0 + h_loc - 1) // G + 1
     g_loc = h_loc // (hi - lo) if h_loc else 1
@@ -598,3 +689,89 @@ def sharded_flash_attention(
     qp, kp, kgp = list(qp), list(kp), list(kgp)
     return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
                      in_grad_placements=(qp, kgp, kgp), device_mesh=mesh)(q, k, v)
+
+
+def combine_key_ranges(out: torch.Tensor, lse: torch.Tensor, groups) -> torch.Tensor:
+    """Attention over key ranges held by different ranks, combined: each
+    rank's K4 output ``out`` ``(B, Tq, H, D)`` and log-sum-exp ``lse``
+    ``(B, Tq, H)`` over its own keys, merged over the process groups
+    ``groups`` (``(mesh, dim)`` pairs) with the split-KV combine's
+    arithmetic: ``M`` the max of the ``lse`` over the ranks, then
+    ``sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M)`` in float32, cast
+    once.  A rank whose keys are all masked (``lse = +inf``) weighs 0.  At
+    one rank the weight is 1 and the result is ``out`` bit for bit."""
+    import torch.distributed._functional_collectives as funcol
+
+    lse = torch.where(torch.isinf(lse), float("-inf"), lse)
+    top = lse
+    for g in groups:
+        top = funcol.all_reduce(top, "max", g)
+    top = torch.where(torch.isneginf(top), 0.0, top)
+    w = torch.exp(lse - top)
+    num, den = w[..., None] * out.float(), w
+    for g in groups:
+        num = funcol.all_reduce(num, "sum", g)
+        den = funcol.all_reduce(den, "sum", g)
+    return (num / torch.clamp(den[..., None], min=1e-20)).to(out.dtype)
+
+
+def sharded_cached_attention(q, k, v, ck, cv, cache_len: int, *, causal: bool,
+                             block_q: int = 512, block_kv: int = 1024):
+    """Attention of DTensor ``q`` ``(B, T, H, D)`` over a sharded KV cache,
+    after writing the new keys ``k``, ``v`` ``(B, T, KV, D)`` at positions
+    ``[cache_len, cache_len + T)``: the prefill and decode of a sharded LM.
+
+    The cache layer ``ck`` / ``cv`` ``(B, S, KV, D)`` is split by its
+    placements (batch rows, kv heads, key positions: the cells' rules).
+    Each rank writes the new positions that fall in its own key range
+    ``[s0, s0 + S_loc)`` into its shard, then runs K4 on its shard with
+    ``q_offset = cache_len - s0`` and ``kv_length`` the filled part of its
+    range, its batch rows and query heads: the heads of its kv heads where
+    the cache splits them, else those ``q`` holds, meeting their kv heads
+    as :func:`sharded_flash_attention` slices them.  Where the key
+    positions are split, each rank's K4 also gives its ``lse`` and
+    :func:`combine_key_ranges` merges the ranges.  No DTensor reaches the
+    kernel; the cache is updated in place."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..distributed.sharding import local_shape_and_offset
+
+    mesh = ck.device_mesh
+    pc = tuple(ck.placements)
+    seq_dims = [i for i, p in enumerate(pc) if p == Shard(1)]
+    pk = tuple(Replicate() if p == Shard(1) else p for p in pc)
+    pq = []
+    for i, p in enumerate(pk):
+        if p in (Shard(0), Shard(2)):
+            pq.append(p)
+        elif i not in seq_dims and q.placements[i] == Shard(2) and mesh.size(i) > 1:
+            pq.append(Shard(2))              # q's heads split beside whole kv heads
+        else:
+            pq.append(Replicate())
+    pq = tuple(pq)
+    q, k, v = q.redistribute(mesh, pq), k.redistribute(mesh, pk), v.redistribute(mesh, pk)
+    T = q.shape[1]
+    (_, S_loc, kv_loc, _), (_, s0, kv0, _) = local_shape_and_offset(ck.shape, mesh, pc)
+    ck_l, cv_l = ck.to_local(), cv.to_local()
+    k_l, v_l, q_l = k.to_local(), v.to_local(), q.to_local()
+    lo, hi = max(cache_len, s0), min(cache_len + T, s0 + S_loc)
+    if lo < hi:                                    # this rank's new positions
+        ck_l[:, lo - s0:hi - s0] = k_l[:, lo - cache_len:hi - cache_len]
+        cv_l[:, lo - s0:hi - s0] = v_l[:, lo - cache_len:hi - cache_len]
+    (_, _, h_loc, _), (_, _, h0, _) = local_shape_and_offset(q.shape, mesh, pq)
+    G = q.shape[2] // ck.shape[2]
+    a, b = h0 // G, (h0 + h_loc - 1) // G + 1       # the kv heads of this rank's q heads
+    if a < kv0 or b > kv0 + kv_loc:
+        raise ValueError(f"query heads [{h0}, {h0 + h_loc}) cannot meet kv heads "
+                         f"[{kv0}, {kv0 + kv_loc}) on this rank")
+    if (a, b) != (kv0, kv0 + kv_loc):
+        ck_l, cv_l = ck_l[:, :, a - kv0:b - kv0], cv_l[:, :, a - kv0:b - kv0]
+    kv_len = torch.full((q_l.shape[0],), max(0, min(cache_len + T - s0, S_loc)),
+                        dtype=torch.int32, device=q_l.device)
+    split = [(mesh, i) for i in seq_dims if mesh.size(i) > 1]
+    out, lse = flash_attention_op(q_l.contiguous(), ck_l.contiguous(), cv_l.contiguous(),
+                                  kv_len, causal, cache_len - s0, bool(split), block_q,
+                                  block_kv)
+    if split:
+        out = combine_key_ranges(out, lse, split)
+    return DTensor.from_local(out, mesh, pq, run_check=False, shape=q.shape, stride=q.stride())

@@ -1,21 +1,41 @@
-"""Render a saved extraction-plan report as Markdown.
+"""Render a saved extraction-plan report, or the dry-run and roofline
+tables of ``results/dryrun_torch``, as Markdown.
 
     PYTHONPATH=src python -m repro_torch.launch.report PLAN.json
+    PYTHONPATH=src python -m repro_torch.launch.report --mesh single
 
 ``PLAN.json`` is a :class:`~repro_torch.core.cost.PlanReport` written by
 :func:`~repro_torch.core.serialize.save_plan_report` (either package's:
 the format is shared).  :func:`render_plan_report` gives the JAX
-package's text for the same report.  The JAX package's module also
-renders its dry-run and roofline tables; those wait for the port's
-``launch`` cells.
+package's text for the same report.  Without a plan, the records that
+:mod:`repro_torch.launch.dryrun` wrote are rendered: a summary, the
+dry-run table (peak bytes, FLOPs and collective bytes per rank, both the
+reference's ICI / DCI split and the H100 NVLink / network split) and the
+roofline table, for one mesh.
 """
 from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict
+import os
+from typing import Dict, List
 
-__all__ = ["fmt_bytes", "render_plan_report", "main"]
+__all__ = ["RESULTS_DIR", "fmt_bytes", "render_plan_report", "load_all", "dryrun_table",
+           "roofline_table", "summary", "render", "main"]
+
+RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results",
+                           "dryrun_torch")
+
+
+def load_all(results_dir: str = RESULTS_DIR) -> List[Dict]:
+    out = []
+    if not os.path.isdir(results_dir):
+        return out
+    for f in sorted(os.listdir(results_dir)):
+        if f.endswith(".json"):
+            with open(os.path.join(results_dir, f)) as fh:
+                out.append(json.load(fh))
+    return out
 
 
 def fmt_bytes(b: float) -> str:
@@ -89,10 +109,84 @@ def render_plan_report(doc: Dict) -> str:
     return "\n".join(lines)
 
 
+def dryrun_table(recs: List[Dict], mesh: str) -> str:
+    rows = [
+        "| arch | shape | chips | peak HBM/chip | flops/chip | ICI B/chip | DCI B/chip "
+        "| NVLink B/chip | network B/chip | trace s |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    for r in recs:
+        if not r.get("ok") or r.get("mesh") != mesh:
+            continue
+        peak = r["memory_stats"]["peak_bytes_per_device"]
+        rows.append(
+            "| {arch} | {shape} | {chips} | {peak} | {fl:.2e} | {ici} | {dci} | {nv} | {net} "
+            "| {t:.0f} |".format(
+                arch=r["arch"], shape=r["shape"], chips=r["n_chips"], peak=fmt_bytes(peak),
+                fl=r["flops_per_device"], ici=fmt_bytes(r["ici_bytes"]),
+                dci=fmt_bytes(r["dci_bytes"]), nv=fmt_bytes(r.get("nvlink_bytes", 0.0)),
+                net=fmt_bytes(r.get("network_bytes", 0.0)),
+                t=r.get("lower_s", 0) + r.get("compile_s", 0),
+            )
+        )
+    return "\n".join(rows)
+
+
+def roofline_table(recs: List[Dict], mesh: str) -> str:
+    rows = [
+        "| arch | shape | compute s | memory s | collective s | dominant | MODEL_FLOPS "
+        "| useful ratio |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for r in recs:
+        if not r.get("ok") or r.get("mesh") != mesh:
+            continue
+        rows.append(
+            "| {arch} | {shape} | {c:.4f} | {m:.4f} | {k:.4f} | **{dom}** | {mf:.2e} "
+            "| {ur:.3f} |".format(
+                arch=r["arch"], shape=r["shape"], c=r["compute_s"], m=r["memory_s"],
+                k=r["collective_s"], dom=r["dominant"], mf=r["model_flops"],
+                ur=r["useful_ratio"],
+            )
+        )
+    return "\n".join(rows)
+
+
+def summary(recs: List[Dict]) -> str:
+    ok = [r for r in recs if r.get("ok")]
+    fail = [r for r in recs if not r.get("ok")]
+    doms: Dict[str, int] = {}
+    for r in ok:
+        doms[r["dominant"]] = doms.get(r["dominant"], 0) + 1
+    lines = [
+        f"cells passed: {len(ok)}; failed: {len(fail)}",
+        f"dominant-term distribution: {doms}",
+    ]
+    for r in fail:
+        lines.append(f"  FAILED {r.get('arch')}x{r.get('shape')}x{r.get('mesh')}: "
+                     f"{r.get('error', '')[:80]}")
+    return "\n".join(lines)
+
+
+def render(mesh: str, results_dir: str = RESULTS_DIR) -> str:
+    recs = load_all(results_dir)
+    return "\n".join([
+        "## Summary", "", summary(recs), "",
+        f"## Dry-run ({mesh} mesh)", "", dryrun_table(recs, mesh), "",
+        f"## Roofline ({mesh} mesh)", "", roofline_table(recs, mesh), "",
+    ])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("plan", help="a plan report written by save_plan_report")
+    ap.add_argument("plan", nargs="?", help="a plan report written by save_plan_report")
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "host"],
+                    help="without a plan: the dry-run records of this mesh")
+    ap.add_argument("--results", default=RESULTS_DIR, help="the dry-run records' directory")
     args = ap.parse_args(argv)
+    if args.plan is None:
+        print(render(args.mesh, args.results))
+        return 0
     with open(args.plan) as f:
         print(render_plan_report(json.load(f)))
     return 0

@@ -1,5 +1,5 @@
 """Training launcher: ``--arch <id>`` end-to-end training on one device,
-or an LM over the ranks of a process group.
+or over the ranks of a process group.
 
 The port of the JAX package's ``launch/train.py``, with its flags and its
 three families (the LMs, dense and MoE; SASRec; the GNNs) at their
@@ -30,9 +30,12 @@ an LM's state is distributed by ``cfg.sharding_rules`` over
 the optimizer state placed as its param), each rank feeds its rows of
 every batch (every rank draws the same global batch from the seeded
 pipeline), a checkpoint is gathered and written by rank 0, and
-``--resume`` restores it with ``shardings=``.  SASRec and the GNNs train
-on one rank only: their sharded steps come with the dry-run cells
-(ROADMAP.md Queue 1 item 2).
+``--resume`` restores it with ``shardings=``.  SASRec's item table is
+split by its ``"items"`` rule (each rank feeding its rows of every batch),
+and a GNN's params are replicated while its graph's nodes and edges are
+split over the ranks (``gnn.distribute_graph``), as the dry-run cells lay
+them out.  graphgen-paper has no train step (its analytics run through
+``launch/distributed_analytics.py``).
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ from ..configs import registry
 from ..data.pipeline import TokenPipeline, sasrec_batches
 from ..distributed import sharding
 from ..distributed.sharding import use_mesh_rules
-from ..distributed.world import initialized, rank_world
+from ..distributed.world import initialized
 from ..launch.mesh import make_host_mesh
 from ..launch.orchestrator import Supervisor
 from ..models import gnn, sasrec, transformer
@@ -107,6 +110,13 @@ def build_gnn_training(cfg, device="cuda"):
     return state, step_fn, {"graph": g, "target": torch.from_numpy(target).to(device)}
 
 
+def _replicated_axes(params):
+    """Logical axes that replicate every leaf of ``params`` (the GNNs')."""
+    if isinstance(params, dict):
+        return {k: _replicated_axes(v) for k, v in params.items()}
+    return (None,) * params.ndim
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -157,11 +167,9 @@ def _train(args) -> int:
     mesh = make_host_mesh(torch.device(args.device).type)
     rules = dict(cfg.sharding_rules)
     distributed = initialized()
-    if distributed and mod.SHAPE_FAMILY != "lm" and rank_world()[1] > 1:
-        raise ValueError(
-            f"{args.arch} trains on one rank: the SASRec and GNN sharded steps come with the "
-            "dry-run cells (ROADMAP.md Queue 1 item 2)"
-        )
+    if mod.SHAPE_FAMILY == "graphgen":
+        raise ValueError(f"{args.arch} has no train step: its analytics run through "
+                         "repro_torch.launch.distributed_analytics")
     shardings = None
 
     if mod.SHAPE_FAMILY == "lm":
@@ -178,8 +186,26 @@ def _train(args) -> int:
     elif mod.SHAPE_FAMILY == "recsys":
         state, step_fn, pipe = build_sasrec_training(cfg, device=args.device)
         batch_of = lambda: next(pipe)  # noqa: E731
+        if distributed:
+            # the item table's rows by "items", each rank feeding its rows
+            shardings = sharding.state_placements(state, sasrec.logical_axes(cfg), rules, mesh)
+            state = sharding.place_tree(state, shardings, mesh)
+            rows = sharding.batch_placements(rules, mesh)
+            batch_of = lambda: sharding.place_tree(  # noqa: E731
+                next(pipe), {k: rows for k in ("seqs", "pos", "neg")}, mesh, src_data_rank=None)
     else:
         state, step_fn, batch = build_gnn_training(cfg, device=args.device)
+        if distributed:
+            # params replicated, the graph's nodes and edges split over the ranks
+            shardings = sharding.state_placements(state, _replicated_axes(state["params"]),
+                                                  rules, mesh)
+            state = sharding.place_tree(state, shardings, mesh)
+            graph_level = batch["target"].shape[0] != batch["graph"].n_nodes
+            graph = gnn.distribute_graph(batch["graph"], rules, mesh)
+            target = batch["target"] if graph_level else gnn.pad_rows(batch["target"],
+                                                                        graph.n_nodes)
+            batch = {"graph": graph, "target": sharding.place_tree(target, sharding.placements_for(
+                ("batch" if graph_level else "nodes", None), rules, mesh), mesh)}
         batch_of = lambda: batch  # noqa: E731
 
     start = 0

@@ -29,9 +29,14 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import GNNConfig
+from ..distributed.sharding import is_dtensor
 from .layers import layer_norm, mlp_apply, mlp_init, remat
 
-__all__ = ["GraphBatch", "init_params", "forward"]
+__all__ = ["GraphBatch", "NODE_FIELDS", "EDGE_FIELDS", "pad_rows", "distribute_graph",
+           "init_params", "forward"]
+
+NODE_FIELDS = ("nodes", "node_mask", "positions", "graph_ids")
+EDGE_FIELDS = ("edge_src", "edge_dst", "edge_mask", "edge_feat", "triplets", "triplet_mask")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -65,11 +70,74 @@ class GraphBatch:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
+def pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows appended up to ``rows`` (false for a mask)."""
+    if t.shape[0] >= rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + tuple(t.shape[1:]))])
+
+
+def distribute_graph(g: GraphBatch, rules, mesh) -> GraphBatch:
+    """``g`` (the same on every rank) as the sharded step holds it: each
+    node array's rows split by the ``"nodes"`` rule and each edge array's
+    (triplets included) by ``"edges"``, as DTensors on ``mesh`` (the
+    reference cells' ``_gnn_graph_shardings``).  The rows are first padded
+    to a multiple of the ranks that split them, as the reference's shapes
+    are padded: a padded node or edge is masked out, and a padded triplet
+    (edges 0 -> 0) too, so the padding is inert; a node-level target is
+    padded alike with :func:`pad_rows` to ``n_nodes``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..distributed.sharding import logical_spec, placements_for, split_count
+
+    def padded(n, axis):
+        k = split_count(logical_spec((axis,), rules, mesh)[0], mesh)
+        return -(-n // k) * k
+
+    n_pad, e_pad = padded(g.n_nodes, "nodes"), padded(g.n_edges, "edges")
+    t_pad = padded(g.triplets.shape[0], "edges") if g.triplets is not None else 0
+    if g.triplets is not None and g.triplet_mask is None:
+        g = dataclasses.replace(g, triplet_mask=torch.ones(
+            (g.triplets.shape[0],), dtype=torch.bool, device=g.triplets.device))
+
+    def place(name, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        axis = "nodes" if name in NODE_FIELDS else "edges"
+        rows = n_pad if axis == "nodes" else (t_pad if name.startswith("triplet") else e_pad)
+        return distribute_tensor(pad_rows(t, rows), mesh, list(placements_for(
+            (axis,) + (None,) * (t.ndim - 1), rules, mesh)))
+
+    return dataclasses.replace(g, **{f.name: place(f.name, getattr(g, f.name))
+                                     for f in dataclasses.fields(g)})
+
+
 def _segment_ids(g: GraphBatch, name: str) -> torch.Tensor:
     return g.triplets[:, 1] if name == "ji" else getattr(g, name)
 
 
 def _seg_sum(vals: torch.Tensor, g: GraphBatch, name: str, n: int) -> torch.Tensor:
+    """Sum of ``vals`` over the ``n`` segments of ``g``'s index ``name``
+    (:func:`_local_seg_sum`).  DTensor ``vals`` (rows split as the index
+    is: the sharded step's edges or nodes) are summed on each rank over its
+    own rows into all ``n`` segments, a partial sum that the next op
+    reduces (a reduce-scatter onto node-split rows)."""
+    if not is_dtensor(vals):
+        return _local_seg_sum(vals, g, name, n)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    ids = _segment_ids(g, name)
+    mesh = vals.device_mesh
+    vp, ip = list(vals.placements), list(ids.placements)
+    return local_map(
+        lambda v, i: _local_seg_sum(v, g, name, n, ids=i),
+        out_placements=[Partial()] * mesh.ndim, in_placements=(vp, ip),
+        in_grad_placements=(vp, ip), device_mesh=mesh)(vals, ids)
+
+
+def _local_seg_sum(vals: torch.Tensor, g: GraphBatch, name: str, n: int,
+                   ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum of ``vals`` over the ``n`` segments of ``g``'s index ``name``
     (``"edge_dst"``, ``"graph_ids"`` or ``"ji"``, the triplets' target
     edges): the values in the index's stable sort order, which is built
@@ -78,14 +146,33 @@ def _seg_sum(vals: torch.Tensor, g: GraphBatch, name: str, n: int) -> torch.Tens
     CPU)."""
     orders = g.__dict__.setdefault("_segment_orders", {})
     if (name, n) not in orders:
-        ids = _segment_ids(g, name).long()
-        orders[name, n] = (torch.argsort(ids, stable=True), torch.bincount(ids, minlength=n))
+        ids = (ids if ids is not None else _segment_ids(g, name)).long()
+        # the lengths by a scatter into n slots: a fixed output shape, which a
+        # trace over fake tensors can follow (bincount's depends on the ids)
+        lengths = torch.zeros(n, dtype=torch.int64, device=ids.device)
+        lengths.scatter_add_(0, ids, torch.ones_like(ids))
+        orders[name, n] = (torch.argsort(ids, stable=True), lengths)
     order, lengths = orders[name, n]
     return torch.segment_reduce(vals[order], "sum", lengths=lengths, axis=0)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return x[idx.long()]
+    """``x[idx]``.  For a DTensor ``x`` (rows split over the ranks) the
+    rows are gathered whole and each rank takes those of its own ``idx``
+    rows; the gradient of the gathered ``x`` is a partial sum over the
+    ranks that split ``idx``, reduced onto ``x``'s rows."""
+    if not is_dtensor(x):
+        return x[idx.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    ip = list(idx.placements)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in ip]
+    return local_map(lambda t, i: t[i.long()], out_placements=ip, in_placements=(rep, ip),
+                     in_grad_placements=(grad, ip), device_mesh=mesh)(
+        x.redistribute(mesh, rep), idx)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -263,6 +350,27 @@ def _dimenet_init(gen, cfg: GNNConfig, d_in: int, dtype, device):
     return params
 
 
+def _bilinear(mk: torch.Tensor, w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``sum_b a_b * (mk @ W_b)`` per triplet row.  Over DTensors (triplet
+    rows split over the ranks, ``W`` replicated) each rank runs it on its
+    own rows: DTensor's einsum rule does not keep an uneven row split."""
+    def rows(mk, w, a):
+        mw = torch.einsum("th,bhg->tbg", mk, w)
+        return torch.einsum("tb,tbg->tg", a, mw)
+
+    if not is_dtensor(mk):
+        return rows(mk, w, a)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rp = list(mk.placements)
+    wp = [Replicate()] * mk.device_mesh.ndim
+    wg = [Partial() if isinstance(p, Shard) else Replicate() for p in rp]
+    return local_map(rows, out_placements=rp, in_placements=(rp, wp, rp),
+                     in_grad_placements=(rp, wg, rp), device_mesh=mk.device_mesh)(
+        mk, w.redistribute(mk.device_mesh, wp), a.redistribute(mk.device_mesh, rp))
+
+
 def _dimenet_forward(params, g: GraphBatch, cfg: GNNConfig):
     adt = _DTYPES[cfg.dtype]
     if g.positions is None or g.triplets is None:
@@ -296,8 +404,7 @@ def _dimenet_forward(params, g: GraphBatch, cfg: GNNConfig):
         a = mlp_apply(bp["sbf_lin"], sbf)                            # (T, nb)
         mk = _take(m, idx_kj)                                        # (T, h)
         # bilinear: sum_b a_b * (mk @ W_b)
-        mw = torch.einsum("th,bhg->tbg", mk, bp["bilinear"].to(m.dtype))
-        tri_msg = torch.einsum("tb,tbg->tg", a, mw) * tmask[:, None]
+        tri_msg = _bilinear(mk, bp["bilinear"].to(m.dtype), a) * tmask[:, None]
         agg = _seg_sum(tri_msg, g, "ji", e)                           # per target edge
         m = m + mlp_apply(bp["update"], agg, activation=_silu)
         m = m * emask[:, None]
@@ -341,7 +448,20 @@ _FORWARD = {
 
 
 def forward(params: Dict, g: GraphBatch, cfg: GNNConfig) -> torch.Tensor:
+    """The model's output.  Over DTensors (the sharded step's: nodes and
+    edges split over the ranks, params replicated) each gather and
+    segment sum runs on the rank's own rows (:func:`_take`,
+    :func:`_seg_sum`), and the model's plain constants (RBF centres, the
+    masks it makes) act as replicated DTensors."""
     fwd = _FORWARD[cfg.kind]
+    if is_dtensor(g.nodes):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        run = fwd
+
+        def fwd(p, g, cfg):
+            with implicit_replication():
+                return run(p, g, cfg)
     if cfg.remat_policy != "none" and torch.is_grad_enabled():
         return remat(lambda p: fwd(p, g, cfg), params, save_matmuls=True)
     return fwd(params, g, cfg)

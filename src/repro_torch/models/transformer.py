@@ -53,12 +53,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import TransformerConfig
-from ..distributed.sharding import is_dtensor, shard
+from ..distributed.sharding import is_dtensor, shard, splits_evenly
 from . import moe as moe_lib
+from ..kernels.flash_attention import sharded_cached_attention
 from .layers import dense_init, flash_attention, rms_norm, rope
 from .layers import remat as remat_fn
 
-__all__ = ["torch_dtype", "init_params", "logical_axes", "KVCache", "init_cache", "forward"]
+__all__ = ["torch_dtype", "init_params", "logical_axes", "KVCache", "cache_logical_axes",
+           "init_cache", "forward"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -156,11 +158,28 @@ class KVCache:
     length: int           # filled prefix, common to every batch row
 
 
+def cache_logical_axes() -> Tuple[Optional[str], ...]:
+    """The logical axes of ``KVCache.k`` / ``.v`` ``(L, B, max_len, KV, hd)``."""
+    return (None, "cache_batch", "cache_seq", "kv_heads", None)
+
+
 def init_cache(
-    cfg: TransformerConfig, batch: int, max_len: int, device="cuda"
+    cfg: TransformerConfig, batch: int, max_len: int, device="cuda", sharded: bool = False,
 ) -> KVCache:
+    """An empty cache of ``max_len`` positions; ``sharded`` lays it out as
+    DTensors by :func:`cache_logical_axes` under the ambient mesh rules
+    (``use_mesh_rules``), each rank allocating its own shard."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     dt = torch_dtype(cfg.dtype)
+    if sharded:
+        from torch.distributed.tensor import zeros
+
+        from ..distributed.sharding import current_mesh, placements_for, rules_in_use
+
+        mesh = current_mesh()
+        pl = placements_for(cache_logical_axes(), rules_in_use(), mesh)
+        return KVCache(k=zeros(shape, dtype=dt, device_mesh=mesh, placements=pl),
+                       v=zeros(shape, dtype=dt, device_mesh=mesh, placements=pl), length=0)
     return KVCache(
         k=torch.zeros(shape, dtype=dt, device=device),
         v=torch.zeros(shape, dtype=dt, device=device),
@@ -184,12 +203,19 @@ def _attention(
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    q = shard((x @ lp["wq"].to(x.dtype)).reshape(B, T, H, hd), "batch", "seq", "heads", None)
-    k = shard((x @ lp["wk"].to(x.dtype)).reshape(B, T, KV, hd), "batch", "seq", "kv_heads", None)
-    v = shard((x @ lp["wv"].to(x.dtype)).reshape(B, T, KV, hd), "batch", "seq", "kv_heads", None)
+    x = _whole_seq(x)
+    q = _heads(x @ lp["wq"].to(x.dtype), "heads", H, hd)
+    k = _heads(x @ lp["wk"].to(x.dtype), "kv_heads", KV, hd)
+    v = _heads(x @ lp["wv"].to(x.dtype), "kv_heads", KV, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if cache_kv is not None:
+    if cache_kv is not None and is_dtensor(cache_kv[0]):
+        # a sharded cache: each rank writes and reads its own key range
+        out = sharded_cached_attention(
+            q, k, v, cache_kv[0], cache_kv[1], cache_len, causal=T != 1,
+            block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
+        )
+    elif cache_kv is not None:
         ck, cv = cache_kv                                   # (B, max_len, KV, hd)
         ck[:, cache_len:cache_len + T] = k
         cv[:, cache_len:cache_len + T] = v
@@ -203,8 +229,19 @@ def _attention(
             q, k, v, causal=True,
             block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
         )
-    out = shard(out, "batch", "seq", "heads", None)
-    return shard(out.reshape(B, T, H * hd) @ lp["wo"].to(x.dtype), "batch", "act_seq", "embed")
+    axis = "heads" if splits_evenly(H, "heads") else None
+    out = shard(shard(out, "batch", "seq", axis, None).reshape(B, T, H * hd), "batch", "seq", axis)
+    return shard(out @ lp["wo"].to(x.dtype), "batch", "act_seq", "embed")
+
+
+def _heads(y: torch.Tensor, axis: str, n: int, hd: int) -> torch.Tensor:
+    """A ``(B, T, n * hd)`` projection as ``(B, T, n, hd)`` heads placed on
+    ``axis``.  It is placed before the reshape (a split of the flat
+    columns need not fall on head boundaries), and kept whole where the
+    mesh dims of ``axis`` do not divide the ``n`` heads."""
+    axis = axis if splits_evenly(n, axis) else None
+    B, T, _ = y.shape
+    return shard(shard(y, "batch", "seq", axis).reshape(B, T, n, hd), "batch", "seq", axis, None)
 
 
 def _mlp(mlp: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -223,16 +260,28 @@ def _layer_weights(layers: Dict, group: str, i: int, cfg: TransformerConfig) -> 
     return {name: shard(w[i], *axes[name][1:]) for name, w in layers[group].items()}
 
 
+def _whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream ``(B, T, D)`` gathered along its positions where
+    ``act_seq`` splits them (sequence parallelism's all-gather before a
+    layer's projections): a matmul flattens ``(B, T)``, which DTensor
+    cannot do across a split of ``T``."""
+    return shard(x, "batch", "seq", "embed")
+
+
 def _ffn(layers: Dict, i: int, x: torch.Tensor, cfg: TransformerConfig):
     """Layer ``i``'s FFN of ``x`` (B, T, D): ``(y, aux)``, the MoE's
     ``moe_aux_loss + moe_z_loss`` or a float32 zero for a dense layer."""
+    x = _whole_seq(x)
     if cfg.moe is None:
         mlp = _layer_weights(layers, "mlp", i, cfg)
         return _mlp(mlp, x), torch.zeros((), dtype=torch.float32, device=x.device)
     B, T, D = x.shape
     moe = _layer_weights(layers, "moe", i, cfg)
     y, metrics = moe_lib.moe_apply(moe, x.reshape(B * T, D), cfg.moe)
-    return y.reshape(B, T, D), metrics["moe_aux_loss"] + metrics["moe_z_loss"]
+    # placed as the dense MLP's output is (its gradient gathered along the
+    # positions before the reshape's backward flattens them)
+    y = shard(y.reshape(B, T, D), "batch", "act_seq", "embed")
+    return y, metrics["moe_aux_loss"] + metrics["moe_z_loss"]
 
 
 def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

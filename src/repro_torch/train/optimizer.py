@@ -235,6 +235,30 @@ def sgdm(lr: Union[Callable, float], momentum: float = 0.9) -> Optimizer:
     return Optimizer(init, _tree_update(leaf_update, prepare), leaf_update, prepare)
 
 
+def _outer(r: torch.Tensor, c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``r[..., None] * c[..., None, :]``, the factored second moment made
+    whole.  For DTensors it is made in ``like``'s placements: each rank
+    multiplies the row means of its rows by the column means of its
+    columns (DTensor's broadcasting rule would replicate the product, a
+    whole param's worth of float32 on every rank)."""
+    if not is_dtensor(like):
+        return r[..., None] * c[..., None, :]
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    n = like.ndim
+    pr, pc = [], []
+    for p in like.placements:
+        d = p.dim if isinstance(p, Shard) else None
+        pr.append(Shard(d) if d is not None and d < n - 1 else Replicate())
+        pc.append(Shard(d) if d is not None and d < n - 2
+                  else Shard(n - 2) if d == n - 1 else Replicate())
+    mesh = like.device_mesh
+    return local_map(lambda a, b: a[..., None] * b[..., None, :],
+                     out_placements=list(like.placements), in_placements=(pr, pc),
+                     device_mesh=mesh)(r.redistribute(mesh, pr), c.redistribute(mesh, pc))
+
+
 def adafactor(
     lr: Union[Callable, float],
     decay: float = 0.8,
@@ -270,7 +294,7 @@ def adafactor(
         if "r" in f:
             r = beta * f["r"] + (1 - beta) * torch.mean(sq, dim=-1)
             c = beta * f["c"] + (1 - beta) * torch.mean(sq, dim=-2)
-            denom = (r[..., None] * c[..., None, :]
+            denom = (_outer(r, c, g32)
                      / torch.clamp(torch.mean(r, dim=-1, keepdim=True)[..., None], min=eps))
             u = g32 * torch.rsqrt(torch.clamp(denom, min=eps))
             new = {"r": r, "c": c}

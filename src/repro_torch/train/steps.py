@@ -217,14 +217,95 @@ def make_update_fn(
 # LM
 # ---------------------------------------------------------------------------
 
+def _vocab_split() -> bool:
+    """Whether the ambient mesh rules split the vocab over more than one
+    rank: the sharded LM step then runs a vocab-parallel cross entropy."""
+    from ..distributed.sharding import current_mesh, logical_spec, split_count
+
+    mesh = current_mesh()
+    if mesh is None or mesh.size() == 1:
+        return False
+    return split_count(logical_spec(("vocab",))[0], mesh) > 1
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """``-log softmax(logits)[target]`` of rows whose vocab is split over
+    the ranks of ``groups`` (``(mesh, dim)`` pairs; this rank holds columns
+    ``[v0, v0 + V_loc)``): the max, the sum of exponentials and the
+    target's logit are reduced over the groups, and the backward,
+    ``softmax - onehot``, is the rank's own columns (Megatron's
+    vocab-parallel cross entropy)."""
+
+    @staticmethod
+    def forward(ctx, logits, target, v0: int, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        n_loc = logits.shape[-1]
+        top = logits.amax(dim=-1)
+        for g in groups:
+            top = funcol.all_reduce(top, "max", g)
+        shifted = logits - top[:, None]
+        e = torch.exp(shifted)
+        total = e.sum(dim=-1)
+        t = target - v0
+        inside = (t >= 0) & (t < n_loc)
+        t = t.clamp(0, max(n_loc - 1, 0))
+        picked = torch.gather(shifted, 1, t[:, None])[:, 0] * inside
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+            picked = funcol.all_reduce(picked, "sum", g)
+        ctx.save_for_backward(e / total[:, None], t, inside)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        softmax, t, inside = ctx.saved_tensors
+        onehot = torch.zeros_like(softmax).scatter_(1, t[:, None], inside.to(softmax.dtype)[:, None])
+        return (softmax - onehot) * grad[:, None], None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Each position's negative log-likelihood of its label, ``(B, T)``,
+    from DTensor ``logits`` ``(B, T, V)`` whose vocab is split, under
+    ``local_map``: rows as the logits' batch split, the vocab reduced over
+    the mesh dims that split it (:class:`_VocabParallelNLL`)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import local_shape_and_offset
+
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == 2 and mesh.size(i) > 1]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 and i not in vocab else Replicate()
+            for i, p in enumerate(logits.placements)]
+    lp = [Shard(2) if i in vocab else p for i, p in enumerate(rows)]
+    logits, labels = logits.redistribute(mesh, lp), labels.redistribute(mesh, rows)
+    _, (_, _, v0) = local_shape_and_offset(logits.shape, mesh, lp)
+    groups = [(mesh, i) for i in vocab]
+
+    def local(lg, lb):
+        nll = _VocabParallelNLL.apply(lg.reshape(-1, lg.shape[-1]), lb.reshape(-1), v0, groups)
+        return nll.reshape(lb.shape)
+
+    return local_map(local, out_placements=rows, in_placements=(lp, rows),
+                     in_grad_placements=(lp, rows), device_mesh=mesh)(logits, labels)
+
+
 def lm_loss(params, batch: Dict, cfg: TransformerConfig):
     logits, _, aux = transformer.forward(params, batch["tokens"], cfg)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     labels_safe = torch.clamp(labels, min=0).to(torch.int64)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
-    ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if is_dtensor(logits) and _vocab_split():
+        # vocab-parallel cross entropy: no rank holds a whole row of the
+        # vocab or of its gradient
+        nll = _vocab_parallel_nll(logits, labels_safe)
+        ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+        ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -248,7 +329,8 @@ def build_lm_train_step(
 
 def build_lm_prefill_step(cfg: TransformerConfig, max_len: int) -> Callable:
     def prefill(params, tokens):
-        cache = transformer.init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+        cache = transformer.init_cache(cfg, tokens.shape[0], max_len, tokens.device,
+                                       sharded=is_dtensor(tokens))
         logits, cache, _ = transformer.forward(params, tokens, cfg, cache)
         return logits[:, -1], cache
 

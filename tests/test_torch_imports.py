@@ -54,6 +54,8 @@ def test_slice_modules_are_all_listed():
         "repro_torch.launch.recsys_serve", "repro_torch.models.moe",
         "repro_torch.configs.granite_moe_3b_a800m",
         "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.llama3_405b",
+        "repro_torch.launch.dryrun", "repro_torch.launch.op_cost",
+        "repro_torch.launch.roofline",
     ):
         assert name in MODULES
 

@@ -110,12 +110,20 @@ def test_configs_carry_the_reference_numbers(arch):
 
 
 def test_registry_rejects_unported_arch():
-    assert registry.list_archs() == ARCHS[:2] + [
-        "meshgraphnet", "graphcast", "schnet", "dimenet", "sasrec"] + ARCHS[2:]
-    with pytest.raises(KeyError, match="glm4-9b"):
-        registry.get_arch("graphgen-paper")
-    with pytest.raises(KeyError, match="Queue 1 item 2"):
-        registry.get_arch("graphgen-paper")
+    """Kept under its old name (graphgen-paper was refused before the
+    dry-run cells were ported): the registry now lists the reference's
+    archs in its order, graphgen-paper among them with its config and its
+    one shape, and refuses an unknown arch."""
+    assert registry.list_archs() == jregistry.list_archs()
+    assert registry.list_archs(assigned_only=True) == jregistry.list_archs(assigned_only=True)
+    assert "graphgen-paper" not in registry.list_archs(assigned_only=True)
+    mod, ref = registry.get_arch("graphgen-paper"), jregistry.get_arch("graphgen-paper")
+    for name in ("CONFIG", "SMOKE"):
+        assert dataclasses.asdict(getattr(mod, name)) == dataclasses.asdict(getattr(ref, name))
+    assert mod.SHAPE_FAMILY == ref.SHAPE_FAMILY == "graphgen"
+    for arch in registry.list_archs():
+        assert registry.shapes_for(arch) == jregistry.shapes_for(arch)
+    assert registry.shapes_for("graphgen-paper") == ["pagerank"]
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_arch("no-such-arch")
 
