@@ -238,6 +238,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a subprocess (a fake group of 256 ranks): rc 0 and every record
    ``ok``.  ``--quick`` runs the ``SMOKE`` configs; ``--only-dryrun``
    builds the kernels and runs this phase alone (no result line).
+13. ``examples/train_lm.py``'s ``lm-100m`` (``train_lm_phase``): the
+   port's ``repro_torch.launch.train_lm`` at the example's full width
+   and depth (12 layers, ``d_model`` 512, 98.7 M parameters, float32, no
+   TF32) and its defaults: 4 x 128 tokens a step, 300 steps, a
+   checkpoint every 50 (under ``build/``, removed after).  Step 0's loss
+   and gradient norm on the card against the port's float32 step 0 on
+   the CPU (same params and batch) within ``LM100M_LOSS_RTOL`` /
+   ``LM100M_NORM_RTOL``, and the same gate refusing step 0 on the card
+   under each fault of ``LM100M_PLANTS`` planted in K4's kernel (no
+   causal mask; query heads reading the wrong kv heads).  K4's float32
+   kernel with lse launched exactly 12 times a step in the run, no other
+   K4 kernel and no plain forward; every loss
+   finite and the last below step 0's.  The checkpoint at step 300 read
+   back equal to the run's final state bit for bit, then ``--resume
+   --steps 350`` (prints ``resumed from step 300``, finite losses).  One
+   profiled step split as phase 9's; K4's float32 lse row at the step's
+   shape (q (4, 128, 8, 64), kv 4 heads, causal) against the plain
+   version and ``aten._scaled_dot_product_efficient_attention``.
+   ``--quick`` runs 30 steps and resumes to 35, at full width.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  A copy of the measurements goes to
@@ -1221,6 +1240,7 @@ FLASH_CACHE = [
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 0.05}   # tests/test_kernels.py:138
 BF16_OPS_PER_S = 989e12                           # H100 SXM dense bf16
+F32_OPS_PER_S = 67e12                             # H100 SXM float32, CUDA cores
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:34"
 # last-position logits of a 4096-token prefill, K4 against the plain
 # attention, both bf16 end to end: the max abs difference may be this
@@ -3005,67 +3025,90 @@ RANGES = {BACKWARD_RANGE: "attention_backward_s", OPTIMIZER_RANGE: "optimizer_s"
 TOP_KERNELS = 12
 
 
-def k4_lse_row(name, q, k, v, launches, reps, atol=K4_BF16_ATOL) -> dict:
-    """K4's training forward (prefill kernel with its lse output) at one
-    training shape: held to the plain version element by element (output
-    within ``atol + K4_BF16_RTOL |plain|``, lse within ``LSE_ATOL``),
-    timed against its bound and against
-    ``aten._scaled_dot_product_flash_attention``, which also returns the
-    log-sum-exp.  Launches made here do not count."""
+def k4_lse_row(name, q, k, v, launches, reps, atol=None) -> dict:
+    """K4's training forward (the kernel with its lse output) at one
+    training shape, causal, called through ``flash_attention_op`` as
+    ``FlashAttentionFn`` calls it: held to the plain version element by
+    element (lse within ``LSE_ATOL``), timed against its bound and against
+    one library call that also returns the log-sum-exp (k / v repeated
+    over the group, D padded to a multiple of 8 with zeros: scores and
+    outputs unchanged).  bfloat16 runs ``flash_prefill.cu``: output
+    within ``atol + K4_BF16_RTOL |plain|`` (``atol`` by default
+    ``K4_BF16_ATOL``), bound at the tensor cores' bf16 rate, against
+    ``aten._scaled_dot_product_flash_attention``.  float32 runs
+    ``flash_attention.cu``: output within ``FLASH_TOL['float32']``, bound
+    at the CUDA cores' float32 rate, against
+    ``aten._scaled_dot_product_efficient_attention``.  Launches made here
+    do not count."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
+    f32 = q.dtype == torch.float32
+    if f32:
+        rtol, atol = 0.0, FLASH_TOL["float32"] if atol is None else atol
+        source, peak = f"{CSRC}/flash_attention.cu", F32_OPS_PER_S
+        sdpa = "efficient"
+    else:
+        rtol, atol = K4_BF16_RTOL, K4_BF16_ATOL if atol is None else atol
+        source, peak = f"{CSRC}/flash_prefill.cu", BF16_OPS_PER_S
+        sdpa = "flash"
     before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
-    out, lse = FA._launch(q, k, v, True, 0, None, with_lse=True)
+    out, lse = FA.flash_attention_op(q, k, v, None, True, 0, True, 512, 1024)
     want, want_lse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
     diff = (out.float() - want.float()).abs()
-    excess = float((diff - K4_BF16_RTOL * want.float().abs()).max().item())
+    excess = float((diff - rtol * want.float().abs()).max().item())
     lse_err = float((lse - want_lse).abs().max().item())
-    log(f"{name}: out max abs err {float(diff.max())}, |err| - {K4_BF16_RTOL} |plain| "
+    log(f"{name}: out max abs err {float(diff.max())}, |err| - {rtol} |plain| "
         f"{excess} (bound {atol}); lse max abs err {lse_err} (bound {LSE_ATOL})")
     if not (excess <= atol and lse_err <= LSE_ATOL):
         raise AssertionError(f"K4 {name}: out excess {excess}, lse err {lse_err}")
     ms = time_ms(lambda: FA._launch(q, k, v, True, 0, None, with_lse=True), reps)
+    # the plain version copies a scalar to the card in every call, which
+    # waits for the stream: at a small shape its calls run at the host's
+    # pace, so this is its time a call on the card with the host's gaps
     plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, causal=True,
                                                         return_lse=True), 2, 1)
     FA.LAUNCHES.update(before[0])
     FA.PLAIN_CUDA_CALLS.update(before[1])
     B, T, H, D = q.shape
     G = H // k.shape[2]
-    # the library call: heads-major, k / v repeated over the group, D padded
-    # to a multiple of 8 with zeros (scores and outputs unchanged)
     pad = (-D) % 8
     qs, ks, vs = (F.pad(t.transpose(1, 2), (0, pad)).contiguous() for t in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
     library_ms, library_note = None, None
     try:
         def library():
+            if f32:
+                return torch.ops.aten._scaled_dot_product_efficient_attention(
+                    qs, ks, vs, None, True, is_causal=True, scale=1.0 / math.sqrt(D))
             return torch.ops.aten._scaled_dot_product_flash_attention(
                 qs, ks, vs, 0.0, True, False, scale=1.0 / math.sqrt(D))
         ref = library()
         lib_err = float((ref[0][..., :D].transpose(1, 2).float() - want.float()).abs().max())
+        lib_lse_err = float((ref[1][..., :T].transpose(1, 2) - want_lse).abs().max())
         library_ms = time_ms(library, reps)
-        log(f"{name}: SDPA flash with lse {library_ms:.4f} ms (max abs diff to plain {lib_err})")
+        log(f"{name}: SDPA {sdpa} with lse {library_ms:.4f} ms (max abs diff to plain "
+            f"{lib_err}, lse {lib_lse_err})")
     except (RuntimeError, NotImplementedError) as e:  # the library's own limits
         library_note = str(e).splitlines()[0][:200]
         log(f"{name}: no library time: {library_note}")
     del qs, ks, vs
     n_bytes = nbytes(q, k, v, out, lse)
-    n_ops = 4 * H * D * B * T * (T + 1) // 2
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_OPS_PER_S * 1e3
+    n_ops = 4 * D * B * H * FA.causal_pairs(T, T, 0, True)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by {b_by}), "
+    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.6f} by {b_by}), "
         f"{launches} launches in the training runs")
     return {
-        "name": name, "route": "cuda", "source": f"{CSRC}/flash_prefill.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": FLASH_TPU_KERNEL, "launches": launches,
         "max_abs_err": float(diff.max()), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True,
-                  "lse_max_abs_err": lse_err, "bf16_excess_over_rtol": excess,
-                  "atol": atol,
+                  "lse_max_abs_err": lse_err, "excess_over_rtol": excess,
+                  "rtol": rtol, "atol": atol, "library": f"sdpa_{sdpa}",
                   "bytes": n_bytes, "flops": n_ops, "library_note": library_note},
     }
 
@@ -3106,7 +3149,8 @@ def split_device_time(trace: dict) -> dict:
         low = e["name"].lower()
         if inside is not None:
             cat = RANGES[inside]
-        elif "flash_prefill" in low or "flash_decode" in low or "flash_combine" in low:
+        elif any(k in low for k in ("flash_prefill", "flash_decode", "flash_combine",
+                                    "flash_attention_kernel")):
             cat = "k4_s"
         elif re.search(r"gemm|nvjet|cutlass|xmma|sm90_", low):
             cat = "gemm_s"
@@ -3117,6 +3161,7 @@ def split_device_time(trace: dict) -> dict:
         if where is None:
             cats["unmatched_s"] += sec
     cats["device_busy_s"] = sum(v for k, v in cats.items() if k != "unmatched_s")
+    cats["n_kernels"] = sum(1 for e in events if e.get("cat") == "kernel")
     cats["top_kernels"] = [[cat, name, sec] for (cat, name), sec in
                            sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]]
     return cats
@@ -4087,7 +4132,8 @@ def dryrun_mesh_cells(args) -> dict:
     in its own process): rc 0 and every record ``ok``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single",
-           "--cells", DRYRUN_MESH_CELLS] + (["--smoke"] if args.quick else [])
+           "--cells", DRYRUN_MESH_CELLS, "--device", "cuda"]
+    cmd += ["--smoke"] if args.quick else []
     t = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=DRYRUN_TIMEOUT_S)
@@ -4140,6 +4186,240 @@ def dryrun_phase(args) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: examples/train_lm.py's lm-100m through launch/train_lm.py
+# ---------------------------------------------------------------------------
+
+TRAIN_LM_CKPT = os.path.join(ROOT, "build", "ckpt_lm100m")
+# (steps, resumed to) of the launcher's two runs; --quick takes the second
+TRAIN_LM_STEPS = {False: (300, 350), True: (30, 35)}
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 4, 128            # the example's defaults
+# step 0 on the card against the port's step 0 on the CPU: float32 on
+# both sides (no TF32), so only the order of float32 sums differs: ~10
+# float32 units of the loss, ~1e-5 of the norm (the gaps measured are 0
+# and 6.6e-8)
+LM100M_LOSS_RTOL = 1e-6
+LM100M_NORM_RTOL = 1e-5
+# faults planted in K4's kernel for one step 0 on the card each, which the
+# gate above must refuse: (q, k, v, causal) as the kernel is launched
+LM100M_PLANTS = {
+    "no_causal_mask": lambda q, k, v, causal: (q, k, v, False),
+    "kv_heads_reversed": lambda q, k, v, causal: (q, k.flip(2).contiguous(),
+                                                  v.flip(2).contiguous(), causal),
+}
+
+
+def _window_step_s(log_times) -> tuple:
+    """Seconds a step over each window between two of the launcher's log
+    lines (each read a loss: a synchronise), and the windows that neither
+    start a checkpoint nor follow one that did (the writer thread shares
+    the host's cores with the steps)."""
+    from repro_torch.launch.train_lm import SAVE_EVERY
+
+    windows = list(zip(log_times, log_times[1:]))
+    saves = [any((i + 1) % SAVE_EVERY == 0 for i in range(i0, i1))
+             for (i0, _), (i1, _) in windows]
+    per_step = [(t1 - t0) / (i1 - i0) for (i0, t0), (i1, t1) in windows]
+    steady = [w for j, w in enumerate(per_step) if not saves[j] and not (j and saves[j - 1])]
+    return per_step, steady
+
+
+def train_lm_phase(args) -> tuple:
+    """Phase 13: ``repro_torch.launch.train_lm`` on ``lm-100m`` at the
+    example's full width, depth and defaults.  Returns the record and K4's
+    float32 lse row (its launches are the 300-step run's)."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train_lm
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import steps as steps_lib
+    from repro_torch.train.checkpoint import restore_checkpoint
+
+    t0 = time.perf_counter()
+    steps, resume_to = TRAIN_LM_STEPS[args.quick]
+    B, T = TRAIN_LM_BATCH, TRAIN_LM_SEQ
+    tf32 = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    log(f"lm-100m: TF32 settings {json.dumps(tf32)}")
+    cfg = train_lm.model_100m(log=log)
+    per_step = cfg.n_layers      # one K4 forward a layer: remat "none", one microbatch
+
+    # step 0 on the CPU: the launcher's params (seed 0, drawn on the card)
+    # and its first batch, through the same loss and gradients
+    params = transformer.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                     "cuda", dtype=transformer.torch_dtype(cfg.param_dtype))
+    cpu_params = opt_lib.tree_map(lambda t: t.cpu(), params)
+    first = {k: torch.from_numpy(v) for k, v in
+             next(iter(TokenPipeline(cfg.vocab_size, T, B))).items()}
+    t = time.perf_counter()
+    grad_fn = steps_lib.make_grad_fn(lambda p, b: steps_lib.lm_loss(p, b, cfg))
+    cpu_loss, _, grads = grad_fn(cpu_params, first)
+    cpu_loss, cpu_norm = float(cpu_loss), float(opt_lib.global_norm(grads))
+    cpu_s = time.perf_counter() - t
+    del cpu_params, grads
+
+    def gaps(loss, norm):
+        return abs(loss - cpu_loss) / abs(cpu_loss), abs(norm - cpu_norm) / abs(cpu_norm)
+
+    def passes(loss, norm):
+        loss_gap, norm_gap = gaps(loss, norm)
+        return loss_gap <= LM100M_LOSS_RTOL and norm_gap <= LM100M_NORM_RTOL
+
+    # the same step 0 on the card with each planted fault in K4's kernel
+    # (flash_attention_op looks _launch up when it runs): the gate must
+    # refuse every one
+    launch = FA._launch
+    card_first = {k: v.cuda() for k, v in first.items()}
+    planted = {}
+    try:
+        for name, plant in LM100M_PLANTS.items():
+            FA._launch = lambda q, k, v, causal, *rest, plant=plant: launch(
+                *plant(q, k, v, causal), *rest)
+            loss, _, grads = grad_fn(params, card_first)
+            loss, norm = float(loss), float(opt_lib.global_norm(grads))
+            planted[name] = {"loss": loss, "grad_norm": norm, "rel_gaps": gaps(loss, norm),
+                             "refused": not passes(loss, norm)}
+            del grads
+    finally:
+        FA._launch = launch
+    del params, card_first
+    log(f"lm-100m: step 0 on the card under planted K4 faults: {json.dumps(planted)}")
+
+    # the example's run: launches zeroed just before, read just after
+    shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    t = time.perf_counter()
+    run = train_lm.train(cfg, steps=steps, batch=B, seq=T, checkpoint_dir=TRAIN_LM_CKPT,
+                         device="cuda", log=lambda line: log(f"  {line}"))
+    run_s = time.perf_counter() - t
+    launches, plain = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms = run["losses"], run["grad_norms"]
+    windows, steady = _window_step_s(run["log_times"])
+    step_s = statistics.median(windows)
+    steady_s = statistics.median(steady)
+    loss_gap, norm_gap = gaps(losses[0], norms[0])
+    rec = {"config": dataclasses.asdict(cfg), "n_params": cfg.n_params(), "tf32": tf32,
+           "steps": steps, "batch": B, "seq": T,
+           "step0": {"card": {"loss": losses[0], "grad_norm": norms[0]},
+                     "cpu": {"loss": cpu_loss, "grad_norm": cpu_norm, "s": cpu_s},
+                     "loss_rel_gap": loss_gap, "norm_rel_gap": norm_gap,
+                     "rtol": [LM100M_LOSS_RTOL, LM100M_NORM_RTOL], "planted": planted},
+           "losses_every_10": losses[::10] + [losses[-1]], "grad_norms_every_10": norms[::10],
+           "run_s": run_s, "run_step_s": run_s / steps, "run_tokens_per_s": steps * B * T / run_s,
+           "window_step_s": windows, "median_step_s": step_s,
+           "tokens_per_s": B * T / step_s, "steady_median_step_s": steady_s,
+           "steady_tokens_per_s": B * T / steady_s, "peak_memory_bytes": peak,
+           "k4_launches": launches, "plain_cuda_calls": plain}
+    log(f"lm-100m: step 0 loss {losses[0]} / grad norm {norms[0]} on the card, {cpu_loss} / "
+        f"{cpu_norm} on the CPU (relative gaps {loss_gap:.3e} / {norm_gap:.3e}; rtol "
+        f"{LM100M_LOSS_RTOL} / {LM100M_NORM_RTOL})")
+    log(f"lm-100m: {steps} steps in {run_s:.3f} s, {rec['run_step_s'] * 1e3:.2f} ms a step "
+        f"({rec['run_tokens_per_s']:,.0f} tokens / s) with the checkpoint writes; median of "
+        f"the log windows {step_s * 1e3:.2f} ms, {steady_s * 1e3:.2f} ms away from the "
+        f"writes; peak {peak / 1e9:.3f} GB; K4 {json.dumps(launches)}; plain "
+        f"{json.dumps(plain)}")
+    if not passes(losses[0], norms[0]):
+        raise AssertionError(f"lm-100m step 0: card ({losses[0]}, {norms[0]}) against CPU "
+                             f"({cpu_loss}, {cpu_norm})")
+    if not all(p["refused"] for p in planted.values()):
+        raise AssertionError(f"lm-100m step 0: the gate passes a planted K4 fault: {planted}")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=steps * per_step, flash_attention_f32_lse=steps * per_step)
+    if launches != want:
+        raise AssertionError(f"lm-100m K4 launches {launches}, expected {want}")
+    if plain != {"flash_attention": 0, "flash_attention_backward": steps * per_step}:
+        raise AssertionError(f"lm-100m plain attention calls on the card: {plain}")
+    if len(losses) != steps or not np.all(np.isfinite(losses + norms)):
+        raise AssertionError(f"lm-100m: {len(losses)} losses, finite "
+                             f"{bool(np.all(np.isfinite(losses + norms)))}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm-100m: loss at step {steps - 1} {losses[-1]} is not below "
+                             f"step 0's {losses[0]}")
+
+    # the checkpoint at the last step, read back: the run's final state bit for bit
+    state = run.pop("state")
+    restored, at = restore_checkpoint(TRAIN_LM_CKPT, device="cuda")
+    pairs = [(p, v, opt_lib.tree_get(restored[key], p)) for key in ("params", "opt")
+             for p, v in opt_lib.tree_paths(state[key])]
+    same = (at == steps and int(restored["step"]) == int(state["step"]) == steps
+            and all(torch.equal(v, r) for _, v, r in pairs))
+    rec["checkpoint"] = {"step": at, "leaves": len(pairs), "equal_bits": same,
+                         "dir": sorted(os.listdir(TRAIN_LM_CKPT))}
+    del restored, pairs
+    if not same:
+        raise AssertionError(f"lm-100m: the checkpoint at step {at} is not the final state")
+
+    # --resume --steps resume_to
+    lines = []
+
+    def keep(line):
+        lines.append(line)
+        log(f"  {line}")
+
+    FA.reset_launch_counts()
+    t = time.perf_counter()
+    again = train_lm.train(cfg, steps=resume_to, batch=B, seq=T,
+                           checkpoint_dir=TRAIN_LM_CKPT, resume=True, device="cuda", log=keep)
+    rec["resume"] = {"s": time.perf_counter() - t, "start": again["start"],
+                     "losses": again["losses"], "k4_launches": dict(FA.LAUNCHES),
+                     "first_line": lines[0], "dir": sorted(os.listdir(TRAIN_LM_CKPT))}
+    if (lines[0] != f"resumed from step {steps}" or again["start"] != steps
+            or len(again["losses"]) != resume_to - steps
+            or not np.all(np.isfinite(again["losses"]))
+            or FA.LAUNCHES["flash_attention_f32_lse"] != (resume_to - steps) * per_step):
+        raise AssertionError(f"lm-100m resume: {json.dumps(rec['resume'])}")
+    shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+
+    # one more step under the profiler (its launches do not count)
+    state = again.pop("state")
+    step_fn = steps_lib.build_lm_train_step(
+        cfg, opt_lib.adamw(opt_lib.cosine_schedule(3e-4, 50, resume_to)))
+    batch = next(TokenPipeline(cfg.vocab_size, T, B).device_iter("cuda"))
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    FA.LAUNCHES.update(before[0])
+    FA.PLAIN_CUDA_CALLS.update(before[1])
+    split = trace_split(prof)
+    # idle against the profiled step's wall (the profiler slows the host)
+    # and against the run's unprofiled steady step
+    split.update(wall_s=wall, idle_share=1.0 - split["device_busy_s"] / wall,
+                 idle_share_of_steady_step=1.0 - split["device_busy_s"] / steady_s)
+    rec["profiled_step"] = split
+    log(f"lm-100m profiled step: {json.dumps(split)}")
+    del state, step_fn, again, run
+
+    # K4's float32 row at the step's attention shape
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    hd = cfg.resolved_head_dim
+    q = torch.randn((B, T, cfg.n_heads, hd), generator=gen, device="cuda")
+    k = torch.randn((B, T, cfg.n_kv_heads, hd), generator=gen, device="cuda")
+    v = torch.randn((B, T, cfg.n_kv_heads, hd), generator=gen, device="cuda")
+    row = k4_lse_row("flash_attention_f32_lse", q, k, v,
+                     launches["flash_attention_f32_lse"], args.reps)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"lm-100m phase: {rec['phase_s']:.1f} s")
+    return rec, [row]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--authors", type=int, default=50_000)
@@ -4149,8 +4429,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--quick", action="store_true",
                     help="a first check of changed kernels: DBLP 3000 authors / 6000 "
-                         "pubs, layered_1 at 600 nodes, DEDUP-1 at 300 / 600, and "
-                         "256 / 64-token prompts with 4 new tokens")
+                         "pubs, layered_1 at 600 nodes, DEDUP-1 at 300 / 600, "
+                         "256 / 64-token prompts with 4 new tokens, and lm-100m "
+                         "trained 30 steps")
     ap.add_argument("--only-dryrun", action="store_true",
                     help="build the kernels and run phase 12 alone (a first check of "
                          "the dry-run; prints no result line)")
@@ -4211,8 +4492,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dry = dryrun_phase(args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_lm_rec, train_lm_rows = train_lm_phase(args)
+    rows += train_lm_rows
     record.update({"card": card, "lm": lm, "training": training, "moe": moe_rec,
-                   "sharded": sharded, "dryrun": dry, "args": vars(args), "kernels": rows})
+                   "sharded": sharded, "dryrun": dry, "train_lm": train_lm_rec,
+                   "args": vars(args), "kernels": rows})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

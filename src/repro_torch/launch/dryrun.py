@@ -8,11 +8,12 @@ of 256 (``--mesh single``, a ``(16, 16)`` mesh) or 512 ranks (``multi``,
 ``(2, 16, 16)``), over fake tensors that hold each rank's shard and no
 memory, and counts what it dispatches
 (:mod:`repro_torch.launch.op_cost`).  ``--mesh host`` is a one-rank mesh
-over this machine's device (the card where there is one, else the CPU),
-on which the same cell can also run for real::
+over one device, on which the same cell can also run for real.  The
+fake tensors lie on ``--device``: the card by default (the CLI refuses
+without one), ``cpu`` when asked::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh multi --device cpu
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single \
         --cells sasrec:train_batch,graphgen-paper:pagerank:banded
 
@@ -52,18 +53,14 @@ MESH_RANKS = {"single": 256, "multi": 512, "host": 1}
 FULL_TRACE_LAYERS = 3
 
 
-def default_device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
-def make_mesh(mesh_name: str, device_type: Optional[str] = None):
-    """The mesh of ``mesh_name``: ``single`` / ``multi`` over a fake group of
-    256 / 512 ranks (initialised here, or re-initialised at that size),
-    ``host`` over this machine's one device."""
+def make_mesh(mesh_name: str, device_type: str):
+    """The mesh of ``mesh_name`` over ``device_type``: ``single`` / ``multi``
+    over a fake group of 256 / 512 ranks (initialised here, or
+    re-initialised at that size), ``host`` over this process's one
+    device."""
     from ..distributed.world import init_fake_group, initialized, rank_world
     from .mesh import make_production_mesh
 
-    device_type = device_type or default_device_type()
     if mesh_name == "host":
         return _one_rank_mesh(device_type)
     world = MESH_RANKS[mesh_name]
@@ -120,14 +117,12 @@ def measure_cell(cell: cells_lib.Cell, device_type: str) -> OpCost:
     return cost
 
 
-def run_cell(arch: str, shape: str, mesh_name: str, verbose: bool = True,
-             variant: Optional[str] = None, smoke: bool = False,
-             depth: Optional[int] = None, batch: Optional[int] = None,
-             device_type: Optional[str] = None) -> Dict:
-    """Trace one cell on ``mesh_name``'s mesh and return its record.
-    ``depth`` / ``batch`` cut a cell (layers, global batch) for a host mesh
-    that one card holds."""
-    device_type = device_type or default_device_type()
+def run_cell(arch: str, shape: str, mesh_name: str, device_type: str,
+             verbose: bool = True, variant: Optional[str] = None, smoke: bool = False,
+             depth: Optional[int] = None, batch: Optional[int] = None) -> Dict:
+    """Trace one cell on ``mesh_name``'s mesh over ``device_type`` and
+    return its record.  ``depth`` / ``batch`` cut a cell (layers, global
+    batch) for a host mesh that one card holds."""
     mesh = make_mesh(mesh_name, device_type)
     n_chips = mesh.size()
     target, points = trace_points(arch, shape, smoke, depth)
@@ -195,7 +190,11 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true", help="the SMOKE configs")
     ap.add_argument("--depth", type=int, default=None, help="cut the layers (host mesh)")
     ap.add_argument("--batch", type=int, default=None, help="cut the global batch (host mesh)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the device the fake tensors lie on: cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
 
     if args.all:
         targets = [(a, s, args.variant) for a, s in cells_lib.all_cells()]
@@ -222,8 +221,8 @@ def main(argv=None) -> int:
                         print(f"[skip] {arch} x {shape} x {mesh_name}")
                         continue
             try:
-                rec = run_cell(arch, shape, mesh_name, variant=variant, smoke=args.smoke,
-                               depth=args.depth, batch=args.batch)
+                rec = run_cell(arch, shape, mesh_name, args.device, variant=variant,
+                               smoke=args.smoke, depth=args.depth, batch=args.batch)
             except Exception as e:  # noqa: BLE001 - recorded, and the run fails
                 traceback.print_exc()
                 rec = {"ok": False, "error": f"{type(e).__name__}: {e}",

@@ -7,7 +7,9 @@ the CPU.
   512-device HLO (one all-gather, one psum-scatter and the dangling
   mass's all-reduce in both).
 * The CLI as a subprocess: graphgen-paper at ``--mesh multi`` (512 ranks,
-  collective time > 0) and glm4-9b's SMOKE train cell at ``multi``.
+  collective time > 0) and glm4-9b's SMOKE train cell at ``multi``, both
+  with ``--device cpu``; without a card and without ``--device cpu`` the
+  CLI refuses.
 * ``launch/report.py`` renders saved records.
 """
 import json
@@ -80,7 +82,8 @@ def test_banded_cell_collective_bytes_per_iteration_equal_the_references(fake_wo
 
 def _cli(*args):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                           "--device", "cpu"],
                           capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
 
 
@@ -102,6 +105,18 @@ def test_dryrun_cli_subprocess(args, record):
     if "glm4-9b" in record:
         assert rec["flops_per_device"] > 0 and rec["op_counts"]["repro_torch.flash_attention"] > 0
         assert rec["trace"]["smoke"] is True
+
+
+def test_dryrun_cli_refuses_without_a_card(monkeypatch):
+    """No silent fall back to the CPU: the CLI's ``--device`` defaults to
+    the card, and without one it exits unless given ``--device cpu``."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device: pass --device cpu"):
+        dryrun.main(["--arch", "glm4-9b", "--shape", "train_4k", "--mesh", "host"])
 
 
 def test_report_renders_saved_records(tmp_path):

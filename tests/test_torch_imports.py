@@ -55,7 +55,7 @@ def test_slice_modules_are_all_listed():
         "repro_torch.configs.granite_moe_3b_a800m",
         "repro_torch.configs.moonshot_v1_16b_a3b", "repro_torch.configs.llama3_405b",
         "repro_torch.launch.dryrun", "repro_torch.launch.op_cost",
-        "repro_torch.launch.roofline",
+        "repro_torch.launch.roofline", "repro_torch.launch.train_lm",
     ):
         assert name in MODULES
 
