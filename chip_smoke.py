@@ -182,7 +182,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    edges, so sums there take the segment path, as the reference's take
    XLA).  Last, K4's lse rows at glm4-9b's and SASRec's training shapes
    against the plain version (output at the bf16 bound, lse within
-   ``LSE_ATOL``) and ``aten._scaled_dot_product_flash_attention``.
+   ``LSE_ATOL``) and ``aten._scaled_dot_product_flash_attention`` (at
+   SASRec's 65,536 rows, which that op refuses in one call, the sum of
+   the fewest equal batch parts it takes, timed back to back), and K4's
+   row at ``serve_bulk``'s attention (262,144 sequences, no lse) against
+   SDPA in the fewest equal batch parts it takes.
    ``--quick`` runs the ``SMOKE`` configs, SASRec's batches / 64.
 10. The MoE LMs (``moe_phase``), after phase 9 frees its weights.
    granite-moe-3b-a800m at ``CONFIG`` (full width, all 32 layers, bf16
@@ -1387,7 +1391,8 @@ def trace_split(prof) -> dict:
         os.remove(trace_path)
 
 
-def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
+def k4_row(name, source, q, caches, kw, pairs, launches, reps, atol=K4_BF16_ATOL,
+           library_parts=(1,)) -> dict:
     """K4 at one main-path shape: time, plain time, SDPA time, bound.
     ``caches`` holds distinct ``(k, v)`` pairs of one shape: K4 and SDPA
     are timed over them in turn, so that with more bytes than the 50 MB L2
@@ -1395,7 +1400,13 @@ def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
     attention does after reading a layer's weights; the warm time on the
     first pair alone is logged beside it.  ``pairs`` counts the (batch
     row, query, key) triples whose score the masks keep: the causal half
-    for prefill, every valid key for decode."""
+    for prefill, every valid key for decode.  The output is held to the
+    plain version within ``atol + K4_BF16_RTOL |plain|``.  SDPA runs over
+    the batch in one call, or, where the row names more ``library_parts``,
+    in the fewest equal batch parts of them that it takes (timed back to
+    back: the sum of the parts' times); a row whose SDPA refuses every
+    part count it names records no library time only if it named more
+    than one, and fails otherwise."""
     import itertools
 
     import torch
@@ -1411,10 +1422,10 @@ def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
     err = float(diff.max().item())
     excess = float((diff - K4_BF16_RTOL * want.float().abs()).max().item())
     log(f"{name}: K4 against plain, max abs err {err}, largest |err| - "
-        f"{K4_BF16_RTOL} |plain| {excess} (tolerance {K4_BF16_ATOL})")
-    if not excess <= K4_BF16_ATOL:
-        raise AssertionError(f"K4 {name}: |err| exceeds {K4_BF16_ATOL} + "
-                             f"{K4_BF16_RTOL} |plain| by up to {excess - K4_BF16_ATOL}")
+        f"{K4_BF16_RTOL} |plain| {excess} (tolerance {atol})")
+    if not excess <= atol:
+        raise AssertionError(f"K4 {name}: |err| exceeds {atol} + "
+                             f"{K4_BF16_RTOL} |plain| by up to {excess - atol}")
 
     def rotated(fn, pairs_):
         turn = itertools.count()
@@ -1427,15 +1438,35 @@ def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
     FA.LAUNCHES.update(before[0])
     FA.PLAIN_CUDA_CALLS.update(before[1])
     B, Tq, H, D = q.shape
-    n_valid = int(kw["kv_length"].max().item())
+    n_valid = k.shape[1] if kw["kv_length"] is None else int(kw["kv_length"].max().item())
     # SDPA over the valid keys (every row of these shapes holds n_valid)
     qs = q.transpose(1, 2).contiguous()
     sdpa_caches = [(k_[:, :n_valid].transpose(1, 2).contiguous(),
                     v_[:, :n_valid].transpose(1, 2).contiguous()) for k_, v_ in caches]
-    sdpa = lambda k_, v_: F.scaled_dot_product_attention(  # noqa: E731
-        qs, k_, v_, is_causal=kw["causal"], enable_gqa=True)
-    library_ms = time_ms(rotated(sdpa, sdpa_caches), reps)
-    library_warm_ms = time_ms(lambda: sdpa(*sdpa_caches[0]), reps)
+    def sdpa_in(bounds):
+        return lambda k_, v_: [F.scaled_dot_product_attention(
+            qs[lo:hi], k_[lo:hi], v_[lo:hi], is_causal=kw["causal"], enable_gqa=True)
+            for lo, hi in bounds]
+
+    library_ms = library_warm_ms = library_note = parts_used = None
+    for parts in library_parts:
+        size = -(-B // parts)
+        sdpa = sdpa_in([(lo, min(B, lo + size)) for lo in range(0, B, size)])
+        try:
+            sdpa(*sdpa_caches[0])
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:  # the library's own limits
+            if len(library_parts) == 1:
+                raise
+            library_note = str(e).splitlines()[0][:200]
+            log(f"{name}: SDPA refuses {size} batch rows: {library_note}")
+            continue
+        library_ms = time_ms(rotated(sdpa, sdpa_caches), reps)
+        library_warm_ms = time_ms(lambda: sdpa(*sdpa_caches[0]), reps)
+        parts_used = parts
+        break
+    if library_ms is None:
+        log(f"{name}: no library time: SDPA refuses each of {list(library_parts)} batch parts")
     del sdpa_caches
     kv_bytes = 2 * B * n_valid * k.shape[2] * D * k.element_size()
     n_bytes = 2 * nbytes(q) + kv_bytes
@@ -1446,7 +1477,7 @@ def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
     rotation = sum(nbytes(k_, v_) for k_, v_ in caches)
     log(f"{name}: K4 {ms:.4f} ms over {len(caches)} caches in turn ({rotation / 1e6:.1f} MB), "
         f"warm on one {warm_ms:.4f} ms, host {host_ms:.4f} ms a call; SDPA "
-        f"{library_ms:.4f} ms in turn, warm {library_warm_ms:.4f} ms")
+        f"{library_ms} ms in turn, warm {library_warm_ms} ms, in {parts_used} call(s)")
     return {
         "name": name, "route": "cuda", "source": f"{CSRC}/{source}",
         "replaces": FLASH_TPU_KERNEL, "launches": launches, "max_abs_err": err,
@@ -1458,8 +1489,30 @@ def k4_row(name, source, q, caches, kw, pairs, launches, reps) -> dict:
                   "flops": n_ops, "bf16_excess_over_rtol": excess,
                   "caches_in_turn": len(caches), "bytes_in_turn": rotation,
                   "warm_ms": warm_ms, "library_warm_ms": library_warm_ms,
-                  "host_ms": host_ms},
+                  "library_parts": parts_used, "library_note": library_note,
+                  "host_ms": host_ms, "plan": k4_plan(q, k, kw["q_offset"])},
     }
+
+
+def k4_plan(q, k, q_offset) -> dict:
+    """The launch plan the wrapper chooses for this call: the float32
+    kernel's rows a block and blocks, or the bf16 prefill's sequences a
+    block."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, H, _ = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16 and Tq == 1:
+        return {}  # the decode kernel: its split is recorded beside its row
+    if not hasattr(FA, "prefill_pack"):
+        return {}  # a tree from before the plans (the parent of an A/B in k4_times.py)
+    if q.dtype == torch.float32:
+        rows, blocks = FA.f32_block_rows(B, Tq, H, KV,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+        return {"rows": rows, "blocks": blocks}
+    return {"pack": FA.prefill_pack(Tq, Tk, H // KV, q_offset)}
 
 
 def k4_rows(T, max_len, H, KV, hd, launches, reps, seed, tag="") -> list:
@@ -3001,6 +3054,8 @@ def graph_phases(args, record) -> list:
 
 # K4's lse (float32) against the plain version's, at the training shapes
 LSE_ATOL = 1e-3
+# the equal batch parts a library call with lse is tried in, fewest first
+LIBRARY_PARTS = (1, 2, 4, 8)
 # glm4-9b's training cell: CONFIG's widths at 4 of its 40 layers, and
 # train_4k's sequence at a global batch of 4 (one sequence per microbatch)
 LM_TRAIN_LAYERS = 4
@@ -3077,23 +3132,38 @@ def k4_lse_row(name, q, k, v, launches, reps, atol=None) -> dict:
     pad = (-D) % 8
     qs, ks, vs = (F.pad(t.transpose(1, 2), (0, pad)).contiguous() for t in
                   (q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
-    library_ms, library_note = None, None
-    try:
-        def library():
-            if f32:
-                return torch.ops.aten._scaled_dot_product_efficient_attention(
-                    qs, ks, vs, None, True, is_causal=True, scale=1.0 / math.sqrt(D))
-            return torch.ops.aten._scaled_dot_product_flash_attention(
-                qs, ks, vs, 0.0, True, False, scale=1.0 / math.sqrt(D))
-        ref = library()
-        lib_err = float((ref[0][..., :D].transpose(1, 2).float() - want.float()).abs().max())
-        lib_lse_err = float((ref[1][..., :T].transpose(1, 2) - want_lse).abs().max())
-        library_ms = time_ms(library, reps)
-        log(f"{name}: SDPA {sdpa} with lse {library_ms:.4f} ms (max abs diff to plain "
-            f"{lib_err}, lse {lib_lse_err})")
-    except (RuntimeError, NotImplementedError) as e:  # the library's own limits
-        library_note = str(e).splitlines()[0][:200]
-        log(f"{name}: no library time: {library_note}")
+    def library(lo, hi):
+        if f32:
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qs[lo:hi], ks[lo:hi], vs[lo:hi], None, True, is_causal=True,
+                scale=1.0 / math.sqrt(D))
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            qs[lo:hi], ks[lo:hi], vs[lo:hi], 0.0, True, False, scale=1.0 / math.sqrt(D))
+
+    # one call over the batch, or where the op refuses that many rows (the
+    # flash op at SASRec's 65,536) the fewest equal parts it takes, timed
+    # back to back as one call: the sum of the parts' times
+    library_ms, library_note, library_parts = None, None, None
+    for parts in LIBRARY_PARTS:
+        size = -(-B // parts)
+        bounds = [(lo, min(B, lo + size)) for lo in range(0, B, size)]
+        try:
+            refs = [library(lo, hi) for lo, hi in bounds]
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:  # the library's own limits
+            library_note = str(e).splitlines()[0][:200]
+            log(f"{name}: the library call refuses {size} batch rows: {library_note}")
+            continue
+        lib_out = torch.cat([r[0] for r in refs])
+        lib_lse = torch.cat([r[1] for r in refs])
+        lib_err = float((lib_out[..., :D].transpose(1, 2).float() - want.float()).abs().max())
+        lib_lse_err = float((lib_lse[..., :T].transpose(1, 2) - want_lse).abs().max())
+        del refs, lib_out, lib_lse
+        library_ms = time_ms(lambda: [library(lo, hi) for lo, hi in bounds], reps)
+        library_parts = parts
+        log(f"{name}: SDPA {sdpa} with lse {library_ms:.4f} ms in {parts} call(s) of {size} "
+            f"batch rows (max abs diff to plain {lib_err}, lse {lib_lse_err})")
+        break
     del qs, ks, vs
     n_bytes = nbytes(q, k, v, out, lse)
     n_ops = 4 * D * B * H * FA.causal_pairs(T, T, 0, True)
@@ -3109,7 +3179,8 @@ def k4_lse_row(name, q, k, v, launches, reps, atol=None) -> dict:
         "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True,
                   "lse_max_abs_err": lse_err, "excess_over_rtol": excess,
                   "rtol": rtol, "atol": atol, "library": f"sdpa_{sdpa}",
-                  "bytes": n_bytes, "flops": n_ops, "library_note": library_note},
+                  "library_parts": library_parts, "bytes": n_bytes, "flops": n_ops,
+                  "library_note": library_note, "plan": k4_plan(q, k, 0)},
     }
 
 
@@ -3610,6 +3681,20 @@ def training_phase(args) -> tuple:
                            randn(B, rc.seq_len, 1, rc.d), randn(B, rc.seq_len, 1, rc.d), v,
                            rec["sasrec"]["train"]["k4_launches"]["flash_attention_prefill_lse"],
                            args.reps, atol=2.0 ** -8 * float(v.float().abs().max())))
+    del v
+    # serve_bulk's attention: every user's sequence in one call a block
+    # (score_all's batch_chunk cuts only the scoring), no lse
+    bulk = rec["sasrec"]["serve_bulk"]
+    B = bulk["batch"]
+    v = randn(B, rc.seq_len, 1, rc.d)
+    rows.append(k4_row("flash_attention_prefill_sasrec_bulk", "flash_prefill.cu",
+                       randn(B, rc.seq_len, 1, rc.d), [(randn(B, rc.seq_len, 1, rc.d), v)],
+                       dict(causal=True, q_offset=0, kv_length=None),
+                       B * rc.seq_len * (rc.seq_len + 1) // 2,
+                       bulk["k4_launches"]["flash_attention_prefill"], args.reps,
+                       atol=2.0 ** -8 * float(v.float().abs().max()),
+                       library_parts=LIBRARY_PARTS))
+    del v
     rec["phase_s"] = time.perf_counter() - t0
     log(f"training phase: {rec['phase_s']:.1f} s")
     return rec, rows

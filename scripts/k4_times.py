@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""K4's bf16 kernels at glm4-9b's main-path shapes on one GPU.
+"""K4's kernels at the main paths' shapes on one GPU.
 
-    python3 scripts/k4_times.py [--src DIR] [--reps N]
+    python3 scripts/k4_times.py [--src DIR] [--reps N] [--rows main,f32_lm100m,sasrec,...]
 
-Runs ``chip_smoke.k4_rows`` alone, without the graph phases and the
-served model: the 4096-token causal prefill (q ``(1, 4096, 32, 128)``
-over a ``(1, 4128, 2, 128)`` cache) and the decode step (q ``(8, 1, 32,
-128)`` over four distinct ``(8, 4128, 2, 128)`` caches in turn, cold in
-L2), each held to the plain version by the element-wise bf16 bound and
-timed in device milliseconds beside SDPA, as ``chip_smoke.py`` times
-them.
+Runs ``chip_smoke``'s K4 rows alone, without the graph phases, the
+served models and the training runs, each held to the plain version as
+``chip_smoke.py`` holds it and timed in device milliseconds beside its
+library call.  ``--rows`` picks the rows (default: all):
+
+  main        glm4-9b's 4096-token causal prefill (q ``(1, 4096, 32,
+              128)`` over a ``(1, 4128, 2, 128)`` cache) and its decode
+              step (q ``(8, 1, 32, 128)`` over four distinct caches in
+              turn, cold in L2): ``chip_smoke.k4_rows``
+  granite     the same two rows at granite-moe-3b-a800m's heads (24 over
+              8, D = 64)
+  moonshot    the same two rows at moonshot-v1-16b-a3b's (16 over 16,
+              D = 128)
+  f32_lm100m  the float32 kernel with lse at lm-100m's training shape, q
+              ``(4, 128, 8, 64)`` over 4 kv heads: ``chip_smoke.k4_lse_row``
+  sasrec      the bf16 prefill with lse at SASRec's training shape, q
+              ``(65536, 50, 1, 50)``, and without lse at ``serve_bulk``'s
+              262,144 sequences
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two versions of the kernels can be
 compared on one card back to back: run the parent, the change, the
-change again and the parent.  Prints one JSON line.
+change again and the parent.  Launch counts are not the main path's
+here: each row's ``launches`` is 0.  Prints one JSON line.
 """
 from __future__ import annotations
 
@@ -28,12 +40,72 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (imports no kernel at import time)
 
+ROWS = ("main", "granite", "moonshot", "f32_lm100m", "sasrec")
+SASREC_BULK = 262_144   # serve_bulk's users (configs/shapes.py's REC_SHAPES)
+
+
+def lm_rows(arch, FA, reps: int, seed: int, tag: str) -> list:
+    from repro_torch.configs import registry
+
+    cfg = registry.get_arch(arch).CONFIG
+    T, _, new_tokens = chip_smoke.LM_FULL
+    return chip_smoke.k4_rows(T, T + new_tokens, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, {key: 0 for key in FA.LAUNCHES}, reps,
+                              seed=seed, tag=tag)
+
+
+def f32_rows(reps: int, seed: int) -> list:
+    import torch
+
+    from repro_torch.launch.train_lm import model_100m
+
+    cfg = model_100m(log=lambda line: None)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    hd = cfg.resolved_head_dim
+    q, k, v = (torch.randn((4, 128, h, hd), generator=gen, device="cuda")
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    return [chip_smoke.k4_lse_row("flash_attention_f32_lse", q, k, v, 0, reps)]
+
+
+def sasrec_rows(reps: int, seed: int) -> list:
+    import torch
+
+    from repro_torch.configs import sasrec as sasrec_cfg
+
+    rc = sasrec_cfg.CONFIG
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    shape = (65_536, rc.seq_len, 1, rc.d)
+    v = randn(*shape)
+    atol = 2.0 ** -8 * float(v.float().abs().max())  # chip_smoke's training_phase bound
+    rows = [chip_smoke.k4_lse_row("flash_attention_prefill_lse_sasrec", randn(*shape),
+                                  randn(*shape), v, 0, reps, atol=atol)]
+    del v
+    B = SASREC_BULK
+    v = randn(B, rc.seq_len, 1, rc.d)
+    rows.append(chip_smoke.k4_row(
+        "flash_attention_prefill_sasrec_bulk", "flash_prefill.cu", randn(B, rc.seq_len, 1, rc.d),
+        [(randn(B, rc.seq_len, 1, rc.d), v)], dict(causal=True, q_offset=0, kv_length=None),
+        B * rc.seq_len * (rc.seq_len + 1) // 2, 0, reps,
+        atol=2.0 ** -8 * float(v.float().abs().max()), library_parts=chip_smoke.LIBRARY_PARTS))
+    return rows
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--rows", default=",".join(ROWS),
+                    help=f"comma-separated, of {', '.join(ROWS)}")
     args = ap.parse_args()
+    picked = [r for r in args.rows.split(",") if r]
+    unknown = sorted(set(picked) - set(ROWS))
+    if unknown:
+        ap.error(f"unknown rows {unknown}: pick from {', '.join(ROWS)}")
     sys.path.insert(0, os.path.abspath(args.src))
 
     import torch
@@ -41,20 +113,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k4_times: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.configs import glm4_9b
     from repro_torch.kernels import flash_attention as FA
 
-    cfg = glm4_9b.CONFIG
-    T, _, new_tokens = chip_smoke.LM_FULL
-    rows = chip_smoke.k4_rows(T, T + new_tokens, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.resolved_head_dim, {key: 0 for key in FA.LAUNCHES},
-                              args.reps, seed=7)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for name in picked:
+        if name in ("main", "granite", "moonshot"):
+            arch = {"main": "glm4-9b", "granite": "granite-moe-3b-a800m",
+                    "moonshot": "moonshot-v1-16b-a3b"}[name]
+            rows += lm_rows(arch, FA, args.reps, args.seed,
+                            "" if name == "main" else f"_{name}")
+        elif name == "f32_lm100m":
+            rows += f32_rows(args.reps, args.seed)
+        else:
+            rows += sasrec_rows(args.reps, args.seed)
+        torch.cuda.empty_cache()
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    shape_keys = ("warm_ms", "bf16_excess_over_rtol", "excess_over_rtol", "lse_max_abs_err",
+                  "plan", "library_parts")
     print(json.dumps({"src": os.path.relpath(os.path.abspath(args.src), ROOT),
                       "card": chip_smoke.card_line(),
                       **{r["name"]: {**{k: r[k] for k in keys},
-                                     "warm_ms": r["shape"]["warm_ms"],
-                                     "excess": r["shape"]["bf16_excess_over_rtol"]}
+                                     **{k: r["shape"][k] for k in shape_keys
+                                        if k in r["shape"]}}
                          for r in rows}}))
     return 0
 

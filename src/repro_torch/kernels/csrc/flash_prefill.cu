@@ -26,13 +26,11 @@
 // the base-2 domain (m2 = max_j s * scale * log2 e), so it writes
 // m2 * ln 2 + ln(l).  A null lse writes nothing.
 //
-// CUDA caps grid.y at 65,535: the launcher walks the batch in chunks of
-// that many rows (SASRec's bulk scoring runs 262,144).
-//
 // What bounds it on the H100: at glm4-9b's 4096-token prefill the causal
 // half is ~137 GFLOP per layer against ~6 MB of q/k/v/out, so operations
-// bound it (0.139 ms at 989 TFLOP/s bf16).  What the design does about it
-// (FlashAttention-2's structure):
+// bound it (0.139 ms at 989 TFLOP/s bf16); at SASRec's (65,536 sequences
+// of 50 positions, one head, D = 50) bytes do (1.3 GB, 0.395 ms).  What the
+// design does about it (FlashAttention-2's structure):
 //  * the matrix products run on the tensor cores: mma.sync m16n8k16 bf16
 //    with fp32 accumulators (flash_mma.cuh), not fp32 FMAs;
 //  * a block of 4 warps takes 128 rows = the G query heads of one kv head
@@ -43,21 +41,46 @@
 //    set the pace); Q is staged once in shared memory, and its A fragments
 //    are read again at each k-step (two m-tiles' worth held in registers
 //    would not fit beside the 128 accumulator registers);
-//  * two blocks share an SM (104 KB of shared memory each);
-//  * K/V tiles of 64 keys are staged as bf16 with 16-byte cp.async
-//    copies, double-buffered: tile j + 1 is in flight while tile j is
-//    multiplied;
-//  * the key loop ends at the block's last query position, and only the
-//    tiles that reach past the block's first query position (or past
-//    kv_length) apply a mask;
+//  * short sequences are packed: where Tq == Tk, q_offset == 0 and one
+//    sequence's Tq G rows fill at most half of the 128, a block takes
+//    pack = 128 / (Tq G) whole sequences (the wrapper's prefill_pack: two
+//    at SASRec's T = 50, 100 of 128 rows, where one gave 50).  Sequence s
+//    brings its keys as keys s S .. s S + Tk - 1 of the block, S the power
+//    of two at or above Tk, so that no sequence straddles two key tiles (p
+//    is rounded against its row's final max, as unpacked); each row sees
+//    the key range [lo, hi] of its own sequence (lo = s S, hi below
+//    kv_length[b + s] and, causal, its position): a block-diagonal causal
+//    mask, applied as one range test a score;
+//  * K/V tiles of 64 keys are double-buffered, tile j + 1 in flight while
+//    tile j is multiplied.  Where D % 8 == 0, the operands are 16-byte
+//    aligned and sequences are not packed, each row goes straight to its
+//    padded shared-memory row in 16-byte cp.async copies.  Otherwise (D =
+//    50: a 100-byte row, 4-byte aligned; or packed) a tile is first
+//    copied raw in 16-byte cp.async copies, as one slab where its rows
+//    are contiguous (KV == 1: a sequence's (T, 1, D) block is; two packed
+//    sequences are too) or row by row, each row's 16-byte-aligned cover,
+//    and then re-laid warp by warp into the padded rows (4-byte words
+//    where the row's raw offset allows, else 2-byte ones, in shared
+//    memory), zeros past D and in the rows of invalid keys: no global
+//    load is narrower than 16 bytes or waited for outside the pipeline;
+//  * two blocks share an SM (104 KB of shared memory each at D = 128, 54
+//    KB at D <= 64); three with the re-laid staging at D <= 64 (72 KB with
+//    its raw buffer, 168 registers);
+//  * a warp skips the key tiles that no row of it can see (past its last
+//    position under causal, or outside its sequences' ranges), and only
+//    the tiles that reach past some row's range apply a mask;
 //  * blocks are launched longest first (the last query tiles of a causal
 //    prefill have the most keys), so the tail of the grid is short work.
+// CUDA caps grid.y at 65,535: the launcher walks the batch in chunks of
+// that many blocks' worth of rows (SASRec's bulk scoring runs 262,144).
 // Not yet: wgmma and TMA (FlashAttention-3's shape), a persistent grid.
 
 #include "flash_mma.cuh"
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
+#include <type_traits>
 
 namespace flash_prefill {
 
@@ -66,98 +89,430 @@ using namespace flash_mma;
 constexpr int WARPS = 4;
 constexpr int MT = 2;                 // m-tiles of 16 rows per warp
 constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS = 16 * MT * WARPS; // query rows (position x head of the group) per block
-constexpr int MAX_GRID_Y = 65535;     // batch rows per launch
+constexpr int ROWS = 16 * MT * WARPS; // query rows (sequence x position x head of the group) per block
+constexpr int MAX_GRID_Y = 65535;     // blocks along the batch per launch
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int DP>
-constexpr size_t smem_bytes() {
-  return size_t(2) * (ROWS + 4 * BKV) * Tile<DP>::DS;  // Q, then K and V x 2 stages
-}
+// how the re-laid instantiation stages Q, K and V (the launcher's choice)
+constexpr int STAGE_SLAB = 0;   // KV == 1: a tile's rows are one slab, copied raw, re-laid
+constexpr int STAGE_ROWS = 1;   // otherwise: each row's 16-byte cover copied raw, re-laid
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
+constexpr size_t smem_bytes(bool relay) {
+  // Q, then K and V x 2 stages, then (re-laid staging) a raw buffer of
+  // ROWS rows of 2 * DS bytes: K's 64 and V's 64 raw rows of one tile
+  return size_t(2) * (ROWS + 4 * BKV + (relay ? ROWS : 0)) * Tile<DP>::DS;
+}
+
+// Raw copy of the n_bytes at src (2-byte aligned) in 16-byte cp.async
+// copies of its 16-byte-aligned cover: the bytes land at buf + (src & 15)
+// on; the last copy reads only up to src + n_bytes.
+__device__ __forceinline__ void cover_copy(unsigned char* buf, const void* src, int n_bytes,
+                                           int tid) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a0 = s & ~uintptr_t(15), end = s + uintptr_t(n_bytes);
+  const int chunks = static_cast<int>((end - a0 + 15) >> 4);
+  for (int c = tid; c < chunks; c += THREADS) {
+    const uintptr_t p = a0 + 16 * uintptr_t(c);
+    cp_async16(buf + 16 * c, reinterpret_cast<const void*>(p),
+               static_cast<int>(end - p < 16 ? end - p : 16));
+  }
+}
+
+// Row by row: row r's cover (D elements from row_src(r), nothing where
+// that is null) at buf + r * RS.
+template <int DP, typename RowSrc>
+__device__ __forceinline__ void copy_row_covers(unsigned char* buf, int rows, RowSrc row_src,
+                                                int D, int tid) {
+  constexpr int RS = 2 * Tile<DP>::DS;  // bytes a raw row: any D <= DP with its offset
+  constexpr int CPR = RS / 16;
+  for (int e = tid; e < rows * CPR; e += THREADS) {
+    const int r = e / CPR, c = e % CPR;
+    const __nv_bfloat16* src = row_src(r);
+    if (src == nullptr) continue;
+    const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+    const uintptr_t p = (s & ~uintptr_t(15)) + 16 * uintptr_t(c), end = s + 2 * uintptr_t(D);
+    if (p < end)
+      cp_async16(buf + r * RS + 16 * c, reinterpret_cast<const void*>(p),
+                 static_cast<int>(end - p < 16 ? end - p : 16));
+  }
+}
+
+// Re-lay `rows` raw rows into a padded [row][DS] tile, 16 bytes (8
+// elements) a thread and a step: row r's D elements start at byte
+// row_off(r) of buf (-1: a zero row); columns D .. DP-1 are written as
+// zeros.  4-byte shared loads where the row's offset is 4-byte aligned
+// (every row at SASRec's shape), 2-byte ones otherwise.
+template <int DP, typename RowOff>
+__device__ __forceinline__ void relay_rows(__nv_bfloat16* dst, const unsigned char* buf,
+                                           int rows, RowOff row_off, int D, int tid) {
+  constexpr int CH = DP / 8;          // 16-byte chunks a padded row
+  const int e0 = 8 * (tid % CH);      // this thread's first element of a row
+  for (int r = tid / CH; r < rows; r += THREADS / CH) {
+    const int off = row_off(r);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (off >= 0 && e0 < D) {
+      if ((off & 3) == 0) {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(buf + off + 2 * e0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + 2 * j;
+          if (e < D) w[j] = e + 1 < D ? src[j] : src[j] & 0xffffu;
+        }
+      } else {
+        const uint16_t* src = reinterpret_cast<const uint16_t*>(buf + off + 2 * e0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + 2 * j;
+          if (e < D) w[j] = src[2 * j] | (e + 1 < D ? uint32_t(src[2 * j + 1]) << 16 : 0u);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * Tile<DP>::DS + e0) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// If masked, set s to -inf where key < lo[mt][i] or key > hi[mt][i] (the
+// row's visible key range); mx[mt][i] is the row's max over the NK keys,
+// scaled into the log2 domain (times scale_log2 > 0).  key0: the key of
+// n-tile 0, column 0.  Element (j, e): row g + 8 (e / 2), key
+// key0 + 8j + 2 (lane % 4) + e % 2.
+template <int NK>
+__device__ __forceinline__ void mask_range_max(float (&s)[MT][NK / 8][4], float (&mx)[MT][2],
+                                               int lane, float scale_log2, bool masked,
+                                               int key0, const int (&lo)[MT][2],
+                                               const int (&hi)[MT][2]) {
+  const int kcol = key0 + 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[mt][j][2 * i + e];
+          if (masked) {
+            const int key = kcol + 8 * j + e;
+            if (key < lo[mt][i] || key > hi[mt][i]) x = -INFINITY;
+          }
+          s[mt][j][2 * i + e] = x;
+          x_max = fmaxf(x_max, x);
+        }
+      x_max = fmaxf(x_max, __shfl_xor_sync(FULL_MASK, x_max, 1));
+      mx[mt][i] = fmaxf(x_max, __shfl_xor_sync(FULL_MASK, x_max, 2)) * scale_log2;
+    }
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = min(x, __shfl_xor_sync(FULL_MASK, x, off));
+  return x;
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = max(x, __shfl_xor_sync(FULL_MASK, x, off));
+  return x;
+}
+
+// The kernel's two instantiations a head dim (the launcher's choice):
+//   RELAY false  a query tile of one sequence, 16-byte staging straight
+//                into the rows (glm4-9b's, granite's and moonshot's
+//                prefills: D % 8 == 0, aligned, not packed);
+//   RELAY true   re-laid staging (STAGE_SLAB or STAGE_ROWS), packed or not
+//                (SASRec's; every packed call, whatever D).
+// Only the second carries the row tables, the per-warp tile skip and the
+// range mask: at D = 128 the skip's branch around a tile's products alone
+// cost the straight route 13% (NVIDIA H100 80GB HBM3, scripts/k4_times.py).
+
+// nb: batch rows of this launch; pack: sequences a block (1: a block is a
+// query tile of one sequence, bq = ROWS / G positions; > 1: whole
+// sequences, bq = Tq == Tk, n_qtiles == 1, q_offset == 0).  The re-laid
+// instantiation at D <= 64 (SASRec's) is held to 168 registers, three
+// blocks an SM: latency, not the tensor cores, bounds its short blocks.
+// ptxas then spills 64 bytes (88 bytes of loads); uncapped it takes 237
+// registers without spills, two blocks an SM, and SASRec's training
+// prefill took 2.09 ms against 1.69 (NVIDIA H100 80GB HBM3,
+// scripts/k4_times.py).
+template <int DP, bool RELAY>
+__global__ void __launch_bounds__(THREADS, RELAY && DP == 64 ? 3 : 2)
+    flash_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, const int32_t* __restrict__ kv_length, int Tq, int Tk, int H,
-    int KV, int D, int G,
-    int bq, int n_qtiles, int q_offset, int causal, int vec, float scale_log2) {
+    float* __restrict__ lse, const int32_t* __restrict__ kv_length, int nb, int Tq, int Tk,
+    int H, int KV, int D, int G, int bq, int n_qtiles, int pack, int q_offset, int causal,
+    int staging, float scale_log2) {
   using T = Tile<DP>;
+  constexpr int RS = 2 * T::DS;       // bytes a raw row
+  constexpr int TABLE = RELAY ? ROWS : 1;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int seq_len[TABLE];      // valid keys of each sequence of the block
+  // row r of the block: its global row of q / o / lse (-1: past the
+  // block's rows) and the keys [row_lo, row_hi] of the block it sees
+  __shared__ int64_t row_at[TABLE];
+  __shared__ int row_lo[TABLE], row_hi[TABLE];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // ROWS x DS
   __nv_bfloat16* KVs = Qs + ROWS * T::DS;                      // [stage][K, V] BKV x DS
+  // re-laid staging: K's then V's raw rows of one tile; Q's raw rows go
+  // to stage 1 (2 BKV x DS elements = ROWS x RS bytes), free until tile 1
+  unsigned char* raw = reinterpret_cast<unsigned char*>(KVs + 4 * BKV * T::DS);
+  unsigned char* raw_q = reinterpret_cast<unsigned char*>(KVs + 2 * BKV * T::DS);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // longest first: block 0 takes the last query tile of kv head 0
   const int qtile = n_qtiles - 1 - static_cast<int>(blockIdx.x) / KV;
   const int kvh = static_cast<int>(blockIdx.x) % KV;
-  const int64_t b = blockIdx.y;
+  const int64_t b = int64_t(blockIdx.y) * pack;   // the block's first batch row
+  const int n_seq = static_cast<int>(nb - b < pack ? nb - b : pack);
   const int t0 = qtile * bq;
-  const int rows = bq * G;
-
-  int kv_len = kv_length != nullptr ? kv_length[b] : Tk;
-  kv_len = max(0, min(kv_len, Tk));
-  int n_keys = kv_len;
-  if (causal) n_keys = max(0, min(n_keys, q_offset + min(t0 + bq, Tq)));
-  const int n_tiles = (n_keys + BKV - 1) / BKV;
-
-  const int64_t row_stride = int64_t(KV) * D;
-  const __nv_bfloat16* kh = k + (b * Tk * KV + kvh) * D;
-  const __nv_bfloat16* vh = v + (b * Tk * KV + kvh) * D;
-  auto stage = [&](int tile) {
-    __nv_bfloat16* Ks = KVs + (tile & 1) * 2 * BKV * T::DS;
-    const int k0 = tile * BKV;
-    auto key_src = [&](const __nv_bfloat16* head) {
-      return [=](int j) { return k0 + j < kv_len ? head + (k0 + j) * row_stride : nullptr; };
-    };
-    stage_rows<DP>(Ks, BKV, key_src(kh), kh, D, vec, tid, THREADS);
-    stage_rows<DP>(Ks + BKV * T::DS, BKV, key_src(vh), vh, D, vec, tid, THREADS);
-  };
-  if (n_tiles > 0) {
-    // Q: row r is position t0 + r / G, head kvh * G + r % G; zero past the
-    // block's rows and past Tq.  One copy group with K/V tile 0.
-    stage_rows<DP>(Qs, ROWS, [&](int r) -> const __nv_bfloat16* {
-      const int t = t0 + r / G;
-      return r < rows && t < Tq ? q + ((b * Tq + t) * H + kvh * G + r % G) * D : nullptr;
-    }, q, D, vec, tid, THREADS);
-    if (vec && D < DP) {
-      zero_pad_columns<DP>(Qs, ROWS, D, tid, THREADS);
-      zero_pad_columns<DP>(KVs, 4 * BKV, D, tid, THREADS);
-    }
-    stage(0);
-    cp_async_commit();
-  }
-
+  const int seq_rows = bq * G;        // rows of one sequence (packed: s holds rows s * seq_rows ..)
   const int row0 = 16 * MT * warp;    // this warp's first row
   const int g = lane >> 2;
-  int qpos[MT][2];
+
+  auto valid_keys = [&](int s) {
+    const int len = kv_length != nullptr ? kv_length[b + s] : Tk;
+    return max(0, min(len, Tk));
+  };
+  // Packed, sequence s's key j is key s * S + j of the block, S = 2^kshift
+  // the power of two at or above Tk (<= 64): a sequence never straddles
+  // two 64-key tiles, so each row's keys lie in one tile and p is rounded
+  // against its row's final max, as unpacked.
+  const int kshift = pack > 1 ? 32 - __clz(Tk - 1) : 0;
+  int len0, n_keys;
+  if constexpr (RELAY) {
+    if (tid < n_seq) seq_len[tid] = valid_keys(tid);
+    {  // thread tid fills row tid (THREADS == ROWS)
+      int s = 0, rr = tid;
+      if (pack > 1) {
+        s = tid / seq_rows;
+        rr = tid - s * seq_rows;
+      }
+      const int t = t0 + rr / G;
+      const bool ok = s < n_seq && rr < seq_rows && t < Tq;
+      row_at[tid] = ok ? ((b + s) * Tq + t) * H + kvh * G + rr % G : -1;
+      int last = ok ? valid_keys(s) - 1 : -1;  // a row past the block's sees no key
+      if (ok && causal) last = min(last, q_offset + t);
+      row_lo[tid] = s << kshift;
+      row_hi[tid] = (s << kshift) + last;
+    }
+    __syncthreads();
+    len0 = seq_len[0];
+    n_keys = pack > 1 ? ((n_seq - 1) << kshift) + seq_len[n_seq - 1] : len0;
+  } else {
+    len0 = n_keys = valid_keys(0);
+  }
+  if (pack == 1 && causal) n_keys = max(0, min(n_keys, q_offset + min(t0 + bq, Tq)));
+  const int n_tiles = (n_keys + BKV - 1) / BKV;
+
+  // row r of the block: the global row of q / o / lse, or -1 past the block's rows
+  auto q_row = [&](int r) -> int64_t {
+    if constexpr (RELAY) {
+      return row_at[r];
+    } else {
+      const int t = t0 + r / G;
+      return r < seq_rows && t < Tq ? (b * Tq + t) * H + kvh * G + r % G : -1;
+    }
+  };
+  auto q_src = [&](int r) -> const __nv_bfloat16* {
+    const int64_t row = q_row(r);
+    return row >= 0 ? q + row * D : nullptr;
+  };
+  // key kc of the block (key kc % S of sequence kc / S when packed): its
+  // memory row from the block's first key row, or -1 past its sequence's
+  // kv_length
+  const int64_t key_base = (b * Tk * KV + kvh) * D;  // key 0 of the block's first sequence
+  const int64_t key_stride = int64_t(KV) * D;
+  auto key_row = [&](int kc) -> int {
+    if (RELAY && pack > 1) {
+      const int s = kc >> kshift, j = kc & ((1 << kshift) - 1);
+      return s < n_seq && j < seq_len[s] ? s * Tk + j : -1;
+    }
+    return kc < len0 ? kc : -1;
+  };
+  const __nv_bfloat16* kh = k + key_base;
+  const __nv_bfloat16* vh = v + key_base;
+  auto key_src = [&](const __nv_bfloat16* head, int kc) -> const __nv_bfloat16* {
+    const int m = key_row(kc);
+    return m >= 0 ? head + m * key_stride : nullptr;
+  };
+  // the rows of k / v a tile reads lie in one slab of memory rows from the
+  // block's first key row: [r0, r0 + n) (whole sequences when packed)
+  auto tile_rows = [&](int k0, int& r0) -> int {
+    if (pack > 1) {
+      const int s0 = k0 >> kshift, s1 = min(n_seq, ((k0 + BKV - 1) >> kshift) + 1);
+      r0 = s0 * Tk;
+      return (s1 - s0) * Tk;
+    }
+    r0 = k0;
+    return min(BKV, Tk - k0);
+  };
+
+  // re-laid staging: a row's byte offset in its raw buffer (-1: zeros).
+  // A slab's memory rows m lie at head + m * 2D from its cover's start
+  // (head: the slab's offset from its 16-byte boundary); row by row, row r
+  // lies at r * RS + its source's offset from its 16-byte boundary.
+  auto head_of = [](const void* p) { return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15); };
+  // Q's slab (KV == 1): memory rows [0, q_mem) from q_first, the global
+  // row first_row; block row r holds memory row row_at[r] - first_row
+  const int64_t first_row = (b * Tq + t0) * H + kvh * G;
+  const __nv_bfloat16* q_first = q + first_row * D;
+  const int q_mem = pack > 1 ? n_seq * seq_rows : min(bq, Tq - t0) * G;
+  auto copy_q_raw = [&]() {
+    if (staging == STAGE_SLAB) cover_copy(raw_q, q_first, 2 * q_mem * D, tid);
+    else copy_row_covers<DP>(raw_q, ROWS, q_src, D, tid);
+  };
+  auto relay_q = [&]() {
+    const int head = head_of(q_first);
+    relay_rows<DP>(Qs, raw_q, ROWS, [&](int r) {
+      if (staging == STAGE_SLAB)
+        return row_at[r] >= 0 ? head + 2 * static_cast<int>(row_at[r] - first_row) * D : -1;
+      const __nv_bfloat16* src = q_src(r);
+      return src != nullptr ? r * RS + head_of(src) : -1;
+    }, D, tid);
+  };
+  auto copy_kv_raw = [&](int tile) {
+    const int k0 = tile * BKV;
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat16* head = h == 0 ? kh : vh;
+      unsigned char* buf = raw + h * BKV * RS;
+      if (staging == STAGE_SLAB) {
+        int r0;
+        const int n = tile_rows(k0, r0);
+        cover_copy(buf, head + r0 * key_stride, 2 * n * D, tid);
+      } else {
+        copy_row_covers<DP>(buf, BKV, [&](int j) { return key_src(head, k0 + j); }, D, tid);
+      }
+    }
+  };
+  auto kv_tile = [&](int tile) { return KVs + (tile & 1) * 2 * BKV * T::DS; };
+  auto relay_kv = [&](int tile) {
+    const int k0 = tile * BKV;
+    int r0;
+    tile_rows(k0, r0);
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat16* head = h == 0 ? kh : vh;
+      const int slab_head = head_of(head + r0 * key_stride);
+      relay_rows<DP>(kv_tile(tile) + h * BKV * T::DS, raw + h * BKV * RS, BKV, [&](int j) {
+        const int m = key_row(k0 + j);
+        if (m < 0) return -1;
+        if (staging == STAGE_ROWS) return j * RS + head_of(head + m * key_stride);
+        return slab_head + 2 * (m - r0) * D;
+      }, D, tid);
+    }
+  };
+  // straight staging: 16-byte cp.async into the padded rows
+  auto stage_vec = [&](int tile) {
+    const int k0 = tile * BKV;
+    __nv_bfloat16* Ks = kv_tile(tile);
+    auto src = [&](const __nv_bfloat16* head) {
+      return [=](int j) { return key_src(head, k0 + j); };
+    };
+    stage_rows<DP>(Ks, BKV, src(kh), kh, D, true, tid, THREADS);
+    stage_rows<DP>(Ks + BKV * T::DS, BKV, src(vh), vh, D, true, tid, THREADS);
+  };
+
+  if (n_tiles > 0) {
+    if constexpr (!RELAY) {
+      // Q: one copy group with K/V tile 0
+      stage_rows<DP>(Qs, ROWS, q_src, q, D, true, tid, THREADS);
+      if (D < DP) {
+        zero_pad_columns<DP>(Qs, ROWS, D, tid, THREADS);
+        zero_pad_columns<DP>(KVs, 4 * BKV, D, tid, THREADS);
+      }
+      stage_vec(0);
+      cp_async_commit();
+    } else {
+      copy_q_raw();
+      copy_kv_raw(0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      relay_q();
+      relay_kv(0);
+      __syncthreads();
+    }
+  }
+
+  // The mask of this thread's rows (g and g + 8 of each m-tile).  Straight:
+  // key >= kv_length or (causal) past the row's position qpos.  Otherwise
+  // the row's key range [lo, hi] of the block; over the warp's 32 rows, the
+  // keys any of them sees (w_lo .. w_hi: tiles outside are skipped), and a
+  // tile [k0, k0 + BKV) needs no mask where m_lo <= k0 and
+  // k0 + BKV - 1 <= m_hi.
+  int qpos[MT][2], lo[MT][2], hi[MT][2];
+  int w_lo = INT_MAX, w_hi = INT_MIN, m_lo = INT_MIN, m_hi = INT_MAX;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) qpos[mt][i] = q_offset + t0 + (row0 + 16 * mt + g + 8 * i) / G;
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 16 * mt + g + 8 * i;
+      if constexpr (RELAY) {
+        lo[mt][i] = row_lo[r];
+        hi[mt][i] = row_hi[r];
+      } else {
+        qpos[mt][i] = q_offset + t0 + r / G;
+      }
+    }
+  if constexpr (RELAY) {
+    if (row_at[row0 + lane] >= 0) {   // rows past the block's are never written
+      w_lo = m_lo = row_lo[row0 + lane];
+      w_hi = m_hi = row_hi[row0 + lane];
+    }
+    w_lo = warp_min(w_lo);
+    w_hi = warp_max(w_hi);
+    m_lo = warp_max(m_lo);
+    m_hi = warp_min(m_hi);
+  }
   const int first_q = q_offset + t0;
 
   WarpState<DP, MT> st;
   st.init();
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {
-      stage(tile + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile `tile` (and Q) landed for every thread's copies
+  auto multiply = [&](int tile, bool masked) {
     const int k0 = tile * BKV;
-    const bool masked = k0 + BKV > kv_len || (causal && k0 + BKV - 1 > first_q);
-    const __nv_bfloat16* Ks = KVs + (tile & 1) * 2 * BKV * T::DS;
+    const __nv_bfloat16* Ks = kv_tile(tile);
     float s[MT][BKV / 8][4], mx[MT][2];
     uint32_t pa[MT][BKV / 8][2];
     score_tile<DP, MT, BKV>(s, Qs, row0, Ks, lane);
-    mask_max<MT, BKV>(s, mx, lane, scale_log2, masked, k0, kv_len, causal != 0, qpos);
+    if constexpr (RELAY) {
+      mask_range_max<BKV>(s, mx, lane, scale_log2, masked, k0, lo, hi);
+    } else {
+      mask_max<MT, BKV>(s, mx, lane, scale_log2, masked, k0, len0, causal != 0, qpos);
+    }
     softmax_update<DP, MT, BKV>(st, s, mx, scale_log2, pa);
     pv_tile<DP, MT, BKV>(st, pa, Ks + BKV * T::DS, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+  };
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const bool next = tile + 1 < n_tiles;
+    if constexpr (!RELAY) {
+      if (next) {
+        stage_vec(tile + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // tile `tile` (and Q) landed for every thread's copies
+    } else if (next) {
+      copy_kv_raw(tile + 1);  // in flight while tile `tile` is multiplied
+      cp_async_commit();
+    }
+    const int k0 = tile * BKV;
+    if constexpr (RELAY) {
+      if (k0 <= w_hi && k0 + BKV - 1 >= w_lo)  // some row of this warp sees a key of the tile
+        multiply(tile, k0 < m_lo || k0 + BKV - 1 > m_hi);
+    } else {
+      multiply(tile, k0 + BKV > len0 || (causal && k0 + BKV - 1 > first_q));
+    }
+    if constexpr (!RELAY) {
+      __syncthreads();  // every warp is done with this stage before it is refilled
+    } else if (next) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile + 1's raw rows landed; every warp is done with tile
+      relay_kv(tile + 1);
+      __syncthreads();
+    }
   }
 
   // out = acc / max(l, 1e-20), rows g and g + 8 of each of this warp's m-tiles
@@ -165,12 +520,10 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = row0 + 16 * mt + g + 8 * i;
       const float l = st.row_sum(mt, i);
       const float den = fmaxf(l, 1e-20f);
-      const int t = t0 + r / G;
-      if (r >= rows || t >= Tq) continue;
-      const int64_t row = (b * Tq + t) * H + kvh * G + r % G;
+      const int64_t row = q_row(row0 + 16 * mt + g + 8 * i);
+      if (row < 0) continue;
       if (lse != nullptr && (lane & 3) == 0)
         lse[row] = l > 0.f ? st.m[mt][i] * LN2 + logf(l) : INFINITY;
       __nv_bfloat16* out = o + row * D;
@@ -189,33 +542,35 @@ __global__ void __launch_bounds__(THREADS, 2) flash_prefill_kernel(
     }
 }
 
-template <int DP>
+template <int DP, bool RELAY>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
            __nv_bfloat16* o, float* lse, const int32_t* kv_length, int B, int Tq, int Tk, int H,
-           int KV, int D, int q_offset, int causal, bool vec, float scale_log2, int device,
-           cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<DP>();
+           int KV, int D, int q_offset, int causal, int pack, int staging, float scale_log2,
+           int device, cudaStream_t st) {
+  constexpr size_t smem = smem_bytes<DP>(RELAY);
   // The shared-memory limit is a per-device attribute of the kernel: set
   // it at the first launch on each device, not at every launch.
   static std::atomic<uint64_t> attr_set{0};
   const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
   if (!(attr_set.load() & bit)) {
     const cudaError_t attr =
-        cudaFuncSetAttribute(flash_prefill_kernel<DP>,
+        cudaFuncSetAttribute(flash_prefill_kernel<DP, RELAY>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (attr != cudaSuccess) return static_cast<int>(attr);
     attr_set.fetch_or(bit);
   }
   const int G = H / KV;
-  const int bq = ROWS / G;
+  const int bq = pack > 1 ? Tq : ROWS / G;
   const int n_qtiles = (Tq + bq - 1) / bq;
-  for (int64_t b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
-    const dim3 grid(n_qtiles * KV, static_cast<unsigned>(std::min<int64_t>(MAX_GRID_Y, B - b0)));
-    flash_prefill_kernel<DP><<<grid, THREADS, smem, st>>>(
+  const int64_t per_launch = int64_t(MAX_GRID_Y) * pack;  // batch rows a launch
+  for (int64_t b0 = 0; b0 < B; b0 += per_launch) {
+    const int64_t nb = std::min<int64_t>(per_launch, B - b0);
+    const dim3 grid(n_qtiles * KV, static_cast<unsigned>((nb + pack - 1) / pack));
+    flash_prefill_kernel<DP, RELAY><<<grid, THREADS, smem, st>>>(
         q + b0 * Tq * H * D, k + b0 * Tk * KV * D, v + b0 * Tk * KV * D, o + b0 * Tq * H * D,
         lse != nullptr ? lse + b0 * Tq * H : nullptr,
-        kv_length != nullptr ? kv_length + b0 : nullptr, Tq, Tk, H, KV, D, G, bq, n_qtiles,
-        q_offset, causal, vec ? 1 : 0, scale_log2);
+        kv_length != nullptr ? kv_length + b0 : nullptr, static_cast<int>(nb), Tq, Tk, H, KV,
+        D, G, bq, n_qtiles, pack, q_offset, causal, staging, scale_log2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -228,14 +583,17 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
 // q and o are contiguous bf16 (B, Tq, H, D), k and v contiguous bf16
 // (B, Tk, KV, D); lse is a device array of B * Tq * H fp32, or null (not
 // written); kv_length is a device array of B int32 or null (every key
-// valid).  Needs H % KV == 0, H / KV <= 128 and 0 < D <= 128.  scale_log2
-// is the softmax scale times log2(e).
+// valid).  pack: whole sequences a block (1, or > 1 where Tq == Tk,
+// q_offset == 0 and pack * Tq * H / KV <= 128).  Needs H % KV == 0,
+// H / KV <= 128 and 0 < D <= 128.  scale_log2 is the softmax scale times
+// log2(e).
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* o,
                                     void* lse, const int32_t* kv_length, int B, int Tq, int Tk,
-                                    int H, int KV, int D, int q_offset, int causal,
+                                    int H, int KV, int D, int q_offset, int causal, int pack,
                                     float scale_log2, int device, void* stream) {
   using namespace flash_prefill;
-  if (KV <= 0 || H % KV != 0 || H / KV > ROWS || D <= 0 || D > 128)
+  if (KV <= 0 || H % KV != 0 || H / KV > ROWS || D <= 0 || D > 128 || pack < 1 ||
+      (pack > 1 && (Tq != Tk || q_offset != 0 || int64_t(pack) * Tq * (H / KV) > ROWS)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || Tq <= 0) return 0;
   int current = -1;
@@ -244,16 +602,21 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
     if (set != cudaSuccess) return static_cast<int>(set);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = D % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const bool relay = D % 8 != 0 || !aligned || pack > 1;
+  const int staging = KV == 1 ? STAGE_SLAB : STAGE_ROWS;  // read only where re-laid
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(o);
   auto* lf = static_cast<float*>(lse);
-  return D <= 64 ? launch<64>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D, q_offset,
-                              causal, vec, scale_log2, device, st)
-                 : launch<128>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D, q_offset,
-                               causal, vec, scale_log2, device, st);
+  auto run = [&](auto mode) {
+    constexpr bool M = decltype(mode)::value;
+    return D <= 64 ? launch<64, M>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D,
+                                   q_offset, causal, pack, staging, scale_log2, device, st)
+                   : launch<128, M>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D,
+                                    q_offset, causal, pack, staging, scale_log2, device, st);
+  };
+  return relay ? run(std::true_type{}) : run(std::false_type{});
 }

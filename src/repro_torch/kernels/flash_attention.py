@@ -22,12 +22,18 @@ ranges.
 ========================  ==============================================
 bfloat16, ``Tq > 1``      ``csrc/flash_prefill.cu``: mma.sync tensor
                           cores, 128 query rows (the G heads of a kv
-                          head at 128 / G positions) x 64-key tiles
+                          head at 128 / G positions, or whole short
+                          sequences packed, :func:`prefill_pack`) x
+                          64-key tiles; a head dim that is not a
+                          multiple of 8 staged raw in 16-byte copies
+                          and re-laid in shared memory
 bfloat16, ``Tq == 1``     ``csrc/flash_decode.cu``: split-KV partials
                           over key ranges of whole 64-key tiles
                           (:func:`decode_split`), then a combine kernel
-float32, any shape        ``csrc/flash_attention.cu``: CUDA-core fp32
-                          (TF32 tensor cores cannot hold 2e-5)
+float32, any shape        ``csrc/flash_attention.cu``: CUDA-core FFMA
+                          (plain TF32 tensor cores cannot hold 2e-5),
+                          16, 32 or 64 query rows a block
+                          (:func:`f32_block_rows`) x 64-key tiles
 ========================  ==============================================
 
 Training (no cache: ``q_offset == 0``, ``kv_length is None``, and some
@@ -55,8 +61,8 @@ Numbers: scores and softmax sums in float32, ``p`` rounded to the value
 type before the P·V product, the output ``acc / max(l, 1e-20)`` cast to
 ``q.dtype``; a row whose every key is masked gives 0.  ``block_q`` and
 ``block_kv`` tile the plain version as they tile the reference; the
-kernels use their own tiles (64 keys in bf16, 32 in float32), which
-changes only the order of float32 sums and where ``p`` is rounded.
+kernels use their own tiles (64 keys), which changes only the order of
+float32 sums and where ``p`` is rounded.
 :func:`flash_attention_split_plain` is the decode kernel's arithmetic in
 plain PyTorch (``p`` rounded against each split's running max), for the
 tests and the smoke run; the main path never calls it.
@@ -79,6 +85,8 @@ __all__ = [
     "PLAIN_CUDA_CALLS",
     "reset_launch_counts",
     "decode_split",
+    "f32_block_rows",
+    "prefill_pack",
     "FlashAttentionFn",
     "flash_attention",
     "flash_attention_plain",
@@ -109,6 +117,8 @@ _MAX_GROUP = 64      # query heads per kv head
 _MAX_HEAD_DIM = 128
 _TILE = 64           # keys per tile of the bf16 kernels
 _DECODE_ROWS = 16    # query heads per block of the decode kernel
+_PREFILL_ROWS = 128  # query rows a block of the bf16 prefill kernel
+_F32_ROWS = (64, 32, 16)  # query rows a block of the float32 kernel may take
 _LOG2E = 1.4426950408889634
 
 
@@ -129,6 +139,36 @@ def decode_split(Tk: int, pairs: int, n_sm: int = 132) -> Tuple[int, int]:
     need = -(-2 * n_sm // max(1, pairs))
     per_split = max(1, tiles // need)
     return -(-tiles // per_split), _TILE * per_split
+
+
+def f32_block_rows(B: int, Tq: int, H: int, KV: int, n_sm: int = 132) -> Tuple[int, int]:
+    """``(rows, blocks)`` of the float32 kernel: the query rows a block
+    takes (64, 32 or 16, never fewer than the group's ``H / KV`` heads)
+    and the blocks of its grid, ``ceil(Tq / (rows // G)) * KV * B``.  The
+    most rows whose grid still gives two blocks an SM, else the fewest:
+    fewer rows a block read each K/V tile more often but fill the card
+    where the grid is short (lm-100m's q ``(4, 128, 8, 64)`` over 4 kv
+    heads: 16 rows, 256 blocks, where 64 rows gave 64)."""
+    G = H // KV
+    options = [r for r in _F32_ROWS if r >= G]
+    for rows in options:
+        blocks = -(-Tq // (rows // G)) * KV * B
+        if blocks >= 2 * n_sm or rows == options[-1]:
+            return rows, blocks
+    raise ValueError(f"the float32 kernel takes at most {_F32_ROWS[0]} query heads per kv head, "
+                     f"got H/KV={G}")
+
+
+def prefill_pack(Tq: int, Tk: int, G: int, q_offset: int) -> int:
+    """Whole sequences a block of the bf16 prefill kernel takes: ``128 //
+    (Tq * G)`` where the queries are the keys (``Tq == Tk``, ``q_offset ==
+    0``: training, or a prefill into an empty cache of its own length) and
+    one sequence fills at most half of the block's 128 rows; else 1, a
+    block being a query tile of one sequence.  SASRec's 50 positions at one
+    head give 2: 100 of 128 rows at work, where one sequence gave 50."""
+    if Tq != Tk or q_offset != 0 or 2 * Tq * G > _PREFILL_ROWS:
+        return 1
+    return _PREFILL_ROWS // (Tq * G)
 
 
 @functools.lru_cache(maxsize=None)
@@ -421,14 +461,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_o
     scale = 1.0 / math.sqrt(D)
     common = (B, Tq, Tk, H, KV, D, int(q_offset), int(bool(causal)))
     if q.dtype == torch.float32:
+        rows, _ = f32_block_rows(B, Tq, H, KV, _sm_count(dev))
         check(load("flash_attention").flash_attention_launch(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common, scale, dev,
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common, rows, scale, dev,
             stream,
         ), "flash_attention_f32" + suffix)
     elif Tq > 1 or with_lse:  # the decode kernel writes no lse
         check(load("flash_prefill").flash_prefill_launch(
-            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common, scale * _LOG2E,
-            dev, stream,
+            ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common,
+            prefill_pack(Tq, Tk, G, int(q_offset)), scale * _LOG2E, dev, stream,
         ), "flash_attention_prefill" + suffix)
     else:
         lib = load("flash_decode")

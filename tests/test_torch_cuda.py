@@ -697,6 +697,143 @@ def test_cuda_k4_launches_past_65535_batch_rows(card, full_fp32, dtype, Tq):
         assert float((lse[rows] - want_lse).abs().max()) < LSE_TOL[dtype]
 
 
+# ---------------------------------------------------------------------------
+# K4's float32 kernel at each block size; the bf16 prefill's packed
+# sequences and its re-laid staging (a head dim that is not a multiple of 8)
+# ---------------------------------------------------------------------------
+
+# (B, Tq, Tk, H, KV, D, causal, q_offset, kv_length)
+F32_CASES = [
+    (4, 128, 128, 8, 4, 64, True, 0, None),          # lm-100m's training attention
+    (2, 50, 50, 1, 1, 50, True, 0, None),            # SASRec's head (8-byte copies)
+    (2, 49, 49, 2, 1, 1, True, 0, None),             # D = 1 (4-byte copies)
+    (3, 65, 65, 6, 2, 7, True, 0, None),             # D = 7, G = 3: 15 of 16 rows
+    (2, 64, 64, 4, 4, 63, False, 0, None),           # D = 63, not causal
+    (2, 37, 130, 8, 2, 128, True, 60, [97, 130]),    # after a prefix, ragged kv_length
+    (3, 1, 200, 16, 1, 96, False, 0, [0, 77, 200]),  # decode, a row with no key
+]
+F32_BLOCKS = [(case, rows) for case in F32_CASES for rows in (16, 32, 64)
+              if case[3] // case[4] <= rows]
+
+
+def _lse_within(lse, want, tol):
+    """+inf exactly where the plain version has it, finite values within tol."""
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    if bool(fin.any()):
+        assert float((lse[fin] - want[fin]).abs().max()) < tol
+
+
+@pytest.mark.parametrize("case, rows", F32_BLOCKS,
+                         ids=[f"{c[:6]}-rows{r}".replace(" ", "") for c, r in F32_BLOCKS])
+def test_cuda_f32_kernel_at_each_block_size(card, full_fp32, monkeypatch, case, rows):
+    """The float32 kernel with each block size the plan can choose (the
+    plan itself picks 16 rows at lm-100m's shape): output within 2e-5 and
+    lse within 1e-5 of the plain version, the same output without lse."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal, q_offset, kv_length = case
+    q, k, v = _qkv(Tk + D + rows, B, Tq, Tk, H, KV, D, torch.float32)
+    lengths = (None if kv_length is None
+               else torch.tensor(kv_length, dtype=torch.int32, device="cuda"))
+    monkeypatch.setattr(FA, "f32_block_rows", lambda *shape: (rows, 0))
+    before = dict(FA.LAUNCHES)
+    out, lse = FA._launch(q, k, v, causal, q_offset, lengths, with_lse=True)
+    assert FA.LAUNCHES["flash_attention_f32_lse"] == before["flash_attention_f32_lse"] + 1
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                              kv_length=lengths, return_lse=True)
+    assert float((out - want).abs().max()) < FLASH_TOL[torch.float32]
+    _lse_within(lse, want_lse, LSE_TOL[torch.float32])
+    assert torch.equal(FA._launch(q, k, v, causal, q_offset, lengths, with_lse=False)[0], out)
+    for row, n in enumerate(kv_length or []):
+        if n == 0:
+            assert float(out[row].abs().max()) == 0.0
+
+
+# (B, T, H, KV, D, causal, kv_length): queries are keys (Tq == Tk,
+# q_offset == 0), so prefill_pack packs where T * H / KV <= 64
+PACK_CASES = [
+    (9, 50, 1, 1, 50, True, None),      # SASRec's shape at a small (odd) batch
+    (5, 1, 1, 1, 50, True, None),       # T = 1: 128 sequences a block
+    (7, 49, 1, 1, 50, True, None),
+    (4, 64, 1, 1, 50, True, None),      # two sequences fill the block
+    (3, 65, 1, 1, 50, True, None),      # past half a block: never packed
+    (6, 50, 1, 1, 1, True, None),       # D = 1
+    (6, 50, 1, 1, 7, True, None),       # D = 7: odd rows re-laid 2 bytes at a time
+    (6, 50, 1, 1, 63, True, None),
+    (5, 20, 2, 1, 50, True, None),      # G = 2 over one kv head: 3 sequences a block
+    (5, 20, 4, 2, 50, True, None),      # KV = 2: rows copied and re-laid one by one
+    (5, 30, 2, 2, 64, True, None),      # D % 8 == 0: 16-byte copies straight in
+    (6, 50, 1, 1, 50, True, [50, 1, 0, 33, 49, 17]),  # ragged kv_length, packed
+    (4, 50, 1, 1, 50, False, [50, 10, 0, 49]),        # not causal
+]
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+@pytest.mark.parametrize("case", PACK_CASES, ids=[str(c[:5]).replace(" ", "") for c in PACK_CASES])
+def test_cuda_prefill_packed_and_relaid_match_plain(card, monkeypatch, case, packed):
+    """Whole sequences a block (or one query tile a block, the plan
+    overridden to 1), staged straight or re-laid: within the element-wise
+    bf16 bound of the plain version, lse within 1e-3, the same output
+    without lse, and 0 on a row with no valid key."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, T, H, KV, D, causal, kv_length = case
+    q, k, v = _qkv(T * 7 + D + H, B, T, T, H, KV, D, torch.bfloat16)
+    lengths = (None if kv_length is None
+               else torch.tensor(kv_length, dtype=torch.int32, device="cuda"))
+    if not packed:
+        monkeypatch.setattr(FA, "prefill_pack", lambda *shape: 1)
+    before = dict(FA.LAUNCHES)
+    out, lse = FA._launch(q, k, v, causal, 0, lengths, with_lse=True)
+    assert FA.LAUNCHES["flash_attention_prefill_lse"] == before["flash_attention_prefill_lse"] + 1
+    want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal, kv_length=lengths,
+                                              return_lse=True)
+    _within(out, want, BF16_ATOL)
+    _lse_within(lse, want_lse, LSE_TOL[torch.bfloat16])
+    assert torch.equal(FA._launch(q, k, v, causal, 0, lengths, with_lse=False)[0], out)
+    for row, n in enumerate(kv_length or []):
+        if n == 0:
+            assert float(out[row].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, Tq, Tk, H, KV, D, causal, q_offset, kv_length): never packed
+    (2, 40, 96, 1, 1, 50, True, 30, [70, 61]),      # after a prefix: one slab a tile
+    (2, 40, 96, 4, 2, 50, True, 30, [70, 61]),      # KV = 2: row by row
+    (1, 300, 300, 1, 1, 50, True, 0, None),         # five tiles of one long sequence
+    (2, 130, 130, 3, 3, 63, False, 0, [130, 64]),   # odd D row by row, not causal
+    (2, 77, 77, 1, 1, 7, True, 0, [77, 40]),
+])
+def test_cuda_prefill_relaid_over_a_cache(card, shape):
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal, q_offset, kv_length = shape
+    q, k, v = _qkv(Tq + Tk + D, B, Tq, Tk, H, KV, D, torch.bfloat16)
+    lengths = (None if kv_length is None
+               else torch.tensor(kv_length, dtype=torch.int32, device="cuda"))
+    kw = dict(causal=causal, q_offset=q_offset, kv_length=lengths)
+    _within(FA.flash_attention(q, k, v, **kw), FA.flash_attention_plain(q, k, v, **kw),
+            BF16_ATOL)
+
+
+def test_cuda_packed_prefill_walks_batches_past_one_launch(card):
+    """Two SASRec sequences a block: 131,073 batch rows take 65,535 blocks
+    in a first launch and the last 3 rows in a second; rows on both sides
+    of the cut are computed like the first."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, T = 2 * 65_535 + 3, 50
+    q, k, v = _qkv(11, B, T, T, 1, 1, 50, torch.bfloat16)
+    out, lse = FA._launch(q, k, v, True, 0, None, with_lse=True)
+    torch.cuda.synchronize()
+    rows = torch.tensor([0, 1, 131_068, 131_069, 131_070, 131_071, 131_072], device="cuda")
+    want, want_lse = FA.flash_attention_plain(q[rows], k[rows], v[rows], causal=True,
+                                              return_lse=True)
+    _within(out[rows], want, BF16_ATOL)
+    _lse_within(lse[rows], want_lse, LSE_TOL[torch.bfloat16])
+
+
 def test_cuda_segment_sums_repeat_their_bits(packed):
     """The segment path sums in a fixed order on the card too: ``hits(30)``
     (1-D frontiers, segment path both ways, DEDUP-C subtraction) run twice
