@@ -73,15 +73,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and weighted ``shortest_paths_multi`` forward and reversed (K2 min);
    on a DEDUP-1 rewriting of a 1,000-author co-author graph, batched PPR
    (K1, never K3) equal to DEDUP-C's and BFS equal exactly.  Then K1 and
-   K3 at F = 128 and K2 min on the layered middle layer, held and timed
-   as in phase 4.  ``--quick``: layered_1's smoke size (600, [240, 240])
-   and DEDUP-1 at 300 / 600.
+   K3 at F = 128, K2 max at F = 128 on the layered middle layer (the
+   width of ``scc_labels``' pivot batches) and K2 min on it at F = 32,
+   held and timed as in phase 4; and the F = 128 route against the
+   32-feature one (``slice_checks``): on float frontiers at a fixed range
+   length, one F = 128 launch of K1 sum / min / max, K3 and the layered K2
+   max equal to four F = 32 launches on its column slices, bit for bit.
+   ``--quick``: layered_1's smoke size (600, [240, 240]) and DEDUP-1 at
+   300 / 600.
    Then the measured crossover: every ``range_items`` candidate of K1 at
    the served operands equal to its plain versions; ``measure_crossover``
    (ops sum / min / max, B in 8 / 32 / 128) on every packed direction of
    the served exact graph, and ``to_device_packed(measure=True)`` of
    layered_1 and of the DEDUP-1 graph, each table through its JSON round
-   trip; DEDUP-1 PPR and BFS, condensation and layered_1's shortest paths
+   trip, its B = 128 decisions logged on a line of their own; DEDUP-1 PPR and BFS, condensation and layered_1's shortest paths
    both ways rerun on the measured graphs, every step's dispatch the
    table's decision and one launch per ``'cuda'`` decision, each equal to
    the segment path.  Last, ``collapse_to_single_layer``: layered_1 keeps
@@ -1184,11 +1189,58 @@ def dedup1_analytics(an, args, rng) -> dict:
     return rec, {"dedup1_host": d1.graph, "dedup1_seeds": seeds, "dedup1_sources": sources}
 
 
+def slice_checks(exact, lay, rng) -> dict:
+    """One F = 128 launch against four F = 32 launches on its column
+    slices, on float frontiers at the range length the wrappers choose at
+    F = 128: K1 sum / min / max over the author -> publication layer, K3
+    over the forward fused stream, K2 max over the layered middle layer.
+    A feature's fold order depends only on the index and the range length,
+    so the wide route (one group owns 128 features) must give the 32-feature
+    route's bits.  Launches made here do not count as a path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bitmap_spmm as K
+
+    def floats(n):
+        return torch.from_numpy(rng.random((n, 128)).astype(np.float32)).cuda()
+
+    def k12(layer, op):
+        ops = layer.fwd
+        return (lambda fr, L: K.bitmap_spmm(ops.row_ptr, ops.col, *fr, layer.n_dst, op,
+                                            ZERO[op], range_items=L),
+                (floats(layer.n_src),), layer.n_dst + int(ops.col.shape[0]))
+
+    fused = exact.fused_fwd
+    cases = {f"bitmap_spmm_{op}": k12(exact.chains[0][0], op) for op in ("sum", "min", "max")}
+    cases["bitmap_spmm_fused"] = (
+        lambda fr, L: K.bitmap_spmm_fused(fused.row_ptr, fused.col, fused.weight, *fr,
+                                          fused.n_out, range_items=L),
+        (floats(exact.chains[-1][-1].n_src), floats(exact.n_real)),
+        fused.n_out + int(fused.col.shape[0]))
+    cases["bitmap_spmm_max_layered"] = k12(lay.chains[0][1], "max")
+    before = dict(K.LAUNCHES)
+    rec = {}
+    for name, (fn, fr, total) in cases.items():
+        items = K.default_range_items(total, 128)
+        whole = fn(fr, items)
+        parts = torch.cat([fn(tuple(t[:, c:c + 32].contiguous() for t in fr), items)
+                           for c in range(0, 128, 32)], 1)
+        torch.cuda.synchronize()
+        if not torch.equal(whole, parts):
+            raise AssertionError(f"{name}: one F = 128 launch != four F = 32 launches on its "
+                                 f"column slices at range_items={items}")
+        rec[name] = {"range_items": items, "bit_identical": True}
+    K.LAUNCHES.update(before)
+    return rec
+
+
 def analytics_phase(args, exact, g, record):
     """Phase 5: every analytic on the card with ``backend='auto'``, each
     against the same call on the segment backend; then the kernels' rows
     at the analytics' shapes (K1 and K3 at the triangle block's F = 128, K2
-    min on the layered graph's middle layer at the batch's F = 32)."""
+    max on the layered graph's middle layer at ``scc_labels``' F = 128, K2
+    min on it at the batch's F = 32) and :func:`slice_checks`."""
     import numpy as np
 
     an = Analytics()
@@ -1211,6 +1263,8 @@ def analytics_phase(args, exact, g, record):
                 launched("bitmap_spmm_sum", f128), args.reps, rng),
         k3_row("bitmap_spmm_fused_f128", exact, 128, launched("bitmap_spmm_fused", f128),
                args.reps, rng),
+        k12_row("bitmap_spmm_max_f128_layered", lay.chains[0][1], "max", 128,
+                launched("bitmap_spmm_max", ("scc_labels",)), args.reps, rng),
         k12_row("bitmap_spmm_min_layered", lay.chains[0][1], "min", ANALYTIC_BATCH,
                 launched("bitmap_spmm_min", layered_min), args.reps, rng, library=False),
     ]
@@ -1218,6 +1272,8 @@ def analytics_phase(args, exact, g, record):
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']}), "
             f"{r['launches']} launches in the analytics phase")
+    rec["f128_slices"] = slice_checks(exact, lay, rng)
+    log(f"F = 128 launches equal four F = 32 slice launches: {json.dumps(rec['f128_slices'])}")
     log(f"analytics phase: {rec['phase_s']:.1f} s")
     record["analytics"] = rec
     return rows, ctx
@@ -2162,6 +2218,17 @@ def crossover_phase(args, exact, ctx, record) -> dict:
         log(f"crossover {name} (n_src 2^{table.entries[0][0][1]}): " + " ".join(
             f"{op}{1 << bb}:{e.backend[:3]}@{e.range_items}={e.cuda_us:.0f}/{e.segment_us:.0f}"
             for (op, sb, bb), e in table.entries))
+    # the B = 128 cells: the width of the triangle and clustering blocks
+    # and of scc_labels' pivot batches, the kernels' wide route
+    b128 = autotune.batch_bucket(128)
+    rec["b128_decisions"] = {
+        name: {op: {"backend": e.backend, "range_items": e.range_items,
+                    "cuda_us": e.cuda_us, "segment_us": e.segment_us}
+               for (op, sb, bb), e in table.entries if bb == b128}
+        for name, table in tables.items()}
+    log("crossover B = 128 decisions: " + json.dumps(
+        {name: {op: f"{d['backend']}@{d['range_items']}" for op, d in cells.items()}
+         for name, cells in rec["b128_decisions"].items()}))
 
     # -- analytics over the measured graphs --------------------------------
     runs = {}

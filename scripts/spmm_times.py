@@ -2,7 +2,7 @@
 """K1/K2 and K3 over the row index at the DBLP smoke graph's operands, on one GPU.
 
     python3 scripts/spmm_times.py --save FILE [--authors N] [--pubs N] [--seed S]
-    python3 scripts/spmm_times.py --load FILE [--src DIR] [--items L,L,...] [--reps N]
+    python3 scripts/spmm_times.py --load FILE [--src DIR] [--feat F] [--items L,L,...] [--reps N]
 
 ``--save`` builds the graph as ``chip_smoke.py``'s main path does
 (``dblp_catalog``, ``extract``, the streamed DEDUP-C correction, the packed
@@ -14,8 +14,13 @@ versions of the kernels can be compared on one card back to back without
 rebuilding the graph: each kernel's device ms per call (queued behind a
 device-side spin, as ``chip_smoke.py`` times) and its split between the
 range kernel and the carry pass (``torch.profiler``), at each range length
-of ``--items`` (0: the wrappers' own).  Integer frontiers, so every range
-length must give the same bits.  Prints one JSON line per range length.
+of ``--items`` (0: the wrappers' own) and ``--feat`` features (32: the
+served width; 128: the analytics' triangle and clustering blocks).
+Integer frontiers, so every range length must give the same bits; each
+line also carries a digest of each kernel's output on a float frontier
+(``float_sha``), whose bits depend only on the index and the range length,
+so two versions of a kernel that fold in the same order print the same
+digests.  Prints one JSON line per range length.
 """
 from __future__ import annotations
 
@@ -29,8 +34,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (imports no kernel at import time)
-
-FEAT = 32
 
 
 def save(args) -> None:
@@ -88,6 +91,8 @@ def profile_split(fn, reps: int) -> dict:
 
 
 def load(args) -> None:
+    import hashlib
+
     import numpy as np
     import torch
 
@@ -99,27 +104,39 @@ def load(args) -> None:
     rng = np.random.default_rng(7)
 
     def ints(n):
-        return torch.from_numpy(rng.integers(0, 7, (n, FEAT)).astype(np.float32)).cuda()
+        return torch.from_numpy(rng.integers(0, 7, (n, args.feat)).astype(np.float32)).cuda()
 
-    x, h, xr = ints(k1["n_src"]), ints(k3["n_h"]), ints(k3["n_x"])
-    calls = {
-        "k1_sum": lambda L: K.bitmap_spmm(k1["row_ptr"], k1["col"], x, k1["n_out"],
-                                          range_items=L),
-        "k2_min": lambda L: K.bitmap_spmm(k1["row_ptr"], k1["col"], x, k1["n_out"], "min",
-                                          float("inf"), range_items=L),
-        "k3": lambda L: K.bitmap_spmm_fused(k3["row_ptr"], k3["col"], k3["weight"], h, xr,
-                                            k3["n_out"], range_items=L),
-    }
-    want = {name: fn(None) for name, fn in calls.items()}
+    def floats(n):
+        return torch.from_numpy(rng.random((n, args.feat)).astype(np.float32)).cuda()
+
+    def calls(x, h, xr):
+        return {
+            "k1_sum": lambda L: K.bitmap_spmm(k1["row_ptr"], k1["col"], x, k1["n_out"],
+                                              range_items=L),
+            "k2_min": lambda L: K.bitmap_spmm(k1["row_ptr"], k1["col"], x, k1["n_out"], "min",
+                                              float("inf"), range_items=L),
+            "k2_max": lambda L: K.bitmap_spmm(k1["row_ptr"], k1["col"], x, k1["n_out"], "max",
+                                              range_items=L),
+            "k3": lambda L: K.bitmap_spmm_fused(k3["row_ptr"], k3["col"], k3["weight"], h, xr,
+                                                k3["n_out"], range_items=L),
+        }
+
+    timed = calls(ints(k1["n_src"]), ints(k3["n_h"]), ints(k3["n_x"]))
+    digested = calls(floats(k1["n_src"]), floats(k3["n_h"]), floats(k3["n_x"]))
+    want = {name: fn(None) for name, fn in timed.items()}
     for items in [int(v) for v in args.items.split(",")]:
         L = items or None
         rec = {"src": os.path.relpath(os.path.abspath(args.src), ROOT),
-               "card": chip_smoke.card_line(), "range_items": L}
-        for name, fn in calls.items():
+               "card": chip_smoke.card_line(), "features": args.feat, "range_items": L}
+        for name, fn in timed.items():
             if not torch.equal(fn(L), want[name]):
                 raise AssertionError(f"{name} at range_items={L} gives other bits")
+            y = digested[name](L)
+            if not torch.equal(y, digested[name](L)):
+                raise AssertionError(f"{name}: two launches on a float frontier differ")
             rec[name] = {"ms": chip_smoke.time_ms(lambda: fn(L), args.reps),
-                         "split_ms": profile_split(lambda: fn(L), args.reps)}
+                         "split_ms": profile_split(lambda: fn(L), args.reps),
+                         "float_sha": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]}
         print(json.dumps(rec), flush=True)
 
 
@@ -132,6 +149,7 @@ def main() -> int:
     ap.add_argument("--pubs", type=int, default=100_000)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--items", default="0")
+    ap.add_argument("--feat", type=int, default=32)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))

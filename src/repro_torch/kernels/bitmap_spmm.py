@@ -68,13 +68,17 @@ LAUNCHES: Dict[str, int] = {
 _OP_CODES = {"sum": 0, "min": 1, "max": 2}
 _IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
 
-# features per grid.y block of the kernels (csrc/bitmap_common.cuh)
+# features per grid.y block of the kernels (csrc/bitmap_common.cuh), and
+# of the wide route (16-byte gathers at F > 32: one group owns 128 features)
 FEATURE_BLOCK = 32
+WIDE_BLOCK = 128
 # chunks the carry pass cuts a row's tails into (csrc/bitmap_common.cuh)
 CHUNKS = 32
 # lanes the range length is sized for: about two waves of full warps on a
-# 132-SM card at F = 32 (8 lanes a group)
+# 132-SM card at F = 32 (8 lanes a group), 2^15 groups
 _TARGET_LANES = 1 << 18
+# the same 2^15 groups at F > 32, where a group is 16 or 32 lanes
+_TARGET_LANES_WIDE = 1 << 20
 
 
 def reset_launch_counts() -> None:
@@ -86,15 +90,26 @@ def _pow2ceil(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
+def _lanes(vec: int, n_feat: int, block: int) -> int:
+    """Lanes of a group: the fewest (a power of two) that cover a feature
+    block with ``vec`` features each."""
+    return min(block // vec, _pow2ceil(-(-min(n_feat, block) // vec)))
+
+
 def default_range_items(total: int, n_feat: int) -> int:
     """Merged items (row ends + entries) per range for ``total`` items at
     ``n_feat`` features: enough ranges to fill the card with 16-byte
     groups, at least 64 and at most 512 items each (on the H100, 64 for
     the smoke graph's K1/K2 and 128 for its K3 were the fastest of 32 to
-    256; ``scripts/spmm_times.py``).  Depends on shapes only, so a graph's
-    ranges, and its float sums, repeat exactly."""
-    lanes = min(8, _pow2ceil(-(-min(n_feat, FEATURE_BLOCK) // 4)))
-    return min(512, max(64, _pow2ceil(-(-total * lanes // _TARGET_LANES))))
+    256 at F = 32; ``scripts/spmm_times.py``).  At F > 32 the groups are
+    the wide route's, whether or not a frontier allows 16-byte gathers, and
+    the ranges as many (64 for K1/K2 and 128 for K3 were the fastest of 64
+    to 512 at F = 128).  Depends on shapes only, so a graph's ranges, and
+    its float sums, repeat exactly."""
+    wide = n_feat > FEATURE_BLOCK
+    lanes = _lanes(4, n_feat, WIDE_BLOCK if wide else FEATURE_BLOCK)
+    target = _TARGET_LANES_WIDE if wide else _TARGET_LANES
+    return min(512, max(64, _pow2ceil(-(-total * lanes // target))))
 
 
 # ---------------------------------------------------------------------------
@@ -138,10 +153,12 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 def _grid(frontiers: Sequence[torch.Tensor], n_out: int, nnz: int, items: Optional[int]):
     """``(vec, log_g, range_items, n_groups)`` of a launch: 16-byte gathers
     when every frontier allows them, the smallest group of lanes that covers
-    a feature block, and enough ranges to cover every item."""
+    a feature block (128 features on the wide route: 16-byte gathers at
+    F > 32), and enough ranges to cover every item."""
     n_feat = int(frontiers[0].shape[1])
     vec = 4 if n_feat % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in frontiers) else 1
-    lanes = min(FEATURE_BLOCK // vec, _pow2ceil(-(-min(n_feat, FEATURE_BLOCK) // vec)))
+    block = WIDE_BLOCK if vec == 4 and n_feat > FEATURE_BLOCK else FEATURE_BLOCK
+    lanes = _lanes(vec, n_feat, block)
     items = items or default_range_items(n_out + nnz, n_feat)
     return vec, lanes.bit_length() - 1, items, -(-(n_out + nnz) // items)
 

@@ -22,6 +22,29 @@
 // beat 2, 8 and 16, and loading the next batch's columns early lost (more
 // registers, fewer warps; scripts/spmm_times.py).
 //
+// The wide route (V = 4 and F > 32: the analytics' 128-column blocks).
+// Tiling F = 128 over four 32-feature blocks repeats, in each block, the
+// range's search, the stream of its index, its merge and its carry slots,
+// and cuts each 512-byte source row into four gathers made at unrelated
+// times.  Here one group owns WIDE_BLOCK = 128 features of its range: a
+// whole warp at F > 64 (32 lanes x float4; 16 lanes at F <= 64), and F >
+// 128 tiles grid.y in blocks of 128.  The group reads G entries' index
+// words in one coalesced load, lane j holding entry j, and hands each entry
+// to every lane with a shuffle, the next G entries' load already in flight;
+// each entry is then one gather of the whole row spread over the group,
+// WIDE_BATCH of them in flight, and its output rows are stored evict-first
+// (no later kernel of the launch reads them).  On the H100 at the DBLP
+// smoke graph's K3 (scripts/spmm_times.py --feat 128) WIDE_BATCH = 4 beat
+// 2, 8 and 16 (8 and 16 cost registers, and the fused kernel sits at 64, a
+// quarter of the SM's file a block: one register more loses a block an
+// SM); so did this walk against 64-feature blocks, a block an SM walking
+// ranges in turn with the most gathered source rows held in shared memory,
+// a 32-lane search and row ends held in lanes (76 registers in K3), and a
+// cp.async ring of 12 rows a warp.  A feature's fold order depends only on
+// the index and range_items, never on the feature blocking, so one
+// 128-column launch gives the bits of four 32-column launches at the same
+// range_items.
+//
 // Merge without atomics, in a fixed order.  A row that ends inside the
 // range and began inside it is folded in registers and stored once.  The
 // first row of a range may have begun in an earlier range (its partial is
@@ -45,6 +68,9 @@ namespace bitmap_spmm {
 constexpr int THREADS = 256;
 constexpr int FEATURE_BLOCK = 32;   // features per grid.y block
 constexpr int BATCH = 4;            // entries a group has in flight
+constexpr int WIDE_BLOCK = 128;     // features per grid.y block, wide route
+constexpr int WIDE_BATCH = 4;       // entries a wide group has in flight
+static_assert(16 % WIDE_BATCH == 0, "a wide chunk (16 or 32 entries) holds whole batches");
 
 enum Op { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
 
@@ -98,6 +124,18 @@ __device__ __forceinline__ void store(float* __restrict__ p, const Vec<V>& a) {
   }
 }
 
+// An output row's store: evict-first on the wide route (STREAM), where no
+// later kernel of the launch reads it and the frontiers should keep L2.
+template <bool STREAM, int V>
+__device__ __forceinline__ void store_y(float* __restrict__ p, const Vec<V>& a) {
+  if constexpr (STREAM) {
+    static_assert(V == 4, "the wide route stores 16 bytes a lane");
+    __stcs(reinterpret_cast<float4*>(p), make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
+  } else {
+    store<V>(p, a);
+  }
+}
+
 template <int OP, int V>
 __device__ __forceinline__ Vec<V> combine(Vec<V> acc, const Vec<V>& v) {
 #pragma unroll
@@ -128,13 +166,14 @@ struct Lane {
   bool writer;   // first lane of its group in feature block 0
 };
 
-template <int V>
+// FB: the features of one grid.y block (FEATURE_BLOCK, or WIDE_BLOCK).
+template <int V, int FB = FEATURE_BLOCK>
 __device__ __forceinline__ Lane lane_of(int log_g, int n_feat) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   const int g_lane = static_cast<int>(t & ((1 << log_g) - 1));
   Lane l;
   l.group = t >> log_g;
-  l.feature = blockIdx.y * FEATURE_BLOCK + g_lane * V;
+  l.feature = blockIdx.y * FB + g_lane * V;
   l.active = l.feature < n_feat;
   l.writer = blockIdx.y == 0 && g_lane == 0;
   return l;
@@ -147,6 +186,14 @@ __device__ __forceinline__ Lane lane_of(int log_g, int n_feat) {
 template <int ACC, typename T>
 __device__ __forceinline__ T* carry_slot(T* vals, int64_t g, int slot, int acc, int n_feat) {
   return vals + ((g * 2 + slot) * ACC + acc) * n_feat;
+}
+
+// A launch's groups fit its route: vec x 2^log_g <= FEATURE_BLOCK, or on
+// the wide route (vec = 4, n_feat > FEATURE_BLOCK) 16 or 32 lanes.
+inline bool valid_grid(int vec, int n_feat, int log_g) {
+  if (vec != 1 && vec != 4) return false;
+  if (vec == 4 && n_feat > FEATURE_BLOCK) return log_g == 4 || log_g == 5;
+  return log_g >= 0 && (vec << log_g) <= FEATURE_BLOCK;
 }
 
 inline unsigned blocks_for(int64_t n_groups, int log_g) {
@@ -210,6 +257,76 @@ __device__ __forceinline__ void walk(const P& p, const int32_t* __restrict__ row
   if (l.writer) carry_rows[l.group] = head;
 }
 
+// The walk of one range on the wide route: the items in walk's order, by
+// a group of G = 2^log_g >= 16 lanes that spans the feature block.  Lane j
+// of the group holds entry e0 + j of the current chunk of G entries (one
+// coalesced load; ``P::shfl`` hands entry j to every lane), and the next
+// chunk's load starts as the chunk begins.  Entries of a chunk are
+// folded in order, so a chunk ends after its G-th entry (or the range's
+// end) and the next begins at e0 + G.
+template <class P>
+__device__ __forceinline__ void walk_wide(const P& p, const int32_t* __restrict__ row_ptr,
+                                          int n_out, int range_items, const Lane& l, int log_g,
+                                          int32_t* __restrict__ carry_rows,
+                                          float* __restrict__ carry_vals) {
+  const int G = 1 << log_g;
+  const int g_lane = threadIdx.x & (G - 1);
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
+  const int nnz = __ldg(row_ptr + n_out);
+  const int64_t total = n_out + static_cast<int64_t>(nnz);
+  int64_t d = l.group * range_items;
+  const int64_t d_end = d + range_items < total ? d + range_items : total;
+  int head = -1;
+  if (d < total) {
+    int r = path_row(row_ptr, n_out, d);
+    int e = static_cast<int>(d - r);
+    const int r0 = r;
+    const bool begun = e > __ldg(row_ptr + r);   // row r0 began in an earlier range
+    int row_end = __ldg(row_ptr + r + 1);
+    int row_first = e;
+    typename P::State acc = P::init();
+    // entry e + j is in the range only if j < the items left
+    typename P::Index chunk = p.index(e + g_lane, g_lane < d_end - d && e + g_lane < nnz);
+    while (d < d_end) {
+      const int64_t left = d_end - d;
+      const int e0 = e;
+      const typename P::Index next =
+          p.index(e0 + G + g_lane, G + g_lane < left && e0 + G + g_lane < nnz);
+      for (int j0 = 0; j0 < G && d < d_end; j0 += WIDE_BATCH) {
+        typename P::Item v[WIDE_BATCH];
+#pragma unroll
+        for (int k = 0; k < WIDE_BATCH; ++k) {
+          v[k] = p.gather(P::shfl(chunk, j0 + k, mask, G), l);
+        }
+#pragma unroll
+        for (int k = 0; k < WIDE_BATCH; ++k) {
+          while (e >= row_end && d < d_end) {   // the next item is row r's end
+            if (r == r0 && begun) {
+              p.save(carry_vals, l.group, 0, acc, l);
+              head = r;
+            } else {
+              p.template finish<true>(r, acc, l);
+            }
+            ++r;
+            ++d;
+            row_first = e;
+            acc = P::init();
+            if (r < n_out) row_end = __ldg(row_ptr + r + 1);
+          }
+          if (d >= d_end) break;
+          P::fold(acc, v[k]);   // entry e = e0 + j0 + k
+          ++e;
+          ++d;
+        }
+      }
+      chunk = next;
+    }
+    if (e > row_first) p.save(carry_vals, l.group, 1, acc, l);   // row r goes on
+  }
+  if (l.writer) carry_rows[l.group] = head;
+}
+
 // The carry pass, one kernel; each range with a head finishes its row r
 // from the tails of the ranges before it that hold the row, then the head.
 // Those T tails are the ranges from the one holding r's first entry
@@ -242,15 +359,17 @@ __device__ __forceinline__ void fold_tails(const P& p, typename P::State& acc,
   }
 }
 
-template <class P, int V>
+// On the wide route (FB = WIDE_BLOCK) ``part`` holds 128 features of each
+// chunk: K3's two accumulators make it 32 KB, within the static limit.
+template <class P, int V, int FB = FEATURE_BLOCK>
 __device__ __forceinline__ void carry(const P& p, const int32_t* __restrict__ row_ptr,
                                       int range_items, const int32_t* __restrict__ carry_rows,
                                       const float* __restrict__ carry_vals, int64_t n_groups,
                                       int log_g) {
-  __shared__ typename P::State part[CHUNKS][FEATURE_BLOCK / V];
+  __shared__ typename P::State part[CHUNKS][FB / V];
   __shared__ int heavy[MAX_HEAVY];
   __shared__ int n_heavy;
-  const Lane l = lane_of<V>(log_g, p.n_feat);
+  const Lane l = lane_of<V, FB>(log_g, p.n_feat);
   const int g_lane = threadIdx.x & ((1 << log_g) - 1);
   const int local = threadIdx.x >> log_g;   // group within the block
   const int n_local = THREADS >> log_g;

@@ -26,7 +26,10 @@
 // equal merge-path ranges so skewed rows spread over the card, BATCH
 // gathers in flight per group, 16-byte gathers, streaming loads of the
 // index, and a fixed-order carry pass in place of atomics, so the sums are
-// bit-identical from launch to launch.
+// bit-identical from launch to launch.  At F > 32 (the analytics' 128
+// columns) the wide route gives each range one group that owns 128
+// features: one search, one stream of the index and one carry pair per
+// range, and a whole 512-byte source row per gather.
 //
 // Launches: the range kernel and the carry pass, on the caller's stream.
 
@@ -48,19 +51,23 @@ struct Reduce {
 
   __device__ static State init() { return splat<V>(identity<OP>()); }
   __device__ Index index(int e, bool ok) const { return ok ? __ldcs(col + e) : -1; }
+  __device__ static Index shfl(Index c, int j, unsigned mask, int width) {
+    return __shfl_sync(mask, c, j, width);
+  }
   __device__ Item gather(Index c, const Lane& l) const {
     return c >= 0 && l.active ? load<V>(x + static_cast<int64_t>(c) * n_feat + l.feature)
                               : init();
   }
   __device__ static void fold(State& s, const Item& v) { s = combine<OP, V>(s, v); }
   __device__ static State merge(State a, const State& b) { return combine<OP, V>(a, b); }
+  template <bool STREAM = false>
   __device__ void finish(int r, State s, const Lane& l) const {
     if (!l.active) return;
     if (OP != OP_SUM) {
 #pragma unroll
       for (int i = 0; i < V; ++i) s.v[i] = s.v[i] == identity<OP>() ? zero : s.v[i];
     }
-    store<V>(y + static_cast<int64_t>(r) * n_feat + l.feature, s);
+    store_y<STREAM>(y + static_cast<int64_t>(r) * n_feat + l.feature, s);
   }
   __device__ void save(float* vals, int64_t g, int slot, const State& s, const Lane& l) const {
     if (l.active) store<V>(carry_slot<1>(vals, g, slot, 0, n_feat) + l.feature, s);
@@ -79,12 +86,23 @@ __global__ void __launch_bounds__(THREADS) spmm_kernel(
   walk(p, row_ptr, n_out, range_items, l, carry_rows, carry_vals);
 }
 
-template <int OP, int V>
+// The wide route's range kernel (V = 4, F > 32).
+template <int OP>
+__global__ void __launch_bounds__(THREADS) spmm_wide_kernel(
+    Reduce<OP, 4> p, const int32_t* __restrict__ row_ptr, int n_out, int range_items,
+    int n_groups, int log_g, int32_t* __restrict__ carry_rows, float* __restrict__ carry_vals) {
+  const Lane l = lane_of<4, WIDE_BLOCK>(log_g, p.n_feat);
+  if (l.group >= n_groups) return;
+  walk_wide(p, row_ptr, n_out, range_items, l, log_g, carry_rows, carry_vals);
+}
+
+// FB: the feature block of the range kernel it follows.
+template <int OP, int V, int FB>
 __global__ void __launch_bounds__(THREADS) carry_kernel(
     Reduce<OP, V> p, const int32_t* __restrict__ row_ptr, int range_items,
     const int32_t* __restrict__ carry_rows, const float* __restrict__ carry_vals, int n_groups,
     int log_g) {
-  carry<decltype(p), V>(p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
+  carry<decltype(p), V, FB>(p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
 }
 
 template <int OP, int V>
@@ -95,8 +113,21 @@ int launch(const int32_t* row_ptr, const int32_t* col, const float* x, float* y,
   const dim3 grid(blocks_for(n_groups, log_g), (n_feat + FEATURE_BLOCK - 1) / FEATURE_BLOCK);
   spmm_kernel<OP, V><<<grid, THREADS, 0, st>>>(p, row_ptr, n_out, range_items, n_groups, log_g,
                                               carry_rows, carry_vals);
-  carry_kernel<OP, V><<<grid, THREADS, 0, st>>>(p, row_ptr, range_items, carry_rows, carry_vals,
-                                               n_groups, log_g);
+  carry_kernel<OP, V, FEATURE_BLOCK><<<grid, THREADS, 0, st>>>(
+      p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int OP>
+int launch_wide(const int32_t* row_ptr, const int32_t* col, const float* x, float* y,
+                int n_out, int n_feat, float zero, int log_g, int range_items, int n_groups,
+                int32_t* carry_rows, float* carry_vals, cudaStream_t st) {
+  const Reduce<OP, 4> p{col, x, y, n_feat, zero};
+  const dim3 grid(blocks_for(n_groups, log_g), (n_feat + WIDE_BLOCK - 1) / WIDE_BLOCK);
+  spmm_wide_kernel<OP><<<grid, THREADS, 0, st>>>(p, row_ptr, n_out, range_items, n_groups,
+                                                 log_g, carry_rows, carry_vals);
+  carry_kernel<OP, 4, WIDE_BLOCK><<<grid, THREADS, 0, st>>>(
+      p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -104,6 +135,10 @@ template <int OP>
 int launch_vec(int vec, const int32_t* row_ptr, const int32_t* col, const float* x, float* y,
                int n_out, int n_feat, float zero, int log_g, int range_items, int n_groups,
                int32_t* carry_rows, float* carry_vals, cudaStream_t st) {
+  if (vec == 4 && n_feat > FEATURE_BLOCK) {
+    return launch_wide<OP>(row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items,
+                           n_groups, carry_rows, carry_vals, st);
+  }
   if (vec == 4) {
     return launch<OP, 4>(row_ptr, col, x, y, n_out, n_feat, zero, log_g, range_items, n_groups,
                          carry_rows, carry_vals, st);
@@ -117,9 +152,10 @@ int launch_vec(int vec, const int32_t* row_ptr, const int32_t* col, const float*
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
 // y holds n_out rows of n_feat floats; row_ptr holds at least n_out + 1
 // offsets.  vec = 4 needs n_feat % 4 == 0 and x 16-byte aligned; a group
-// is 2^log_g lanes (vec x 2^log_g <= 32); n_groups ranges of range_items
-// items cover n_out + row_ptr[n_out]; the carry scratch holds n_groups
-// rows and 2 n_groups n_feat floats.
+// is 2^log_g lanes (vec x 2^log_g <= 32; on the wide route, vec = 4 and
+// n_feat > 32, 16 or 32 lanes); n_groups ranges of range_items items cover
+// n_out + row_ptr[n_out]; the carry scratch holds n_groups rows and 2
+// n_groups n_feat floats.
 extern "C" int bitmap_spmm_launch(const int32_t* row_ptr, const int32_t* col, const float* x,
                                   float* y, int n_out, int n_feat, int op, float zero, int vec,
                                   int log_g, int range_items, int n_groups,
@@ -127,7 +163,7 @@ extern "C" int bitmap_spmm_launch(const int32_t* row_ptr, const int32_t* col, co
                                   void* stream) {
   using namespace bitmap_spmm;
   if (n_out <= 0 || n_feat <= 0 || n_groups <= 0) return 0;
-  if ((vec != 1 && vec != 4) || (vec << log_g) > FEATURE_BLOCK || range_items <= 0) {
+  if (!valid_grid(vec, n_feat, log_g) || range_items <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);

@@ -29,7 +29,10 @@
 // would leave one SM working long after the rest: the merge-path ranges of
 // bitmap_common.cuh give every group the same number of items, and the
 // carry pass merges split rows in a fixed order, so float sums are
-// bit-identical from launch to launch.
+// bit-identical from launch to launch.  At F > 32 (the triangle and
+// clustering blocks' 128 columns) the wide route of bitmap_common.cuh
+// walks each range once for all 128 features, gathering whole 512-byte
+// rows of h and x.
 //
 // Launches: the range kernel and the carry pass, on the caller's stream.
 
@@ -63,6 +66,9 @@ struct Fused {
   __device__ Index index(int e, bool ok) const {
     return ok ? Index{__ldcs(col + e), __ldcs(weight + e)} : Index{-1, 0};
   }
+  __device__ static Index shfl(Index i, int j, unsigned mask, int width) {
+    return {__shfl_sync(mask, i.col, j, width), __shfl_sync(mask, i.w, j, width)};
+  }
   __device__ Item gather(Index i, const Lane& l) const {
     Item it{splat<V>(0.0f), i.w == 0};
     if (i.col < 0 || !l.active) return it;
@@ -81,12 +87,13 @@ struct Fused {
   __device__ static State merge(State a, const State& b) {
     return {combine<OP_SUM, V>(a.acc, b.acc), combine<OP_SUM, V>(a.cacc, b.cacc)};
   }
+  template <bool STREAM = false>
   __device__ void finish(int r, const State& s, const Lane& l) const {
     if (!l.active) return;
     Vec<V> out;
 #pragma unroll
     for (int k = 0; k < V; ++k) out.v[k] = __fsub_rn(s.acc.v[k], s.cacc.v[k]);
-    store<V>(y + static_cast<int64_t>(r) * n_feat + l.feature, out);
+    store_y<STREAM>(y + static_cast<int64_t>(r) * n_feat + l.feature, out);
   }
   __device__ void save(float* vals, int64_t g, int slot, const State& s, const Lane& l) const {
     if (!l.active) return;
@@ -109,12 +116,22 @@ __global__ void __launch_bounds__(THREADS) fused_kernel(
   walk(p, row_ptr, n_out, range_items, l, carry_rows, carry_vals);
 }
 
-template <int V>
+// The wide route's range kernel (V = 4, F > 32).
+__global__ void __launch_bounds__(THREADS) fused_wide_kernel(
+    Fused<4> p, const int32_t* __restrict__ row_ptr, int n_out, int range_items, int n_groups,
+    int log_g, int32_t* __restrict__ carry_rows, float* __restrict__ carry_vals) {
+  const Lane l = lane_of<4, WIDE_BLOCK>(log_g, p.n_feat);
+  if (l.group >= n_groups) return;
+  walk_wide(p, row_ptr, n_out, range_items, l, log_g, carry_rows, carry_vals);
+}
+
+// FB: the feature block of the range kernel it follows.
+template <int V, int FB>
 __global__ void __launch_bounds__(THREADS) fused_carry_kernel(
     Fused<V> p, const int32_t* __restrict__ row_ptr, int range_items,
     const int32_t* __restrict__ carry_rows, const float* __restrict__ carry_vals, int n_groups,
     int log_g) {
-  carry<decltype(p), V>(p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
+  carry<decltype(p), V, FB>(p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
 }
 
 template <int V>
@@ -125,8 +142,21 @@ int launch(const int32_t* row_ptr, const int32_t* col, const int32_t* weight, co
   const dim3 grid(blocks_for(n_groups, log_g), (n_feat + FEATURE_BLOCK - 1) / FEATURE_BLOCK);
   fused_kernel<V><<<grid, THREADS, 0, st>>>(p, row_ptr, n_out, range_items, n_groups, log_g,
                                             carry_rows, carry_vals);
-  fused_carry_kernel<V><<<grid, THREADS, 0, st>>>(p, row_ptr, range_items, carry_rows, carry_vals,
-                                                  n_groups, log_g);
+  fused_carry_kernel<V, FEATURE_BLOCK><<<grid, THREADS, 0, st>>>(
+      p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wide(const int32_t* row_ptr, const int32_t* col, const int32_t* weight,
+                const float* h, const float* x, float* y, int n_out, int n_feat, int log_g,
+                int range_items, int n_groups, int32_t* carry_rows, float* carry_vals,
+                cudaStream_t st) {
+  const Fused<4> p{col, weight, h, x, y, n_feat};
+  const dim3 grid(blocks_for(n_groups, log_g), (n_feat + WIDE_BLOCK - 1) / WIDE_BLOCK);
+  fused_wide_kernel<<<grid, THREADS, 0, st>>>(p, row_ptr, n_out, range_items, n_groups, log_g,
+                                              carry_rows, carry_vals);
+  fused_carry_kernel<4, WIDE_BLOCK><<<grid, THREADS, 0, st>>>(
+      p, row_ptr, range_items, carry_rows, carry_vals, n_groups, log_g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -134,8 +164,9 @@ int launch(const int32_t* row_ptr, const int32_t* col, const int32_t* weight, co
 
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
 // As bitmap_spmm_launch, with the frontiers h (main entries) and x
-// (correction entries) sharing n_feat, both 16-byte aligned for vec = 4,
-// and a carry scratch of n_groups rows and 4 n_groups n_feat floats.
+// (correction entries) sharing n_feat, both 16-byte aligned for vec = 4
+// (the wide route at n_feat > 32), and a carry scratch of n_groups rows
+// and 4 n_groups n_feat floats.
 extern "C" int bitmap_spmm_fused_launch(const int32_t* row_ptr, const int32_t* col,
                                         const int32_t* weight, const float* h, const float* x,
                                         float* y, int n_out, int n_feat, int vec, int log_g,
@@ -143,12 +174,16 @@ extern "C" int bitmap_spmm_fused_launch(const int32_t* row_ptr, const int32_t* c
                                         float* carry_vals, int device, void* stream) {
   using namespace bitmap_spmm;
   if (n_out <= 0 || n_feat <= 0 || n_groups <= 0) return 0;
-  if ((vec != 1 && vec != 4) || (vec << log_g) > FEATURE_BLOCK || range_items <= 0) {
+  if (!valid_grid(vec, n_feat, log_g) || range_items <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4 && n_feat > FEATURE_BLOCK) {
+    return launch_wide(row_ptr, col, weight, h, x, y, n_out, n_feat, log_g, range_items,
+                       n_groups, carry_rows, carry_vals, st);
+  }
   if (vec == 4) {
     return launch<4>(row_ptr, col, weight, h, x, y, n_out, n_feat, log_g, range_items, n_groups,
                      carry_rows, carry_vals, st);

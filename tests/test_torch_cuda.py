@@ -137,7 +137,7 @@ def test_cuda_skewed_row_spans_many_ranges(card, op):
     key = np.unique(np.r_[37 * 3000 + np.arange(3000), light])
     s, d = key % 3000, key // 3000
     ops = engine._upload_operands(pack_bipartite(BipartiteEdges(s, d, 3000, 400)), card)
-    for feat in (4, 32):
+    for feat in (4, 32, 128):   # 128: the wide route, one group a range
         x = _frontier(rng, 3000, feat, op)
         want = K.bitmap_spmm_plain(*_plain_args(ops), x, 400, op=op, zero=ZERO[op])
         for items in (5, 32, None):
@@ -280,6 +280,82 @@ def test_cuda_fused_at_128_features(packed):
         xf = torch.from_numpy(rng.random((packed.n_real, 128)).astype(np.float32)).cuda()
         args = (f.row_ptr, f.col, f.weight, hf, xf, f.n_out)
         assert torch.equal(K.bitmap_spmm_fused(*args), K.bitmap_spmm_fused(*args))
+
+
+def _wide_call(packed, kernel, rng, feat):
+    """``(fn(frontiers, range_items), float frontiers)`` of one kernel over
+    the author -> publication layer (K1 / K2) or the forward fused stream
+    (K3), frontiers made by ``rng`` at ``feat`` features."""
+    def floats(n):
+        return torch.from_numpy(rng.random((n, feat)).astype(np.float32)).cuda()
+
+    if kernel == "fused":
+        f, n_h = _fused(packed, False)
+        return ((lambda fr, L: K.bitmap_spmm_fused(f.row_ptr, f.col, f.weight, *fr, f.n_out,
+                                                   range_items=L)),
+                (floats(n_h), floats(packed.n_real)))
+    layer = packed.chains[0][0]
+    ops = layer.fwd
+    return ((lambda fr, L: K.bitmap_spmm(ops.row_ptr, ops.col, *fr, layer.n_dst, kernel,
+                                         ZERO[kernel], range_items=L)),
+            (floats(layer.n_src),))
+
+
+@pytest.mark.parametrize("kernel", ["sum", "min", "max", "fused"])
+def test_cuda_wide_launch_equals_32_column_slices(packed, kernel):
+    """A feature's fold order depends only on the index and the range
+    length: one F = 128 launch (the wide route, one group a range) gives,
+    on float frontiers, the bits of four F = 32 launches (the 32-feature
+    route) on its column slices at the same range length."""
+    rng = np.random.default_rng(32)
+    fn, fr = _wide_call(packed, kernel, rng, 128)
+    for items in (5, 64, 256):
+        whole = fn(fr, items)
+        parts = [fn(tuple(t[:, c:c + 32].contiguous() for t in fr), items)
+                 for c in range(0, 128, 32)]
+        assert torch.equal(whole, torch.cat(parts, 1)), items
+
+
+@pytest.mark.parametrize("feat", [64, 96, 128, 256, 130])
+def test_cuda_wide_widths_match_mirror(packed, feat):
+    """K1 / K2 / K3 at widths past 32 (the wide route; 130 features take
+    4-byte gathers on the 32-feature route): on float frontiers the bits of
+    the plain mirror, at short ranges and the default, and the same bits
+    from a frontier off a 16-byte boundary (4-byte gathers, the same
+    ranges); on integer frontiers the plain versions over the bitmaps."""
+    rng = np.random.default_rng(feat)
+    for kernel in ("sum", "min", "max", "fused"):
+        fn, fr = _wide_call(packed, kernel, rng, feat)
+        for items in (7, None):
+            got = fn(fr, items)
+            if kernel == "fused":
+                f, _ = _fused(packed, False)
+                want = K.bitmap_spmm_fused_index_plain(f.row_ptr, f.col, f.weight, *fr,
+                                                       f.n_out, items)
+            else:
+                layer = packed.chains[0][0]
+                want = K.bitmap_spmm_index_plain(layer.fwd.row_ptr, layer.fwd.col, *fr,
+                                                 layer.n_dst, kernel, ZERO[kernel], items)
+            assert torch.equal(got, want), (kernel, items)
+        off = []
+        for t in fr:
+            o = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+            o.copy_(t)
+            off.append(o)
+        assert torch.equal(fn(tuple(off), None), fn(fr, None)), kernel
+    for ops, n_in, n_out in _directions(packed):
+        for op in ("sum", "min", "max"):
+            x = _frontier(rng, n_in, feat, op)
+            got = K.bitmap_spmm(ops.row_ptr, ops.col, x, n_out, op=op, zero=ZERO[op])
+            want = K.bitmap_spmm_plain(*_plain_args(ops), x, n_out, op=op, zero=ZERO[op])
+            assert torch.equal(got, want), (op, n_in)
+    for reverse in (False, True):
+        f, n_h = _fused(packed, reverse)
+        h = _frontier(rng, n_h, feat, "sum")
+        x = _frontier(rng, packed.n_real, feat, "sum")
+        got = K.bitmap_spmm_fused(f.row_ptr, f.col, f.weight, h, x, f.n_out)
+        want = K.bitmap_spmm_fused_plain(*_fused_plain_args(f), h, x, f.n_out, f.plane_weights)
+        assert torch.equal(got, want), reverse
 
 
 @pytest.mark.parametrize("op", ["min", "max"])

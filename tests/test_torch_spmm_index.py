@@ -308,12 +308,75 @@ def test_cpu_wrappers_run_the_mirror_and_launch_nothing(port_graph):
 
 
 # ---------------------------------------------------------------------------
+# Launch shapes by frontier width
+# ---------------------------------------------------------------------------
+
+# merged items (row ends + entries) of a small graph, and about those of
+# the DBLP smoke graph's author -> publication layer and fused stream
+TOTALS = (1_000, 700_000, 4_000_000)
+# F -> (vec, log_g) of a 16-byte aligned frontier, and the range length at
+# each of TOTALS: F <= 32 as before the wide route; F > 32 with 16-byte
+# gathers is the wide route (one group of 16 or 32 lanes owns 128 features)
+GRID = {
+    1: (1, 0, (64, 64, 64)),
+    4: (4, 0, (64, 64, 64)),
+    32: (4, 3, (64, 64, 128)),
+    64: (4, 4, (64, 64, 64)),
+    128: (4, 5, (64, 64, 128)),
+    130: (1, 5, (64, 64, 128)),
+    256: (4, 5, (64, 64, 128)),
+}
+
+
+def _parent_lanes(vec, feat):
+    """Lanes of a group before the wide route: 32 features a block."""
+    return min(32 // vec, K._pow2ceil(-(-min(feat, 32) // vec)))
+
+
+def _parent_range_items(total, feat):
+    """The range length before the wide route."""
+    lanes = min(8, K._pow2ceil(-(-min(feat, 32) // 4)))
+    return min(512, max(64, K._pow2ceil(-(-total * lanes // (1 << 18)))))
+
+
+@pytest.mark.parametrize("feat", sorted(GRID))
+def test_grid_and_range_lengths_by_width(feat):
+    """``_grid``'s vector width, group and range length at each width, the
+    range length a function of the shapes alone (a frontier off a 16-byte
+    boundary takes 4-byte gathers on the 32-feature route, with the same
+    ranges, so its float sums keep their bits), and every F <= 32 value the
+    one from before the wide route."""
+    vec, log_g, lengths = GRID[feat]
+    x = torch.zeros((40, feat))
+    off = torch.zeros(40 * feat + 1)[1:].view(40, feat)
+    assert x.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4
+    for total, items in zip(TOTALS, lengths):
+        assert K.default_range_items(total, feat) == items
+        groups = -(-total // items)
+        assert K._grid((x,), total - 30, 30, None) == (vec, log_g, items, groups)
+        assert K._grid((x, x), total - 30, 30, 7) == (vec, log_g, 7, -(-total // 7))
+        one = _parent_lanes(1, feat).bit_length() - 1
+        assert K._grid((x, off), total - 30, 30, None) == (1, one, items, groups)
+        if feat <= 32:
+            assert items == _parent_range_items(total, feat)
+            assert (1 << log_g) == _parent_lanes(vec, feat)
+    if feat > 32 and vec == 4:
+        assert (4 << log_g) == min(K.WIDE_BLOCK, K._pow2ceil(feat))
+
+
+# ---------------------------------------------------------------------------
 # Against the JAX package's Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
+# frontier widths held against the Pallas kernels: a narrow one, the served
+# width and the analytics' 128-column blocks (the kernels' wide route)
+PALLAS_FEATS = [FEAT, 32, 128]
+
+
+@pytest.mark.parametrize("feat", PALLAS_FEATS)
 @pytest.mark.parametrize("items", RANGES, ids=["1", "7", "default"])
 @pytest.mark.parametrize("op", ["sum", "min", "max"])
-def test_mirror_matches_pallas(ref_pair, op, items):
+def test_mirror_matches_pallas(ref_pair, op, items, feat):
     """The reference's own operands, indexed by the port: the mirror over
     the index equals the Pallas kernel on the bitmaps, pad rows
     included."""
@@ -322,37 +385,38 @@ def test_mirror_matches_pallas(ref_pair, op, items):
     rng = np.random.default_rng(len(op))
     for r_ops, p_ops, n_in in ((rl.fwd, pl_.fwd, pl_.n_src), (rl.rev, pl_.rev, pl_.n_dst)):
         n_rt = int(p_ops.row_start.shape[0])
-        x = _frontier(rng, n_in, op)
+        x = _frontier(rng, n_in, op, feat)
         xp = np.zeros((-(-n_in // TILE) * TILE, FB), np.float32)
-        xp[:n_in, :FEAT] = x.numpy()
+        xp[:n_in, :feat] = x.numpy()
         want = np.asarray(bitmap_spmm_pallas(
             r_ops.slot_src, r_ops.slot_row, r_ops.row_start, r_ops.row_count, r_ops.bitmaps,
             jnp.asarray(xp), n_dst_pad=n_rt * TILE, op=op, zero=ZERO[op],
             feature_block=FB, interpret=True,
-        ))[:, :FEAT]
+        ))[:, :feat]
         got = K.bitmap_spmm_index_plain(p_ops.row_ptr, p_ops.col, x, n_rt * TILE, op,
                                         ZERO[op], items)
         assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("feat", PALLAS_FEATS)
 @pytest.mark.parametrize("items", RANGES, ids=["1", "7", "default"])
-def test_fused_mirror_matches_pallas(ref_pair, items):
+def test_fused_mirror_matches_pallas(ref_pair, items, feat):
     ref, port = ref_pair
     rf, pf = ref.fused_fwd, port.fused_fwd
     rng = np.random.default_rng(9)
     n_h = port.chains[-1][-1].n_src
-    h = _frontier(rng, n_h, "sum")
-    x = _frontier(rng, port.n_real, "sum")
+    h = _frontier(rng, n_h, "sum", feat)
+    x = _frontier(rng, port.n_real, "sum", feat)
     hp = np.zeros((rf.n_h_pad, FB), np.float32)
-    hp[:n_h, :FEAT] = h.numpy()
+    hp[:n_h, :feat] = h.numpy()
     xp = np.zeros((rf.n_x_pad, FB), np.float32)
-    xp[: port.n_real, :FEAT] = x.numpy()
+    xp[: port.n_real, :feat] = x.numpy()
     want = np.asarray(bitmap_spmm_fused_pallas(
         rf.kind, rf.main_src, rf.corr_src, rf.main_idx, rf.corr_idx,
         rf.slot_row, rf.row_start, rf.row_count, rf.bitmaps, rf.planes,
         jnp.asarray(hp), jnp.asarray(xp), n_dst_pad=rf.n_out_pad,
         plane_weights=rf.plane_weights, feature_block=FB, interpret=True,
-    ))[:, :FEAT]
+    ))[:, :feat]
     got = K.bitmap_spmm_fused_index_plain(pf.row_ptr, pf.col, pf.weight, h, x, rf.n_out_pad,
                                           items)
     assert np.array_equal(got.numpy(), want)
