@@ -168,7 +168,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradient norm equal those through the plain attention (plain forward
    and backward) within ``TRAIN_RTOL``; K4's prefill kernel with lse
    launches exactly layers x microbatches x 2 (the remat recompute) a
-   step, no other K4 kernel and no plain forward; the params are
+   step, K4's backward kernels (``csrc/flash_backward.cu``: row
+   statistics, dK / dV, dQ and, where the dK / dV rows are split, the
+   reduce) exactly layers x microbatches each, no other K4 kernel, no
+   plain forward and no plain backward; the params are
    unchanged by step 0 (the schedule's lr is 0 there) and move at step
    1; one more step is profiled and its device time split by the port's
    profiler ranges (the plain attention backward, the optimizer), K4,
@@ -191,7 +194,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    SASRec's 65,536 rows, which that op refuses in one call, the sum of
    the fewest equal batch parts it takes, timed back to back), and K4's
    row at ``serve_bulk``'s attention (262,144 sequences, no lse) against
-   SDPA in the fewest equal batch parts it takes.
+   SDPA in the fewest equal batch parts it takes.  Then K4's backward row
+   at glm4-9b's training shape (``k4_backward_row``): the kernels'
+   ``dq``, ``dk``, ``dv`` against the plain backward and the tiled
+   mirror of their arithmetic within ``BWD_L2_RTOL`` / ``BWD_MAX_RTOL``,
+   two runs bit for bit, the same check refusing the gradients under
+   each fault of ``BACKWARD_PLANTS`` planted at the launch, timed
+   against the plain backward and
+   ``aten._scaled_dot_product_flash_attention_backward``.
    ``--quick`` runs the ``SMOKE`` configs, SASRec's batches / 64.
 10. The MoE LMs (``moe_phase``), after phase 9 frees its weights.
    granite-moe-3b-a800m at ``CONFIG`` (full width, all 32 layers, bf16
@@ -208,7 +218,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``CONFIG``'s widths at ``LM_TRAIN_LAYERS`` layers, 8 x 4096 tokens in
    its 8 microbatches, ``aux`` in the loss, step 0 within ``TRAIN_RTOL``
    of the plain attention, the router's gradient non-zero and the router
-   moved by step 1.  moonshot-v1-16b-a3b at full width and
+   moved by step 1, K4's backward kernels launched as in phase 9, and
+   K4's backward row at granite's training shape.  moonshot-v1-16b-a3b at full width and
    ``MOONSHOT_LAYERS`` of its 48 layers serves the same batch; one of its
    layers runs ``_moe_a2a`` on 4096 tokens under a (1, 1) ``DeviceMesh``
    over an NCCL group of one rank (no collective runs at one rank), equal
@@ -224,8 +235,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4096 tokens in its 8 microbatches, the batch a DTensor.  Step 0's
    loss and gradient norm equal phase 10's plain-tensor step (same seed
    and batch) bit for bit, or within ``TRAIN_RTOL`` (recorded); K4's lse
-   prefill kernel launches layers x microbatches x 2 a step and the plain
-   forward never; the state saved after step 1 and restored with
+   prefill kernel launches layers x microbatches x 2 a step, its backward
+   kernels layers x microbatches each, the plain forward and backward
+   never; the state saved after step 1 and restored with
    ``restore_checkpoint(shardings=)`` gives step 2 bit for bit; step
    seconds and peak bytes beside phase 10's.  Then ``python -m
    torch.distributed.run --nproc-per-node 1 -m repro_torch.launch.train
@@ -239,7 +251,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``repro_torch.launch.dryrun`` on a one-rank host mesh over fake CUDA
    tensors, then the same ``Cell.fn`` runs for real on the card under the
    same count: the FLOPs counted there must equal the prediction, K4's
-   launches the op count traced, and the predicted peak be within
+   forward and backward launches the op counts traced, and the predicted
+   peak be within
    ``PEAK_RTOL`` of ``max_memory_allocated`` (from just before the
    arguments are made); the roofline's time beside a second, uncounted
    step's time is printed, not gated.  Then ``python -m
@@ -1741,11 +1754,10 @@ def serve_counted(cfg, server, requests) -> tuple:
     if plain_calls:
         raise AssertionError(f"the plain attention ran {plain_calls} times on the card")
     kernel_launches = {key: n for key, n in FA.LAUNCHES.items() if key != "flash_attention"}
-    expected = {"flash_attention_prefill": cfg.n_layers * n_prefill,
-                "flash_attention_decode": cfg.n_layers * n_steps,
-                "flash_attention_combine": cfg.n_layers * n_steps,
-                "flash_attention_f32": 0, "flash_attention_prefill_lse": 0,
-                "flash_attention_f32_lse": 0}
+    expected = dict.fromkeys(kernel_launches, 0)
+    expected.update(flash_attention_prefill=cfg.n_layers * n_prefill,
+                    flash_attention_decode=cfg.n_layers * n_steps,
+                    flash_attention_combine=cfg.n_layers * n_steps)
     log(f"K4 kernel launches: {json.dumps(kernel_launches)}")
     if kernel_launches != expected:
         raise AssertionError(f"K4 kernel launches {kernel_launches}, expected {expected}")
@@ -3145,6 +3157,29 @@ RANGES = {BACKWARD_RANGE: "attention_backward_s", OPTIMIZER_RANGE: "optimizer_s"
           "repro_torch.moe": "moe_dispatch_s", "repro_torch.moe_experts": "moe_experts_s"}
 # kernels (by category and name) listed with their device time in a split
 TOP_KERNELS = 12
+# K4's backward kernels against the plain backward (float32 products of
+# unrounded p and ds) and against their tiled mirror (the kernels'
+# rounding points): each gradient's relative L2 error, and its largest
+# element error over its largest element.  Rounding p and ds to bf16
+# moves each product term by up to 2^-9, the outputs' bf16 cast by as
+# much: ~0.002 of a gradient against the plain backward, 1 bf16 step of
+# an element at worst; against the mirror only ex2.approx, the order of
+# fp32 sums and the flips of a rounding they cause remain
+BWD_L2_RTOL = {"plain": 0.01, "mirror": 0.004}
+BWD_MAX_RTOL = {"plain": 0.02, "mirror": 0.01}
+# the source of the function the backward kernels compute: the
+# reference's custom-VJP backward (XLA code; no Pallas kernel)
+BWD_REFERENCE = "src/repro/models/layers.py:195"
+# faults planted at the backward's launch for one run each, which the
+# row's check must refuse: (the module attribute replaced, its wrapper)
+BACKWARD_PLANTS = {
+    "no_causal_mask": ("_launch_backward", lambda f: lambda q, k, v, o, lse, do, causal: f(
+        q, k, v, o, lse, do, False)),
+    "kv_heads_reversed": ("_launch_backward", lambda f: lambda q, k, v, o, lse, do, causal: f(
+        q, k.flip(2).contiguous(), v.flip(2).contiguous(), o, lse, do, causal)),
+    "delta_zeroed": ("_backward_rowstats", lambda f: lambda *a: (
+        lambda stats: (stats[0], stats[1].zero_()))(f(*a))),
+}
 
 
 def k4_lse_row(name, q, k, v, launches, reps, atol=None) -> dict:
@@ -3249,6 +3284,161 @@ def k4_lse_row(name, q, k, v, launches, reps, atol=None) -> dict:
                   "library_parts": library_parts, "bytes": n_bytes, "flops": n_ops,
                   "library_note": library_note, "plan": k4_plan(q, k, 0)},
     }
+
+
+def backward_errors(got, plain, mirror) -> dict:
+    """Each gradient's relative L2 error and largest element error over its
+    largest element, against the plain backward and the tiled mirror, and
+    whether every one is within ``BWD_L2_RTOL`` / ``BWD_MAX_RTOL``."""
+    out = {"ok": True}
+    for ref_name, ref in (("plain", plain), ("mirror", mirror)):
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            a, b = a.float(), b.float()
+            l2 = float((a - b).norm() / b.norm())
+            worst = float((a - b).abs().max() / b.abs().max())
+            out[f"{name}_{ref_name}"] = [l2, worst]
+            out["ok"] &= l2 <= BWD_L2_RTOL[ref_name] and worst <= BWD_MAX_RTOL[ref_name]
+    return out
+
+
+def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
+    """K4's training backward (``csrc/flash_backward.cu``) at one training
+    shape, causal, called through ``flash_attention_backward_op`` as
+    ``FlashAttentionFn`` calls it, on K4's own forward output and lse and
+    a random output gradient: ``dq``, ``dk``, ``dv`` held to the plain
+    backward and to the tiled mirror (:func:`backward_errors`), a second
+    run equal bit for bit, the same check refusing the gradients under
+    each fault of ``BACKWARD_PLANTS``; timed against its bound (10 B H D
+    causal pairs FLOPs at the bf16 tensor-core rate, or its bytes), the
+    plain backward, and ``aten._scaled_dot_product_flash_attention_backward``
+    on the same output and lse (k / v repeated over the group; the
+    library's dK / dV summed back over each group only for the logged
+    comparison).  ``launches`` are the training run's backward calls,
+    ``per_step`` a step's.  Launches made here do not count."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    B, T, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    out, lse = FA.flash_attention_op(q, k, v, None, True, 0, True, 512, 1024)
+
+    def kernel():
+        return FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+
+    got = kernel()
+    again = kernel()
+    repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = FA.backward_splits(B, T, T, H, KV, n_sm)
+    plain = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=True)
+    mirror = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=True,
+                                                     splits=splits)
+    errors = backward_errors(got, plain, mirror)
+    planted = {}
+    for plant, (attr, wrap) in BACKWARD_PLANTS.items():
+        orig = getattr(FA, attr)
+        setattr(FA, attr, wrap(orig))
+        try:
+            bad = backward_errors(kernel(), plain, mirror)
+        finally:
+            setattr(FA, attr, orig)
+        planted[plant] = {"refused": not bad["ok"], **bad}
+    log(f"{name}: {json.dumps(errors)}; a second run bit for bit: {repeats}; planted "
+        f"{json.dumps({p: r['refused'] for p, r in planted.items()})}")
+    if not (errors["ok"] and repeats):
+        raise AssertionError(f"K4 backward {name}: {errors}, bits repeat {repeats}")
+    if not all(r["refused"] for r in planted.values()):
+        raise AssertionError(f"K4 backward {name}: the check passes a planted fault: {planted}")
+    max_abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, plain))
+    del mirror
+
+    ms = time_ms(lambda: FA._launch_backward(q, k, v, out, lse, do, True), reps)
+    plain_ms = time_ms(lambda: FA.flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                                 causal=True), 2, 1)
+    FA.LAUNCHES.update(before[0])
+    FA.PLAIN_CUDA_CALLS.update(before[1])
+
+    scale = 1.0 / math.sqrt(D)
+    qs, ks, vs, dos, outs = (t.transpose(1, 2).contiguous() for t in (
+        q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2), do, out))
+    library_ms, library_note, library_err = None, None, None
+    try:
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(qs, ks, vs, 0.0, True, False,
+                                                                 scale=scale)
+        lse_t = lse.transpose(1, 2).contiguous()
+        if tuple(fwd[1].shape) == tuple(lse_t.shape):
+            o_lib, lse_lib = outs, lse_t
+            library_note = "K4's out and lse"
+        else:
+            o_lib, lse_lib = fwd[0], fwd[1]
+            library_note = f"the library's own out and lse {tuple(fwd[1].shape)}"
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dos, qs, ks, vs, o_lib, lse_lib, fwd[2], fwd[3], fwd[4], fwd[5], 0.0, True,
+                fwd[6], fwd[7], scale=scale)
+
+        lib = library()
+        torch.cuda.synchronize()
+        lib_grads = (lib[0].transpose(1, 2),
+                     lib[1].transpose(1, 2).reshape(B, T, KV, G, D).float().sum(3),
+                     lib[2].transpose(1, 2).reshape(B, T, KV, G, D).float().sum(3))
+        library_err = [float((a.float() - b.float()).abs().max()) for a, b in
+                       zip(lib_grads, plain)]
+        del lib, lib_grads
+        library_ms = time_ms(library, reps)
+    except (RuntimeError, NotImplementedError) as e:  # the library's own limits
+        library_note = str(e).splitlines()[0][:200]
+    del qs, ks, vs, dos, outs
+    n_bytes = nbytes(q, k, v, out, lse, do, *got)
+    n_ops = 10 * B * H * D * FA.causal_pairs(T, T, 0, True)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_OPS_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.6f} by {b_by}, SDPA "
+        f"backward {library_ms} on {library_note}, max abs diff to plain {library_err}), "
+        f"{splits} splits, {launches} calls in the training runs ({per_step} a step)")
+    return {
+        "name": name, "route": "cuda", "source": f"{CSRC}/flash_backward.cu",
+        "replaces": BWD_REFERENCE, "launches": launches, "max_abs_err": max_abs_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+        "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True, "splits": splits,
+                  "launches_per_step": per_step, "errors": errors, "bits_repeat": repeats,
+                  "planted": planted, "l2_rtol": BWD_L2_RTOL, "max_rtol": BWD_MAX_RTOL,
+                  "library": "sdpa_flash_backward", "library_note": library_note,
+                  "library_max_abs_diff_to_plain": library_err, "bytes": n_bytes,
+                  "flops": n_ops},
+    }
+
+
+def backward_expect(cfg, batch: int, seq: int, calls: int) -> tuple:
+    """The K4-backward launches and plain backward calls on the card that
+    ``calls`` attention backwards of an LM at ``batch`` x ``seq`` tokens in
+    ``cfg.microbatches`` make: ``({LAUNCHES key: count}, plain calls)``.
+    The kernels' route (``backward_route`` of ``cfg.dtype`` and the head
+    dim: glm4-9b's, granite's) launches each kernel once a call, the
+    reduce only where ``backward_splits`` cuts the dK / dV rows; the plain
+    route (a ``SMOKE`` config's head dim) makes plain calls."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.transformer import torch_dtype
+
+    if FA.backward_route(torch_dtype(cfg.dtype), cfg.resolved_head_dim) != "kernel":
+        return {}, calls
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ["flash_attention_backward", "flash_attention_backward_rowstat",
+            "flash_attention_backward_dkdv", "flash_attention_backward_dq"]
+    if FA.backward_splits(batch // cfg.microbatches, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                          n_sm) > 1:
+        keys.append("flash_attention_backward_reduce")
+    return dict.fromkeys(keys, calls), 0
 
 
 def split_device_time(trace: dict) -> dict:
@@ -3418,13 +3608,14 @@ def lm_training(args, mod, global_batch: int) -> dict:
             and abs(norms[0] - norm_plain) <= TRAIN_RTOL * abs(norm_plain)):
         raise AssertionError(f"{cfg.name}: step 0 through K4 ({losses[0]}, {norms[0]}) "
                              f"!= plain ({loss_plain}, {norm_plain})")
+    backward, plain_backward = backward_expect(
+        cfg, batch, seq, TRAIN_STEPS * cfg.n_layers * cfg.microbatches)
     want = dict.fromkeys(launches, 0)
     want.update(flash_attention=TRAIN_STEPS * per_step,
-                flash_attention_prefill_lse=TRAIN_STEPS * per_step)
+                flash_attention_prefill_lse=TRAIN_STEPS * per_step, **backward)
     if launches != want:
         raise AssertionError(f"K4 launches {launches}, expected {want}")
-    if plain != {"flash_attention": 0,
-                 "flash_attention_backward": TRAIN_STEPS * cfg.n_layers * cfg.microbatches}:
+    if plain != {"flash_attention": 0, "flash_attention_backward": plain_backward}:
         raise AssertionError(f"plain attention calls on the card: {plain}")
     if not (unchanged and moved):
         raise AssertionError(f"the schedule's lr is 0 at step 0: params unchanged after "
@@ -3449,7 +3640,9 @@ def lm_training(args, mod, global_batch: int) -> dict:
                 "tokens_per_s": [tokens / s_ for s_ in step_s], "peak_memory_bytes": peak,
                 "plain_step0": {"loss": loss_plain, "grad_norm": norm_plain},
                 "k4_launches": launches, "plain_cuda_calls": plain,
-                "k4_launches_per_step": per_step, "profiled_step": split})
+                "k4_launches_per_step": per_step,
+                "backward_calls_per_step": cfg.n_layers * cfg.microbatches,
+                "profiled_step": split})
     if cfg.moe is not None:
         rec["plain_step0"].update(router_grad_norm=router_norm, aux=aux_plain)
     del state, step_fn, pipe, batches
@@ -3732,9 +3925,14 @@ def training_phase(args) -> tuple:
 
     lm = glm4_9b.CONFIG
     T = 4096
-    rows = [k4_lse_row("flash_attention_prefill_lse", randn(1, T, lm.n_heads, 128),
-                       randn(1, T, lm.n_kv_heads, 128), randn(1, T, lm.n_kv_heads, 128),
-                       rec["lm"]["k4_launches"]["flash_attention_prefill_lse"], args.reps)]
+    q, k, v = (randn(1, T, lm.n_heads, 128), randn(1, T, lm.n_kv_heads, 128),
+               randn(1, T, lm.n_kv_heads, 128))
+    rows = [k4_lse_row("flash_attention_prefill_lse", q, k, v,
+                       rec["lm"]["k4_launches"]["flash_attention_prefill_lse"], args.reps),
+            k4_backward_row("flash_attention_backward", q, k, v,
+                            rec["lm"]["k4_launches"]["flash_attention_backward"],
+                            rec["lm"]["backward_calls_per_step"], args.reps)]
+    del q, k, v
     rc = sasrec_cfg.CONFIG
     B = 65_536
     v = randn(B, rc.seq_len, 1, rc.d)
@@ -3971,6 +4169,18 @@ def moe_phase(args) -> tuple:
     free()
     rec["granite_training"] = lm_training(args, granite, granite.CONFIG.microbatches)
     free()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    cfg = granite.CONFIG
+    hd, T = cfg.resolved_head_dim, 4096
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for shape in ((1, T, cfg.n_heads, hd), (1, T, cfg.n_kv_heads, hd),
+                             (1, T, cfg.n_kv_heads, hd)))
+    backward_rows = [k4_backward_row(
+        "flash_attention_backward_granite", q, k, v,
+        rec["granite_training"]["k4_launches"]["flash_attention_backward"],
+        rec["granite_training"]["backward_calls_per_step"], args.reps)]
+    del q, k, v
+    free()
 
     cfg = moonshot.SMOKE if args.quick else dataclasses.replace(
         moonshot.CONFIG, n_layers=MOONSHOT_LAYERS)
@@ -3993,7 +4203,7 @@ def moe_phase(args) -> tuple:
             f"{r['launches']} launches in the served run")
     rec["phase_s"] = time.perf_counter() - t0
     log(f"MoE phase: {rec['phase_s']:.1f} s")
-    return rec, rows
+    return rec, rows + backward_rows
 
 
 SHARDED_CKPT = os.path.join(ROOT, "build", "ckpt_sharded")
@@ -4163,10 +4373,13 @@ def sharded_phase(args, plain: dict) -> dict:
             abs(losses[0] - step0[0]) <= TRAIN_RTOL * abs(step0[0])
             and abs(norms[0] - step0[1]) <= TRAIN_RTOL * abs(step0[1])):
         raise AssertionError(f"sharded step 0 {(losses[0], norms[0])} != plain {step0}")
+    backward, plain_backward = backward_expect(
+        cfg, batch, seq, n_counted * cfg.n_layers * cfg.microbatches)
     want = dict.fromkeys(launches, 0)
     want.update(flash_attention=n_counted * per_step,
-                flash_attention_prefill_lse=n_counted * per_step)
-    if launches != want or plain_calls["flash_attention"] != 0:
+                flash_attention_prefill_lse=n_counted * per_step, **backward)
+    if launches != want or plain_calls != {"flash_attention": 0,
+                                           "flash_attention_backward": plain_backward}:
         raise AssertionError(f"K4 launches {launches} (expected {want}), plain {plain_calls}")
     if not restored_equal or at != TRAIN_STEPS - 1:
         raise AssertionError(f"restored step {at}: {again} != uninterrupted {last}")
@@ -4223,6 +4436,7 @@ def dryrun_host_cell(args, arch, shape, depth, batch) -> dict:
     rec = dryrun.run_cell(arch, shape, "host", verbose=False, smoke=smoke, depth=depth,
                           batch=batch, device_type="cuda")
     predicted_k4 = rec["op_counts"].get("repro_torch.flash_attention", 0)
+    predicted_bwd = rec["op_counts"].get("repro_torch.flash_attention_backward", 0)
     mesh = dryrun.make_mesh("host", "cuda")
     cell = cells_lib.build_cell(arch, shape, mesh, smoke=smoke, depth=depth, batch=batch)
     grad = torch.enable_grad if cell.kind == "train" else torch.no_grad
@@ -4254,6 +4468,8 @@ def dryrun_host_cell(args, arch, shape, depth, batch) -> dict:
     row = {"arch": arch, "shape": shape, "depth": depth, "batch": batch,
            "predicted_flops": rec["flops_per_device"], "real_flops": cost.flops,
            "predicted_k4": predicted_k4, "k4_launches": launches["flash_attention"],
+           "predicted_k4_backward": predicted_bwd,
+           "k4_backward_launches": launches["flash_attention_backward"],
            "k4_kernels": launches, "plain_calls": plain,
            "predicted_peak_bytes": rec["memory_stats"]["peak_bytes_per_device"],
            "tracked_peak_bytes": cost.peak_bytes, "max_memory_allocated": peak,
@@ -4262,16 +4478,18 @@ def dryrun_host_cell(args, arch, shape, depth, batch) -> dict:
            "bytes_per_device": rec["bytes_per_device"]}
     log(f"dry-run {arch} {shape} (depth {depth}, batch {batch}): FLOPs predicted "
         f"{rec['flops_per_device']:.6e} counted {cost.flops:.6e}; K4 {predicted_k4} predicted, "
-        f"{launches['flash_attention']} launched; peak predicted "
+        f"{launches['flash_attention']} launched; K4 backward {predicted_bwd} predicted, "
+        f"{launches['flash_attention_backward']} launched; peak predicted "
         f"{row['predicted_peak_bytes'] / 1e9:.3f} GB, max_memory_allocated {peak / 1e9:.3f} GB; "
         f"roofline {roof_s * 1e3:.2f} ms ({rec['dominant']}) against {step_s * 1e3:.2f} ms "
         f"measured (ratio {row['roofline_over_step']:.3f})")
     if cost.flops != rec["flops_per_device"]:
         raise AssertionError(f"{arch} {shape}: counted FLOPs {cost.flops} != predicted "
                              f"{rec['flops_per_device']}")
-    if launches["flash_attention"] != predicted_k4 or plain["flash_attention"]:
+    if (launches["flash_attention"] != predicted_k4 or plain["flash_attention"]
+            or launches["flash_attention_backward"] != predicted_bwd):
         raise AssertionError(f"{arch} {shape}: K4 launched {launches} (plain {plain}), "
-                             f"predicted {predicted_k4}")
+                             f"predicted {predicted_k4} forward, {predicted_bwd} backward")
     if abs(row["predicted_peak_bytes"] - peak) > PEAK_RTOL * peak:
         raise AssertionError(f"{arch} {shape}: predicted peak {row['predicted_peak_bytes']} "
                              f"not within {PEAK_RTOL} of max_memory_allocated {peak}")

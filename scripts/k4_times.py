@@ -21,6 +21,16 @@ library call.  ``--rows`` picks the rows (default: all):
   sasrec      the bf16 prefill with lse at SASRec's training shape, q
               ``(65536, 50, 1, 50)``, and without lse at ``serve_bulk``'s
               262,144 sequences
+  backward    the training backward (``csrc/flash_backward.cu``) at
+              glm4-9b's training shape, q ``(1, 4096, 32, 128)`` over 2 kv
+              heads, and granite's, q ``(1, 4096, 24, 64)`` over 8:
+              ``chip_smoke.k4_backward_row``; with ``--splits 1,2,...``
+              also the kernels' time at each count of dK / dV row runs
+              (1: no split, the grid only launched longest first); and
+              the plain backward's time at the two training shapes that
+              still run it (``plain_backward_ms``): lm-100m's float32 q
+              ``(4, 128, 8, 64)`` over 4 kv heads and SASRec's bf16 q
+              ``(65536, 50, 1, 50)``
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two versions of the kernels can be
@@ -40,7 +50,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (imports no kernel at import time)
 
-ROWS = ("main", "granite", "moonshot", "f32_lm100m", "sasrec")
+ROWS = ("main", "granite", "moonshot", "f32_lm100m", "sasrec", "backward")
 SASREC_BULK = 262_144   # serve_bulk's users (configs/shapes.py's REC_SHAPES)
 
 
@@ -94,6 +104,68 @@ def sasrec_rows(reps: int, seed: int) -> list:
     return rows
 
 
+def backward_rows(reps: int, seed: int, splits: list) -> list:
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as FA
+
+    rows = []
+    for arch, name in (("glm4-9b", "flash_attention_backward"),
+                       ("granite-moe-3b-a800m", "flash_attention_backward_granite")):
+        cfg = registry.get_arch(arch).CONFIG
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        hd = cfg.resolved_head_dim
+        q, k, v = (torch.randn((1, 4096, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        row = chip_smoke.k4_backward_row(name, q, k, v, 0, 0, reps)
+        out, lse = FA.flash_attention_op(q, k, v, None, True, 0, True, 512, 1024)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        chosen = FA.backward_splits
+        by_splits = {}
+        try:
+            for n in splits:
+                FA.backward_splits = lambda *a, n=n, **kw: n
+                by_splits[n] = chip_smoke.time_ms(
+                    lambda: FA._launch_backward(q, k, v, out, lse, do, True), reps)
+        finally:
+            FA.backward_splits = chosen
+        row["shape"]["ms_by_splits"] = by_splits
+        rows.append(row)
+        del q, k, v, out, lse, do
+    return rows
+
+
+def plain_backward_ms(reps: int, seed: int) -> dict:
+    """The plain backward's device ms a call at lm-100m's and SASRec's
+    training attention (the routes the kernels do not take), timed as
+    ``chip_smoke`` times a plain version."""
+    import torch
+
+    from repro_torch.configs import sasrec as sasrec_cfg
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.train_lm import model_100m
+
+    cfg = model_100m(log=lambda line: None)
+    rc = sasrec_cfg.CONFIG
+    shapes = {"lm100m": ((4, 128, cfg.n_heads, cfg.resolved_head_dim),
+                         (4, 128, cfg.n_kv_heads, cfg.resolved_head_dim), torch.float32),
+              "sasrec": ((65_536, rc.seq_len, 1, rc.d), (65_536, rc.seq_len, 1, rc.d),
+                         torch.bfloat16)}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out_ms = {}
+    for name, (qs, ks, dtype) in shapes.items():
+        q, do = (torch.randn(qs, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn(ks, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        out, lse = FA.flash_attention_op(q, k, v, None, True, 0, True, 512, 1024)
+        out_ms[name] = chip_smoke.time_ms(
+            lambda: FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=True),
+            max(2, reps // 4), 1)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    return out_ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
@@ -101,6 +173,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--rows", default=",".join(ROWS),
                     help=f"comma-separated, of {', '.join(ROWS)}")
+    ap.add_argument("--splits", default="",
+                    help="comma-separated dK / dV row-run counts the backward rows also time")
     args = ap.parse_args()
     picked = [r for r in args.rows.split(",") if r]
     unknown = sorted(set(picked) - set(ROWS))
@@ -116,7 +190,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = []
+    rows, extra = [], {}
     for name in picked:
         if name in ("main", "granite", "moonshot"):
             arch = {"main": "glm4-9b", "granite": "granite-moe-3b-a800m",
@@ -125,14 +199,19 @@ def main() -> int:
                             "" if name == "main" else f"_{name}")
         elif name == "f32_lm100m":
             rows += f32_rows(args.reps, args.seed)
+        elif name == "backward":
+            rows += backward_rows(args.reps, args.seed,
+                                  [int(n) for n in args.splits.split(",") if n])
+            extra["plain_backward_ms"] = plain_backward_ms(args.reps, args.seed)
         else:
             rows += sasrec_rows(args.reps, args.seed)
         torch.cuda.empty_cache()
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     shape_keys = ("warm_ms", "bf16_excess_over_rtol", "excess_over_rtol", "lse_max_abs_err",
-                  "plan", "library_parts")
+                  "plan", "library_parts", "splits", "ms_by_splits", "errors", "planted",
+                  "bits_repeat", "library_note")
     print(json.dumps({"src": os.path.relpath(os.path.abspath(args.src), ROOT),
-                      "card": chip_smoke.card_line(),
+                      "card": chip_smoke.card_line(), **extra,
                       **{r["name"]: {**{k: r[k] for k in keys},
                                      **{k: r["shape"][k] for k in shape_keys
                                         if k in r["shape"]}}

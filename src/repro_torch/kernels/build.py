@@ -34,6 +34,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 
 # library -> (source, {C function: argtypes})
@@ -66,6 +67,15 @@ LIBRARIES = {
         {
             "flash_decode_launch": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
             "flash_combine_launch": [_P] * 4 + [_I] * 4 + [_P],
+        },
+    ),
+    "flash_backward": (
+        "flash_backward.cu",
+        {
+            "flash_backward_rowstat_launch": [_P] * 5 + [_I] * 6 + [_P],
+            "flash_backward_dkdv_launch": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
+            "flash_backward_dq_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+            "flash_backward_reduce_launch": [_P] * 4 + [_L, _I, _F, _I, _P],
         },
     ),
 }

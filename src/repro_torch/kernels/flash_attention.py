@@ -41,21 +41,38 @@ of ``q``, ``k``, ``v`` requiring grad, under grad mode) goes through
 :class:`FlashAttentionFn`, the counterpart of the reference's custom-VJP
 ``layers._flash_train``: its forward launches the same kernels with a
 log-sum-exp output (``lse``, natural log, ``+inf`` on a row whose every
-key is masked), and its backward is the reference's
-``_flash_train_bwd`` in plain PyTorch (:func:`flash_attention_backward_plain`,
-which recomputes ``p`` block by block from ``lse``; the reference's
-backward is XLA code, not a Pallas kernel).  A call with a cache that
-requires grad raises: no call goes through a kernel without autograd.
+key is masked).  Its backward computes the reference's
+``_flash_train_bwd`` (XLA code, not a Pallas kernel), by the route
+:func:`backward_route` picks from dtype and head dim:
+
+========================  ==============================================
+bfloat16, D 64 or 128     ``csrc/flash_backward.cu``, the registered op
+                          ``repro_torch::flash_attention_backward``
+                          (:func:`flash_attention_backward_op`): row
+                          statistics, a dK / dV kernel over key tiles
+                          (its rows cut in :func:`backward_splits` runs,
+                          added in order), a dQ kernel over row tiles;
+                          no float atomics, so the gradients repeat
+                          their bits
+float32, other D, a CPU   :func:`flash_attention_backward_plain`, which
+tensor with data          recomputes ``p`` block by block from ``lse``
+========================  ==============================================
+
+A call with a cache that requires grad raises: no call goes through a
+kernel without autograd.
 
 ``LAUNCHES['flash_attention']`` counts wrapper calls on the card, one
 per attention call; ``flash_attention_prefill``, ``_decode``,
 ``_combine`` and ``_f32`` count each kernel's launches, and
 ``_prefill_lse`` / ``_f32_lse`` the launches that also write ``lse``
-(training's forward).  A call of a plain forward on a CUDA tensor (a
-comparison, never the wrapper) adds one to
-``PLAIN_CUDA_CALLS['flash_attention']`` instead, so a run can show that
-its attention went through the kernels; each plain backward on the card
-adds one to ``PLAIN_CUDA_CALLS['flash_attention_backward']``.
+(training's forward).  ``flash_attention_backward`` counts backward
+calls through the kernels, ``_rowstat``, ``_dkdv``, ``_dq`` and
+``_reduce`` (only where the dK / dV rows are split) each kernel's
+launches.  A call of a plain forward on a CUDA tensor (a comparison,
+never the wrapper) adds one to ``PLAIN_CUDA_CALLS['flash_attention']``
+instead, so a run can show that its attention went through the kernels;
+each plain backward on the card adds one to
+``PLAIN_CUDA_CALLS['flash_attention_backward']``.
 
 Numbers: scores and softmax sums in float32, ``p`` rounded to the value
 type before the P·V product, the output ``acc / max(l, 1e-20)`` cast to
@@ -64,8 +81,11 @@ type before the P·V product, the output ``acc / max(l, 1e-20)`` cast to
 kernels use their own tiles (64 keys), which changes only the order of
 float32 sums and where ``p`` is rounded.
 :func:`flash_attention_split_plain` is the decode kernel's arithmetic in
-plain PyTorch (``p`` rounded against each split's running max), for the
-tests and the smoke run; the main path never calls it.
+plain PyTorch (``p`` rounded against each split's running max), and
+:func:`flash_attention_backward_tiled_plain` the backward kernels' (64-row
+and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their products,
+the kernels' order of sums), for the tests and the smoke run; the main
+path never calls them.
 """
 from __future__ import annotations
 
@@ -91,7 +111,12 @@ __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "flash_attention_backward_plain",
+    "flash_attention_backward_tiled_plain",
     "flash_attention_split_plain",
+    "backward_route",
+    "backward_splits",
+    "backward_workspace",
+    "flash_attention_backward_op",
     "sharded_flash_attention",
     "flash_attention_op",
     "causal_pairs",
@@ -108,6 +133,11 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_f32": 0,
     "flash_attention_prefill_lse": 0,
     "flash_attention_f32_lse": 0,
+    "flash_attention_backward": 0,
+    "flash_attention_backward_rowstat": 0,
+    "flash_attention_backward_dkdv": 0,
+    "flash_attention_backward_dq": 0,
+    "flash_attention_backward_reduce": 0,
 }
 # plain forwards on CUDA tensors (comparisons only; the wrapper never makes
 # one), and plain backwards on CUDA tensors (every training step's)
@@ -120,6 +150,9 @@ _DECODE_ROWS = 16    # query heads per block of the decode kernel
 _PREFILL_ROWS = 128  # query rows a block of the bf16 prefill kernel
 _F32_ROWS = (64, 32, 16)  # query rows a block of the float32 kernel may take
 _LOG2E = 1.4426950408889634
+_BWD_ROWS = 64       # query rows a tile of the backward kernels
+_BWD_HEAD_DIMS = (64, 128)  # the backward kernels' head dims (bf16)
+_BWD_MAX_SPLITS = 8  # runs of row tiles a key tile of the dK / dV kernel is cut in
 
 
 def reset_launch_counts() -> None:
@@ -139,6 +172,46 @@ def decode_split(Tk: int, pairs: int, n_sm: int = 132) -> Tuple[int, int]:
     need = -(-2 * n_sm // max(1, pairs))
     per_split = max(1, tiles // need)
     return -(-tiles // per_split), _TILE * per_split
+
+
+def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """How :class:`FlashAttentionFn` computes its backward on the card (or
+    over fake tensors): ``'kernel'`` (``csrc/flash_backward.cu``, through
+    :func:`flash_attention_backward_op`) for bfloat16 at head dim 64 or
+    128 (glm4-9b's, granite's, llama3-405b's, yi-9b's, moonshot's heads),
+    else ``'plain'`` (:func:`flash_attention_backward_plain`: float32,
+    lm-100m's; SASRec's D = 50).  A CPU tensor holding data runs the plain
+    version whatever this says."""
+    return "kernel" if dtype == torch.bfloat16 and head_dim in _BWD_HEAD_DIMS else "plain"
+
+
+def backward_splits(B: int, Tq: int, Tk: int, H: int, KV: int, n_sm: int = 132) -> int:
+    """Runs of whole 64-row tiles the dK / dV kernel cuts each key tile's
+    query rows in: blocks of ``B x KV x ceil(Tk / 64)`` key tiles give at
+    least three blocks an SM where the rows allow (each run writes an fp32
+    partial, added in order by the reduce kernel), at most
+    ``_BWD_MAX_SPLITS``, never more than the row tiles.  glm4-9b's
+    training attention (B 1, T 4096, 32 heads over 2): 128 key-tile blocks,
+    4 runs; granite's (24 over 8): 512, 1 (no partials).  On an H100 these
+    were the fastest of 1, 2, 4, 5 and 8 runs at both shapes, where four
+    blocks an SM (5 and 2 runs) took 5% and 1% longer
+    (``scripts/k4_times.py --rows backward --splits``)."""
+    G = H // KV
+    blocks = max(1, B * KV * -(-Tk // _TILE))
+    row_tiles = max(1, -(-Tq * G // _BWD_ROWS))
+    return max(1, min(_BWD_MAX_SPLITS, row_tiles, -(-3 * n_sm // blocks)))
+
+
+def backward_workspace(B: int, Tq: int, Tk: int, H: int, KV: int, D: int, splits: int) -> int:
+    """float32 elements of the backward kernels' workspace: ``lse2`` and
+    ``delta`` per query row in the kernels' order, padded to whole 64-row
+    tiles (``B x KV x R_pad`` each), then, where ``splits > 1``, the dK and
+    dV partials (``splits x B x Tk x KV x D`` each)."""
+    r_pad = -(-Tq * (H // KV) // _BWD_ROWS) * _BWD_ROWS
+    n = 2 * B * KV * r_pad
+    if splits > 1:
+        n += 2 * splits * B * Tk * KV * D
+    return n
 
 
 def f32_block_rows(B: int, Tq: int, H: int, KV: int, n_sm: int = 132) -> Tuple[int, int]:
@@ -374,6 +447,121 @@ def flash_attention_backward_plain(
     return dq, dk[:, :Tk].to(k.dtype), dv[:, :Tk].to(v.dtype)
 
 
+def _kernel_rows(t: torch.Tensor, KV: int, r_pad: int, value: float = 0.0) -> torch.Tensor:
+    """``(B, T, H, ...)`` as the backward kernels walk it: ``(B, KV, R_pad,
+    ...)`` float32, row ``r`` of kv head ``kv`` being position ``r // G``
+    of head ``kv G + r % G``, rows past ``T G`` filled with ``value``."""
+    B, T, H = t.shape[:3]
+    G = H // KV
+    rest = tuple(t.shape[3:])
+    x = t.reshape(B, T, KV, G, *rest).transpose(1, 2).reshape(B, KV, T * G, *rest).float()
+    pad = r_pad - T * G
+    if pad:
+        x = torch.cat([x, x.new_full((B, KV, pad, *rest), value)], dim=2)
+    return x
+
+
+def flash_attention_backward_tiled_plain(
+    q: torch.Tensor,             # (B, Tq, H, D)
+    k: torch.Tensor,             # (B, Tk, KV, D)
+    v: torch.Tensor,
+    out: torch.Tensor,           # (B, Tq, H, D)
+    lse: torch.Tensor,           # (B, Tq, H) float32
+    do: torch.Tensor,            # (B, Tq, H, D)
+    *,
+    causal: bool = True,
+    splits: Optional[int] = None,
+    rounding: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' arithmetic (``csrc/flash_backward.cu``) in
+    plain PyTorch: ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    Query rows in the kernels' order (the G heads of each position in
+    turn) in tiles of 64, keys in tiles of 64; ``p = 2^(s * scale * log2 e
+    - lse * log2 e)``, 0 where masked; ``ds = p (dp - delta)``; with
+    ``rounding``, ``p`` and ``ds`` rounded to bf16 before their products,
+    as the kernels round them (off: every product in float32, which is
+    :func:`flash_attention_backward_plain`'s arithmetic up to the order of
+    sums).  dQ sums over key tiles in order; dK and dV over the row tiles
+    of each of ``splits`` runs (default :func:`backward_splits` on an H100)
+    in order, the runs' sums then added in order; ``scale`` multiplies dQ
+    and dK after their sums.  For the tests and the smoke run; the main
+    path never calls it."""
+    B, Tq, H, D = q.shape
+    _, Tk, KV, _ = k.shape
+    G = H // KV
+    if splits is None:
+        splits = backward_splits(B, Tq, Tk, H, KV)
+    dev = q.device
+    R = Tq * G
+    n_rt = -(-R // _BWD_ROWS)
+    r_pad = n_rt * _BWD_ROWS
+    n_kt = -(-Tk // _TILE)
+    kp, vp = _pad_keys(k, v, _TILE)
+    kr = kp.transpose(1, 2).float()                           # (B, KV, Tk_pad, D)
+    vr = vp.transpose(1, 2).float()
+    qr = _kernel_rows(q, KV, r_pad)                           # (B, KV, R_pad, D)
+    dor = _kernel_rows(do, KV, r_pad)
+    lse2 = _kernel_rows(lse, KV, r_pad, float("inf")) * _LOG2E
+    delta = _kernel_rows((do.float() * out.float()).sum(dim=-1), KV, r_pad)
+    scale = 1.0 / math.sqrt(D)
+    scale_log2 = float(torch.tensor(scale, dtype=torch.float32) * _LOG2E)
+    pos = torch.arange(r_pad, device=dev) // G                # each row's position
+    key = torch.arange(n_kt * _TILE, device=dev)
+
+    def bf16(x):
+        return x.to(torch.bfloat16).float() if rounding else x
+
+    def probs(s, l2, visible):
+        p = torch.exp2(s * scale_log2 - l2)
+        return torch.where(visible, p, 0.0)
+
+    # dQ: each row tile over the key tiles in order
+    dq = torch.zeros((B, KV, r_pad, D), dtype=torch.float32, device=dev)
+    for j in range(n_kt):
+        kj, vj = kr[:, :, j * _TILE:(j + 1) * _TILE], vr[:, :, j * _TILE:(j + 1) * _TILE]
+        kj_pos = key[j * _TILE:(j + 1) * _TILE]
+        visible = (kj_pos < Tk)[None, :]
+        if causal:
+            visible = visible & (kj_pos[None, :] <= pos[:, None])
+        p = probs(qr @ kj.transpose(-1, -2), lse2[..., None], visible)
+        ds = p * (dor @ vj.transpose(-1, -2) - delta[..., None])
+        dq = dq + bf16(ds) @ kj
+
+    # dK, dV: each key tile over its runs of row tiles, each run in order
+    first = [min(j * _TILE * G // _BWD_ROWS, n_rt) if causal else 0 for j in range(n_kt)]
+    starts = torch.zeros((n_rt, n_kt * _TILE), dtype=torch.bool, device=dev)
+    for j, f in enumerate(first):
+        for sp in range(1, splits):
+            at = f + (sp * (n_rt - f)) // splits
+            if at < n_rt:
+                starts[at, j * _TILE:(j + 1) * _TILE] = True
+    total_k = torch.zeros((B, KV, n_kt * _TILE, D), dtype=torch.float32, device=dev)
+    total_v = torch.zeros_like(total_k)
+    acc_k, acc_v = torch.zeros_like(total_k), torch.zeros_like(total_k)
+    for i in range(n_rt):
+        rows = slice(i * _BWD_ROWS, (i + 1) * _BWD_ROWS)
+        qi, doi = qr[:, :, rows], dor[:, :, rows]
+        visible = (key[:, None] <= pos[None, rows]) if causal else torch.ones(
+            (1, 1), dtype=torch.bool, device=dev)
+        pt = probs(kr @ qi.transpose(-1, -2), lse2[:, :, None, rows], visible)
+        dst = pt * (vr @ doi.transpose(-1, -2) - delta[:, :, None, rows])
+        new_run = starts[i][:, None]
+        total_k = torch.where(new_run, total_k + acc_k, total_k)
+        total_v = torch.where(new_run, total_v + acc_v, total_v)
+        acc_k = torch.where(new_run, 0.0, acc_k)
+        acc_v = torch.where(new_run, 0.0, acc_v)
+        acc_v = acc_v + bf16(pt) @ doi
+        acc_k = acc_k + bf16(dst) @ qi
+    dk = scale * (total_k + acc_k)
+    dv = total_v + acc_v
+
+    dq = (scale * dq[:, :, :R]).reshape(B, KV, Tq, G, D).transpose(1, 2).reshape(B, Tq, H, D)
+    dk = dk[:, :, :Tk].transpose(1, 2)
+    dv = dv[:, :, :Tk].transpose(1, 2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_split_plain(
     q: torch.Tensor,             # (B, Tq, H, D)
     k: torch.Tensor,             # (B, Tk, KV, D)
@@ -418,6 +606,12 @@ def flash_attention_split_plain(
     return out.to(q.dtype).reshape(B, Tq, H, D)
 
 
+def _launched(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+    LAUNCHES[kernel] += 1
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_offset: int,
             kv_length: Optional[torch.Tensor], with_lse: bool):
     """Launch the K4 kernel that ``q``'s dtype and shape select, on the
@@ -447,11 +641,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_o
     def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
         return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
-    def check(rc: int, kernel: str) -> None:
-        if rc != 0:
-            raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
-        LAUNCHES[kernel] += 1
-
     o = torch.empty_like(q)
     lse = (torch.empty((B, Tq, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -462,12 +651,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_o
     common = (B, Tq, Tk, H, KV, D, int(q_offset), int(bool(causal)))
     if q.dtype == torch.float32:
         rows, _ = f32_block_rows(B, Tq, H, KV, _sm_count(dev))
-        check(load("flash_attention").flash_attention_launch(
+        _launched(load("flash_attention").flash_attention_launch(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common, rows, scale, dev,
             stream,
         ), "flash_attention_f32" + suffix)
     elif Tq > 1 or with_lse:  # the decode kernel writes no lse
-        check(load("flash_prefill").flash_prefill_launch(
+        _launched(load("flash_prefill").flash_prefill_launch(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common,
             prefill_pack(Tq, Tk, G, int(q_offset)), scale * _LOG2E, dev, stream,
         ), "flash_attention_prefill" + suffix)
@@ -481,11 +670,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_o
         part_o = scratch.data_ptr()
         part_m = part_o + 4 * n_part * D
         part_l = part_m + 4 * n_part
-        check(lib.flash_decode_launch(
+        _launched(lib.flash_decode_launch(
             ptr(q), ptr(k), ptr(v), ptr(lengths), part_o, part_m, part_l, B, Tk, H, KV, D,
             split_keys, n_split, int(q_offset), int(bool(causal)), scale * _LOG2E, dev, stream,
         ), "flash_attention_decode")
-        check(lib.flash_combine_launch(
+        _launched(lib.flash_combine_launch(
             part_o, part_m, part_l, ptr(o), B * H, D, n_split, dev, stream,
         ), "flash_attention_combine")
     LAUNCHES["flash_attention"] += 1
@@ -525,6 +714,109 @@ def _(q, k, v, kv_length, causal, q_offset, with_lse, block_q, block_kv):
     return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
 
 
+def _backward_rowstats(lib, out, do, lse, work, KV: int, dev: int, stream):
+    """Launch the row-statistics kernel into the head of ``work``; returns
+    the views ``(lse2, delta)``, each ``B x KV x R_pad`` float32."""
+    B, Tq, H, D = out.shape
+    n = B * KV * (-(-Tq * (H // KV) // _BWD_ROWS) * _BWD_ROWS)
+    lse2, delta = work[:n], work[n:2 * n]
+    _launched(lib.flash_backward_rowstat_launch(
+        out.data_ptr(), do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+        B, Tq, H, KV, D, dev, stream), "flash_attention_backward_rowstat")
+    return lse2, delta
+
+
+def _launch_backward(q, k, v, out, lse, do, causal: bool):
+    """Launch the backward kernels (``csrc/flash_backward.cu``) on the
+    current stream; returns ``(dq, dk, dv, workspace)``.  bf16 ``q``,
+    ``out``, ``do`` ``(B, Tq, H, D)`` and ``k``, ``v`` ``(B, Tk, KV, D)``,
+    D 64 or 128, float32 ``lse`` ``(B, Tq, H)``, all contiguous on one
+    card; anything else raises."""
+    _check(q, k, v, None)
+    if q.device.type != "cuda":
+        raise ValueError(f"q lies on {q.device}: the backward kernels run on cuda")
+    B, Tq, H, D = q.shape
+    _, Tk, KV, _ = k.shape
+    if backward_route(q.dtype, D) != "kernel":
+        raise ValueError(f"the backward kernels take bfloat16 at head_dim {_BWD_HEAD_DIMS}, "
+                         f"got {q.dtype} at {D}")
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (B, Tq, H), torch.float32)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("lse", lse), ("do", do)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    from .build import load
+
+    lib = load("flash_backward")
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    splits = backward_splits(B, Tq, Tk, H, KV, _sm_count(dev))
+    work = torch.empty(backward_workspace(B, Tq, Tk, H, KV, D, splits), dtype=torch.float32,
+                       device=q.device)
+    lse2, delta = _backward_rowstats(lib, out, do, lse, work, KV, dev, stream)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    n_kv = B * Tk * KV * D
+    part_k = part_v = None
+    if splits > 1:
+        n0 = 2 * lse2.numel()
+        part_k = work[n0:n0 + splits * n_kv]
+        part_v = work[n0 + splits * n_kv:n0 + 2 * splits * n_kv]
+    scale = 1.0 / math.sqrt(D)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    _launched(lib.flash_backward_dkdv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(part_k), ptr(part_v),
+        B, Tq, Tk, H, KV, D, int(bool(causal)), splits, scale, dev, stream),
+        "flash_attention_backward_dkdv")
+    _launched(lib.flash_backward_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, Tq, Tk, H, KV, D, int(bool(causal)), scale, dev,
+        stream), "flash_attention_backward_dq")
+    if splits > 1:
+        _launched(lib.flash_backward_reduce_launch(
+            part_k.data_ptr(), part_v.data_ptr(), dk.data_ptr(), dv.data_ptr(), n_kv, splits,
+            scale, dev, stream), "flash_attention_backward_reduce")
+    LAUNCHES["flash_attention_backward"] += 1
+    return dq, dk, dv, work
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward", mutates_args=())
+def flash_attention_backward_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, causal: bool, block_q: int, block_kv: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's training backward as a registered op,
+    ``repro_torch::flash_attention_backward``: ``(dq, dk, dv, workspace)``.
+    On a CUDA tensor it launches the backward kernels
+    (:func:`_launch_backward`; ``workspace`` is their float32 row
+    statistics and dK / dV partials, returned so that a trace counts the
+    bytes they hold, :func:`backward_workspace`); on a CPU tensor it is
+    :func:`flash_attention_backward_plain` with ``block_q`` / ``block_kv``
+    and an empty ``(0,)`` workspace.  Its fake implementation gives the
+    kernels' shapes, workspace included, and its FLOP formula
+    (:func:`_flash_backward_flops`) lets a FLOP count see the kernels."""
+    if q.device.type == "cpu":
+        dq, dk, dv = flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal,
+                                                    block_q=block_q, block_kv=block_kv)
+        return dq, dk, dv, q.new_empty((0,), dtype=torch.float32)
+    return _launch_backward(q, k, v, out, lse, do, causal)
+
+
+@flash_attention_backward_op.register_fake
+def _(q, k, v, out, lse, do, causal, block_q, block_kv):
+    B, Tq, H, D = q.shape
+    _, Tk, KV, _ = k.shape
+    n = backward_workspace(B, Tq, Tk, H, KV, D, backward_splits(B, Tq, Tk, H, KV))
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            q.new_empty((n,), dtype=torch.float32))
+
+
 def _runs_plain(q: torch.Tensor) -> bool:
     """Whether the wrapper runs the plain version: a CPU tensor that holds
     data.  A fake tensor (a dry-run's trace, on either device) goes through
@@ -561,10 +853,23 @@ def _flash_flops(q_shape, k_shape, v_shape, kv_length_shape, causal, q_offset, w
     return 4 * B * H * D * causal_pairs(Tq, k_shape[1], q_offset, causal)
 
 
+def _flash_backward_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, causal,
+                          block_q, block_kv, out_shape=None, **kwargs) -> int:
+    """FLOPs of one backward call: ``10 · B · H · D`` per (query, key) pair
+    that :func:`causal_pairs` counts, the five products of the backward
+    (``q·k``, ``do·v``, ``pᵀ·do``, ``dsᵀ·q``, ``ds·k``), two FLOPs per
+    multiply-add each.  The kernels' dQ pass recomputes ``q·k`` and
+    ``do·v``: those two products are not counted, nor are the exponentials
+    and the row sums of ``delta``."""
+    B, Tq, H, D = q_shape
+    return 10 * B * H * D * causal_pairs(Tq, k_shape[1], 0, causal)
+
+
 def _register_flops() -> None:
     from torch.utils.flop_counter import register_flop_formula
 
     register_flop_formula(torch.ops.repro_torch.flash_attention)(_flash_flops)
+    register_flop_formula(torch.ops.repro_torch.flash_attention_backward)(_flash_backward_flops)
 
 
 _register_flops()
@@ -574,8 +879,11 @@ class FlashAttentionFn(torch.autograd.Function):
     """Attention without a cache under autograd: the port of the
     reference's ``_flash_train`` custom VJP.  The forward runs K4 with its
     ``lse`` output on a CUDA tensor (the plain version on a CPU one) and
-    saves ``(q, k, v, out, lse)``; the backward is
-    :func:`flash_attention_backward_plain` on either device."""
+    saves ``(q, k, v, out, lse)``; the backward goes through
+    :func:`flash_attention_backward_op` (the backward kernels) where
+    :func:`backward_route` says ``'kernel'``, else through
+    :func:`flash_attention_backward_plain`, as on a CPU tensor holding
+    data.  No fallback: a kernel that fails to build or launch raises."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, block_q: int, block_kv: int):
@@ -593,8 +901,12 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         causal, block_q, block_kv = ctx.blocks
         with torch.profiler.record_function("repro_torch.flash_attention_backward"):
-            dq, dk, dv = flash_attention_backward_plain(
-                q, k, v, out, lse, do, causal=causal, block_q=block_q, block_kv=block_kv)
+            if _runs_plain(q) or backward_route(q.dtype, q.shape[3]) == "plain":
+                dq, dk, dv = flash_attention_backward_plain(
+                    q, k, v, out, lse, do, causal=causal, block_q=block_q, block_kv=block_kv)
+            else:
+                dq, dk, dv, _ = flash_attention_backward_op(
+                    q, k, v, out, lse, do.contiguous(), causal, block_q, block_kv)
         return dq, dk, dv, None, None, None
 
 

@@ -731,8 +731,9 @@ def test_cuda_flash_backward_matches_cpu(card, full_fp32, case):
 
 
 def test_cuda_flash_backward_bf16_against_float32(card, full_fp32):
-    """glm4-9b's heads in bf16 through the training route: gradients within
-    bf16 round-off of the float32 route's."""
+    """glm4-9b's heads in bf16 through the training route (K4 with lse,
+    then the backward kernels): gradients within bf16 round-off of the
+    float32 route's (the float32 kernel, then the plain backward)."""
     from repro_torch.kernels import flash_attention as FA
 
     q, k, v = _qkv(21, 1, 256, 256, 32, 2, 128, torch.float32)
@@ -741,10 +742,120 @@ def test_cuda_flash_backward_bf16_against_float32(card, full_fp32):
     grads = {}
     for dtype in (torch.float32, torch.bfloat16):
         leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        FA.reset_launch_counts()
         FA.flash_attention(*leaves, causal=True).backward(do.to(dtype))
+        kernel = dtype == torch.bfloat16
+        assert FA.LAUNCHES["flash_attention_backward"] == int(kernel)
+        assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == int(not kernel)
         grads[dtype] = [t.grad.float() for t in leaves]
     for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
         assert float((got - want).abs().max()) < 0.05 * float(want.abs().max())
+
+
+# (B, Tq, Tk, H, KV, D, causal): glm4-9b's and granite's groups at short
+# and ragged lengths, G = 1, a group of 48 (more rows than a tile's 64 per
+# position run), not causal, and keys past the queries
+BWD_CASES = [
+    (2, 37, 37, 6, 2, 64, True),
+    (1, 130, 130, 48, 3, 64, True),
+    (2, 65, 65, 4, 4, 128, False),
+    (1, 300, 300, 32, 2, 128, True),
+    (3, 100, 100, 3, 1, 128, True),
+    (1, 50, 80, 8, 2, 64, True),
+    (2, 77, 140, 24, 8, 64, False),
+]
+# each gradient's relative L2 error and largest element error over its
+# largest element (chip_smoke.py's BWD_L2_RTOL / BWD_MAX_RTOL): against the
+# plain backward the bf16 rounding of p and ds (up to 2^-9 a product term)
+# and of the outputs; against the tiled mirror only ex2.approx and the
+# order of fp32 sums remain, with the rounding flips they cause
+BWD_TOL = {"plain": (0.01, 0.02), "mirror": (0.004, 0.01)}
+
+
+def _bwd_within(got, want, tol):
+    l2, worst = tol
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        assert float((a - b).norm() / b.norm()) <= l2, name
+        assert float((a - b).abs().max() / b.abs().max()) <= worst, name
+
+
+def _bwd_inputs(seed, B, Tq, Tk, H, KV, D, causal):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv(seed, B, Tq, Tk, H, KV, D, torch.bfloat16)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                     device="cuda").to(torch.bfloat16)
+    out, lse = FA.flash_attention_op(q, k, v, None, causal, 0, True, 512, 1024)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c).replace(" ", "") for c in BWD_CASES])
+def test_cuda_backward_kernel_matches_plain_and_mirror(card, full_fp32, case):
+    """The backward kernels against the plain backward and their tiled
+    mirror; a second run gives the same bits; each kernel launched once
+    (the reduce only where the dK / dV rows are split)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal = case
+    q, k, v, out, lse, do = _bwd_inputs(Tq + H, *case)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
+    torch.cuda.synchronize()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = FA.backward_splits(B, Tq, Tk, H, KV, n_sm)
+    want = {key: 0 for key in FA.LAUNCHES}
+    want.update(flash_attention_backward=1, flash_attention_backward_rowstat=1,
+                flash_attention_backward_dkdv=1, flash_attention_backward_dq=1,
+                flash_attention_backward_reduce=int(splits > 1))
+    assert FA.LAUNCHES == want
+    assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == 0
+    again = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_within(got, FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal),
+                BWD_TOL["plain"])
+    _bwd_within(got, FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do,
+                                                             causal=causal, splits=splits),
+                BWD_TOL["mirror"])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_cuda_backward_kernel_at_each_split_count(card, full_fp32, monkeypatch, splits):
+    """The dK / dV kernel cut in 1 to 8 runs of row tiles (the wrapper's
+    choice replaced): each within the mirror at the same count, and the
+    counts within bf16 round-off of one another."""
+    from repro_torch.kernels import flash_attention as FA
+
+    case = (1, 200, 200, 16, 2, 128, True)
+    q, k, v, out, lse, do = _bwd_inputs(5, *case)
+    monkeypatch.setattr(FA, "backward_splits", lambda *a, **kw: splits)
+    before = FA.LAUNCHES["flash_attention_backward_reduce"]
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)
+    assert FA.LAUNCHES["flash_attention_backward_reduce"] == before + int(splits > 1)
+    assert got[3].numel() == FA.backward_workspace(1, 200, 200, 16, 2, 128, splits)
+    _bwd_within(got[:3], FA.flash_attention_backward_tiled_plain(
+        q, k, v, out, lse, do, causal=True, splits=splits), BWD_TOL["mirror"])
+    _bwd_within(got[:3], FA.flash_attention_backward_plain(q, k, v, out, lse, do),
+                BWD_TOL["plain"])
+
+
+def test_cuda_backward_kernel_refuses_what_it_does_not_take(card):
+    """float32, a head dim off 64 / 128, a non-contiguous output gradient:
+    the launch raises, it never runs the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v, out, lse, do = _bwd_inputs(3, 1, 40, 40, 4, 2, 64, True)
+    plain = FA.PLAIN_CUDA_CALLS["flash_attention_backward"]
+    with pytest.raises(ValueError):
+        FA._launch_backward(q.float(), k.float(), v.float(), out.float(), lse, do.float(), True)
+    with pytest.raises(ValueError):
+        FA._launch_backward(q[..., :50].contiguous(), k[..., :50].contiguous(),
+                            v[..., :50].contiguous(), out[..., :50].contiguous(), lse,
+                            do[..., :50].contiguous(), True)
+    with pytest.raises(ValueError):
+        FA._launch_backward(q, k, v, out, lse, do.transpose(1, 2).contiguous().transpose(1, 2),
+                            True)
+    assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == plain
 
 
 @pytest.mark.parametrize("dtype,Tq", [(torch.bfloat16, 50), (torch.float32, 50),

@@ -1,0 +1,235 @@
+"""K4's training backward on the CPU: the tiled mirror of the backward
+kernels (``csrc/flash_backward.cu``), the route that picks them, and the
+registered op ``repro_torch::flash_attention_backward`` over fake tensors.
+
+The kernels run only on the card (``tests/test_torch_cuda.py`` holds them
+against both plain versions there).  Here:
+
+* :func:`flash_attention_backward_tiled_plain`, the kernels' arithmetic
+  (64-row and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their
+  products, the kernels' order of sums), on bf16 inputs against
+  ``jax.vjp`` of the reference's ``layers.flash_attention`` (its custom
+  VJP, ``_flash_train_bwd``, which keeps ``p`` and ``ds`` in float32):
+  each gradient within ``BF16_L2`` relative L2 error and ``BF16_MAX`` of
+  its largest element (each product term moves by up to 2^-9 where ``p``
+  or ``ds`` is rounded, and the bf16 outputs by as much);
+* the same mirror with the rounding off, float32 throughout, against
+  :func:`flash_attention_backward_plain` within ``rtol=1e-5,
+  atol=1e-6`` (the same products, summed in another order);
+* :func:`backward_route` for the dtype and head dim of every arch the
+  port trains, and the op traced over fake CUDA tensors: shapes, the
+  workspace :func:`backward_workspace` gives, FLOPs ``10 B H D
+  causal_pairs``; ``FlashAttentionFn``'s backward through it over fake
+  tensors.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.utils._python_dispatch
+
+from repro.models import layers as jlayers
+from repro_torch.kernels import flash_attention as FA
+
+BF16_L2, BF16_MAX = 0.01, 0.02
+
+# (B, T, H, KV, D, causal): D 64 and 128, narrow and ragged T, G 1, 3, 16
+CASES = [
+    (1, 16, 16, 1, 128, True),
+    (2, 37, 3, 1, 64, True),
+    (1, 37, 16, 1, 64, False),
+    (2, 37, 6, 2, 128, True),
+    (1, 70, 3, 3, 64, True),
+    (2, 23, 48, 3, 64, False),
+]
+
+
+def _inputs(case):
+    B, T, H, KV, D, _ = case
+    rng = np.random.default_rng(T * 131 + H * 7 + D)
+    q, do = (rng.standard_normal((B, T, H, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, T, KV, D)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def _rel(got: torch.Tensor, want: np.ndarray):
+    a, b = got.float().numpy(), np.asarray(want, dtype=np.float32)
+    return (float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+            float(np.abs(a - b).max() / np.abs(b).max()))
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c).replace(" ", "") for c in CASES])
+def test_tiled_mirror_bf16_matches_reference_vjp(case):
+    B, T, H, KV, D, causal = case
+    q, k, v, do = _inputs(case)
+
+    def f(a, b, c):
+        return jlayers.flash_attention(a, b, c, causal=causal)
+
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v, do))
+    _, vjp = jax.vjp(f, jq, jk, jv)
+    wants = vjp(jdo)
+    tq, tk, tv, tdo = (_bf16(a) for a in (q, k, v, do))
+    out, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = FA.flash_attention_backward_tiled_plain(tq, tk, tv, out, lse, tdo, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, wants):
+        assert g.dtype == torch.bfloat16
+        l2, worst = _rel(g, np.asarray(w.astype(jnp.float32)))
+        assert l2 <= BF16_L2 and worst <= BF16_MAX, (name, l2, worst)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("case", CASES[1:4], ids=[str(c).replace(" ", "") for c in CASES[1:4]])
+def test_tiled_mirror_unrounded_is_the_plain_backward(case, splits):
+    B, T, H, KV, D, causal = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
+    out, lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    want = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal,
+                                             block_q=16, block_kv=32)
+    got = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=causal,
+                                                  splits=splits, rounding=False)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_tiled_mirror_with_more_keys_than_queries():
+    """Tk > Tq (no cache: the queries sit at positions 0 .. Tq - 1), causal
+    and not: the keys no query sees get zero gradients."""
+    rng = np.random.default_rng(3)
+    q, do = (torch.from_numpy(rng.standard_normal((2, 30, 4, 64)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 90, 2, 64)).astype(np.float32))
+            for _ in range(2))
+    for causal in (True, False):
+        out, lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        want = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal)
+        got = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=causal,
+                                                      rounding=False)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        if causal:
+            assert float(got[1][:, 30:].abs().max()) == 0.0
+            assert float(got[2][:, 30:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("arch,route", [
+    ("glm4-9b", "kernel"), ("granite-moe-3b-a800m", "kernel"), ("llama3-405b", "kernel"),
+    ("yi-9b", "kernel"), ("moonshot-v1-16b-a3b", "kernel"), ("sasrec", "plain"),
+    ("lm-100m", "plain"),
+])
+def test_backward_route_of_each_trained_arch(arch, route):
+    from repro_torch.models.transformer import torch_dtype
+
+    if arch == "lm-100m":
+        from repro_torch.launch.train_lm import model_100m
+
+        cfg = model_100m(log=lambda line: None)
+        dtype, D = torch_dtype(cfg.dtype), cfg.resolved_head_dim
+    elif arch == "sasrec":
+        from repro_torch.configs import sasrec
+
+        dtype, D = torch_dtype(sasrec.CONFIG.dtype), sasrec.CONFIG.d
+    else:
+        from repro_torch.configs import registry
+
+        cfg = registry.get_arch(arch).CONFIG
+        dtype, D = torch_dtype(cfg.dtype), cfg.resolved_head_dim
+    assert FA.backward_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "kernel"), (torch.bfloat16, 128, "kernel"),
+    (torch.bfloat16, 50, "plain"), (torch.bfloat16, 96, "plain"),
+    (torch.float32, 64, "plain"), (torch.float32, 128, "plain"), (torch.float16, 64, "plain"),
+])
+def test_backward_route_by_dtype_and_head_dim(dtype, D, route):
+    assert FA.backward_route(dtype, D) == route
+
+
+def test_backward_splits_and_workspace_at_the_training_shapes():
+    # glm4-9b: 64 key tiles x 2 kv heads = 128 blocks, three an SM take 4 runs
+    assert FA.backward_splits(1, 4096, 4096, 32, 2) == 4
+    # granite: 64 x 8 = 512 blocks, 1 run
+    assert FA.backward_splits(1, 4096, 4096, 24, 8) == 1
+    # never more runs than row tiles, nor than 8; at least 1
+    assert FA.backward_splits(1, 10, 10, 2, 2) == 1
+    assert FA.backward_splits(1, 2048, 2048, 64, 1) == 8
+    assert FA.backward_splits(64, 4096, 4096, 32, 8) == 1
+    rows = 4096 * 16
+    assert FA.backward_workspace(1, 4096, 4096, 32, 2, 128, 5) == (
+        2 * 2 * rows + 2 * 5 * 4096 * 2 * 128)
+    assert FA.backward_workspace(2, 37, 37, 6, 2, 64, 1) == 2 * 2 * 2 * 128
+
+
+@pytest.mark.parametrize("case", [(1, 4096, 32, 2, 128, True), (2, 37, 6, 2, 64, True),
+                                  (3, 50, 24, 8, 64, False)])
+def test_backward_op_fake_shapes_workspace_and_flops(case):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    B, T, H, KV, D, causal = case
+    with FakeTensorMode():
+        q = torch.empty(B, T, H, D, dtype=torch.bfloat16, device="cuda")
+        k = torch.empty(B, T, KV, D, dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(B, T, H, dtype=torch.float32, device="cuda")
+        with FlopCounterMode(display=False) as fc:
+            dq, dk, dv, work = FA.flash_attention_backward_op(q, k, k, q, lse, q, causal,
+                                                               512, 1024)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert {t.dtype for t in (dq, dk, dv)} == {torch.bfloat16}
+    assert dq.device.type == "cuda" and work.dtype == torch.float32
+    splits = FA.backward_splits(B, T, T, H, KV)
+    assert work.numel() == FA.backward_workspace(B, T, T, H, KV, D, splits)
+    assert fc.get_total_flops() == 10 * B * H * D * FA.causal_pairs(T, T, 0, causal)
+
+
+def test_backward_op_on_the_cpu_is_the_plain_version_bit_for_bit():
+    rng = np.random.default_rng(4)
+    q, do = (torch.from_numpy(rng.standard_normal((2, 9, 4, 64)).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 9, 2, 64)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    out, lse = FA.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    dq, dk, dv, work = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 4, 8)
+    want = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=True, block_q=4,
+                                             block_kv=8)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), want))
+    assert work.shape == (0,)
+
+
+@pytest.mark.parametrize("dtype,D,through_op", [(torch.bfloat16, 128, True),
+                                                (torch.bfloat16, 64, True),
+                                                (torch.bfloat16, 50, False),
+                                                (torch.float32, 64, False)])
+def test_training_backward_goes_through_the_route(dtype, D, through_op):
+    """``FlashAttentionFn``'s backward over fake tensors (a dry-run's trace;
+    fake CPU tensors, since autograd's engine needs a card for fake CUDA
+    ones): the kernels' op where the route says so, counted at the FLOP
+    formula; the plain backward's einsums otherwise."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    B, T, H, KV = 1, 96, 6, 2
+    ops = []
+
+    class Record(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func._overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    with FakeTensorMode():
+        q = torch.empty(B, T, H, D, dtype=dtype, requires_grad=True)
+        k = torch.empty(B, T, KV, D, dtype=dtype, requires_grad=True)
+        v = torch.empty(B, T, KV, D, dtype=dtype, requires_grad=True)
+        out = FA.flash_attention(q, k, v, causal=True)
+        with FlopCounterMode(display=False) as fc, Record():
+            out.backward(torch.ones_like(out))
+        assert q.grad.shape == q.shape and k.grad.shape == k.shape
+    assert ("repro_torch.flash_attention_backward" in ops) == through_op
+    if through_op:
+        assert fc.get_total_flops() == 10 * B * H * D * FA.causal_pairs(T, T, 0, True)
