@@ -168,16 +168,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gradient norm equal those through the plain attention (plain forward
    and backward) within ``TRAIN_RTOL``; K4's prefill kernel with lse
    launches exactly layers x microbatches x 2 (the remat recompute) a
-   step, K4's backward kernels (``csrc/flash_backward.cu``: row
-   statistics, dK / dV, dQ and, where the dK / dV rows are split, the
+   step, K4's backward kernels (``csrc/flash_backward.cu``'s long route:
+   row statistics, dK / dV, dQ and, where the dK / dV rows are split, the
    reduce) exactly layers x microbatches each, no other K4 kernel, no
    plain forward and no plain backward; the params are
    unchanged by step 0 (the schedule's lr is 0 there) and move at step
    1; one more step is profiled and its device time split by the port's
    profiler ranges (the plain attention backward, the optimizer), K4,
    GEMMs and the rest.  SASRec at ``CONFIG`` (1,000,000 items):
-   ``train_batch`` (65,536) for ``TRAIN_STEPS`` steps (one lse launch per
-   block a step), ``serve_p99`` and ``serve_bulk`` (262,144 users,
+   ``train_batch`` (65,536) for ``TRAIN_STEPS`` steps (one lse launch and
+   one backward through the short route's kernel per block a step, the
+   plain backward never), ``serve_p99`` and ``serve_bulk`` (262,144 users,
    ``batch_chunk`` 4096; one prefill launch per block), their first and
    last 64 users scored alone within ``REC_RTOL``, and ``retrieval_cand``
    (every item a candidate: its best score is ``score_all``'s top 1).
@@ -194,8 +195,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    SASRec's 65,536 rows, which that op refuses in one call, the sum of
    the fewest equal batch parts it takes, timed back to back), and K4's
    row at ``serve_bulk``'s attention (262,144 sequences, no lse) against
-   SDPA in the fewest equal batch parts it takes.  Then K4's backward row
-   at glm4-9b's training shape (``k4_backward_row``): the kernels'
+   SDPA in the fewest equal batch parts it takes.  Then K4's backward rows
+   at glm4-9b's training shape (the long route) and SASRec's (the short
+   route) (``k4_backward_row``): the kernels'
    ``dq``, ``dk``, ``dv`` against the plain backward and the tiled
    mirror of their arithmetic within ``BWD_L2_RTOL`` / ``BWD_MAX_RTOL``,
    two runs bit for bit, the same check refusing the gradients under
@@ -3171,14 +3173,18 @@ BWD_MAX_RTOL = {"plain": 0.02, "mirror": 0.01}
 # reference's custom-VJP backward (XLA code; no Pallas kernel)
 BWD_REFERENCE = "src/repro/models/layers.py:195"
 # faults planted at the backward's launch for one run each, which the
-# row's check must refuse: (the module attribute replaced, its wrapper)
+# row's check must refuse: (the module attribute replaced, its wrapper).
+# kv_misrouted reverses the kv heads, or with one kv head (SASRec's) moves
+# each sequence's keys to the next batch row; delta_zeroed runs the
+# kernels on a zero forward output, so that delta = rowsum(do o) is 0
 BACKWARD_PLANTS = {
     "no_causal_mask": ("_launch_backward", lambda f: lambda q, k, v, o, lse, do, causal: f(
         q, k, v, o, lse, do, False)),
-    "kv_heads_reversed": ("_launch_backward", lambda f: lambda q, k, v, o, lse, do, causal: f(
-        q, k.flip(2).contiguous(), v.flip(2).contiguous(), o, lse, do, causal)),
-    "delta_zeroed": ("_backward_rowstats", lambda f: lambda *a: (
-        lambda stats: (stats[0], stats[1].zero_()))(f(*a))),
+    "kv_misrouted": ("_launch_backward", lambda f: lambda q, k, v, o, lse, do, causal: f(
+        q, *((t.flip(2) if t.shape[2] > 1 else t.roll(1, 0)).contiguous() for t in (k, v)),
+        o, lse, do, causal)),
+    "delta_zeroed": ("_launch_backward", lambda f: lambda q, k, v, o, lse, do, causal: f(
+        q, k, v, o.new_zeros(o.shape), lse, do, causal)),
 }
 
 
@@ -3311,11 +3317,15 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
     each fault of ``BACKWARD_PLANTS``; timed against its bound (10 B H D
     causal pairs FLOPs at the bf16 tensor-core rate, or its bytes), the
     plain backward, and ``aten._scaled_dot_product_flash_attention_backward``
-    on the same output and lse (k / v repeated over the group; the
-    library's dK / dV summed back over each group only for the logged
-    comparison).  ``launches`` are the training run's backward calls,
+    on the same output and lse (k / v repeated over the group, D padded to
+    a multiple of 8 with zeros: scores, outputs and the gradients' first D
+    dims unchanged; the library's dK / dV summed back over each group only
+    for the logged comparison), in one call over the batch or the fewest
+    equal batch parts the op takes (``LIBRARY_PARTS``), timed back to back
+    as one call.  ``launches`` are the training run's backward calls,
     ``per_step`` a step's.  Launches made here do not count."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
 
@@ -3365,44 +3375,55 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
     FA.PLAIN_CUDA_CALLS.update(before[1])
 
     scale = 1.0 / math.sqrt(D)
-    qs, ks, vs, dos, outs = (t.transpose(1, 2).contiguous() for t in (
+    pad = (-D) % 8
+    qs, ks, vs, dos, outs = (F.pad(t.transpose(1, 2), (0, pad)).contiguous() for t in (
         q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2), do, out))
-    library_ms, library_note, library_err = None, None, None
-    try:
-        fwd = torch.ops.aten._scaled_dot_product_flash_attention(qs, ks, vs, 0.0, True, False,
-                                                                 scale=scale)
-        lse_t = lse.transpose(1, 2).contiguous()
-        if tuple(fwd[1].shape) == tuple(lse_t.shape):
-            o_lib, lse_lib = outs, lse_t
-            library_note = "K4's out and lse"
-        else:
-            o_lib, lse_lib = fwd[0], fwd[1]
-            library_note = f"the library's own out and lse {tuple(fwd[1].shape)}"
+    lse_t = lse.transpose(1, 2).contiguous()
+    library_ms, library_note, library_err, library_parts = None, None, None, None
+    for parts in LIBRARY_PARTS:
+        size = -(-B // parts)
+        bounds = [(lo, min(B, lo + size)) for lo in range(0, B, size)]
+        try:
+            calls = []
+            for lo, hi in bounds:
+                fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+                    qs[lo:hi], ks[lo:hi], vs[lo:hi], 0.0, True, False, scale=scale)
+                same = tuple(fwd[1].shape) == tuple(lse_t[lo:hi].shape)
+                calls.append((lo, hi, fwd, outs[lo:hi] if same else fwd[0],
+                              lse_t[lo:hi] if same else fwd[1]))
+            library_note = ("K4's out and lse" if same else
+                            f"the library's own out and lse {tuple(fwd[1].shape)}")
 
-        def library():
-            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                dos, qs, ks, vs, o_lib, lse_lib, fwd[2], fwd[3], fwd[4], fwd[5], 0.0, True,
-                fwd[6], fwd[7], scale=scale)
+            def library():
+                return [torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                    dos[lo:hi], qs[lo:hi], ks[lo:hi], vs[lo:hi], o_lib, lse_lib, f[2], f[3],
+                    f[4], f[5], 0.0, True, f[6], f[7], scale=scale)
+                    for lo, hi, f, o_lib, lse_lib in calls]
 
-        lib = library()
-        torch.cuda.synchronize()
-        lib_grads = (lib[0].transpose(1, 2),
-                     lib[1].transpose(1, 2).reshape(B, T, KV, G, D).float().sum(3),
-                     lib[2].transpose(1, 2).reshape(B, T, KV, G, D).float().sum(3))
+            lib = library()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:  # the library's own limits
+            library_note = str(e).splitlines()[0][:200]
+            log(f"{name}: the library backward refuses {size} batch rows: {library_note}")
+            continue
+        lib_grads = [torch.cat([r[i] for r in lib])[..., :D].transpose(1, 2) for i in range(3)]
+        lib_grads[1:] = [g.reshape(B, T, KV, G, D).float().sum(3) for g in lib_grads[1:]]
         library_err = [float((a.float() - b.float()).abs().max()) for a, b in
                        zip(lib_grads, plain)]
         del lib, lib_grads
         library_ms = time_ms(library, reps)
-    except (RuntimeError, NotImplementedError) as e:  # the library's own limits
-        library_note = str(e).splitlines()[0][:200]
-    del qs, ks, vs, dos, outs
+        library_parts = parts
+        del calls
+        break
+    del qs, ks, vs, dos, outs, lse_t
     n_bytes = nbytes(q, k, v, out, lse, do, *got)
     n_ops = 10 * B * H * D * FA.causal_pairs(T, T, 0, True)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_OPS_PER_S * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.6f} by {b_by}, SDPA "
-        f"backward {library_ms} on {library_note}, max abs diff to plain {library_err}), "
-        f"{splits} splits, {launches} calls in the training runs ({per_step} a step)")
+        f"backward {library_ms} in {library_parts} part(s) on {library_note}, max abs diff "
+        f"to plain {library_err}), {splits} splits, {launches} calls in the training runs "
+        f"({per_step} a step)")
     return {
         "name": name, "route": "cuda", "source": f"{CSRC}/flash_backward.cu",
         "replaces": BWD_REFERENCE, "launches": launches, "max_abs_err": max_abs_err,
@@ -3412,8 +3433,9 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
                   "launches_per_step": per_step, "errors": errors, "bits_repeat": repeats,
                   "planted": planted, "l2_rtol": BWD_L2_RTOL, "max_rtol": BWD_MAX_RTOL,
                   "library": "sdpa_flash_backward", "library_note": library_note,
+                  "library_parts": library_parts,
                   "library_max_abs_diff_to_plain": library_err, "bytes": n_bytes,
-                  "flops": n_ops},
+                  "flops": n_ops, "route": FA._backward_kernel(q.dtype, q.shape, k.shape)},
     }
 
 
@@ -3421,22 +3443,31 @@ def backward_expect(cfg, batch: int, seq: int, calls: int) -> tuple:
     """The K4-backward launches and plain backward calls on the card that
     ``calls`` attention backwards of an LM at ``batch`` x ``seq`` tokens in
     ``cfg.microbatches`` make: ``({LAUNCHES key: count}, plain calls)``.
-    The kernels' route (``backward_route`` of ``cfg.dtype`` and the head
-    dim: glm4-9b's, granite's) launches each kernel once a call, the
-    reduce only where ``backward_splits`` cuts the dK / dV rows; the plain
-    route (a ``SMOKE`` config's head dim) makes plain calls."""
+    The kernels' routes (``backward_route`` of ``cfg.dtype`` and a
+    microbatch's attention shapes) launch each of their kernels once a
+    call: the long route (glm4-9b's, granite's heads) its row statistics,
+    dK / dV and dQ kernels and, only where ``backward_splits`` cuts the dK
+    / dV rows, the reduce; the short route its one kernel; the plain route
+    (a ``SMOKE`` config's head dim over a long sequence) makes plain
+    calls."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.transformer import torch_dtype
 
-    if FA.backward_route(torch_dtype(cfg.dtype), cfg.resolved_head_dim) != "kernel":
+    hd = cfg.resolved_head_dim
+    rows = batch // cfg.microbatches
+    kernel = FA._backward_kernel(torch_dtype(cfg.dtype), (rows, seq, cfg.n_heads, hd),
+                                 (rows, seq, cfg.n_kv_heads, hd))
+    if kernel is None:
         return {}, calls
+    if kernel == "short":
+        return dict.fromkeys(["flash_attention_backward", "flash_attention_backward_short"],
+                             calls), 0
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     keys = ["flash_attention_backward", "flash_attention_backward_rowstat",
             "flash_attention_backward_dkdv", "flash_attention_backward_dq"]
-    if FA.backward_splits(batch // cfg.microbatches, seq, seq, cfg.n_heads, cfg.n_kv_heads,
-                          n_sm) > 1:
+    if FA.backward_splits(rows, seq, seq, cfg.n_heads, cfg.n_kv_heads, n_sm) > 1:
         keys.append("flash_attention_backward_reduce")
     return dict.fromkeys(keys, calls), 0
 
@@ -3679,11 +3710,18 @@ def rec_training(args) -> dict:
         state, m = step_fn(state, batch)
         losses.append(float(m["loss"]))
         step_s.append(time.perf_counter() - t)
-    train_launches = dict(FA.LAUNCHES)
+    train_launches, train_plain = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"SASRec losses {losses}")
-    if train_launches["flash_attention_prefill_lse"] != TRAIN_STEPS * cfg.n_blocks:
-        raise AssertionError(f"SASRec training K4 launches {train_launches}")
+    # one forward with lse and one backward through the short route's
+    # kernel a block and a step, the plain backward never
+    calls = TRAIN_STEPS * cfg.n_blocks
+    if (train_launches["flash_attention_prefill_lse"] != calls
+            or train_launches["flash_attention_backward"] != calls
+            or train_launches["flash_attention_backward_short"] != calls
+            or train_plain != {"flash_attention": 0, "flash_attention_backward": 0}):
+        raise AssertionError(f"SASRec training K4 launches {train_launches}, plain calls "
+                             f"{train_plain}")
     params = state["params"]
     rng = np.random.default_rng(args.seed)
 
@@ -3691,7 +3729,7 @@ def rec_training(args) -> dict:
         return torch.from_numpy(rng.integers(1, cfg.n_items, (n, cfg.seq_len))).cuda()
 
     out = {"train": {"batch": sizes["train_batch"], "losses": losses, "step_s": step_s,
-                     "k4_launches": train_launches}}
+                     "k4_launches": train_launches, "plain_cuda_calls": train_plain}}
     with torch.no_grad():
         for name, chunk in (("serve_p99", None), ("serve_bulk", 4096)):
             seqs = seqs_of(sizes[name])
@@ -3935,18 +3973,20 @@ def training_phase(args) -> tuple:
     del q, k, v
     rc = sasrec_cfg.CONFIG
     B = 65_536
-    v = randn(B, rc.seq_len, 1, rc.d)
+    q, k, v = (randn(B, rc.seq_len, 1, rc.d) for _ in range(3))
     # A SASRec row averages at most 50 keys, so its output keeps |v|'s
     # size (up to ~6 here) where glm4's late rows average thousands: a p
     # whose bf16 rounding flips between the kernel's exp2 and the plain
     # exp moves the output by up to one bf16 step of p (2^-8 relative)
     # times max |v|, which K4_BF16_ATOL (set at glm4's shape) undercounts.
     # A dropped key tile here changes a whole row by O(|v|).
-    rows.append(k4_lse_row("flash_attention_prefill_lse_sasrec",
-                           randn(B, rc.seq_len, 1, rc.d), randn(B, rc.seq_len, 1, rc.d), v,
-                           rec["sasrec"]["train"]["k4_launches"]["flash_attention_prefill_lse"],
-                           args.reps, atol=2.0 ** -8 * float(v.float().abs().max())))
-    del v
+    sasrec_train = rec["sasrec"]["train"]["k4_launches"]
+    rows += [k4_lse_row("flash_attention_prefill_lse_sasrec", q, k, v,
+                        sasrec_train["flash_attention_prefill_lse"], args.reps,
+                        atol=2.0 ** -8 * float(v.float().abs().max())),
+             k4_backward_row("flash_attention_backward_sasrec", q, k, v,
+                             sasrec_train["flash_attention_backward"], rc.n_blocks, args.reps)]
+    del q, k, v
     # serve_bulk's attention: every user's sequence in one call a block
     # (score_all's batch_chunk cuts only the scoring), no lse
     bulk = rec["sasrec"]["serve_bulk"]

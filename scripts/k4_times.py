@@ -23,14 +23,15 @@ library call.  ``--rows`` picks the rows (default: all):
               262,144 sequences
   backward    the training backward (``csrc/flash_backward.cu``) at
               glm4-9b's training shape, q ``(1, 4096, 32, 128)`` over 2 kv
-              heads, and granite's, q ``(1, 4096, 24, 64)`` over 8:
-              ``chip_smoke.k4_backward_row``; with ``--splits 1,2,...``
-              also the kernels' time at each count of dK / dV row runs
-              (1: no split, the grid only launched longest first); and
-              the plain backward's time at the two training shapes that
-              still run it (``plain_backward_ms``): lm-100m's float32 q
-              ``(4, 128, 8, 64)`` over 4 kv heads and SASRec's bf16 q
-              ``(65536, 50, 1, 50)``
+              heads, and granite's, q ``(1, 4096, 24, 64)`` over 8 (the
+              long route), and SASRec's, q ``(65536, 50, 1, 50)`` (the
+              short route): ``chip_smoke.k4_backward_row``; with
+              ``--splits 1,2,...`` also the long route's time at each
+              count of row runs a key tile (1: no split, the items only
+              claimed longest first); and the plain backward's time at
+              lm-100m's float32 q ``(4, 128, 8, 64)`` over 4 kv heads, the
+              training shape that still runs it, and at SASRec's, which
+              ran it before the short route (``plain_backward_ms``)
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two versions of the kernels can be
@@ -108,17 +109,26 @@ def backward_rows(reps: int, seed: int, splits: list) -> list:
     import torch
 
     from repro_torch.configs import registry
+    from repro_torch.configs import sasrec as sasrec_cfg
     from repro_torch.kernels import flash_attention as FA
 
+    rc = sasrec_cfg.CONFIG
+    shapes = [(registry.get_arch(arch).CONFIG, 1, 4096, name) for arch, name in (
+        ("glm4-9b", "flash_attention_backward"),
+        ("granite-moe-3b-a800m", "flash_attention_backward_granite"))]
     rows = []
-    for arch, name in (("glm4-9b", "flash_attention_backward"),
-                       ("granite-moe-3b-a800m", "flash_attention_backward_granite")):
-        cfg = registry.get_arch(arch).CONFIG
+    for cfg, B, T, name in shapes + [(None, 65_536, rc.seq_len,
+                                      "flash_attention_backward_sasrec")]:
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        hd = cfg.resolved_head_dim
-        q, k, v = (torch.randn((1, 4096, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
-                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        heads = (cfg.n_heads, cfg.n_kv_heads) if cfg else (1, 1)
+        hd = cfg.resolved_head_dim if cfg else rc.d
+        q, k, v = (torch.randn((B, T, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (heads[0], heads[1], heads[1]))
         row = chip_smoke.k4_backward_row(name, q, k, v, 0, 0, reps)
+        if cfg is None:   # the short route has no runs
+            rows.append(row)
+            del q, k, v
+            continue
         out, lse = FA.flash_attention_op(q, k, v, None, True, 0, True, 512, 1024)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         chosen = FA.backward_splits
@@ -209,7 +219,7 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     shape_keys = ("warm_ms", "bf16_excess_over_rtol", "excess_over_rtol", "lse_max_abs_err",
                   "plan", "library_parts", "splits", "ms_by_splits", "errors", "planted",
-                  "bits_repeat", "library_note")
+                  "bits_repeat", "library_note", "route")
     print(json.dumps({"src": os.path.relpath(os.path.abspath(args.src), ROOT),
                       "card": chip_smoke.card_line(), **extra,
                       **{r["name"]: {**{k: r[k] for k in keys},

@@ -72,6 +72,7 @@ LIBRARIES = {
     "flash_backward": (
         "flash_backward.cu",
         {
+            "flash_backward_short_launch": [_P] * 9 + [_L] + [_I] * 4 + [_F, _I, _P],
             "flash_backward_rowstat_launch": [_P] * 5 + [_I] * 6 + [_P],
             "flash_backward_dkdv_launch": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
             "flash_backward_dq_launch": [_P] * 7 + [_I] * 7 + [_F, _I, _P],

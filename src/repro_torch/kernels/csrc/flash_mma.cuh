@@ -1,5 +1,6 @@
 // Shared pieces of the bf16 tensor-core attention kernels (sm_90a):
-// flash_prefill.cu (K4 at Tq > 1) and flash_decode.cu (K4 at Tq == 1).
+// flash_prefill.cu (K4 at Tq > 1), flash_decode.cu (K4 at Tq == 1) and
+// flash_backward.cu (K4's training backward).
 //
 // Both stage Q once and K/V tiles of BKV = 64 keys in shared memory as
 // bf16, row-major [row][dim] with a padded row stride of DP + 8 elements
@@ -25,6 +26,11 @@
 //   pv_tile        O += P.V with the bf16 p as the A fragment and V through
 //                  ldmatrix.trans; each V fragment feeds all MT m-tiles.
 // Scores, maxima and sums stay in fp32, as in the reference.
+//
+// Rows that are not 16-byte aligned (a head dim that is not a multiple of
+// 8: SASRec's D = 50 is a 100-byte row) are staged in two steps: a raw
+// copy of the bytes' 16-byte-aligned cover (cover_copy, 16-byte cp.async
+// only), then a re-lay into the padded rows in shared memory (relay_rows).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -134,6 +140,58 @@ __device__ __forceinline__ void zero_pad_columns(__nv_bfloat16* dst, int rows, i
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
   for (int e = tid; e < rows * width; e += nthreads)
     dst[(e / width) * T::DS + D + e % width] = zero;
+}
+
+// Raw copy of the n_bytes at src (2-byte aligned) in 16-byte cp.async
+// copies of its 16-byte-aligned cover: the bytes land at buf + (src & 15)
+// on; the last copy reads only up to src + n_bytes.  Called by `nthreads`
+// threads, thread `tid`.
+__device__ __forceinline__ void cover_copy(unsigned char* buf, const void* src, int n_bytes,
+                                           int tid, int nthreads) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a0 = s & ~uintptr_t(15), end = s + uintptr_t(n_bytes);
+  const int chunks = static_cast<int>((end - a0 + 15) >> 4);
+  for (int c = tid; c < chunks; c += nthreads) {
+    const uintptr_t p = a0 + 16 * uintptr_t(c);
+    cp_async16(buf + 16 * c, reinterpret_cast<const void*>(p),
+               static_cast<int>(end - p < 16 ? end - p : 16));
+  }
+}
+
+// Re-lay `rows` raw rows into a padded [row][DS] tile, 16 bytes (8
+// elements) a thread and a step: row r's D elements start at byte
+// row_off(r) of buf (-1: a zero row); columns D .. DP-1 are written as
+// zeros.  4-byte shared loads where the row's offset is 4-byte aligned
+// (every row at SASRec's shape), 2-byte ones otherwise.  nthreads: a
+// multiple of DP / 8.
+template <int DP, typename RowOff>
+__device__ __forceinline__ void relay_rows(__nv_bfloat16* dst, const unsigned char* buf,
+                                           int rows, RowOff row_off, int D, int tid,
+                                           int nthreads) {
+  constexpr int CH = DP / 8;          // 16-byte chunks a padded row
+  const int e0 = 8 * (tid % CH);      // this thread's first element of a row
+  for (int r = tid / CH; r < rows; r += nthreads / CH) {
+    const int off = row_off(r);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (off >= 0 && e0 < D) {
+      if ((off & 3) == 0) {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(buf + off + 2 * e0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + 2 * j;
+          if (e < D) w[j] = e + 1 < D ? src[j] : src[j] & 0xffffu;
+        }
+      } else {
+        const uint16_t* src = reinterpret_cast<const uint16_t*>(buf + off + 2 * e0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = e0 + 2 * j;
+          if (e < D) w[j] = src[2 * j] | (e + 1 < D ? uint32_t(src[2 * j + 1]) << 16 : 0u);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * Tile<DP>::DS + e0) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // The online-softmax state of one warp's MT m-tiles, per lane: rows g and

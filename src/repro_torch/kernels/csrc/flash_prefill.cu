@@ -104,21 +104,6 @@ constexpr size_t smem_bytes(bool relay) {
   return size_t(2) * (ROWS + 4 * BKV + (relay ? ROWS : 0)) * Tile<DP>::DS;
 }
 
-// Raw copy of the n_bytes at src (2-byte aligned) in 16-byte cp.async
-// copies of its 16-byte-aligned cover: the bytes land at buf + (src & 15)
-// on; the last copy reads only up to src + n_bytes.
-__device__ __forceinline__ void cover_copy(unsigned char* buf, const void* src, int n_bytes,
-                                           int tid) {
-  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t a0 = s & ~uintptr_t(15), end = s + uintptr_t(n_bytes);
-  const int chunks = static_cast<int>((end - a0 + 15) >> 4);
-  for (int c = tid; c < chunks; c += THREADS) {
-    const uintptr_t p = a0 + 16 * uintptr_t(c);
-    cp_async16(buf + 16 * c, reinterpret_cast<const void*>(p),
-               static_cast<int>(end - p < 16 ? end - p : 16));
-  }
-}
-
 // Row by row: row r's cover (D elements from row_src(r), nothing where
 // that is null) at buf + r * RS.
 template <int DP, typename RowSrc>
@@ -135,40 +120,6 @@ __device__ __forceinline__ void copy_row_covers(unsigned char* buf, int rows, Ro
     if (p < end)
       cp_async16(buf + r * RS + 16 * c, reinterpret_cast<const void*>(p),
                  static_cast<int>(end - p < 16 ? end - p : 16));
-  }
-}
-
-// Re-lay `rows` raw rows into a padded [row][DS] tile, 16 bytes (8
-// elements) a thread and a step: row r's D elements start at byte
-// row_off(r) of buf (-1: a zero row); columns D .. DP-1 are written as
-// zeros.  4-byte shared loads where the row's offset is 4-byte aligned
-// (every row at SASRec's shape), 2-byte ones otherwise.
-template <int DP, typename RowOff>
-__device__ __forceinline__ void relay_rows(__nv_bfloat16* dst, const unsigned char* buf,
-                                           int rows, RowOff row_off, int D, int tid) {
-  constexpr int CH = DP / 8;          // 16-byte chunks a padded row
-  const int e0 = 8 * (tid % CH);      // this thread's first element of a row
-  for (int r = tid / CH; r < rows; r += THREADS / CH) {
-    const int off = row_off(r);
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (off >= 0 && e0 < D) {
-      if ((off & 3) == 0) {
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(buf + off + 2 * e0);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = e0 + 2 * j;
-          if (e < D) w[j] = e + 1 < D ? src[j] : src[j] & 0xffffu;
-        }
-      } else {
-        const uint16_t* src = reinterpret_cast<const uint16_t*>(buf + off + 2 * e0);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = e0 + 2 * j;
-          if (e < D) w[j] = src[2 * j] | (e + 1 < D ? uint32_t(src[2 * j + 1]) << 16 : 0u);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * Tile<DP>::DS + e0) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
@@ -360,7 +311,7 @@ __global__ void __launch_bounds__(THREADS, RELAY && DP == 64 ? 3 : 2)
   const __nv_bfloat16* q_first = q + first_row * D;
   const int q_mem = pack > 1 ? n_seq * seq_rows : min(bq, Tq - t0) * G;
   auto copy_q_raw = [&]() {
-    if (staging == STAGE_SLAB) cover_copy(raw_q, q_first, 2 * q_mem * D, tid);
+    if (staging == STAGE_SLAB) cover_copy(raw_q, q_first, 2 * q_mem * D, tid, THREADS);
     else copy_row_covers<DP>(raw_q, ROWS, q_src, D, tid);
   };
   auto relay_q = [&]() {
@@ -370,7 +321,7 @@ __global__ void __launch_bounds__(THREADS, RELAY && DP == 64 ? 3 : 2)
         return row_at[r] >= 0 ? head + 2 * static_cast<int>(row_at[r] - first_row) * D : -1;
       const __nv_bfloat16* src = q_src(r);
       return src != nullptr ? r * RS + head_of(src) : -1;
-    }, D, tid);
+    }, D, tid, THREADS);
   };
   auto copy_kv_raw = [&](int tile) {
     const int k0 = tile * BKV;
@@ -380,7 +331,7 @@ __global__ void __launch_bounds__(THREADS, RELAY && DP == 64 ? 3 : 2)
       if (staging == STAGE_SLAB) {
         int r0;
         const int n = tile_rows(k0, r0);
-        cover_copy(buf, head + r0 * key_stride, 2 * n * D, tid);
+        cover_copy(buf, head + r0 * key_stride, 2 * n * D, tid, THREADS);
       } else {
         copy_row_covers<DP>(buf, BKV, [&](int j) { return key_src(head, k0 + j); }, D, tid);
       }
@@ -399,7 +350,7 @@ __global__ void __launch_bounds__(THREADS, RELAY && DP == 64 ? 3 : 2)
         if (m < 0) return -1;
         if (staging == STAGE_ROWS) return j * RS + head_of(head + m * key_stride);
         return slab_head + 2 * (m - r0) * D;
-      }, D, tid);
+      }, D, tid, THREADS);
     }
   };
   // straight staging: 16-byte cp.async into the padded rows

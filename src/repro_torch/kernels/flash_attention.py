@@ -43,20 +43,27 @@ of ``q``, ``k``, ``v`` requiring grad, under grad mode) goes through
 log-sum-exp output (``lse``, natural log, ``+inf`` on a row whose every
 key is masked).  Its backward computes the reference's
 ``_flash_train_bwd`` (XLA code, not a Pallas kernel), by the route
-:func:`backward_route` picks from dtype and head dim:
+:func:`backward_route` picks from dtype and shapes, through the
+registered op ``repro_torch::flash_attention_backward``
+(:func:`flash_attention_backward_op`, ``csrc/flash_backward.cu``) where
+a kernel takes the call:
 
 ========================  ==============================================
-bfloat16, D 64 or 128     ``csrc/flash_backward.cu``, the registered op
-                          ``repro_torch::flash_attention_backward``
-                          (:func:`flash_attention_backward_op`): row
-                          statistics, a dK / dV kernel over key tiles
-                          (its rows cut in :func:`backward_splits` runs,
-                          added in order), a dQ kernel over row tiles;
-                          no float atomics, so the gradients repeat
-                          their bits
-float32, other D, a CPU   :func:`flash_attention_backward_plain`, which
-tensor with data          recomputes ``p`` block by block from ``lse``
+bfloat16, ``Tq == Tk``,   the short route: one launch, each block
+one kv head, ``Tq H <=    taking two whole sequences at a time, each one
+64``, ``D <= 64``         64-row x 64-key tile (SASRec's 50 positions at
+                          D = 50), staged raw and re-laid in shared
+                          memory, the next two in flight meanwhile
+bfloat16, D 64 or 128     the long route: row statistics, a dK / dV
+                          kernel over key tiles (its rows cut in
+                          :func:`backward_splits` runs, added in order),
+                          a dQ kernel over row tiles
+float32, other shapes,    :func:`flash_attention_backward_plain`, which
+a CPU tensor with data    recomputes ``p`` block by block from ``lse``
 ========================  ==============================================
+
+Neither kernel route uses float atomics, so the gradients repeat their
+bits.
 
 A call with a cache that requires grad raises: no call goes through a
 kernel without autograd.
@@ -66,11 +73,12 @@ per attention call; ``flash_attention_prefill``, ``_decode``,
 ``_combine`` and ``_f32`` count each kernel's launches, and
 ``_prefill_lse`` / ``_f32_lse`` the launches that also write ``lse``
 (training's forward).  ``flash_attention_backward`` counts backward
-calls through the kernels, ``_rowstat``, ``_dkdv``, ``_dq`` and
-``_reduce`` (only where the dK / dV rows are split) each kernel's
-launches.  A call of a plain forward on a CUDA tensor (a comparison,
-never the wrapper) adds one to ``PLAIN_CUDA_CALLS['flash_attention']``
-instead, so a run can show that its attention went through the kernels;
+calls through the kernels, ``_short`` the short route's launches, and
+``_rowstat``, ``_dkdv``, ``_dq`` and ``_reduce`` (only where the dK / dV
+rows are split) each long-route kernel's.  A call of a plain forward on
+a CUDA tensor (a comparison, never the wrapper) adds one to
+``PLAIN_CUDA_CALLS['flash_attention']`` instead, so a run can show that
+its attention went through the kernels;
 each plain backward on the card adds one to
 ``PLAIN_CUDA_CALLS['flash_attention_backward']``.
 
@@ -84,8 +92,8 @@ float32 sums and where ``p`` is rounded.
 plain PyTorch (``p`` rounded against each split's running max), and
 :func:`flash_attention_backward_tiled_plain` the backward kernels' (64-row
 and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their products,
-the kernels' order of sums), for the tests and the smoke run; the main
-path never calls them.
+the kernels' order of sums, the short route's included), for the tests
+and the smoke run; the main path never calls them.
 """
 from __future__ import annotations
 
@@ -134,6 +142,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_prefill_lse": 0,
     "flash_attention_f32_lse": 0,
     "flash_attention_backward": 0,
+    "flash_attention_backward_short": 0,
     "flash_attention_backward_rowstat": 0,
     "flash_attention_backward_dkdv": 0,
     "flash_attention_backward_dq": 0,
@@ -150,8 +159,8 @@ _DECODE_ROWS = 16    # query heads per block of the decode kernel
 _PREFILL_ROWS = 128  # query rows a block of the bf16 prefill kernel
 _F32_ROWS = (64, 32, 16)  # query rows a block of the float32 kernel may take
 _LOG2E = 1.4426950408889634
-_BWD_ROWS = 64       # query rows a tile of the backward kernels
-_BWD_HEAD_DIMS = (64, 128)  # the backward kernels' head dims (bf16)
+_BWD_ROWS = 64       # query rows a tile of the backward kernels; the short route's bound
+_BWD_HEAD_DIMS = (64, 128)  # the long backward route's head dims (bf16)
 _BWD_MAX_SPLITS = 8  # runs of row tiles a key tile of the dK / dV kernel is cut in
 
 
@@ -174,15 +183,32 @@ def decode_split(Tk: int, pairs: int, n_sm: int = 132) -> Tuple[int, int]:
     return -(-tiles // per_split), _TILE * per_split
 
 
-def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+def _backward_kernel(dtype: torch.dtype, q_shape, k_shape) -> Optional[str]:
+    """The route of ``csrc/flash_backward.cu`` that takes q of ``q_shape``
+    ``(B, Tq, H, D)`` and k of ``k_shape`` ``(B, Tk, KV, D)``: ``'short'``
+    (bfloat16, ``Tq == Tk``, one kv head, ``Tq H <= 64``, ``D <= 64``: a
+    sequence is one tile), ``'long'`` (bfloat16 at head dim 64 or 128), or
+    None."""
+    B, Tq, H, D = q_shape
+    Tk, KV = k_shape[1], k_shape[2]
+    if dtype != torch.bfloat16 or min(B, Tq, Tk) <= 0:
+        return None
+    if Tq == Tk and KV == 1 and Tq * H <= _BWD_ROWS and D <= _BWD_ROWS:
+        return "short"
+    return "long" if D in _BWD_HEAD_DIMS else None
+
+
+def backward_route(dtype: torch.dtype, q_shape, k_shape) -> str:
     """How :class:`FlashAttentionFn` computes its backward on the card (or
-    over fake tensors): ``'kernel'`` (``csrc/flash_backward.cu``, through
-    :func:`flash_attention_backward_op`) for bfloat16 at head dim 64 or
-    128 (glm4-9b's, granite's, llama3-405b's, yi-9b's, moonshot's heads),
-    else ``'plain'`` (:func:`flash_attention_backward_plain`: float32,
-    lm-100m's; SASRec's D = 50).  A CPU tensor holding data runs the plain
-    version whatever this says."""
-    return "kernel" if dtype == torch.bfloat16 and head_dim in _BWD_HEAD_DIMS else "plain"
+    over fake tensors) for q of ``q_shape`` ``(B, Tq, H, D)`` and k of
+    ``k_shape`` ``(B, Tk, KV, D)``: ``'kernel'`` (``csrc/flash_backward.cu``,
+    through :func:`flash_attention_backward_op`) for bfloat16 where one of
+    its routes takes the shapes (the long route: glm4-9b's, granite's,
+    llama3-405b's, yi-9b's, moonshot's heads; the short route: SASRec's
+    sequences of 50 at D = 50), else ``'plain'``
+    (:func:`flash_attention_backward_plain`: float32, lm-100m's).  A CPU
+    tensor holding data runs the plain version whatever this says."""
+    return "kernel" if _backward_kernel(dtype, q_shape, k_shape) else "plain"
 
 
 def backward_splits(B: int, Tq: int, Tk: int, H: int, KV: int, n_sm: int = 132) -> int:
@@ -203,10 +229,14 @@ def backward_splits(B: int, Tq: int, Tk: int, H: int, KV: int, n_sm: int = 132) 
 
 
 def backward_workspace(B: int, Tq: int, Tk: int, H: int, KV: int, D: int, splits: int) -> int:
-    """float32 elements of the backward kernels' workspace: ``lse2`` and
-    ``delta`` per query row in the kernels' order, padded to whole 64-row
-    tiles (``B x KV x R_pad`` each), then, where ``splits > 1``, the dK and
-    dV partials (``splits x B x Tk x KV x D`` each)."""
+    """float32 elements of the backward kernels' workspace.  The short route
+    (:func:`backward_route`'s, bfloat16 assumed) needs none.  The long
+    route: ``lse2`` and ``delta`` per query row in the kernels' order,
+    padded to whole 64-row tiles (``B x KV x R_pad`` each), then, where
+    ``splits > 1``, the dK and dV partials (``splits x B x Tk x KV x D``
+    each)."""
+    if _backward_kernel(torch.bfloat16, (B, Tq, H, D), (B, Tk, KV, D)) == "short":
+        return 0
     r_pad = -(-Tq * (H // KV) // _BWD_ROWS) * _BWD_ROWS
     n = 2 * B * KV * r_pad
     if splits > 1:
@@ -485,8 +515,10 @@ def flash_attention_backward_tiled_plain(
     sums).  dQ sums over key tiles in order; dK and dV over the row tiles
     of each of ``splits`` runs (default :func:`backward_splits` on an H100)
     in order, the runs' sums then added in order; ``scale`` multiplies dQ
-    and dK after their sums.  For the tests and the smoke run; the main
-    path never calls it."""
+    and dK after their sums.  The short route's order (a sequence is one
+    tile: ``Tq == Tk <= 64``, ``Tq G <= 64``) is the same with one key tile,
+    one row tile and one run: each gradient is one product.  For the tests
+    and the smoke run; the main path never calls it."""
     B, Tq, H, D = q.shape
     _, Tk, KV, _ = k.shape
     G = H // KV
@@ -727,19 +759,21 @@ def _backward_rowstats(lib, out, do, lse, work, KV: int, dev: int, stream):
 
 
 def _launch_backward(q, k, v, out, lse, do, causal: bool):
-    """Launch the backward kernels (``csrc/flash_backward.cu``) on the
-    current stream; returns ``(dq, dk, dv, workspace)``.  bf16 ``q``,
-    ``out``, ``do`` ``(B, Tq, H, D)`` and ``k``, ``v`` ``(B, Tk, KV, D)``,
-    D 64 or 128, float32 ``lse`` ``(B, Tq, H)``, all contiguous on one
-    card; anything else raises."""
+    """Launch the backward kernels (``csrc/flash_backward.cu``) of the route
+    :func:`backward_route` takes on the current stream; returns ``(dq, dk,
+    dv, workspace)``.  bf16 ``q``, ``out``, ``do`` ``(B, Tq, H, D)`` and
+    ``k``, ``v`` ``(B, Tk, KV, D)``, float32 ``lse`` ``(B, Tq, H)``, all
+    contiguous on one card; anything else raises."""
     _check(q, k, v, None)
     if q.device.type != "cuda":
         raise ValueError(f"q lies on {q.device}: the backward kernels run on cuda")
     B, Tq, H, D = q.shape
     _, Tk, KV, _ = k.shape
-    if backward_route(q.dtype, D) != "kernel":
-        raise ValueError(f"the backward kernels take bfloat16 at head_dim {_BWD_HEAD_DIMS}, "
-                         f"got {q.dtype} at {D}")
+    route = _backward_kernel(q.dtype, q.shape, k.shape)
+    if route is None:
+        raise ValueError(f"the backward kernels take bfloat16 at head_dim {_BWD_HEAD_DIMS}, or "
+                         f"Tq == Tk with one kv head, Tq * H <= {_BWD_ROWS} and head_dim <= "
+                         f"{_BWD_ROWS}; got {q.dtype} q {tuple(q.shape)}, k {tuple(k.shape)}")
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
                                   ("lse", lse, (B, Tq, H), torch.float32)):
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
@@ -753,6 +787,14 @@ def _launch_backward(q, k, v, out, lse, do, causal: bool):
     lib = load("flash_backward")
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "short":
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _launched(lib.flash_backward_short_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, H, D,
+            int(bool(causal)), 1.0 / math.sqrt(D), dev, stream), "flash_attention_backward_short")
+        LAUNCHES["flash_attention_backward"] += 1
+        return dq, dk, dv, q.new_empty((0,), dtype=torch.float32)
     splits = backward_splits(B, Tq, Tk, H, KV, _sm_count(dev))
     work = torch.empty(backward_workspace(B, Tq, Tk, H, KV, D, splits), dtype=torch.float32,
                        device=q.device)
@@ -794,9 +836,10 @@ def flash_attention_backward_op(
     """K4's training backward as a registered op,
     ``repro_torch::flash_attention_backward``: ``(dq, dk, dv, workspace)``.
     On a CUDA tensor it launches the backward kernels
-    (:func:`_launch_backward`; ``workspace`` is their float32 row
-    statistics and dK / dV partials, returned so that a trace counts the
-    bytes they hold, :func:`backward_workspace`); on a CPU tensor it is
+    (:func:`_launch_backward`; ``workspace`` is the long route's float32
+    row statistics and dK / dV partials, empty on the short route,
+    returned so that a trace counts the bytes they hold,
+    :func:`backward_workspace`); on a CPU tensor it is
     :func:`flash_attention_backward_plain` with ``block_q`` / ``block_kv``
     and an empty ``(0,)`` workspace.  Its fake implementation gives the
     kernels' shapes, workspace included, and its FLOP formula
@@ -858,9 +901,10 @@ def _flash_backward_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shap
     """FLOPs of one backward call: ``10 · B · H · D`` per (query, key) pair
     that :func:`causal_pairs` counts, the five products of the backward
     (``q·k``, ``do·v``, ``pᵀ·do``, ``dsᵀ·q``, ``ds·k``), two FLOPs per
-    multiply-add each.  The kernels' dQ pass recomputes ``q·k`` and
-    ``do·v``: those two products are not counted, nor are the exponentials
-    and the row sums of ``delta``."""
+    multiply-add each.  The long route's dQ pass recomputes ``q·k`` and
+    ``do·v`` (the short route computes each product once): those two
+    products are not counted, nor are the exponentials and the row sums of
+    ``delta``."""
     B, Tq, H, D = q_shape
     return 10 * B * H * D * causal_pairs(Tq, k_shape[1], 0, causal)
 
@@ -901,7 +945,7 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         causal, block_q, block_kv = ctx.blocks
         with torch.profiler.record_function("repro_torch.flash_attention_backward"):
-            if _runs_plain(q) or backward_route(q.dtype, q.shape[3]) == "plain":
+            if _runs_plain(q) or backward_route(q.dtype, q.shape, k.shape) == "plain":
                 dq, dk, dv = flash_attention_backward_plain(
                     q, k, v, out, lse, do, causal=causal, block_q=block_q, block_kv=block_kv)
             else:

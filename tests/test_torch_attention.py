@@ -217,6 +217,7 @@ def test_wrapper_counts_every_kernel_key_at_zero_on_cpu():
                                "flash_attention_decode", "flash_attention_combine",
                                "flash_attention_f32", "flash_attention_prefill_lse",
                                "flash_attention_f32_lse", "flash_attention_backward",
+                               "flash_attention_backward_short",
                                "flash_attention_backward_rowstat",
                                "flash_attention_backward_dkdv",
                                "flash_attention_backward_dq",

@@ -752,9 +752,11 @@ def test_cuda_flash_backward_bf16_against_float32(card, full_fp32):
         assert float((got - want).abs().max()) < 0.05 * float(want.abs().max())
 
 
-# (B, Tq, Tk, H, KV, D, causal): glm4-9b's and granite's groups at short
-# and ragged lengths, G = 1, a group of 48 (more rows than a tile's 64 per
-# position run), not causal, and keys past the queries
+# (B, Tq, Tk, H, KV, D, causal): the long route at glm4-9b's and granite's
+# groups at short and ragged lengths, G = 1, a group of 48 (more rows than
+# a tile's 64 per position run), not causal, and keys past the queries;
+# the short route at SASRec's sequences (odd and even counts, D = 50), a
+# group of 4 over one kv head (64 rows a sequence), an odd head dim
 BWD_CASES = [
     (2, 37, 37, 6, 2, 64, True),
     (1, 130, 130, 48, 3, 64, True),
@@ -763,6 +765,12 @@ BWD_CASES = [
     (3, 100, 100, 3, 1, 128, True),
     (1, 50, 80, 8, 2, 64, True),
     (2, 77, 140, 24, 8, 64, False),
+    (1, 50, 50, 1, 1, 50, True),
+    (2, 50, 50, 1, 1, 50, True),
+    (3, 50, 50, 1, 1, 50, True),
+    (3, 50, 50, 1, 1, 50, False),
+    (5, 16, 16, 4, 1, 64, True),
+    (3, 33, 33, 1, 1, 17, True),
 ]
 # each gradient's relative L2 error and largest element error over its
 # largest element (chip_smoke.py's BWD_L2_RTOL / BWD_MAX_RTOL): against the
@@ -790,11 +798,27 @@ def _bwd_inputs(seed, B, Tq, Tk, H, KV, D, causal):
     return q, k, v, out, lse, do
 
 
+def _bwd_launches(q, k, splits):
+    """The backward's kernel launches of one call: the short route's one,
+    or the long route's row statistics, dK / dV and dQ kernels and, where
+    the dK / dV rows are split, the reduce."""
+    from repro_torch.kernels import flash_attention as FA
+
+    want = {key: 0 for key in FA.LAUNCHES}
+    if FA._backward_kernel(q.dtype, q.shape, k.shape) == "short":
+        want.update(flash_attention_backward=1, flash_attention_backward_short=1)
+    else:
+        want.update(flash_attention_backward=1, flash_attention_backward_rowstat=1,
+                    flash_attention_backward_dkdv=1, flash_attention_backward_dq=1,
+                    flash_attention_backward_reduce=int(splits > 1))
+    return want
+
+
 @pytest.mark.parametrize("case", BWD_CASES, ids=[str(c).replace(" ", "") for c in BWD_CASES])
 def test_cuda_backward_kernel_matches_plain_and_mirror(card, full_fp32, case):
     """The backward kernels against the plain backward and their tiled
-    mirror; a second run gives the same bits; each kernel launched once
-    (the reduce only where the dK / dV rows are split)."""
+    mirror; a second run gives the same bits; each kernel of the route
+    launched once."""
     from repro_torch.kernels import flash_attention as FA
 
     B, Tq, Tk, H, KV, D, causal = case
@@ -804,11 +828,7 @@ def test_cuda_backward_kernel_matches_plain_and_mirror(card, full_fp32, case):
     torch.cuda.synchronize()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     splits = FA.backward_splits(B, Tq, Tk, H, KV, n_sm)
-    want = {key: 0 for key in FA.LAUNCHES}
-    want.update(flash_attention_backward=1, flash_attention_backward_rowstat=1,
-                flash_attention_backward_dkdv=1, flash_attention_backward_dq=1,
-                flash_attention_backward_reduce=int(splits > 1))
-    assert FA.LAUNCHES == want
+    assert FA.LAUNCHES == _bwd_launches(q, k, splits)
     assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == 0
     again = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -829,9 +849,9 @@ def test_cuda_backward_kernel_at_each_split_count(card, full_fp32, monkeypatch, 
     case = (1, 200, 200, 16, 2, 128, True)
     q, k, v, out, lse, do = _bwd_inputs(5, *case)
     monkeypatch.setattr(FA, "backward_splits", lambda *a, **kw: splits)
-    before = FA.LAUNCHES["flash_attention_backward_reduce"]
+    FA.reset_launch_counts()
     got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)
-    assert FA.LAUNCHES["flash_attention_backward_reduce"] == before + int(splits > 1)
+    assert FA.LAUNCHES == _bwd_launches(q, k, splits)
     assert got[3].numel() == FA.backward_workspace(1, 200, 200, 16, 2, 128, splits)
     _bwd_within(got[:3], FA.flash_attention_backward_tiled_plain(
         q, k, v, out, lse, do, causal=True, splits=splits), BWD_TOL["mirror"])
@@ -840,8 +860,9 @@ def test_cuda_backward_kernel_at_each_split_count(card, full_fp32, monkeypatch, 
 
 
 def test_cuda_backward_kernel_refuses_what_it_does_not_take(card):
-    """float32, a head dim off 64 / 128, a non-contiguous output gradient:
-    the launch raises, it never runs the plain version."""
+    """float32, a head dim off 64 / 128 over two kv heads, a sequence past
+    the short route's one tile at D = 50, a non-contiguous output
+    gradient: the launch raises, it never runs the plain version."""
     from repro_torch.kernels import flash_attention as FA
 
     q, k, v, out, lse, do = _bwd_inputs(3, 1, 40, 40, 4, 2, 64, True)
@@ -853,9 +874,59 @@ def test_cuda_backward_kernel_refuses_what_it_does_not_take(card):
                             v[..., :50].contiguous(), out[..., :50].contiguous(), lse,
                             do[..., :50].contiguous(), True)
     with pytest.raises(ValueError):
+        FA._launch_backward(*_bwd_inputs(4, 2, 65, 65, 1, 1, 50, True), True)
+    with pytest.raises(ValueError):
         FA._launch_backward(q, k, v, out, lse, do.transpose(1, 2).contiguous().transpose(1, 2),
                             True)
     assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == plain
+
+
+def test_cuda_backward_short_route_past_131070_sequences(card, full_fp32):
+    """SASRec's sequences (50 positions, one head, D = 50) at 131,073 a
+    call: 65,537 blocks of two, the last one sequence alone; the first and
+    last sequences against the plain backward and the mirror on those
+    sequences alone, and a second run bit for bit."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B = 131_073
+    q, k, v, out, lse, do = _bwd_inputs(8, B, 50, 50, 1, 1, 50, True)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == _bwd_launches(q, k, 1)
+    again = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for rows in (slice(0, 3), slice(65_535, 65_538), slice(B - 3, B)):
+        part = [t[rows] for t in (q, k, v, out, lse, do)]
+        mine = [g[rows] for g in got]
+        _bwd_within(mine, FA.flash_attention_backward_plain(*part, causal=True),
+                    BWD_TOL["plain"])
+        _bwd_within(mine, FA.flash_attention_backward_tiled_plain(*part, causal=True),
+                    BWD_TOL["mirror"])
+
+
+def test_cuda_backward_long_route_on_a_grid_past_what_the_card_holds(card, full_fp32):
+    """glm4-9b's heads (32 over 2, D = 128) at B = 8 x 4096 positions: the
+    dK / dV kernel's 1,024 blocks and the dQ kernel's 16,384, far more than
+    the card holds at once; against the plain backward and the mirror, and
+    bit for bit twice."""
+    from repro_torch.kernels import flash_attention as FA
+
+    case = (8, 4096, 4096, 32, 2, 128, True)
+    q, k, v, out, lse, do = _bwd_inputs(12, *case)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = FA.backward_splits(8, 4096, 4096, 32, 2, n_sm)
+    assert 64 * 8 * 2 * splits > 2 * n_sm
+    FA.reset_launch_counts()
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == _bwd_launches(q, k, splits)
+    again = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_within(got, FA.flash_attention_backward_plain(q, k, v, out, lse, do),
+                BWD_TOL["plain"])
+    _bwd_within(got, FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do,
+                                                             splits=splits), BWD_TOL["mirror"])
 
 
 @pytest.mark.parametrize("dtype,Tq", [(torch.bfloat16, 50), (torch.float32, 50),

@@ -7,7 +7,8 @@ against both plain versions there).  Here:
 
 * :func:`flash_attention_backward_tiled_plain`, the kernels' arithmetic
   (64-row and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their
-  products, the kernels' order of sums), on bf16 inputs against
+  products, the kernels' order of sums: the long route's, and the short
+  route's at SASRec's sequences of 50, D = 50), on bf16 inputs against
   ``jax.vjp`` of the reference's ``layers.flash_attention`` (its custom
   VJP, ``_flash_train_bwd``, which keeps ``p`` and ``ds`` in float32):
   each gradient within ``BF16_L2`` relative L2 error and ``BF16_MAX`` of
@@ -16,11 +17,11 @@ against both plain versions there).  Here:
 * the same mirror with the rounding off, float32 throughout, against
   :func:`flash_attention_backward_plain` within ``rtol=1e-5,
   atol=1e-6`` (the same products, summed in another order);
-* :func:`backward_route` for the dtype and head dim of every arch the
-  port trains, and the op traced over fake CUDA tensors: shapes, the
-  workspace :func:`backward_workspace` gives, FLOPs ``10 B H D
-  causal_pairs``; ``FlashAttentionFn``'s backward through it over fake
-  tensors.
+* :func:`backward_route` for the dtype and training shapes of every arch
+  the port trains, and the op traced over fake CUDA tensors on both
+  routes: shapes, the workspace :func:`backward_workspace` gives, FLOPs
+  ``10 B H D causal_pairs``; ``FlashAttentionFn``'s backward through it
+  over fake tensors.
 """
 import jax
 import jax.numpy as jnp
@@ -42,7 +43,18 @@ CASES = [
     (2, 37, 6, 2, 128, True),
     (1, 70, 3, 3, 64, True),
     (2, 23, 48, 3, 64, False),
+    # the short route's (one kv head, a sequence one tile): SASRec's 50
+    # positions at D = 50, odd and even sequence counts
+    (1, 50, 1, 1, 50, True),
+    (2, 50, 1, 1, 50, True),
+    (3, 50, 1, 1, 50, True),
+    (3, 50, 1, 1, 50, False),
+    # the long route over several key tiles
+    (1, 300, 4, 2, 64, True),
+    (1, 200, 2, 1, 128, False),
 ]
+SHORT_CASES = CASES[6:10]
+LONG_CASES = CASES[10:]
 
 
 def _inputs(case):
@@ -97,6 +109,26 @@ def test_tiled_mirror_unrounded_is_the_plain_backward(case, splits):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", SHORT_CASES + LONG_CASES,
+                         ids=[str(c).replace(" ", "") for c in SHORT_CASES + LONG_CASES])
+def test_tiled_mirror_unrounded_on_each_route_is_the_plain_backward(case):
+    """The short route's order (one tile a sequence: each gradient one
+    product) and the long route's over several key tiles, float32
+    throughout, against the plain backward at its default and its small
+    blocks."""
+    B, T, H, KV, D, causal = case
+    assert FA.backward_route(torch.bfloat16, (B, T, H, D), (B, T, KV, D)) == "kernel"
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(case))
+    out, lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=causal,
+                                                  rounding=False)
+    for blocks in ((512, 1024), (16, 32)):
+        want = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal,
+                                                 block_q=blocks[0], block_kv=blocks[1])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
 def test_tiled_mirror_with_more_keys_than_queries():
     """Tk > Tq (no cache: the queries sit at positions 0 .. Tq - 1), causal
     and not: the keys no query sees get zero gradients."""
@@ -119,27 +151,36 @@ def test_tiled_mirror_with_more_keys_than_queries():
 
 @pytest.mark.parametrize("arch,route", [
     ("glm4-9b", "kernel"), ("granite-moe-3b-a800m", "kernel"), ("llama3-405b", "kernel"),
-    ("yi-9b", "kernel"), ("moonshot-v1-16b-a3b", "kernel"), ("sasrec", "plain"),
+    ("yi-9b", "kernel"), ("moonshot-v1-16b-a3b", "kernel"), ("sasrec", "kernel"),
     ("lm-100m", "plain"),
 ])
 def test_backward_route_of_each_trained_arch(arch, route):
+    """Each arch's training attention: the LMs' 4096-token batch rows,
+    SASRec's ``train_batch`` (65,536 sequences of 50, one head, D = 50),
+    lm-100m's 4 x 128 tokens in float32."""
     from repro_torch.models.transformer import torch_dtype
 
     if arch == "lm-100m":
         from repro_torch.launch.train_lm import model_100m
 
         cfg = model_100m(log=lambda line: None)
-        dtype, D = torch_dtype(cfg.dtype), cfg.resolved_head_dim
+        dtype, T, B = torch_dtype(cfg.dtype), 128, 4
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     elif arch == "sasrec":
         from repro_torch.configs import sasrec
 
-        dtype, D = torch_dtype(sasrec.CONFIG.dtype), sasrec.CONFIG.d
+        cfg = sasrec.CONFIG
+        dtype, T, B, H, KV, D = torch_dtype(cfg.dtype), cfg.seq_len, 65_536, 1, 1, cfg.d
     else:
         from repro_torch.configs import registry
 
         cfg = registry.get_arch(arch).CONFIG
-        dtype, D = torch_dtype(cfg.dtype), cfg.resolved_head_dim
-    assert FA.backward_route(dtype, D) == route
+        dtype, T, B = torch_dtype(cfg.dtype), 4096, 1
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    assert FA.backward_route(dtype, (B, T, H, D), (B, T, KV, D)) == route
+    if route == "kernel":
+        want = "short" if arch == "sasrec" else "long"
+        assert FA._backward_kernel(dtype, (B, T, H, D), (B, T, KV, D)) == want
 
 
 @pytest.mark.parametrize("dtype,D,route", [
@@ -148,7 +189,29 @@ def test_backward_route_of_each_trained_arch(arch, route):
     (torch.float32, 64, "plain"), (torch.float32, 128, "plain"), (torch.float16, 64, "plain"),
 ])
 def test_backward_route_by_dtype_and_head_dim(dtype, D, route):
-    assert FA.backward_route(dtype, D) == route
+    """Long sequences (4096 positions, 8 heads over 2): only the long
+    route's head dims take a kernel."""
+    assert FA.backward_route(dtype, (1, 4096, 8, D), (1, 4096, 2, D)) == route
+
+
+@pytest.mark.parametrize("Tq,Tk,H,KV,D,dtype,kernel", [
+    (50, 50, 1, 1, 50, torch.bfloat16, "short"),
+    (64, 64, 1, 1, 64, torch.bfloat16, "short"),
+    (32, 32, 2, 1, 17, torch.bfloat16, "short"),
+    (1, 1, 1, 1, 1, torch.bfloat16, "short"),
+    (65, 65, 1, 1, 50, torch.bfloat16, None),       # past one tile
+    (50, 50, 2, 1, 50, torch.bfloat16, None),       # 100 rows a sequence
+    (50, 50, 2, 2, 50, torch.bfloat16, None),       # two kv heads
+    (50, 60, 1, 1, 50, torch.bfloat16, None),       # keys past the queries
+    (50, 50, 1, 1, 50, torch.float32, None),
+    (50, 50, 1, 1, 128, torch.bfloat16, "long"),
+    (50, 50, 2, 2, 64, torch.bfloat16, "long"),
+])
+def test_backward_kernel_of_short_sequences(Tq, Tk, H, KV, D, dtype, kernel):
+    got = FA._backward_kernel(dtype, (3, Tq, H, D), (3, Tk, KV, D))
+    assert got == kernel
+    assert FA.backward_route(dtype, (3, Tq, H, D), (3, Tk, KV, D)) == (
+        "kernel" if kernel else "plain")
 
 
 def test_backward_splits_and_workspace_at_the_training_shapes():
@@ -164,10 +227,13 @@ def test_backward_splits_and_workspace_at_the_training_shapes():
     assert FA.backward_workspace(1, 4096, 4096, 32, 2, 128, 5) == (
         2 * 2 * rows + 2 * 5 * 4096 * 2 * 128)
     assert FA.backward_workspace(2, 37, 37, 6, 2, 64, 1) == 2 * 2 * 2 * 128
+    # the short route (SASRec's train_batch) needs none
+    assert FA.backward_workspace(65_536, 50, 50, 1, 1, 50, 1) == 0
 
 
 @pytest.mark.parametrize("case", [(1, 4096, 32, 2, 128, True), (2, 37, 6, 2, 64, True),
-                                  (3, 50, 24, 8, 64, False)])
+                                  (3, 50, 24, 8, 64, False), (65_536, 50, 1, 1, 50, True),
+                                  (3, 20, 2, 1, 16, False)])
 def test_backward_op_fake_shapes_workspace_and_flops(case):
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
@@ -202,19 +268,21 @@ def test_backward_op_on_the_cpu_is_the_plain_version_bit_for_bit():
     assert work.shape == (0,)
 
 
-@pytest.mark.parametrize("dtype,D,through_op", [(torch.bfloat16, 128, True),
-                                                (torch.bfloat16, 64, True),
-                                                (torch.bfloat16, 50, False),
-                                                (torch.float32, 64, False)])
-def test_training_backward_goes_through_the_route(dtype, D, through_op):
+@pytest.mark.parametrize("dtype,D,T,H,KV,through_op", [
+    (torch.bfloat16, 128, 96, 6, 2, True), (torch.bfloat16, 64, 96, 6, 2, True),
+    (torch.bfloat16, 50, 96, 6, 2, False), (torch.float32, 64, 96, 6, 2, False),
+    (torch.bfloat16, 50, 50, 1, 1, True), (torch.bfloat16, 50, 70, 1, 1, False),
+])
+def test_training_backward_goes_through_the_route(dtype, D, T, H, KV, through_op):
     """``FlashAttentionFn``'s backward over fake tensors (a dry-run's trace;
     fake CPU tensors, since autograd's engine needs a card for fake CUDA
-    ones): the kernels' op where the route says so, counted at the FLOP
+    ones): the kernels' op where the route says so (the long route's head
+    dims, the short route's SASRec sequences), counted at the FLOP
     formula; the plain backward's einsums otherwise."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
-    B, T, H, KV = 1, 96, 6, 2
+    B = 1
     ops = []
 
     class Record(torch.utils._python_dispatch.TorchDispatchMode):
