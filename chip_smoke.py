@@ -270,16 +270,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and gradient norm on the card against the port's float32 step 0 on
    the CPU (same params and batch) within ``LM100M_LOSS_RTOL`` /
    ``LM100M_NORM_RTOL``, and the same gate refusing step 0 on the card
-   under each fault of ``LM100M_PLANTS`` planted in K4's kernel (no
-   causal mask; query heads reading the wrong kv heads).  K4's float32
-   kernel with lse launched exactly 12 times a step in the run, no other
-   K4 kernel and no plain forward; every loss
+   under each fault of ``LM100M_PLANTS`` planted in K4's forward kernel
+   (no causal mask; query heads reading the wrong kv heads) and each of
+   ``BACKWARD_PLANTS`` planted in its float32 backward kernel's launch.
+   K4's float32 kernel with lse and its float32 backward kernel
+   (``csrc/flash_backward_f32.cu``) each launched exactly 12 times a step
+   in the run (and in the resumed steps), no other K4 kernel, no plain
+   forward and no plain backward; every loss
    finite and the last below step 0's.  The checkpoint at step 300 read
    back equal to the run's final state bit for bit, then ``--resume
    --steps 350`` (prints ``resumed from step 300``, finite losses).  One
-   profiled step split as phase 9's; K4's float32 lse row at the step's
-   shape (q (4, 128, 8, 64), kv 4 heads, causal) against the plain
-   version and ``aten._scaled_dot_product_efficient_attention``.
+   profiled step split as phase 9's (its kernels, busy time and idle
+   share printed beside the run's step times); K4's float32 lse row at
+   the step's shape (q (4, 128, 8, 64), kv 4 heads, causal) against the
+   plain version and ``aten._scaled_dot_product_efficient_attention``,
+   and its float32 backward row there (``k4_backward_row``: within
+   ``BWD_F32_L2_RTOL`` / ``BWD_F32_MAX_RTOL`` of the plain backward and
+   the kernel's mirror, bit for bit twice, every planted fault refused)
+   against the plain backward and
+   ``aten._scaled_dot_product_efficient_attention_backward``.
    ``--quick`` runs 30 steps and resumes to 35, at full width.
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -3169,6 +3178,14 @@ TOP_KERNELS = 12
 # fp32 sums and the flips of a rounding they cause remain
 BWD_L2_RTOL = {"plain": 0.01, "mirror": 0.004}
 BWD_MAX_RTOL = {"plain": 0.02, "mirror": 0.01}
+# the float32 backward kernel (csrc/flash_backward_f32.cu) against the
+# plain backward and its own mirror: float32 products on both sides, so
+# only the order of the sums (up to Tq G terms) and expf's last bits
+# differ, ~3e-7 of a gradient between the mirror and the plain version on
+# the CPU (tests/test_torch_flash_backward.py); 30x that here.  A planted
+# fault moves a gradient by more than 0.1 of it
+BWD_F32_L2_RTOL = {"plain": 1e-5, "mirror": 1e-5}
+BWD_F32_MAX_RTOL = {"plain": 1e-5, "mirror": 1e-5}
 # the source of the function the backward kernels compute: the
 # reference's custom-VJP backward (XLA code; no Pallas kernel)
 BWD_REFERENCE = "src/repro/models/layers.py:195"
@@ -3292,10 +3309,11 @@ def k4_lse_row(name, q, k, v, launches, reps, atol=None) -> dict:
     }
 
 
-def backward_errors(got, plain, mirror) -> dict:
+def backward_errors(got, plain, mirror, l2_rtol=BWD_L2_RTOL, max_rtol=BWD_MAX_RTOL) -> dict:
     """Each gradient's relative L2 error and largest element error over its
     largest element, against the plain backward and the tiled mirror, and
-    whether every one is within ``BWD_L2_RTOL`` / ``BWD_MAX_RTOL``."""
+    whether every one is within ``l2_rtol`` / ``max_rtol`` (by default the
+    bf16 kernels' ``BWD_L2_RTOL`` / ``BWD_MAX_RTOL``)."""
     out = {"ok": True}
     for ref_name, ref in (("plain", plain), ("mirror", mirror)):
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
@@ -3303,27 +3321,35 @@ def backward_errors(got, plain, mirror) -> dict:
             l2 = float((a - b).norm() / b.norm())
             worst = float((a - b).abs().max() / b.abs().max())
             out[f"{name}_{ref_name}"] = [l2, worst]
-            out["ok"] &= l2 <= BWD_L2_RTOL[ref_name] and worst <= BWD_MAX_RTOL[ref_name]
+            out["ok"] &= l2 <= l2_rtol[ref_name] and worst <= max_rtol[ref_name]
     return out
 
 
 def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
-    """K4's training backward (``csrc/flash_backward.cu``) at one training
-    shape, causal, called through ``flash_attention_backward_op`` as
-    ``FlashAttentionFn`` calls it, on K4's own forward output and lse and
-    a random output gradient: ``dq``, ``dk``, ``dv`` held to the plain
-    backward and to the tiled mirror (:func:`backward_errors`), a second
+    """K4's training backward at one training shape, causal, called
+    through ``flash_attention_backward_op`` as ``FlashAttentionFn`` calls
+    it, on K4's own forward output and lse and a random output gradient:
+    ``dq``, ``dk``, ``dv`` held to the plain backward and to the tiled
+    mirror of the kernel's arithmetic (:func:`backward_errors`), a second
     run equal bit for bit, the same check refusing the gradients under
     each fault of ``BACKWARD_PLANTS``; timed against its bound (10 B H D
-    causal pairs FLOPs at the bf16 tensor-core rate, or its bytes), the
-    plain backward, and ``aten._scaled_dot_product_flash_attention_backward``
-    on the same output and lse (k / v repeated over the group, D padded to
-    a multiple of 8 with zeros: scores, outputs and the gradients' first D
-    dims unchanged; the library's dK / dV summed back over each group only
-    for the logged comparison), in one call over the batch or the fewest
-    equal batch parts the op takes (``LIBRARY_PARTS``), timed back to back
-    as one call.  ``launches`` are the training run's backward calls,
-    ``per_step`` a step's.  Launches made here do not count."""
+    causal pairs FLOPs, or its bytes), the plain backward, and one
+    library call on k / v repeated over the group, D padded to a multiple
+    of 8 with zeros (scores, outputs and the gradients' first D dims
+    unchanged; the library's dK / dV summed back over each group only for
+    the logged comparison), in one call over the batch or the fewest equal
+    batch parts the op takes (``LIBRARY_PARTS``), timed back to back as
+    one call.  bfloat16 runs ``csrc/flash_backward.cu`` (mirror
+    ``flash_attention_backward_tiled_plain``, ``BWD_L2_RTOL`` /
+    ``BWD_MAX_RTOL``, bound at the bf16 tensor-core rate, library
+    ``aten._scaled_dot_product_flash_attention_backward`` on the same
+    output and lse); float32 runs ``csrc/flash_backward_f32.cu`` (mirror
+    ``flash_attention_backward_f32_tiled_plain``, ``BWD_F32_L2_RTOL`` /
+    ``BWD_F32_MAX_RTOL``, bound at the CUDA cores' float32 rate, library
+    ``aten._scaled_dot_product_efficient_attention_backward`` on its own
+    forward's output and lse).  ``launches`` are the training run's
+    backward calls, ``per_step`` a step's.  Launches made here do not
+    count."""
     import torch
     import torch.nn.functional as F
 
@@ -3333,6 +3359,8 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
     B, T, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
+    f32 = q.dtype == torch.float32
+    tol = (BWD_F32_L2_RTOL, BWD_F32_MAX_RTOL) if f32 else (BWD_L2_RTOL, BWD_MAX_RTOL)
     gen = torch.Generator(device="cuda").manual_seed(11)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     out, lse = FA.flash_attention_op(q, k, v, None, True, 0, True, 512, 1024)
@@ -3345,17 +3373,20 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
     repeats = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = FA.backward_splits(B, T, T, H, KV, n_sm)
+    splits = None if f32 else FA.backward_splits(B, T, T, H, KV, n_sm)
     plain = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=True)
-    mirror = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=True,
-                                                     splits=splits)
-    errors = backward_errors(got, plain, mirror)
+    if f32:
+        mirror = FA.flash_attention_backward_f32_tiled_plain(q, k, v, out, lse, do, causal=True)
+    else:
+        mirror = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=True,
+                                                         splits=splits)
+    errors = backward_errors(got, plain, mirror, *tol)
     planted = {}
     for plant, (attr, wrap) in BACKWARD_PLANTS.items():
         orig = getattr(FA, attr)
         setattr(FA, attr, wrap(orig))
         try:
-            bad = backward_errors(kernel(), plain, mirror)
+            bad = backward_errors(kernel(), plain, mirror, *tol)
         finally:
             setattr(FA, attr, orig)
         planted[plant] = {"refused": not bad["ok"], **bad}
@@ -3386,15 +3417,26 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
         try:
             calls = []
             for lo, hi in bounds:
+                if f32:
+                    fwd = torch.ops.aten._scaled_dot_product_efficient_attention(
+                        qs[lo:hi], ks[lo:hi], vs[lo:hi], None, True, 0.0, True, scale=scale)
+                    calls.append((lo, hi, fwd, fwd[0], fwd[1]))
+                    continue
                 fwd = torch.ops.aten._scaled_dot_product_flash_attention(
                     qs[lo:hi], ks[lo:hi], vs[lo:hi], 0.0, True, False, scale=scale)
                 same = tuple(fwd[1].shape) == tuple(lse_t[lo:hi].shape)
                 calls.append((lo, hi, fwd, outs[lo:hi] if same else fwd[0],
                               lse_t[lo:hi] if same else fwd[1]))
-            library_note = ("K4's out and lse" if same else
+            library_note = ("the library's own out and lse" if f32 else
+                            "K4's out and lse" if same else
                             f"the library's own out and lse {tuple(fwd[1].shape)}")
 
             def library():
+                if f32:
+                    return [torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+                        dos[lo:hi], qs[lo:hi], ks[lo:hi], vs[lo:hi], None, o_lib, lse_lib, f[2],
+                        f[3], 0.0, [True, True, True, False], True, scale=scale)
+                        for lo, hi, f, o_lib, lse_lib in calls]
                 return [torch.ops.aten._scaled_dot_product_flash_attention_backward(
                     dos[lo:hi], qs[lo:hi], ks[lo:hi], vs[lo:hi], o_lib, lse_lib, f[2], f[3],
                     f[4], f[5], 0.0, True, f[6], f[7], scale=scale)
@@ -3418,21 +3460,24 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
     del qs, ks, vs, dos, outs, lse_t
     n_bytes = nbytes(q, k, v, out, lse, do, *got)
     n_ops = 10 * B * H * D * FA.causal_pairs(T, T, 0, True)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / BF16_OPS_PER_S * 1e3
+    peak = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
     b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.6f} by {b_by}, SDPA "
-        f"backward {library_ms} in {library_parts} part(s) on {library_note}, max abs diff "
+    library = "sdpa_efficient_backward" if f32 else "sdpa_flash_backward"
+    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.6f} by {b_by}, {library} "
+        f"{library_ms} in {library_parts} part(s) on {library_note}, max abs diff "
         f"to plain {library_err}), {splits} splits, {launches} calls in the training runs "
         f"({per_step} a step)")
     return {
-        "name": name, "route": "cuda", "source": f"{CSRC}/flash_backward.cu",
+        "name": name, "route": "cuda",
+        "source": f"{CSRC}/flash_backward_f32.cu" if f32 else f"{CSRC}/flash_backward.cu",
         "replaces": BWD_REFERENCE, "launches": launches, "max_abs_err": max_abs_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
         "shape": {"q": list(q.shape), "kv": list(k.shape), "causal": True, "splits": splits,
                   "launches_per_step": per_step, "errors": errors, "bits_repeat": repeats,
-                  "planted": planted, "l2_rtol": BWD_L2_RTOL, "max_rtol": BWD_MAX_RTOL,
-                  "library": "sdpa_flash_backward", "library_note": library_note,
+                  "planted": planted, "l2_rtol": tol[0], "max_rtol": tol[1],
+                  "library": library, "library_note": library_note,
                   "library_parts": library_parts,
                   "library_max_abs_diff_to_plain": library_err, "bytes": n_bytes,
                   "flops": n_ops, "route": FA._backward_kernel(q.dtype, q.shape, k.shape)},
@@ -3447,9 +3492,9 @@ def backward_expect(cfg, batch: int, seq: int, calls: int) -> tuple:
     microbatch's attention shapes) launch each of their kernels once a
     call: the long route (glm4-9b's, granite's heads) its row statistics,
     dK / dV and dQ kernels and, only where ``backward_splits`` cuts the dK
-    / dV rows, the reduce; the short route its one kernel; the plain route
-    (a ``SMOKE`` config's head dim over a long sequence) makes plain
-    calls."""
+    / dV rows, the reduce; the short route and the float32 kernel their
+    one kernel; the plain route (a bf16 ``SMOKE`` config's head dim over a
+    long sequence) makes plain calls."""
     import torch
 
     from repro_torch.kernels import flash_attention as FA
@@ -3461,8 +3506,8 @@ def backward_expect(cfg, batch: int, seq: int, calls: int) -> tuple:
                                  (rows, seq, cfg.n_kv_heads, hd))
     if kernel is None:
         return {}, calls
-    if kernel == "short":
-        return dict.fromkeys(["flash_attention_backward", "flash_attention_backward_short"],
+    if kernel in ("short", "f32"):
+        return dict.fromkeys(["flash_attention_backward", f"flash_attention_backward_{kernel}"],
                              calls), 0
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     keys = ["flash_attention_backward", "flash_attention_backward_rowstat",
@@ -4610,8 +4655,10 @@ TRAIN_LM_BATCH, TRAIN_LM_SEQ = 4, 128            # the example's defaults
 # and 6.6e-8)
 LM100M_LOSS_RTOL = 1e-6
 LM100M_NORM_RTOL = 1e-5
-# faults planted in K4's kernel for one step 0 on the card each, which the
-# gate above must refuse: (q, k, v, causal) as the kernel is launched
+# faults planted in K4's forward kernel for one step 0 on the card each,
+# which the gate above must refuse: (q, k, v, causal) as the kernel is
+# launched; BACKWARD_PLANTS are planted in its backward kernel's launch the
+# same way
 LM100M_PLANTS = {
     "no_causal_mask": lambda q, k, v, causal: (q, k, v, False),
     "kv_heads_reversed": lambda q, k, v, causal: (q, k.flip(2).contiguous(),
@@ -4637,7 +4684,8 @@ def _window_step_s(log_times) -> tuple:
 def train_lm_phase(args) -> tuple:
     """Phase 13: ``repro_torch.launch.train_lm`` on ``lm-100m`` at the
     example's full width, depth and defaults.  Returns the record and K4's
-    float32 lse row (its launches are the 300-step run's)."""
+    float32 rows, the forward with lse and the backward (their launches
+    are the 300-step run's)."""
     import shutil
     import statistics
 
@@ -4661,7 +4709,7 @@ def train_lm_phase(args) -> tuple:
             "float32_matmul_precision": torch.get_float32_matmul_precision()}
     log(f"lm-100m: TF32 settings {json.dumps(tf32)}")
     cfg = train_lm.model_100m(log=log)
-    per_step = cfg.n_layers      # one K4 forward a layer: remat "none", one microbatch
+    per_step = cfg.n_layers      # one K4 forward and backward a layer: no remat, one microbatch
 
     # step 0 on the CPU: the launcher's params (seed 0, drawn on the card)
     # and its first batch, through the same loss and gradients
@@ -4684,23 +4732,26 @@ def train_lm_phase(args) -> tuple:
         loss_gap, norm_gap = gaps(loss, norm)
         return loss_gap <= LM100M_LOSS_RTOL and norm_gap <= LM100M_NORM_RTOL
 
-    # the same step 0 on the card with each planted fault in K4's kernel
-    # (flash_attention_op looks _launch up when it runs): the gate must
-    # refuse every one
-    launch = FA._launch
+    # the same step 0 on the card with each planted fault in K4's forward
+    # kernel, then in its backward kernel (flash_attention_op and
+    # flash_attention_backward_op look _launch / _launch_backward up when
+    # they run): the gate must refuse every one
     card_first = {k: v.cuda() for k, v in first.items()}
+    plants = [(name, "_launch", lambda f, plant=plant: lambda q, k, v, causal, *rest: f(
+        *plant(q, k, v, causal), *rest)) for name, plant in LM100M_PLANTS.items()]
+    plants += [(f"backward_{name}", attr, wrap) for name, (attr, wrap) in BACKWARD_PLANTS.items()]
     planted = {}
-    try:
-        for name, plant in LM100M_PLANTS.items():
-            FA._launch = lambda q, k, v, causal, *rest, plant=plant: launch(
-                *plant(q, k, v, causal), *rest)
+    for name, attr, wrap in plants:
+        orig = getattr(FA, attr)
+        setattr(FA, attr, wrap(orig))
+        try:
             loss, _, grads = grad_fn(params, card_first)
             loss, norm = float(loss), float(opt_lib.global_norm(grads))
-            planted[name] = {"loss": loss, "grad_norm": norm, "rel_gaps": gaps(loss, norm),
-                             "refused": not passes(loss, norm)}
-            del grads
-    finally:
-        FA._launch = launch
+        finally:
+            setattr(FA, attr, orig)
+        planted[name] = {"loss": loss, "grad_norm": norm, "rel_gaps": gaps(loss, norm),
+                         "refused": not passes(loss, norm)}
+        del grads
     del params, card_first
     log(f"lm-100m: step 0 on the card under planted K4 faults: {json.dumps(planted)}")
 
@@ -4747,10 +4798,12 @@ def train_lm_phase(args) -> tuple:
     if not all(p["refused"] for p in planted.values()):
         raise AssertionError(f"lm-100m step 0: the gate passes a planted K4 fault: {planted}")
     want = dict.fromkeys(launches, 0)
-    want.update(flash_attention=steps * per_step, flash_attention_f32_lse=steps * per_step)
+    want.update(flash_attention=steps * per_step, flash_attention_f32_lse=steps * per_step,
+                flash_attention_backward=steps * per_step,
+                flash_attention_backward_f32=steps * per_step)
     if launches != want:
         raise AssertionError(f"lm-100m K4 launches {launches}, expected {want}")
-    if plain != {"flash_attention": 0, "flash_attention_backward": steps * per_step}:
+    if plain != {"flash_attention": 0, "flash_attention_backward": 0}:
         raise AssertionError(f"lm-100m plain attention calls on the card: {plain}")
     if len(losses) != steps or not np.all(np.isfinite(losses + norms)):
         raise AssertionError(f"lm-100m: {len(losses)} losses, finite "
@@ -4785,11 +4838,15 @@ def train_lm_phase(args) -> tuple:
                            checkpoint_dir=TRAIN_LM_CKPT, resume=True, device="cuda", log=keep)
     rec["resume"] = {"s": time.perf_counter() - t, "start": again["start"],
                      "losses": again["losses"], "k4_launches": dict(FA.LAUNCHES),
+                     "plain_cuda_calls": dict(FA.PLAIN_CUDA_CALLS),
                      "first_line": lines[0], "dir": sorted(os.listdir(TRAIN_LM_CKPT))}
+    resumed = (resume_to - steps) * per_step
     if (lines[0] != f"resumed from step {steps}" or again["start"] != steps
             or len(again["losses"]) != resume_to - steps
             or not np.all(np.isfinite(again["losses"]))
-            or FA.LAUNCHES["flash_attention_f32_lse"] != (resume_to - steps) * per_step):
+            or FA.LAUNCHES["flash_attention_f32_lse"] != resumed
+            or FA.LAUNCHES["flash_attention_backward_f32"] != resumed
+            or FA.PLAIN_CUDA_CALLS["flash_attention_backward"] != 0):
         raise AssertionError(f"lm-100m resume: {json.dumps(rec['resume'])}")
     shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
 
@@ -4815,6 +4872,12 @@ def train_lm_phase(args) -> tuple:
                  idle_share_of_steady_step=1.0 - split["device_busy_s"] / steady_s)
     rec["profiled_step"] = split
     log(f"lm-100m profiled step: {json.dumps(split)}")
+    log(f"lm-100m step: median {step_s * 1e3:.2f} ms over the log windows, "
+        f"{steady_s * 1e3:.2f} ms away from the writes; profiled step "
+        f"{split['n_kernels']} kernels, busy {split['device_busy_s'] * 1e3:.3f} ms "
+        f"(attention backward {split['attention_backward_s'] * 1e3:.3f} ms), idle share "
+        f"{split['idle_share']:.3f} of its wall, {split['idle_share_of_steady_step']:.3f} of "
+        f"the steady step")
     del state, step_fn, again, run
 
     # K4's float32 row at the step's attention shape
@@ -4823,11 +4886,13 @@ def train_lm_phase(args) -> tuple:
     q = torch.randn((B, T, cfg.n_heads, hd), generator=gen, device="cuda")
     k = torch.randn((B, T, cfg.n_kv_heads, hd), generator=gen, device="cuda")
     v = torch.randn((B, T, cfg.n_kv_heads, hd), generator=gen, device="cuda")
-    row = k4_lse_row("flash_attention_f32_lse", q, k, v,
-                     launches["flash_attention_f32_lse"], args.reps)
+    rows = [k4_lse_row("flash_attention_f32_lse", q, k, v,
+                       launches["flash_attention_f32_lse"], args.reps),
+            k4_backward_row("flash_attention_backward_f32", q, k, v,
+                            launches["flash_attention_backward_f32"], per_step, args.reps)]
     rec["phase_s"] = time.perf_counter() - t0
     log(f"lm-100m phase: {rec['phase_s']:.1f} s")
-    return rec, [row]
+    return rec, rows
 
 
 def main() -> int:

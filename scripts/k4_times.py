@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K4's kernels at the main paths' shapes on one GPU.
 
-    python3 scripts/k4_times.py [--src DIR] [--reps N] [--rows main,f32_lm100m,sasrec,...]
+    python3 scripts/k4_times.py [--src DIR] [--reps N] [--rows main,f32_lm100m,backward_f32,...]
 
 Runs ``chip_smoke``'s K4 rows alone, without the graph phases, the
 served models and the training runs, each held to the plain version as
@@ -29,9 +29,15 @@ library call.  ``--rows`` picks the rows (default: all):
               ``--splits 1,2,...`` also the long route's time at each
               count of row runs a key tile (1: no split, the items only
               claimed longest first); and the plain backward's time at
-              lm-100m's float32 q ``(4, 128, 8, 64)`` over 4 kv heads, the
-              training shape that still runs it, and at SASRec's, which
-              ran it before the short route (``plain_backward_ms``)
+              lm-100m's float32 q ``(4, 128, 8, 64)`` over 4 kv heads and
+              at SASRec's, the shapes that ran it before their kernels
+              (``plain_backward_ms``)
+  backward_f32  the float32 training backward
+              (``csrc/flash_backward_f32.cu``) at lm-100m's training
+              shape, q ``(4, 128, 8, 64)`` over 4 kv heads:
+              ``chip_smoke.k4_backward_row``, timed beside the plain
+              backward, ``aten._scaled_dot_product_efficient_attention_backward``
+              and its bound at the float32 rate
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's), so that two versions of the kernels can be
@@ -51,7 +57,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (imports no kernel at import time)
 
-ROWS = ("main", "granite", "moonshot", "f32_lm100m", "sasrec", "backward")
+ROWS = ("main", "granite", "moonshot", "f32_lm100m", "sasrec", "backward", "backward_f32")
 SASREC_BULK = 262_144   # serve_bulk's users (configs/shapes.py's REC_SHAPES)
 
 
@@ -65,7 +71,8 @@ def lm_rows(arch, FA, reps: int, seed: int, tag: str) -> list:
                               seed=seed, tag=tag)
 
 
-def f32_rows(reps: int, seed: int) -> list:
+def lm100m_qkv(seed: int):
+    """float32 q, k, v at lm-100m's training attention (4 x 128 tokens)."""
     import torch
 
     from repro_torch.launch.train_lm import model_100m
@@ -73,9 +80,17 @@ def f32_rows(reps: int, seed: int) -> list:
     cfg = model_100m(log=lambda line: None)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     hd = cfg.resolved_head_dim
-    q, k, v = (torch.randn((4, 128, h, hd), generator=gen, device="cuda")
-               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
-    return [chip_smoke.k4_lse_row("flash_attention_f32_lse", q, k, v, 0, reps)]
+    return tuple(torch.randn((4, 128, h, hd), generator=gen, device="cuda")
+                 for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+
+
+def f32_rows(reps: int, seed: int) -> list:
+    return [chip_smoke.k4_lse_row("flash_attention_f32_lse", *lm100m_qkv(seed), 0, reps)]
+
+
+def backward_f32_rows(reps: int, seed: int) -> list:
+    return [chip_smoke.k4_backward_row("flash_attention_backward_f32", *lm100m_qkv(seed), 0, 0,
+                                       reps)]
 
 
 def sasrec_rows(reps: int, seed: int) -> list:
@@ -209,6 +224,8 @@ def main() -> int:
                             "" if name == "main" else f"_{name}")
         elif name == "f32_lm100m":
             rows += f32_rows(args.reps, args.seed)
+        elif name == "backward_f32":
+            rows += backward_f32_rows(args.reps, args.seed)
         elif name == "backward":
             rows += backward_rows(args.reps, args.seed,
                                   [int(n) for n in args.splits.split(",") if n])

@@ -79,6 +79,10 @@ LIBRARIES = {
             "flash_backward_reduce_launch": [_P] * 4 + [_L, _I, _F, _I, _P],
         },
     ),
+    "flash_backward_f32": (
+        "flash_backward_f32.cu",
+        {"flash_backward_f32_launch": [_P] * 9 + [_I] * 7 + [_F, _I, _P]},
+    ),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

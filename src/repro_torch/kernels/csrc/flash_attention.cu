@@ -57,20 +57,19 @@
 // The TPU kernel's grid walked the kv blocks in order per output block;
 // here the loop over key tiles lives inside the block.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_f32.cuh"
 
 #include <atomic>
 
 namespace flash_attention {
+
+using namespace flash_f32;
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BKV = 64;               // keys per tile
 constexpr int KPT = BKV / 16;         // keys per lane  (16 lanes x 4 = BKV)
 constexpr int PS = BKV + 4;           // row stride of the P tile
-constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_GRID_Y = 65535;     // batch rows per launch
 
 // DP: head_dim padded to 64 or 128 (columns past D are zero); RB: query
@@ -84,83 +83,6 @@ struct Layout {
   static constexpr size_t SMEM =
       sizeof(float) * (size_t(RB) * QS + 2 * BKV * (QS + DP) + size_t(RB) * PS);
 };
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(FULL_MASK, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float4 fma4(float a, float4 b, float4 c) {
-  return make_float4(fmaf(a, b.x, c.x), fmaf(a, b.y, c.y), fmaf(a, b.z, c.z),
-                     fmaf(a, b.w, c.w));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES-byte global -> shared copy; !valid fills the BYTES with zeros
-// (and reads nothing at src, which must still be a global address)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Stage `rows` rows of D floats into a [row][stride] tile, vw floats (4,
-// 2 or 1) a cp.async: row r comes from row_src(r), or is zeros where that
-// is null (the copy then names `valid`, any global address).  Columns D ..
-// DP-1 are left alone.  D == DP at vw = 4 divides by a constant.
-template <int DP, typename RowSrc>
-__device__ __forceinline__ void stage_rows(float* dst, int stride, int rows, RowSrc row_src,
-                                           const float* valid, int D, int vw, int tid) {
-  constexpr int FULL = DP / 4;
-  const int per_row = D / vw;
-  const bool full = vw == 4 && D == DP;
-  for (int e = tid; e < rows * per_row; e += THREADS) {
-    const int r = full ? e / FULL : e / per_row;
-    const int c = full ? e % FULL : e % per_row;
-    const float* src = row_src(r);
-    float* d = dst + r * stride + vw * c;
-    const float* s = src != nullptr ? src + vw * c : valid;
-    if (vw == 4) {
-      cp_async<16>(d, s, src != nullptr);
-    } else if (vw == 2) {
-      cp_async<8>(d, s, src != nullptr);
-    } else {
-      cp_async<4>(d, s, src != nullptr);
-    }
-  }
-}
-
-// Zero columns D .. DP-1 of `rows` rows of a [row][stride] tile.
-template <int DP>
-__device__ __forceinline__ void zero_columns(float* dst, int stride, int rows, int D, int tid) {
-  const int width = DP - D;
-  for (int e = tid; e < rows * width; e += THREADS) dst[(e / width) * stride + D + e % width] = 0.f;
-}
 
 template <int DP, int RB>
 __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
@@ -205,18 +127,18 @@ __global__ void __launch_bounds__(THREADS, 2) flash_attention_kernel(
     auto key_src = [&](const float* head) {
       return [=](int j) { return k0 + j < n_keys ? head + (k0 + j) * key_stride : nullptr; };
     };
-    stage_rows<DP>(Ks + st * BKV * QS, QS, BKV, key_src(kh), kh, D, vw, tid);
-    stage_rows<DP>(Vs + st * BKV * DP, DP, BKV, key_src(vh), vh, D, vw, tid);
+    stage_rows<DP, THREADS>(Ks + st * BKV * QS, QS, BKV, key_src(kh), kh, D, vw, tid);
+    stage_rows<DP, THREADS>(Vs + st * BKV * DP, DP, BKV, key_src(vh), vh, D, vw, tid);
   };
   if (n_tiles > 0) {
     if (D < DP) {  // never written by the copies; read by the dot products
-      zero_columns<DP>(Qs, QS, RB, D, tid);
-      zero_columns<DP>(Ks, QS, 2 * BKV, D, tid);
-      zero_columns<DP>(Vs, DP, 2 * BKV, D, tid);
+      zero_columns<DP, THREADS>(Qs, QS, RB, D, tid);
+      zero_columns<DP, THREADS>(Ks, QS, 2 * BKV, D, tid);
+      zero_columns<DP, THREADS>(Vs, DP, 2 * BKV, D, tid);
     }
     // Q: row r is position t0 + r / G, head kvh * G + r % G; zero past the
     // block's rows and past Tq.  One copy group with K/V tile 0.
-    stage_rows<DP>(Qs, QS, RB, [&](int r) -> const float* {
+    stage_rows<DP, THREADS>(Qs, QS, RB, [&](int r) -> const float* {
       const int t = t0 + r / G;
       return r < rows && t < Tq ? q + ((b * Tq + t) * H + kvh * G + r % G) * D : nullptr;
     }, q, D, vw, tid);
@@ -430,9 +352,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the widest copy the row length and every operand's alignment allow
-  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  const int vw = (D % 4 == 0 && align % 16 == 0) ? 4 : (D % 2 == 0 && align % 8 == 0) ? 2 : 1;
+  const int vw = copy_width(D, reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                   reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o));
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);

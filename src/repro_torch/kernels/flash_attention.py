@@ -45,8 +45,9 @@ key is masked).  Its backward computes the reference's
 ``_flash_train_bwd`` (XLA code, not a Pallas kernel), by the route
 :func:`backward_route` picks from dtype and shapes, through the
 registered op ``repro_torch::flash_attention_backward``
-(:func:`flash_attention_backward_op`, ``csrc/flash_backward.cu``) where
-a kernel takes the call:
+(:func:`flash_attention_backward_op`) on a CUDA tensor, a CPU tensor
+holding data running :func:`flash_attention_backward_plain` (which
+recomputes ``p`` block by block from ``lse``):
 
 ========================  ==============================================
 bfloat16, ``Tq == Tk``,   the short route: one launch, each block
@@ -58,12 +59,16 @@ bfloat16, D 64 or 128     the long route: row statistics, a dK / dV
                           kernel over key tiles (its rows cut in
                           :func:`backward_splits` runs, added in order),
                           a dQ kernel over row tiles
-float32, other shapes,    :func:`flash_attention_backward_plain`, which
-a CPU tensor with data    recomputes ``p`` block by block from ``lse``
+float32, any shape        ``csrc/flash_backward_f32.cu``: CUDA-core FFMA,
+                          one launch of 8-key dK / dV blocks walking the
+                          rows that see them and 16-row dQ blocks walking
+                          the keys (lm-100m's training)
 ========================  ==============================================
 
-Neither kernel route uses float atomics, so the gradients repeat their
-bits.
+The bf16 routes are ``csrc/flash_backward.cu``'s.  A bfloat16 shape that
+neither bf16 route takes (a head dim other than 64 / 128 past the short
+route) runs the plain backward on the card.  No kernel route uses float
+atomics, so the gradients repeat their bits.
 
 A call with a cache that requires grad raises: no call goes through a
 kernel without autograd.
@@ -73,9 +78,10 @@ per attention call; ``flash_attention_prefill``, ``_decode``,
 ``_combine`` and ``_f32`` count each kernel's launches, and
 ``_prefill_lse`` / ``_f32_lse`` the launches that also write ``lse``
 (training's forward).  ``flash_attention_backward`` counts backward
-calls through the kernels, ``_short`` the short route's launches, and
+calls through the kernels, ``_short`` the short route's launches,
 ``_rowstat``, ``_dkdv``, ``_dq`` and ``_reduce`` (only where the dK / dV
-rows are split) each long-route kernel's.  A call of a plain forward on
+rows are split) each long-route kernel's, and ``_f32`` the float32
+kernel's.  A call of a plain forward on
 a CUDA tensor (a comparison, never the wrapper) adds one to
 ``PLAIN_CUDA_CALLS['flash_attention']`` instead, so a run can show that
 its attention went through the kernels;
@@ -92,8 +98,10 @@ float32 sums and where ``p`` is rounded.
 plain PyTorch (``p`` rounded against each split's running max), and
 :func:`flash_attention_backward_tiled_plain` the backward kernels' (64-row
 and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their products,
-the kernels' order of sums, the short route's included), for the tests
-and the smoke run; the main path never calls them.
+the kernels' order of sums, the short route's included) and
+:func:`flash_attention_backward_f32_tiled_plain` the float32 backward
+kernel's (its 8-key and 16-row blocks, float32 throughout), for the
+tests and the smoke run; the main path never calls them.
 """
 from __future__ import annotations
 
@@ -120,6 +128,7 @@ __all__ = [
     "flash_attention_plain",
     "flash_attention_backward_plain",
     "flash_attention_backward_tiled_plain",
+    "flash_attention_backward_f32_tiled_plain",
     "flash_attention_split_plain",
     "backward_route",
     "backward_splits",
@@ -147,9 +156,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_backward_dkdv": 0,
     "flash_attention_backward_dq": 0,
     "flash_attention_backward_reduce": 0,
+    "flash_attention_backward_f32": 0,
 }
-# plain forwards on CUDA tensors (comparisons only; the wrapper never makes
-# one), and plain backwards on CUDA tensors (every training step's)
+# plain forwards and backwards on CUDA tensors: comparisons, and the
+# backward of a bf16 shape no kernel route takes
 PLAIN_CUDA_CALLS: Dict[str, int] = {"flash_attention": 0, "flash_attention_backward": 0}
 
 _MAX_GROUP = 64      # query heads per kv head
@@ -162,6 +172,9 @@ _LOG2E = 1.4426950408889634
 _BWD_ROWS = 64       # query rows a tile of the backward kernels; the short route's bound
 _BWD_HEAD_DIMS = (64, 128)  # the long backward route's head dims (bf16)
 _BWD_MAX_SPLITS = 8  # runs of row tiles a key tile of the dK / dV kernel is cut in
+_F32_BWD_KEYS = 8    # keys a dK / dV block of the float32 backward kernel
+_F32_BWD_CHUNK = 32  # query rows a chunk of that block's walk
+_F32_BWD_TILE = 32   # keys a tile of a dQ block's walk
 
 
 def reset_launch_counts() -> None:
@@ -184,14 +197,20 @@ def decode_split(Tk: int, pairs: int, n_sm: int = 132) -> Tuple[int, int]:
 
 
 def _backward_kernel(dtype: torch.dtype, q_shape, k_shape) -> Optional[str]:
-    """The route of ``csrc/flash_backward.cu`` that takes q of ``q_shape``
-    ``(B, Tq, H, D)`` and k of ``k_shape`` ``(B, Tk, KV, D)``: ``'short'``
-    (bfloat16, ``Tq == Tk``, one kv head, ``Tq H <= 64``, ``D <= 64``: a
-    sequence is one tile), ``'long'`` (bfloat16 at head dim 64 or 128), or
-    None."""
+    """The backward kernel route that takes q of ``q_shape`` ``(B, Tq, H,
+    D)`` and k of ``k_shape`` ``(B, Tk, KV, D)``: ``'f32'`` (float32, ``0 <
+    D <= 128``, ``H / KV <= 64``: ``csrc/flash_backward_f32.cu``), or one
+    of ``csrc/flash_backward.cu``'s: ``'short'`` (bfloat16, ``Tq == Tk``,
+    one kv head, ``Tq H <= 64``, ``D <= 64``: a sequence is one tile),
+    ``'long'`` (bfloat16 at head dim 64 or 128); else None."""
     B, Tq, H, D = q_shape
     Tk, KV = k_shape[1], k_shape[2]
-    if dtype != torch.bfloat16 or min(B, Tq, Tk) <= 0:
+    if min(B, Tq, Tk) <= 0:
+        return None
+    if dtype == torch.float32:
+        ok = 0 < D <= _MAX_HEAD_DIM and KV > 0 and H % KV == 0 and H // KV <= _MAX_GROUP
+        return "f32" if ok else None
+    if dtype != torch.bfloat16:
         return None
     if Tq == Tk and KV == 1 and Tq * H <= _BWD_ROWS and D <= _BWD_ROWS:
         return "short"
@@ -201,13 +220,15 @@ def _backward_kernel(dtype: torch.dtype, q_shape, k_shape) -> Optional[str]:
 def backward_route(dtype: torch.dtype, q_shape, k_shape) -> str:
     """How :class:`FlashAttentionFn` computes its backward on the card (or
     over fake tensors) for q of ``q_shape`` ``(B, Tq, H, D)`` and k of
-    ``k_shape`` ``(B, Tk, KV, D)``: ``'kernel'`` (``csrc/flash_backward.cu``,
-    through :func:`flash_attention_backward_op`) for bfloat16 where one of
-    its routes takes the shapes (the long route: glm4-9b's, granite's,
-    llama3-405b's, yi-9b's, moonshot's heads; the short route: SASRec's
-    sequences of 50 at D = 50), else ``'plain'``
-    (:func:`flash_attention_backward_plain`: float32, lm-100m's).  A CPU
-    tensor holding data runs the plain version whatever this says."""
+    ``k_shape`` ``(B, Tk, KV, D)``: ``'kernel'`` (through
+    :func:`flash_attention_backward_op`) where a kernel route takes the
+    shapes: float32 at any head dim up to 128 (``csrc/flash_backward_f32.cu``:
+    lm-100m's), bfloat16 on ``csrc/flash_backward.cu``'s long route
+    (glm4-9b's, granite's, llama3-405b's, yi-9b's, moonshot's heads) or
+    short route (SASRec's sequences of 50 at D = 50); else ``'plain'``
+    (:func:`flash_attention_backward_plain`: a bfloat16 head dim neither
+    bf16 route takes).  A CPU tensor holding data runs the plain version
+    whatever this says."""
     return "kernel" if _backward_kernel(dtype, q_shape, k_shape) else "plain"
 
 
@@ -228,14 +249,15 @@ def backward_splits(B: int, Tq: int, Tk: int, H: int, KV: int, n_sm: int = 132) 
     return max(1, min(_BWD_MAX_SPLITS, row_tiles, -(-3 * n_sm // blocks)))
 
 
-def backward_workspace(B: int, Tq: int, Tk: int, H: int, KV: int, D: int, splits: int) -> int:
-    """float32 elements of the backward kernels' workspace.  The short route
-    (:func:`backward_route`'s, bfloat16 assumed) needs none.  The long
-    route: ``lse2`` and ``delta`` per query row in the kernels' order,
+def backward_workspace(B: int, Tq: int, Tk: int, H: int, KV: int, D: int, splits: int,
+                       dtype: torch.dtype) -> int:
+    """float32 elements of the backward kernels' workspace for inputs of
+    ``dtype``.  The float32 kernel and the short route need none.  The
+    long route: ``lse2`` and ``delta`` per query row in the kernels' order,
     padded to whole 64-row tiles (``B x KV x R_pad`` each), then, where
     ``splits > 1``, the dK and dV partials (``splits x B x Tk x KV x D``
     each)."""
-    if _backward_kernel(torch.bfloat16, (B, Tq, H, D), (B, Tk, KV, D)) == "short":
+    if _backward_kernel(dtype, (B, Tq, H, D), (B, Tk, KV, D)) in ("f32", "short"):
         return 0
     r_pad = -(-Tq * (H // KV) // _BWD_ROWS) * _BWD_ROWS
     n = 2 * B * KV * r_pad
@@ -594,6 +616,89 @@ def flash_attention_backward_tiled_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_backward_f32_tiled_plain(
+    q: torch.Tensor,             # (B, Tq, H, D) float32
+    k: torch.Tensor,             # (B, Tk, KV, D)
+    v: torch.Tensor,
+    out: torch.Tensor,           # (B, Tq, H, D)
+    lse: torch.Tensor,           # (B, Tq, H)
+    do: torch.Tensor,            # (B, Tq, H, D)
+    *,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The float32 backward kernel's arithmetic
+    (``csrc/flash_backward_f32.cu``) in plain PyTorch: ``(dq, dk, dv)``,
+    float32 throughout.
+
+    Query rows in the kernel's order (the G heads of each position in
+    turn); ``p = exp(s * scale - lse)``, 0 where masked; ``ds = p (dp -
+    delta)``.  dK and dV: each 8-key tile sums over the rows that see it
+    (from its first position under causal) in chunks of 32, each chunk's
+    rows dealt to ``512 / DP`` interleaved splits (DP the head dim padded
+    to 64 or 128), every split's sum taken over the chunks in order, the
+    splits' sums then added in order.  dQ: every row sums over 32-key
+    tiles in order.  ``scale`` multiplies dQ and dK after their sums.  For
+    the tests and the smoke run; the main path never calls it."""
+    B, Tq, H, D = q.shape
+    _, Tk, KV, _ = k.shape
+    G = H // KV
+    R = Tq * G
+    chunk, keys = _F32_BWD_CHUNK, _F32_BWD_KEYS
+    splits = 256 // (keys // 4 * ((64 if D <= 64 else 128) // 4))  # threads / (KG NCG)
+    r_pad = R + chunk                                          # a chunk may run past R
+    dev = q.device
+    kr = k.transpose(1, 2).float()                            # (B, KV, Tk, D)
+    vr = v.transpose(1, 2).float()
+    qr = _kernel_rows(q, KV, r_pad)                           # (B, KV, r_pad, D)
+    dor = _kernel_rows(do, KV, r_pad)
+    lser = _kernel_rows(lse, KV, r_pad)
+    delta = _kernel_rows((do.float() * out.float()).sum(dim=-1), KV, r_pad)
+    scale = 1.0 / math.sqrt(D)
+    rows = torch.arange(r_pad, device=dev)
+    pos = rows // G
+
+    def probs(s, row_ids, key_ids):
+        seen = (row_ids < R)[:, None] & (key_ids < Tk)[None, :]
+        if causal:
+            seen = seen & (key_ids[None, :] <= pos[row_ids][:, None])
+        return torch.where(seen, torch.exp(s * scale - lser[:, :, row_ids, None]), 0.0)
+
+    # dQ: every row over the 32-key tiles in order
+    dq = torch.zeros((B, KV, R, D), dtype=torch.float32, device=dev)
+    for j0 in range(0, Tk, _F32_BWD_TILE):
+        kj, vj = kr[:, :, j0:j0 + _F32_BWD_TILE], vr[:, :, j0:j0 + _F32_BWD_TILE]
+        key_ids = torch.arange(j0, j0 + kj.shape[2], device=dev)
+        p = probs(qr[:, :, :R] @ kj.transpose(-1, -2), rows[:R], key_ids)
+        ds = p * (dor[:, :, :R] @ vj.transpose(-1, -2) - delta[:, :, :R, None])
+        dq = dq + ds @ kj
+
+    # dK, dV: each 8-key tile over its chunks of 32 rows, split by row
+    dk = torch.zeros((B, KV, Tk, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for j0 in range(0, Tk, keys):
+        kj, vj = kr[:, :, j0:j0 + keys], vr[:, :, j0:j0 + keys]
+        key_ids = torch.arange(j0, j0 + kj.shape[2], device=dev)
+        first = min(j0 * G, R) if causal else 0
+        sum_k = [torch.zeros_like(kj) for _ in range(splits)]
+        sum_v = [torch.zeros_like(kj) for _ in range(splits)]
+        for r0 in range(first, R, chunk):
+            row_ids = rows[r0:r0 + chunk]
+            qc, doc = qr[:, :, r0:r0 + chunk], dor[:, :, r0:r0 + chunk]
+            p = probs(qc @ kj.transpose(-1, -2), row_ids, key_ids)
+            ds = p * (doc @ vj.transpose(-1, -2) - delta[:, :, r0:r0 + chunk, None])
+            for h in range(splits):
+                sum_v[h] = sum_v[h] + p[:, :, h::splits].transpose(-1, -2) @ doc[:, :, h::splits]
+                sum_k[h] = sum_k[h] + ds[:, :, h::splits].transpose(-1, -2) @ qc[:, :, h::splits]
+        for h in range(1, splits):
+            sum_k[0] = sum_k[0] + sum_k[h]
+            sum_v[0] = sum_v[0] + sum_v[h]
+        dk[:, :, j0:j0 + keys] = scale * sum_k[0]
+        dv[:, :, j0:j0 + keys] = sum_v[0]
+
+    dq = (scale * dq).reshape(B, KV, Tq, G, D).transpose(1, 2).reshape(B, Tq, H, D)
+    return dq, dk.transpose(1, 2), dv.transpose(1, 2)
+
+
 def flash_attention_split_plain(
     q: torch.Tensor,             # (B, Tq, H, D)
     k: torch.Tensor,             # (B, Tk, KV, D)
@@ -759,11 +864,12 @@ def _backward_rowstats(lib, out, do, lse, work, KV: int, dev: int, stream):
 
 
 def _launch_backward(q, k, v, out, lse, do, causal: bool):
-    """Launch the backward kernels (``csrc/flash_backward.cu``) of the route
-    :func:`backward_route` takes on the current stream; returns ``(dq, dk,
-    dv, workspace)``.  bf16 ``q``, ``out``, ``do`` ``(B, Tq, H, D)`` and
-    ``k``, ``v`` ``(B, Tk, KV, D)``, float32 ``lse`` ``(B, Tq, H)``, all
-    contiguous on one card; anything else raises."""
+    """Launch the backward kernels of the route :func:`_backward_kernel`
+    takes on the current stream; returns ``(dq, dk, dv, workspace)``.
+    ``q``, ``out``, ``do`` ``(B, Tq, H, D)`` and ``k``, ``v`` ``(B, Tk, KV,
+    D)`` in one dtype (float32: ``csrc/flash_backward_f32.cu``, one launch;
+    bfloat16: ``csrc/flash_backward.cu``), float32 ``lse`` ``(B, Tq, H)``,
+    all contiguous on one card; anything else raises."""
     _check(q, k, v, None)
     if q.device.type != "cuda":
         raise ValueError(f"q lies on {q.device}: the backward kernels run on cuda")
@@ -771,9 +877,11 @@ def _launch_backward(q, k, v, out, lse, do, causal: bool):
     _, Tk, KV, _ = k.shape
     route = _backward_kernel(q.dtype, q.shape, k.shape)
     if route is None:
-        raise ValueError(f"the backward kernels take bfloat16 at head_dim {_BWD_HEAD_DIMS}, or "
-                         f"Tq == Tk with one kv head, Tq * H <= {_BWD_ROWS} and head_dim <= "
-                         f"{_BWD_ROWS}; got {q.dtype} q {tuple(q.shape)}, k {tuple(k.shape)}")
+        raise ValueError(f"the backward kernels take float32 at head_dim <= {_MAX_HEAD_DIM} "
+                         f"and H/KV <= {_MAX_GROUP}, bfloat16 at head_dim {_BWD_HEAD_DIMS}, or "
+                         f"bfloat16 with Tq == Tk, one kv head, Tq * H <= {_BWD_ROWS} and "
+                         f"head_dim <= {_BWD_ROWS}; got {q.dtype} q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
                                   ("lse", lse, (B, Tq, H), torch.float32)):
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != q.device:
@@ -784,9 +892,17 @@ def _launch_backward(q, k, v, out, lse, do, causal: bool):
             raise ValueError(f"{name} must be contiguous")
     from .build import load
 
-    lib = load("flash_backward")
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "f32":
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _launched(load("flash_backward_f32").flash_backward_f32_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, H, KV, D,
+            int(bool(causal)), 1.0 / math.sqrt(D), dev, stream), "flash_attention_backward_f32")
+        LAUNCHES["flash_attention_backward"] += 1
+        return dq, dk, dv, q.new_empty((0,), dtype=torch.float32)
+    lib = load("flash_backward")
     if route == "short":
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         _launched(lib.flash_backward_short_launch(
@@ -796,8 +912,8 @@ def _launch_backward(q, k, v, out, lse, do, causal: bool):
         LAUNCHES["flash_attention_backward"] += 1
         return dq, dk, dv, q.new_empty((0,), dtype=torch.float32)
     splits = backward_splits(B, Tq, Tk, H, KV, _sm_count(dev))
-    work = torch.empty(backward_workspace(B, Tq, Tk, H, KV, D, splits), dtype=torch.float32,
-                       device=q.device)
+    work = torch.empty(backward_workspace(B, Tq, Tk, H, KV, D, splits, q.dtype),
+                       dtype=torch.float32, device=q.device)
     lse2, delta = _backward_rowstats(lib, out, do, lse, work, KV, dev, stream)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     n_kv = B * Tk * KV * D
@@ -837,8 +953,8 @@ def flash_attention_backward_op(
     ``repro_torch::flash_attention_backward``: ``(dq, dk, dv, workspace)``.
     On a CUDA tensor it launches the backward kernels
     (:func:`_launch_backward`; ``workspace`` is the long route's float32
-    row statistics and dK / dV partials, empty on the short route,
-    returned so that a trace counts the bytes they hold,
+    row statistics and dK / dV partials, empty on the short route and the
+    float32 kernel's, returned so that a trace counts the bytes they hold,
     :func:`backward_workspace`); on a CPU tensor it is
     :func:`flash_attention_backward_plain` with ``block_q`` / ``block_kv``
     and an empty ``(0,)`` workspace.  Its fake implementation gives the
@@ -855,7 +971,7 @@ def flash_attention_backward_op(
 def _(q, k, v, out, lse, do, causal, block_q, block_kv):
     B, Tq, H, D = q.shape
     _, Tk, KV, _ = k.shape
-    n = backward_workspace(B, Tq, Tk, H, KV, D, backward_splits(B, Tq, Tk, H, KV))
+    n = backward_workspace(B, Tq, Tk, H, KV, D, backward_splits(B, Tq, Tk, H, KV), q.dtype)
     return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
             q.new_empty((n,), dtype=torch.float32))
 
@@ -901,10 +1017,10 @@ def _flash_backward_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shap
     """FLOPs of one backward call: ``10 · B · H · D`` per (query, key) pair
     that :func:`causal_pairs` counts, the five products of the backward
     (``q·k``, ``do·v``, ``pᵀ·do``, ``dsᵀ·q``, ``ds·k``), two FLOPs per
-    multiply-add each.  The long route's dQ pass recomputes ``q·k`` and
-    ``do·v`` (the short route computes each product once): those two
-    products are not counted, nor are the exponentials and the row sums of
-    ``delta``."""
+    multiply-add each.  The long route's dQ pass and the float32 kernel's
+    dQ blocks recompute ``q·k`` and ``do·v`` (the short route computes each
+    product once): those two products are not counted, nor are the
+    exponentials and the row sums of ``delta``."""
     B, Tq, H, D = q_shape
     return 10 * B * H * D * causal_pairs(Tq, k_shape[1], 0, causal)
 
@@ -924,7 +1040,8 @@ class FlashAttentionFn(torch.autograd.Function):
     reference's ``_flash_train`` custom VJP.  The forward runs K4 with its
     ``lse`` output on a CUDA tensor (the plain version on a CPU one) and
     saves ``(q, k, v, out, lse)``; the backward goes through
-    :func:`flash_attention_backward_op` (the backward kernels) where
+    :func:`flash_attention_backward_op` (the backward kernels: every
+    float32 call, and the bf16 routes' shapes) where
     :func:`backward_route` says ``'kernel'``, else through
     :func:`flash_attention_backward_plain`, as on a CPU tensor holding
     data.  No fallback: a kernel that fails to build or launch raises."""

@@ -11,7 +11,8 @@ the temporary directory that ``TMPDIR`` names) and its log lines.  ``lm-100m``
 (:func:`model_100m`) is float32 end to end, so on the card every
 attention call runs K4's float32 kernel with its log-sum-exp output
 (``csrc/flash_attention.cu``, once per layer a step: the config keeps no
-remat) and the backward is the plain attention backward.  Matrix
+remat) and its backward K4's float32 backward kernel
+(``csrc/flash_backward_f32.cu``, once per layer a step).  Matrix
 products stay full float32: nothing here turns TF32 on.
 
 :func:`train` is the example's ``main`` given the config, its flags and

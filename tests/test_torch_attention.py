@@ -221,7 +221,8 @@ def test_wrapper_counts_every_kernel_key_at_zero_on_cpu():
                                "flash_attention_backward_rowstat",
                                "flash_attention_backward_dkdv",
                                "flash_attention_backward_dq",
-                               "flash_attention_backward_reduce"}
+                               "flash_attention_backward_reduce",
+                               "flash_attention_backward_f32"}
     assert not any(K.LAUNCHES.values()) and not any(K.PLAIN_CUDA_CALLS.values())
     with pytest.raises(ValueError, match="multiple of 64"):
         K.flash_attention_split_plain(q, kv, kv, split_keys=100)

@@ -707,9 +707,9 @@ def test_cuda_k4_lse_is_inf_on_fully_masked_rows(card, dtype):
 
 @pytest.mark.parametrize("case", LSE_CASES[:3])
 def test_cuda_flash_backward_matches_cpu(card, full_fp32, case):
-    """The training route on the card (K4 with lse, then the plain backward
-    on the card) gives the CPU's gradients in float32; one prefill-with-lse
-    launch per forward, the plain forward never."""
+    """The float32 training route on the card (K4 with lse, then the
+    float32 backward kernel) gives the CPU's gradients (the plain versions);
+    one launch of each per call, the plain forward and backward never."""
     from repro_torch.kernels import flash_attention as FA
 
     B, T, H, KV, D, causal = case
@@ -725,7 +725,8 @@ def test_cuda_flash_backward_matches_cpu(card, full_fp32, case):
         grads[dev] = [out.detach()] + [t.grad for t in leaves]
         if dev == "cuda":
             assert FA.LAUNCHES["flash_attention_f32_lse"] == 1
-            assert FA.PLAIN_CUDA_CALLS == {"flash_attention": 0, "flash_attention_backward": 1}
+            assert FA.LAUNCHES["flash_attention_backward_f32"] == 1
+            assert FA.PLAIN_CUDA_CALLS == {"flash_attention": 0, "flash_attention_backward": 0}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert float((got.cpu() - want).abs().max()) < 1e-4 * max(1.0, float(want.abs().max()))
 
@@ -733,7 +734,8 @@ def test_cuda_flash_backward_matches_cpu(card, full_fp32, case):
 def test_cuda_flash_backward_bf16_against_float32(card, full_fp32):
     """glm4-9b's heads in bf16 through the training route (K4 with lse,
     then the backward kernels): gradients within bf16 round-off of the
-    float32 route's (the float32 kernel, then the plain backward)."""
+    float32 route's (the float32 kernel, then the float32 backward
+    kernel)."""
     from repro_torch.kernels import flash_attention as FA
 
     q, k, v = _qkv(21, 1, 256, 256, 32, 2, 128, torch.float32)
@@ -744,9 +746,11 @@ def test_cuda_flash_backward_bf16_against_float32(card, full_fp32):
         leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
         FA.reset_launch_counts()
         FA.flash_attention(*leaves, causal=True).backward(do.to(dtype))
-        kernel = dtype == torch.bfloat16
-        assert FA.LAUNCHES["flash_attention_backward"] == int(kernel)
-        assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == int(not kernel)
+        f32 = dtype == torch.float32
+        assert FA.LAUNCHES["flash_attention_backward"] == 1
+        assert FA.LAUNCHES["flash_attention_backward_f32"] == int(f32)
+        assert FA.LAUNCHES["flash_attention_backward_dq"] == int(not f32)
+        assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == 0
         grads[dtype] = [t.grad.float() for t in leaves]
     for got, want in zip(grads[torch.bfloat16], grads[torch.float32]):
         assert float((got - want).abs().max()) < 0.05 * float(want.abs().max())
@@ -805,8 +809,9 @@ def _bwd_launches(q, k, splits):
     from repro_torch.kernels import flash_attention as FA
 
     want = {key: 0 for key in FA.LAUNCHES}
-    if FA._backward_kernel(q.dtype, q.shape, k.shape) == "short":
-        want.update(flash_attention_backward=1, flash_attention_backward_short=1)
+    route = FA._backward_kernel(q.dtype, q.shape, k.shape)
+    if route in ("short", "f32"):
+        want.update({"flash_attention_backward": 1, f"flash_attention_backward_{route}": 1})
     else:
         want.update(flash_attention_backward=1, flash_attention_backward_rowstat=1,
                     flash_attention_backward_dkdv=1, flash_attention_backward_dq=1,
@@ -852,7 +857,8 @@ def test_cuda_backward_kernel_at_each_split_count(card, full_fp32, monkeypatch, 
     FA.reset_launch_counts()
     got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)
     assert FA.LAUNCHES == _bwd_launches(q, k, splits)
-    assert got[3].numel() == FA.backward_workspace(1, 200, 200, 16, 2, 128, splits)
+    assert got[3].numel() == FA.backward_workspace(1, 200, 200, 16, 2, 128, splits,
+                                                   torch.bfloat16)
     _bwd_within(got[:3], FA.flash_attention_backward_tiled_plain(
         q, k, v, out, lse, do, causal=True, splits=splits), BWD_TOL["mirror"])
     _bwd_within(got[:3], FA.flash_attention_backward_plain(q, k, v, out, lse, do),
@@ -860,7 +866,7 @@ def test_cuda_backward_kernel_at_each_split_count(card, full_fp32, monkeypatch, 
 
 
 def test_cuda_backward_kernel_refuses_what_it_does_not_take(card):
-    """float32, a head dim off 64 / 128 over two kv heads, a sequence past
+    """float16, a head dim off 64 / 128 over two kv heads, a sequence past
     the short route's one tile at D = 50, a non-contiguous output
     gradient: the launch raises, it never runs the plain version."""
     from repro_torch.kernels import flash_attention as FA
@@ -868,7 +874,7 @@ def test_cuda_backward_kernel_refuses_what_it_does_not_take(card):
     q, k, v, out, lse, do = _bwd_inputs(3, 1, 40, 40, 4, 2, 64, True)
     plain = FA.PLAIN_CUDA_CALLS["flash_attention_backward"]
     with pytest.raises(ValueError):
-        FA._launch_backward(q.float(), k.float(), v.float(), out.float(), lse, do.float(), True)
+        FA._launch_backward(q.half(), k.half(), v.half(), out.half(), lse, do.half(), True)
     with pytest.raises(ValueError):
         FA._launch_backward(q[..., :50].contiguous(), k[..., :50].contiguous(),
                             v[..., :50].contiguous(), out[..., :50].contiguous(), lse,
@@ -927,6 +933,110 @@ def test_cuda_backward_long_route_on_a_grid_past_what_the_card_holds(card, full_
                 BWD_TOL["plain"])
     _bwd_within(got, FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do,
                                                              splits=splits), BWD_TOL["mirror"])
+
+
+# (B, Tq, Tk, H, KV, D, causal) of the float32 backward kernel: lm-100m's
+# training attention first; ragged rows and keys, G = 1 to 64, D = 1, 7, 50
+# (4- and 8-byte copies) and 100 / 128 (the wider instantiation), not
+# causal, more keys than queries and more queries than keys
+F32_BWD_CASES = [
+    (4, 128, 128, 8, 4, 64, True),
+    (2, 37, 37, 6, 2, 64, True),
+    (1, 130, 130, 48, 3, 64, True),
+    (2, 65, 65, 4, 4, 128, False),
+    (3, 50, 50, 4, 1, 50, True),
+    (2, 49, 49, 2, 1, 1, True),
+    (3, 65, 65, 6, 2, 7, True),
+    (1, 50, 80, 8, 2, 100, True),
+    (2, 77, 140, 24, 8, 64, False),
+    (1, 40, 20, 4, 2, 64, True),
+    (1, 300, 300, 64, 1, 128, True),
+]
+# chip_smoke.py's BWD_F32_L2_RTOL / BWD_F32_MAX_RTOL: float32 on both sides,
+# so only the order of the sums (and expf's last bits) differ, ~3e-7 of a
+# gradient between the mirror and the plain version on the CPU
+BWD_F32_TOL = (1e-5, 1e-5)
+
+
+def _f32_bwd_inputs(seed, B, Tq, Tk, H, KV, D, causal):
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v = _qkv(seed, B, Tq, Tk, H, KV, D, torch.float32)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                     device="cuda")
+    out, lse = FA.flash_attention_op(q, k, v, None, causal, 0, True, 512, 1024)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("case", F32_BWD_CASES,
+                         ids=[str(c).replace(" ", "") for c in F32_BWD_CASES])
+def test_cuda_f32_backward_kernel_matches_plain_and_mirror(card, full_fp32, case):
+    """The float32 backward kernel against the plain backward and its tiled
+    mirror; one launch a call, a second run bit for bit."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal = case
+    q, k, v, out, lse, do = _f32_bwd_inputs(Tq + H + D, *case)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == _bwd_launches(q, k, 1)
+    assert got[3].numel() == 0 and {g.dtype for g in got[:3]} == {torch.float32}
+    again = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again))
+    _bwd_within(got[:3], FA.flash_attention_backward_plain(q, k, v, out, lse, do,
+                                                           causal=causal), BWD_F32_TOL)
+    _bwd_within(got[:3], FA.flash_attention_backward_f32_tiled_plain(q, k, v, out, lse, do,
+                                                                     causal=causal),
+                BWD_F32_TOL)
+    if causal and Tk > Tq:  # keys no query sees
+        assert float(got[1][:, Tq:].abs().max()) == 0.0 and float(got[2][:, Tq:].abs().max()) == 0.0
+
+
+def test_cuda_f32_backward_kernel_refuses_what_it_does_not_take(card):
+    """A head dim past 128, more than 64 query heads a kv head, an lse of
+    another shape, a non-contiguous output gradient: the float32 launch
+    raises, it never runs the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+
+    plain = FA.PLAIN_CUDA_CALLS["flash_attention_backward"]
+    q, k, v = _qkv(3, 1, 20, 20, 2, 1, 136, torch.float32)
+    lse = torch.zeros((1, 20, 2), device="cuda")
+    with pytest.raises(ValueError):
+        FA._launch_backward(q, k, v, q, lse, q, True)
+    q, k, v = _qkv(3, 1, 20, 20, 128, 1, 8, torch.float32)
+    with pytest.raises(ValueError):
+        FA._launch_backward(q, k, v, q, torch.zeros((1, 20, 128), device="cuda"), q, True)
+    q, k, v, out, lse, do = _f32_bwd_inputs(3, 1, 40, 40, 4, 2, 64, True)
+    with pytest.raises(ValueError):
+        FA._launch_backward(q, k, v, out, lse[:, :39].contiguous(), do, True)
+    with pytest.raises(ValueError):
+        FA._launch_backward(q, k, v, out, lse, do.transpose(1, 2).contiguous().transpose(1, 2),
+                            True)
+    assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == plain
+
+
+def test_cuda_f32_backward_kernel_past_65535_batch_rows(card, full_fp32):
+    """65,537 sequences of 50 positions (one head, D = 50): the one 1-D
+    grid of 524,296 blocks; the first, middle and last sequences against
+    the plain backward and the mirror on those sequences alone, and a
+    second run bit for bit."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B = 65_537
+    q, k, v, out, lse, do = _f32_bwd_inputs(8, B, 50, 50, 1, 1, 50, True)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == _bwd_launches(q, k, 1)
+    again = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for rows in (slice(0, 3), slice(65_533, 65_536), slice(B - 3, B)):
+        part = [t[rows] for t in (q, k, v, out, lse, do)]
+        mine = [g[rows] for g in got]
+        _bwd_within(mine, FA.flash_attention_backward_plain(*part, causal=True), BWD_F32_TOL)
+        _bwd_within(mine, FA.flash_attention_backward_f32_tiled_plain(*part, causal=True),
+                    BWD_F32_TOL)
 
 
 @pytest.mark.parametrize("dtype,Tq", [(torch.bfloat16, 50), (torch.float32, 50),

@@ -1,6 +1,7 @@
-"""K4's training backward on the CPU: the tiled mirror of the backward
-kernels (``csrc/flash_backward.cu``), the route that picks them, and the
-registered op ``repro_torch::flash_attention_backward`` over fake tensors.
+"""K4's training backward on the CPU: the tiled mirrors of the backward
+kernels (``csrc/flash_backward.cu``, bf16; ``csrc/flash_backward_f32.cu``,
+float32), the route that picks them, and the registered op
+``repro_torch::flash_attention_backward`` over fake tensors.
 
 The kernels run only on the card (``tests/test_torch_cuda.py`` holds them
 against both plain versions there).  Here:
@@ -17,6 +18,16 @@ against both plain versions there).  Here:
 * the same mirror with the rounding off, float32 throughout, against
   :func:`flash_attention_backward_plain` within ``rtol=1e-5,
   atol=1e-6`` (the same products, summed in another order);
+* :func:`flash_attention_backward_f32_tiled_plain`, the float32 kernel's
+  arithmetic (8-key dK / dV tiles over 32-row chunks in row splits,
+  16-row dQ tiles over 32-key tiles), on float32 inputs against
+  ``jax.vjp`` of the reference's ``layers.flash_attention`` in float32,
+  and against :func:`flash_attention_backward_plain`, both within
+  ``rtol=F32_RTOL`` and ``atol=F32_ATOL`` times the gradient's largest
+  element (float32 on both sides: only the order of sums and ``exp``'s
+  last bits differ, ~2e-7 of the largest element; an element that is a
+  sum cancelling to near zero keeps the error of its large terms, so the
+  absolute bound scales with them);
 * :func:`backward_route` for the dtype and training shapes of every arch
   the port trains, and the op traced over fake CUDA tensors on both
   routes: shapes, the workspace :func:`backward_workspace` gives, FLOPs
@@ -34,6 +45,7 @@ from repro.models import layers as jlayers
 from repro_torch.kernels import flash_attention as FA
 
 BF16_L2, BF16_MAX = 0.01, 0.02
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
 
 # (B, T, H, KV, D, causal): D 64 and 128, narrow and ragged T, G 1, 3, 16
 CASES = [
@@ -55,6 +67,19 @@ CASES = [
 ]
 SHORT_CASES = CASES[6:10]
 LONG_CASES = CASES[10:]
+# the float32 kernel's (B, T, H, KV, D, causal): rows not a whole tile or
+# chunk, G = 1, 2, 4, D 64 and 128, D not a multiple of 4 (50, 7), D
+# between the padded widths (100), not causal; lm-100m's training
+# attention last
+F32_CASES = [
+    (2, 37, 2, 2, 64, True),
+    (1, 45, 4, 2, 64, False),
+    (2, 23, 8, 2, 128, True),
+    (1, 50, 4, 1, 50, True),
+    (1, 33, 2, 1, 7, False),
+    (1, 70, 8, 4, 100, True),
+    (4, 128, 8, 4, 64, True),
+]
 
 
 def _inputs(case):
@@ -67,6 +92,11 @@ def _inputs(case):
 
 def _bf16(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def _f32_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    torch.testing.assert_close(got, want, rtol=F32_RTOL,
+                               atol=F32_ATOL * max(1.0, float(want.abs().max())))
 
 
 def _rel(got: torch.Tensor, want: np.ndarray):
@@ -152,7 +182,7 @@ def test_tiled_mirror_with_more_keys_than_queries():
 @pytest.mark.parametrize("arch,route", [
     ("glm4-9b", "kernel"), ("granite-moe-3b-a800m", "kernel"), ("llama3-405b", "kernel"),
     ("yi-9b", "kernel"), ("moonshot-v1-16b-a3b", "kernel"), ("sasrec", "kernel"),
-    ("lm-100m", "plain"),
+    ("lm-100m", "kernel"),
 ])
 def test_backward_route_of_each_trained_arch(arch, route):
     """Each arch's training attention: the LMs' 4096-token batch rows,
@@ -179,18 +209,19 @@ def test_backward_route_of_each_trained_arch(arch, route):
         H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     assert FA.backward_route(dtype, (B, T, H, D), (B, T, KV, D)) == route
     if route == "kernel":
-        want = "short" if arch == "sasrec" else "long"
+        want = {"sasrec": "short", "lm-100m": "f32"}.get(arch, "long")
         assert FA._backward_kernel(dtype, (B, T, H, D), (B, T, KV, D)) == want
 
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, "kernel"), (torch.bfloat16, 128, "kernel"),
     (torch.bfloat16, 50, "plain"), (torch.bfloat16, 96, "plain"),
-    (torch.float32, 64, "plain"), (torch.float32, 128, "plain"), (torch.float16, 64, "plain"),
+    (torch.float32, 64, "kernel"), (torch.float32, 128, "kernel"), (torch.float16, 64, "plain"),
 ])
 def test_backward_route_by_dtype_and_head_dim(dtype, D, route):
-    """Long sequences (4096 positions, 8 heads over 2): only the long
-    route's head dims take a kernel."""
+    """Long sequences (4096 positions, 8 heads over 2): in bf16 only the
+    long route's head dims take a kernel; float32 takes the float32
+    kernel at any head dim up to 128."""
     assert FA.backward_route(dtype, (1, 4096, 8, D), (1, 4096, 2, D)) == route
 
 
@@ -203,7 +234,7 @@ def test_backward_route_by_dtype_and_head_dim(dtype, D, route):
     (50, 50, 2, 1, 50, torch.bfloat16, None),       # 100 rows a sequence
     (50, 50, 2, 2, 50, torch.bfloat16, None),       # two kv heads
     (50, 60, 1, 1, 50, torch.bfloat16, None),       # keys past the queries
-    (50, 50, 1, 1, 50, torch.float32, None),
+    (50, 50, 1, 1, 50, torch.float32, "f32"),
     (50, 50, 1, 1, 128, torch.bfloat16, "long"),
     (50, 50, 2, 2, 64, torch.bfloat16, "long"),
 ])
@@ -224,11 +255,14 @@ def test_backward_splits_and_workspace_at_the_training_shapes():
     assert FA.backward_splits(1, 2048, 2048, 64, 1) == 8
     assert FA.backward_splits(64, 4096, 4096, 32, 8) == 1
     rows = 4096 * 16
-    assert FA.backward_workspace(1, 4096, 4096, 32, 2, 128, 5) == (
+    assert FA.backward_workspace(1, 4096, 4096, 32, 2, 128, 5, torch.bfloat16) == (
         2 * 2 * rows + 2 * 5 * 4096 * 2 * 128)
-    assert FA.backward_workspace(2, 37, 37, 6, 2, 64, 1) == 2 * 2 * 2 * 128
-    # the short route (SASRec's train_batch) needs none
-    assert FA.backward_workspace(65_536, 50, 50, 1, 1, 50, 1) == 0
+    assert FA.backward_workspace(2, 37, 37, 6, 2, 64, 1, torch.bfloat16) == 2 * 2 * 2 * 128
+    # the short route (SASRec's train_batch) needs none, nor does the
+    # float32 kernel at any shape (lm-100m's; glm4-9b's heads)
+    assert FA.backward_workspace(65_536, 50, 50, 1, 1, 50, 1, torch.bfloat16) == 0
+    assert FA.backward_workspace(4, 128, 128, 8, 4, 64, 1, torch.float32) == 0
+    assert FA.backward_workspace(1, 4096, 4096, 32, 2, 128, 4, torch.float32) == 0
 
 
 @pytest.mark.parametrize("case", [(1, 4096, 32, 2, 128, True), (2, 37, 6, 2, 64, True),
@@ -250,8 +284,78 @@ def test_backward_op_fake_shapes_workspace_and_flops(case):
     assert {t.dtype for t in (dq, dk, dv)} == {torch.bfloat16}
     assert dq.device.type == "cuda" and work.dtype == torch.float32
     splits = FA.backward_splits(B, T, T, H, KV)
-    assert work.numel() == FA.backward_workspace(B, T, T, H, KV, D, splits)
+    assert work.numel() == FA.backward_workspace(B, T, T, H, KV, D, splits, torch.bfloat16)
     assert fc.get_total_flops() == 10 * B * H * D * FA.causal_pairs(T, T, 0, causal)
+
+
+@pytest.mark.parametrize("case", [(4, 128, 8, 4, 64, True), (2, 37, 6, 2, 128, False),
+                                  (1, 4096, 32, 2, 128, True), (3, 50, 4, 1, 7, True)])
+def test_backward_op_fake_float32_shapes_workspace_and_flops(case):
+    """The float32 route over fake CUDA tensors (lm-100m's shape first):
+    float32 gradients of the inputs' shapes, no workspace, FLOPs ``10 B H D
+    causal_pairs``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    B, T, H, KV, D, causal = case
+    assert FA._backward_kernel(torch.float32, (B, T, H, D), (B, T, KV, D)) == "f32"
+    with FakeTensorMode():
+        q = torch.empty(B, T, H, D, dtype=torch.float32, device="cuda")
+        k = torch.empty(B, T, KV, D, dtype=torch.float32, device="cuda")
+        lse = torch.empty(B, T, H, dtype=torch.float32, device="cuda")
+        with FlopCounterMode(display=False) as fc:
+            dq, dk, dv, work = FA.flash_attention_backward_op(q, k, k, q, lse, q, causal,
+                                                               512, 1024)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert {t.dtype for t in (dq, dk, dv)} == {torch.float32}
+    assert dq.device.type == "cuda" and work.shape == (0,)
+    assert fc.get_total_flops() == 10 * B * H * D * FA.causal_pairs(T, T, 0, causal)
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=[str(c).replace(" ", "") for c in F32_CASES])
+def test_f32_mirror_matches_reference_vjp(case):
+    """The float32 kernel's arithmetic against the reference's custom VJP
+    (``_flash_train_bwd``) in float32, on the same numpy-seeded inputs."""
+    B, T, H, KV, D, causal = case
+    q, k, v, do = _inputs(case)
+
+    def f(a, b, c):
+        return jlayers.flash_attention(a, b, c, causal=causal)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    wants = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = FA.flash_attention_backward_f32_tiled_plain(tq, tk, tv, out, lse, tdo, causal=causal)
+    for g, w in zip(got, wants):
+        assert g.dtype == torch.float32
+        _f32_close(g, torch.from_numpy(np.array(w)))
+
+
+@pytest.mark.parametrize("case", F32_CASES + [(2, 30, 4, 2, 64, True, 90),
+                                              (1, 20, 2, 1, 7, False, 45)],
+                         ids=[str(c).replace(" ", "") for c in F32_CASES] + ["keys90", "keys45"])
+def test_f32_mirror_is_the_plain_backward(case):
+    """The float32 kernel's arithmetic against the plain backward at its
+    default and its small blocks, and with more keys than queries (the
+    keys no query sees get zero gradients under causal)."""
+    B, T, H, KV, D, causal = case[:6]
+    Tk = case[6] if len(case) > 6 else T
+    rng = np.random.default_rng(T * 7 + Tk + D)
+    q, do = (torch.from_numpy(rng.standard_normal((B, T, H, D)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Tk, KV, D)).astype(np.float32))
+            for _ in range(2))
+    out, lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got = FA.flash_attention_backward_f32_tiled_plain(q, k, v, out, lse, do, causal=causal)
+    for blocks in ((512, 1024), (16, 32)):
+        want = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal,
+                                                 block_q=blocks[0], block_kv=blocks[1])
+        for g, w in zip(got, want):
+            _f32_close(g, w)
+    if causal and Tk > T:
+        assert float(got[1][:, T:].abs().max()) == 0.0
+        assert float(got[2][:, T:].abs().max()) == 0.0
 
 
 def test_backward_op_on_the_cpu_is_the_plain_version_bit_for_bit():
@@ -270,15 +374,15 @@ def test_backward_op_on_the_cpu_is_the_plain_version_bit_for_bit():
 
 @pytest.mark.parametrize("dtype,D,T,H,KV,through_op", [
     (torch.bfloat16, 128, 96, 6, 2, True), (torch.bfloat16, 64, 96, 6, 2, True),
-    (torch.bfloat16, 50, 96, 6, 2, False), (torch.float32, 64, 96, 6, 2, False),
+    (torch.bfloat16, 50, 96, 6, 2, False), (torch.float32, 64, 96, 6, 2, True),
     (torch.bfloat16, 50, 50, 1, 1, True), (torch.bfloat16, 50, 70, 1, 1, False),
 ])
 def test_training_backward_goes_through_the_route(dtype, D, T, H, KV, through_op):
     """``FlashAttentionFn``'s backward over fake tensors (a dry-run's trace;
     fake CPU tensors, since autograd's engine needs a card for fake CUDA
     ones): the kernels' op where the route says so (the long route's head
-    dims, the short route's SASRec sequences), counted at the FLOP
-    formula; the plain backward's einsums otherwise."""
+    dims, the short route's SASRec sequences, float32 at any head dim),
+    counted at the FLOP formula; the plain backward's einsums otherwise."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
