@@ -833,6 +833,7 @@ def index_rows(graph, builds: dict, reps: int) -> list:
     for name, line, fn, plain, args, uploaded in cases:
         before = dict(BI.INDEX_BUILDS)
         got, want = fn(*args), plain(*args)
+        grid, chunks = BI.LAST_GRID[name]
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"{name}: kernel != plain version")
         if not all(torch.equal(a, b) for a, b in zip(got, uploaded)):
@@ -843,14 +844,17 @@ def index_rows(graph, builds: dict, reps: int) -> list:
         plain_ms = time_ms(lambda: plain(*args), 2, 1)
         BI.INDEX_BUILDS.update(before)
         words = [t for t in args if isinstance(t, torch.Tensor)]
-        b_ms, b_by = bound(nbytes(*words, *got), 0)
+        n_bytes = nbytes(*words, *got)
+        b_ms, b_by = bound(n_bytes, 0)
         rows.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/bitmap_index.cu",
             "replaces": f"{TPU_KERNEL}:{line}", "launches": builds[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "layout_bound_ms": b_ms, "library_ms": None,
+            "chunks": chunks, "gb_per_s": n_bytes / ms / 1e6,
             "shape": {"entries": int(got[1].shape[0]), "rows": int(got[0].shape[0]) - 1,
-                      "index_bytes": nbytes(*got)},
+                      "index_bytes": nbytes(*got), "bound_bytes": n_bytes,
+                      "chunk_units": BI.CHUNK_UNITS, "grid_chunks": grid},
         })
     return rows
 
@@ -3101,9 +3105,10 @@ def graph_phases(args, record) -> list:
     rows += index_rows(exact, builds, max(args.reps // 4, 2))
     record["graph_sass_atomics"] = graph_atomic_counts()
     for r in rows:
+        chunked = f", {r['chunks']} chunks, {r['gb_per_s']:.1f} GB/s" if "chunks" in r else ""
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}, layout bound "
-            f"{r['layout_bound_ms']:.4f}, library {r['library_ms']})")
+            f"{r['layout_bound_ms']:.4f}, library {r['library_ms']}{chunked})")
 
     t = time.perf_counter()
     record["scale"] = {
@@ -4980,7 +4985,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("layout_bound_ms", "tier_launches", "distributed_launches")
+    extra = ("layout_bound_ms", "tier_launches", "distributed_launches", "chunks", "gb_per_s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

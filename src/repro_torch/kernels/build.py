@@ -42,8 +42,10 @@ LIBRARIES = {
     "bitmap_index": (
         "bitmap_index.cu",
         {
-            "bitmap_index_launch": [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I, _P],
-            "bitmap_index_fused_launch": [_I] + [_P] * 9 + [_I] * 2 + [_P] * 3 + [_I, _P],
+            "bitmap_index_count_launch": [_P] * 9 + [_I] + [_P] * 2 + [_I] * 3 + [_P] * 2
+            + [_I, _P],
+            "bitmap_index_fill_launch": [_P] * 9 + [_I] + [_P] * 2 + [_I] * 3 + [_P] * 2 + [_I]
+            + [_P] * 3 + [_I, _P],
         },
     ),
     "bitmap_spmm": (

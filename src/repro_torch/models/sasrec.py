@@ -98,9 +98,14 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]``.  For a DTensor ``table`` whose rows are split over the
     ranks, each rank looks up the ids that fall in its row range (zeros
     elsewhere), a partial sum over the ranks that split the rows, placed
-    as ``ids`` on the others; its gradient stays on the rank's rows."""
+    as ``ids`` on the others; its gradient stays on the rank's rows.
+
+    The gather is ``F.embedding``: its gradient adds each row's entries in
+    the order of ``ids`` on the CPU too (an indexing gather's gradient is a
+    CPU ``index_put_`` that adds with atomics across threads, so its bits
+    changed from run to run under load)."""
     if not is_dtensor(table):
-        return table[ids.long()]
+        return F.embedding(ids.long(), table)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -115,7 +120,7 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     def local(t, i):
         i = i.long() - r0
         inside = (i >= 0) & (i < rows)
-        return t[i.clamp(0, max(rows - 1, 0))] * inside[..., None].to(t.dtype)
+        return F.embedding(i.clamp(0, max(rows - 1, 0)), t) * inside[..., None].to(t.dtype)
 
     return local_map(local, out_placements=out, in_placements=(tp, ip),
                      in_grad_placements=(grad, ip), device_mesh=mesh)(

@@ -25,6 +25,7 @@ from repro_torch.data.synth import dblp_catalog
 from repro_torch.kernels import bitmap_index as BI
 from repro_torch.kernels import bitmap_spmm as K
 from repro_torch.kernels.pack import TILE, pack_bipartite
+from test_torch_index_chunks import skewed_stream
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +100,50 @@ def test_cuda_index_kernel_matches_plain(packed):
         for got, w in zip((f.row_ptr, f.col, f.weight), want):
             assert torch.equal(got, w)
         assert int(f.weight.max()) >= 2 ** (f.planes.shape[1] - 1)
+
+
+@pytest.mark.parametrize("units", [1, 8, 32])
+@pytest.mark.parametrize("n_planes", [1, 31])
+def test_cuda_index_chunked_kernels_match_plain_on_skewed_stream(card, monkeypatch, n_planes,
+                                                                 units):
+    """Both builders' chunked kernels at chunk length ``units``
+    (``CHUNK_UNITS``), byte for byte against the plain versions on the
+    skewed stream (one tile many chunks long, a ragged last chunk, pad-slot
+    and empty tiles, an empty row in the busy tile), and against the CPU
+    mirror of their schedule; each build counts once and records the grid
+    the schedule gives."""
+    monkeypatch.setattr(BI, "CHUNK_UNITS", units)
+    s = skewed_stream(5, n_planes, device=card)
+    before = dict(BI.INDEX_BUILDS)
+    got = BI.bitmap_index(*s["direction"])
+    want = BI.bitmap_index_plain(*s["direction"])
+    mirror = BI.bitmap_index_chunked_plain(*(t.cpu() for t in s["direction"]), chunk_units=units)
+    for a, b, m in zip(got, want, mirror):
+        assert a.dtype == torch.int32 and torch.equal(a, b) and torch.equal(a.cpu(), m)
+    grid, _, _ = BI.chunk_schedule(*s["direction"][1:4], table=False)
+    assert BI.LAST_GRID["bitmap_index"] == (grid, grid)
+    fused = s["fused"]
+    got = BI.bitmap_index_fused(*fused)
+    want = BI.bitmap_index_fused_plain(*fused)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert int(got[2].max()) == 2 ** n_planes - 1
+    grid, base, _ = BI.chunk_schedule(*fused[5:8], fused[0], fused[9])
+    assert BI.LAST_GRID["bitmap_index_fused"] == (grid, int(base[-1]))
+    assert BI.INDEX_BUILDS == {k: v + 1 for k, v in before.items()}
+
+
+def test_cuda_index_refuses_a_stream_past_its_grid(card):
+    """A fused stream whose correction slots share one plane unit needs
+    more chunks than the grid the wrapper bounds from the planes: the
+    build raises after the count pass and counts nothing."""
+    f = list(skewed_stream(6, 31, device=card)["fused"])
+    f[4] = torch.zeros_like(f[4])
+    f[9] = f[9][:1].contiguous()
+    before = dict(BI.INDEX_BUILDS)
+    with pytest.raises(ValueError, match="past the grid"):
+        BI.bitmap_index_fused(*f)
+    assert BI.INDEX_BUILDS == before
 
 
 @pytest.mark.parametrize("feat", [8, 32, 40])

@@ -2,7 +2,8 @@
 kernels' arithmetic over it, on the CPU.
 
 * ``bitmap_index_plain`` / ``bitmap_index_fused_plain`` against the COO
-  edges and correction triples the operands were packed from.
+  edges and correction triples the operands were packed from, and the
+  mirror of the CUDA builder's chunked schedule against both.
 * ``bitmap_spmm_index_plain`` / ``bitmap_spmm_fused_index_plain`` (the
   kernels' merge-path ranges, in-range folds and fixed-order carry pass)
   against the bitmap plain versions and against the JAX package's Pallas
@@ -198,6 +199,34 @@ def test_to_device_packed_carries_the_index(port_graph):
         stream = [getattr(f, k) for k in engine.FUSED_TABLES]
         index = 4 * (f.row_ptr.numel() + f.col.numel() + f.weight.numel())
         assert engine.device_graph_bytes(f) == engine.device_graph_bytes(stream) + index
+
+
+@pytest.mark.parametrize("units", [5, 32])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_chunked_index_mirror_equals_plain(port_graph, layer, reverse, units):
+    """The mirror of the builder's chunked schedule (chunk table, counts and
+    masks per (chunk, row), the scan in output order, the cursor fill)
+    gives the plain build and the uploaded index byte for byte."""
+    _, _, dev = port_graph
+    ops = dev.chains[0][layer].rev if reverse else dev.chains[0][layer].fwd
+    got = BI.bitmap_index_chunked_plain(*_plain_args(ops), chunk_units=units)
+    for a, b in zip(got, (ops.row_ptr, ops.col)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(got, BI.bitmap_index_plain(*_plain_args(ops))))
+
+
+@pytest.mark.parametrize("units", [5, 32])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_chunked_fused_index_mirror_equals_plain(port_graph, reverse, units):
+    _, _, dev = port_graph
+    f = dev.fused_rev if reverse else dev.fused_fwd
+    got = BI.bitmap_index_fused_chunked_plain(*_fused_plain_args(f), f.plane_weights,
+                                              chunk_units=units)
+    for a, b in zip(got, (f.row_ptr, f.col, f.weight)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    want = BI.bitmap_index_fused_plain(*_fused_plain_args(f), f.plane_weights)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
