@@ -60,9 +60,11 @@ bfloat16, D 64 or 128     the long route: row statistics, a dK / dV
                           :func:`backward_splits` runs, added in order),
                           a dQ kernel over row tiles
 float32, any shape        ``csrc/flash_backward_f32.cu``: CUDA-core FFMA,
-                          one launch of 8-key dK / dV blocks walking the
-                          rows that see them and 16-row dQ blocks walking
-                          the keys (lm-100m's training)
+                          one launch of 4-block clusters, 32-key dK / dV
+                          tiles walking the rows that see them and 32-row
+                          dQ tiles walking the keys, each walk split over
+                          its cluster's blocks and their shares added in
+                          rank order (lm-100m's training)
 ========================  ==============================================
 
 The bf16 routes are ``csrc/flash_backward.cu``'s.  A bfloat16 shape that
@@ -100,7 +102,8 @@ plain PyTorch (``p`` rounded against each split's running max), and
 and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their products,
 the kernels' order of sums, the short route's included) and
 :func:`flash_attention_backward_f32_tiled_plain` the float32 backward
-kernel's (its 8-key and 16-row blocks, float32 throughout), for the
+kernel's (its 32-key and 32-row tiles, each walk split over 4 ranks,
+float32 throughout), for the
 tests and the smoke run; the main path never calls them.
 """
 from __future__ import annotations
@@ -172,9 +175,11 @@ _LOG2E = 1.4426950408889634
 _BWD_ROWS = 64       # query rows a tile of the backward kernels; the short route's bound
 _BWD_HEAD_DIMS = (64, 128)  # the long backward route's head dims (bf16)
 _BWD_MAX_SPLITS = 8  # runs of row tiles a key tile of the dK / dV kernel is cut in
-_F32_BWD_KEYS = 8    # keys a dK / dV block of the float32 backward kernel
-_F32_BWD_CHUNK = 32  # query rows a chunk of that block's walk
-_F32_BWD_TILE = 32   # keys a tile of a dQ block's walk
+_F32_BWD_KEYS = 32   # keys a dK / dV tile of the float32 backward kernel
+_F32_BWD_CHUNK = 32  # query rows a chunk of that tile's walk
+_F32_BWD_ROWS = 32   # query rows a dQ tile
+_F32_BWD_TILE = 32   # keys a tile of a dQ tile's walk
+_F32_BWD_CLUSTER = 4  # blocks of a cluster, over which a tile's walk is split
 
 
 def reset_launch_counts() -> None:
@@ -616,6 +621,51 @@ def flash_attention_backward_tiled_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def f32_backward_walks(Tq: int, Tk: int, H: int, KV: int, causal: bool):
+    """The steps each tile of the float32 backward kernel walks: ``(dK /
+    dV tiles' chunks, key tile by key tile; dQ tiles' key tiles, row tile
+    by row tile)``."""
+    G = H // KV
+    R = Tq * G
+    kv = [-(-(R - (min(j0 * G, R) if causal else 0)) // _F32_BWD_CHUNK)
+          for j0 in range(0, Tk, _F32_BWD_KEYS)]
+    q = [-(-(min(Tk, (min(r0 + _F32_BWD_ROWS, R) - 1) // G + 1) if causal else Tk)
+           // _F32_BWD_TILE) for r0 in range(0, R, _F32_BWD_ROWS)]
+    return kv, q
+
+
+def f32_backward_target(B: int, KV: int, kv_walks, q_walks, n_sm: int = 132) -> int:
+    """The most steps of a tile's walk a rank of the float32 backward
+    kernel takes: the fewest, from the longest walk over 4 (rounded up),
+    whose grid of ``B KV`` heads holds at most a quarter more blocks than
+    ``n_sm`` SMs keep at two an SM (else the longest walk)."""
+    heads, ranks = B * KV, _F32_BWD_CLUSTER
+    longest = max(kv_walks[0], q_walks[-1])
+
+    def blocks(target):
+        return sum(-(-heads * f32_backward_split(n, target) // ranks) * ranks
+                   for n in kv_walks + q_walks)
+
+    lo, hi = max(1, -(-longest // ranks)), max(1, longest)
+    while lo < hi:  # the grid shrinks as the shares grow
+        mid = (lo + hi) // 2
+        if blocks(mid) > 2 * n_sm + (2 * n_sm) // 4:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def f32_backward_split(n: int, target: int) -> int:
+    """The ranks of a cluster a tile's walk of ``n`` steps is split over:
+    the fewest of 4, 2, 1 that keep a rank's share within ``target``
+    steps (else 4)."""
+    split = _F32_BWD_CLUSTER
+    while split > 1 and n <= target * (split // 2):
+        split //= 2
+    return split
+
+
 def flash_attention_backward_f32_tiled_plain(
     q: torch.Tensor,             # (B, Tq, H, D) float32
     k: torch.Tensor,             # (B, Tk, KV, D)
@@ -632,24 +682,31 @@ def flash_attention_backward_f32_tiled_plain(
 
     Query rows in the kernel's order (the G heads of each position in
     turn); ``p = exp(s * scale - lse)``, 0 where masked; ``ds = p (dp -
-    delta)``.  dK and dV: each 8-key tile sums over the rows that see it
-    (from its first position under causal) in chunks of 32, each chunk's
-    rows dealt to ``512 / DP`` interleaved splits (DP the head dim padded
-    to 64 or 128), every split's sum taken over the chunks in order, the
-    splits' sums then added in order.  dQ: every row sums over 32-key
-    tiles in order.  ``scale`` multiplies dQ and dK after their sums.  For
-    the tests and the smoke run; the main path never calls it."""
+    delta)``.  dK and dV: each 32-key tile walks the rows that see it
+    (from its first position under causal) in chunks of 32; dQ: each
+    32-row tile walks its 32-key tiles (up to its last position under
+    causal).  A tile's ``n`` steps are split over ``s`` ranks of a
+    cluster (:func:`f32_backward_split` at :func:`f32_backward_target`'s
+    share, for an H100's 132 SMs; rank ``r`` takes steps ``[r n // s, (r
+    + 1) n // s)``, in order), each step's rows (dK, dV) or keys
+    (dQ) dealt to ``512 / DP`` interleaved splits (DP the head dim padded
+    to 64 or 128); the shares of every rank (zeros where its steps are
+    none), each rank's splits in turn, are then added one after another.  ``scale`` multiplies dQ
+    and dK after their sums.  For the tests and the smoke run; the main
+    path never calls it."""
     B, Tq, H, D = q.shape
     _, Tk, KV, _ = k.shape
     G = H // KV
     R = Tq * G
-    chunk, keys = _F32_BWD_CHUNK, _F32_BWD_KEYS
-    splits = 256 // (keys // 4 * ((64 if D <= 64 else 128) // 4))  # threads / (KG NCG)
-    r_pad = R + chunk                                          # a chunk may run past R
+    keys, chunk, rows_q, tile = _F32_BWD_KEYS, _F32_BWD_CHUNK, _F32_BWD_ROWS, _F32_BWD_TILE
+    ncg = (64 if D <= 64 else 128) // 4
+    row_splits = 256 // (keys // 4 * ncg)     # threads / (key groups x column groups)
+    key_splits = 256 // (rows_q // 4 * ncg)   # threads / (row groups x column groups)
+    r_pad = R + max(chunk, rows_q)            # a chunk or tile may run past R
     dev = q.device
-    kr = k.transpose(1, 2).float()                            # (B, KV, Tk, D)
+    kr = k.transpose(1, 2).float()            # (B, KV, Tk, D)
     vr = v.transpose(1, 2).float()
-    qr = _kernel_rows(q, KV, r_pad)                           # (B, KV, r_pad, D)
+    qr = _kernel_rows(q, KV, r_pad)           # (B, KV, r_pad, D)
     dor = _kernel_rows(do, KV, r_pad)
     lser = _kernel_rows(lse, KV, r_pad)
     delta = _kernel_rows((do.float() * out.float()).sum(dim=-1), KV, r_pad)
@@ -663,37 +720,65 @@ def flash_attention_backward_f32_tiled_plain(
             seen = seen & (key_ids[None, :] <= pos[row_ids][:, None])
         return torch.where(seen, torch.exp(s * scale - lser[:, :, row_ids, None]), 0.0)
 
-    # dQ: every row over the 32-key tiles in order
-    dq = torch.zeros((B, KV, R, D), dtype=torch.float32, device=dev)
-    for j0 in range(0, Tk, _F32_BWD_TILE):
-        kj, vj = kr[:, :, j0:j0 + _F32_BWD_TILE], vr[:, :, j0:j0 + _F32_BWD_TILE]
-        key_ids = torch.arange(j0, j0 + kj.shape[2], device=dev)
-        p = probs(qr[:, :, :R] @ kj.transpose(-1, -2), rows[:R], key_ids)
-        ds = p * (dor[:, :, :R] @ vj.transpose(-1, -2) - delta[:, :, :R, None])
-        dq = dq + ds @ kj
+    kv_walks, q_walks = f32_backward_walks(Tq, Tk, H, KV, causal)
+    target = f32_backward_target(B, KV, kv_walks, q_walks)
 
-    # dK, dV: each 8-key tile over its chunks of 32 rows, split by row
+    def shares(n):
+        """Each rank's steps, in rank order (some may be none)."""
+        split = f32_backward_split(n, target)
+        cuts = [r * n // split for r in range(split + 1)]
+        return [range(lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+
+    def in_order(parts):
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    def scores(r0, j0, n_rows, n_keys):
+        row_ids = rows[r0:r0 + n_rows]
+        key_ids = torch.arange(j0, min(j0 + n_keys, Tk), device=dev)
+        qc, doc = qr[:, :, r0:r0 + n_rows], dor[:, :, r0:r0 + n_rows]
+        kj, vj = kr[:, :, key_ids], vr[:, :, key_ids]
+        p = probs(qc @ kj.transpose(-1, -2), row_ids, key_ids)
+        ds = p * (doc @ vj.transpose(-1, -2) - delta[:, :, r0:r0 + n_rows, None])
+        return qc, doc, kj, p, ds
+
+    # dQ: each 32-row tile over its 32-key tiles, split over the ranks
+    dq = torch.zeros((B, KV, R, D), dtype=torch.float32, device=dev)
+    for r0 in range(0, R, rows_q):
+        last = min(r0 + rows_q, R) - 1
+        n_tiles = -(-(min(Tk, last // G + 1) if causal else Tk) // tile)
+        parts = []
+        for steps in shares(n_tiles):
+            split = [0.0] * key_splits
+            for t in steps:
+                _, _, kj, _, ds = scores(r0, t * tile, rows_q, tile)
+                for h in range(key_splits):
+                    split[h] = split[h] + ds[..., h::key_splits] @ kj[:, :, h::key_splits]
+            parts += split
+        dq[:, :, r0:r0 + rows_q] = in_order(parts)[:, :, :min(rows_q, R - r0)]
+
+    # dK, dV: each 32-key tile over its chunks of 32 rows, split over the
+    # ranks, each chunk's rows split
     dk = torch.zeros((B, KV, Tk, D), dtype=torch.float32, device=dev)
     dv = torch.zeros_like(dk)
     for j0 in range(0, Tk, keys):
-        kj, vj = kr[:, :, j0:j0 + keys], vr[:, :, j0:j0 + keys]
-        key_ids = torch.arange(j0, j0 + kj.shape[2], device=dev)
         first = min(j0 * G, R) if causal else 0
-        sum_k = [torch.zeros_like(kj) for _ in range(splits)]
-        sum_v = [torch.zeros_like(kj) for _ in range(splits)]
-        for r0 in range(first, R, chunk):
-            row_ids = rows[r0:r0 + chunk]
-            qc, doc = qr[:, :, r0:r0 + chunk], dor[:, :, r0:r0 + chunk]
-            p = probs(qc @ kj.transpose(-1, -2), row_ids, key_ids)
-            ds = p * (doc @ vj.transpose(-1, -2) - delta[:, :, r0:r0 + chunk, None])
-            for h in range(splits):
-                sum_v[h] = sum_v[h] + p[:, :, h::splits].transpose(-1, -2) @ doc[:, :, h::splits]
-                sum_k[h] = sum_k[h] + ds[:, :, h::splits].transpose(-1, -2) @ qc[:, :, h::splits]
-        for h in range(1, splits):
-            sum_k[0] = sum_k[0] + sum_k[h]
-            sum_v[0] = sum_v[0] + sum_v[h]
-        dk[:, :, j0:j0 + keys] = scale * sum_k[0]
-        dv[:, :, j0:j0 + keys] = sum_v[0]
+        parts_k, parts_v = [], []
+        for steps in shares(-(-(R - first) // chunk)):
+            split_k, split_v = [0.0] * row_splits, [0.0] * row_splits
+            for c in steps:
+                qc, doc, _, p, ds = scores(first + c * chunk, j0, chunk, keys)
+                for h in range(row_splits):
+                    split_v[h] = split_v[h] + p[:, :, h::row_splits].transpose(-1, -2) @ \
+                        doc[:, :, h::row_splits]
+                    split_k[h] = split_k[h] + ds[:, :, h::row_splits].transpose(-1, -2) @ \
+                        qc[:, :, h::row_splits]
+            parts_k += split_k
+            parts_v += split_v
+        dk[:, :, j0:j0 + keys] = scale * in_order(parts_k)
+        dv[:, :, j0:j0 + keys] = in_order(parts_v)
 
     dq = (scale * dq).reshape(B, KV, Tq, G, D).transpose(1, 2).reshape(B, Tq, H, D)
     return dq, dk.transpose(1, 2), dv.transpose(1, 2)

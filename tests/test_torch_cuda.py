@@ -1038,6 +1038,44 @@ def test_cuda_f32_backward_kernel_matches_plain_and_mirror(card, full_fp32, case
         assert float(got[1][:, Tq:].abs().max()) == 0.0 and float(got[2][:, Tq:].abs().max()) == 0.0
 
 
+# (B, Tq, Tk, H, KV, D, causal) whose tiles split their walks 4, 2 and 1
+# ways over a cluster: lm-100m's (key tile 0's 8 chunks, 2 a rank); one
+# head, so three of a cluster's four ranks only pad it, and 150 rows a kv
+# head (5 chunks over 4 ranks: 1, 1, 1, 2); 6 heads at D = 100 (DP 128),
+# a cluster holding the ranks of two heads
+F32_SPLIT_CASES = [
+    (4, 128, 128, 8, 4, 64, True),
+    (1, 75, 75, 2, 1, 64, True),
+    (3, 100, 100, 6, 2, 100, True),
+]
+
+
+@pytest.mark.parametrize("case", F32_SPLIT_CASES,
+                         ids=[str(c).replace(" ", "") for c in F32_SPLIT_CASES])
+def test_cuda_f32_backward_cluster_split_matches_mirror(card, full_fp32, case):
+    """The float32 backward kernel where its tiles' walks are split over a
+    cluster's blocks, their shares added in rank order: within 1e-5 of the
+    plain backward and of the mirror, which adds them in that order; two
+    runs bit for bit; one launch."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, H, KV, D, causal = case
+    kv_walks, q_walks = FA.f32_backward_walks(Tq, Tk, H, KV, causal)
+    target = FA.f32_backward_target(B, KV, kv_walks, q_walks)
+    assert {FA.f32_backward_split(n, target) for n in kv_walks + q_walks} > {1}
+    q, k, v, out, lse, do = _f32_bwd_inputs(Tq * 3 + D, *case)
+    FA.reset_launch_counts()
+    got = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == _bwd_launches(q, k, 1)
+    again = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_within(got, FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal),
+                BWD_F32_TOL)
+    _bwd_within(got, FA.flash_attention_backward_f32_tiled_plain(q, k, v, out, lse, do,
+                                                                 causal=causal), BWD_F32_TOL)
+
+
 def test_cuda_f32_backward_kernel_refuses_what_it_does_not_take(card):
     """A head dim past 128, more than 64 query heads a kv head, an lse of
     another shape, a non-contiguous output gradient: the float32 launch
@@ -1063,7 +1101,8 @@ def test_cuda_f32_backward_kernel_refuses_what_it_does_not_take(card):
 
 def test_cuda_f32_backward_kernel_past_65535_batch_rows(card, full_fp32):
     """65,537 sequences of 50 positions (one head, D = 50): the one 1-D
-    grid of 524,296 blocks; the first, middle and last sequences against
+    grid of 4-block clusters over every sequence; the first, middle and
+    last sequences against
     the plain backward and the mirror on those sequences alone, and a
     second run bit for bit."""
     from repro_torch.kernels import flash_attention as FA

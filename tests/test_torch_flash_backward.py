@@ -19,8 +19,10 @@ against both plain versions there).  Here:
   :func:`flash_attention_backward_plain` within ``rtol=1e-5,
   atol=1e-6`` (the same products, summed in another order);
 * :func:`flash_attention_backward_f32_tiled_plain`, the float32 kernel's
-  arithmetic (8-key dK / dV tiles over 32-row chunks in row splits,
-  16-row dQ tiles over 32-key tiles), on float32 inputs against
+  arithmetic (32-key dK / dV tiles over 32-row chunks in row splits,
+  32-row dQ tiles over 32-key tiles in key splits, each tile's walk split
+  over the 4 ranks of a cluster and the shares added in rank order), on
+  float32 inputs against
   ``jax.vjp`` of the reference's ``layers.flash_attention`` in float32,
   and against :func:`flash_attention_backward_plain`, both within
   ``rtol=F32_RTOL`` and ``atol=F32_ATOL`` times the gradient's largest
@@ -79,6 +81,12 @@ F32_CASES = [
     (1, 33, 2, 1, 7, False),
     (1, 70, 8, 4, 100, True),
     (4, 128, 8, 4, 64, True),
+    # the cluster split's edges: key tile 0's 5 chunks over 4 ranks
+    # (1, 1, 1, 2), a dQ tile whose 2 key tiles leave 2 ranks idle; G = 8
+    # at both padded widths, causal and not
+    (1, 75, 2, 1, 64, True),
+    (2, 23, 8, 1, 128, True),
+    (1, 40, 16, 2, 64, False),
 ]
 
 
