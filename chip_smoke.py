@@ -152,14 +152,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights serves 16 requests (8 x 4096 + 8 x 1024 prompt tokens, 32 new
    each) on 8 slots, with K4 launched at every attention call and the
    plain attention never: the tensor-core prefill kernel n_layers x
-   prefills times, the split-KV decode kernel and its combine n_layers x
+   prefills times, every launch on the sm90 route (TMA and wgmma:
+   ``PREFILL_ROUTES``), the split-KV decode kernel and its combine n_layers x
    decode steps times each, the float32 kernel never; the last-position
    logits of one prefill through K4 and through the plain attention
    agree; a profiled prefill and decode step; K4's rows at the prefill
    and decode shapes, held to the plain version element by element in
    bf16, the decode row timed over four distinct caches in turn (cold
    L2) with its warm time logged beside; the count of tensor-core
-   instructions in the bf16 kernels' SASS where ``cuobjdump`` exists.
+   instructions (``HMMA``, ``HGMMA``) and TMA loads (``UTMALDG``) in the
+   bf16 kernels' SASS where ``cuobjdump`` exists, the prefill library's
+   without ``HGMMA`` or ``UTMALDG`` failing the run.  The small check
+   holds the sweep's head dims (8, 16, 32) on the mma.sync kernel
+   and the cache path's prefills on the sm90 kernel.
 9. Training (``training_phase``), after the LM phase's weights are freed:
    glm4-9b at ``CONFIG``'s widths and ``LM_TRAIN_LAYERS`` of its layers,
    float32 params, AdamW on ``launch/train.py``'s schedule,
@@ -179,7 +184,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``train_batch`` (65,536) for ``TRAIN_STEPS`` steps (one lse launch and
    one backward through the short route's kernel per block a step, the
    plain backward never), ``serve_p99`` and ``serve_bulk`` (262,144 users,
-   ``batch_chunk`` 4096; one prefill launch per block), their first and
+   ``batch_chunk`` 4096; one prefill launch per block), every prefill
+   on the re-laid route (D = 50, ``PREFILL_ROUTES['relay']``), their first and
    last 64 users scored alone within ``REC_RTOL``, and ``retrieval_cand``
    (every item a candidate: its best score is ``score_all``'s top 1).
    The four GNNs at their ``CONFIG``s (meshgraphnet and graphcast on
@@ -210,7 +216,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    random weights) serves ``MOE_EACH`` x 4096 + ``MOE_EACH`` x 1024
    prompt tokens, 32 new each, on 8 slots (``serve_counted``: K4's
    prefill kernel n_layers x prefills times, decode and combine n_layers
-   x steps, the plain attention never), each prefill's drop fraction
+   x steps, the plain attention never, every prefill on the sm90 route),
+   each prefill's drop fraction
    printed; the same requests again give the same tokens bit for bit;
    one prefill's last-position logits through K4 and the plain attention
    agree within ``LOGITS_RTOL``; a profiled prefill and decode step split
@@ -221,13 +228,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its 8 microbatches, ``aux`` in the loss, step 0 within ``TRAIN_RTOL``
    of the plain attention, the router's gradient non-zero and the router
    moved by step 1, K4's backward kernels launched as in phase 9, and
-   K4's backward row at granite's training shape.  moonshot-v1-16b-a3b at full width and
+   K4's training-forward (lse) and backward rows at granite's training
+   shape.  moonshot-v1-16b-a3b at full width and
    ``MOONSHOT_LAYERS`` of its 48 layers serves the same batch; one of its
    layers runs ``_moe_a2a`` on 4096 tokens under a (1, 1) ``DeviceMesh``
    over an NCCL group of one rank (no collective runs at one rank), equal
    to ``_moe_sort`` within ``A2A_RTOL`` with nothing dropped; K4's rows at
    its shapes (D = 128, 16 heads over 16).  llama3-405b at full width and
-   ``LLAMA_LAYERS`` of its 126 layers serves the same batch.
+   ``LLAMA_LAYERS`` of its 126 layers serves the same batch.  Every
+   served prefill of the three on the sm90 route.
    ``--quick`` runs the three ``SMOKE`` configs.
 11. The sharded train step (``sharded_phase``), after phase 10 frees its
    weights: an NCCL group of one rank over a ``FileStore`` under
@@ -1363,7 +1372,7 @@ def flash_small_check() -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
-    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    before = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS), dict(FA.PREFILL_ROUTES)
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
     cases = [(B, T, T, H, KV, D, c, 0, None) for B, T, H, KV, D, c in FLASH_SWEEP]
@@ -1383,10 +1392,17 @@ def flash_small_check() -> dict:
             if not err < tol:
                 raise AssertionError(f"K4 {dname} {shape}: max abs err {err} >= {tol}")
             worst[dname] = max(worst.get(dname, 0.0), err)
+    # the sweep's head dims (8, 16, 32) keep the mma.sync kernel; the
+    # cache path's bf16 prefills (D = 128) run the sm90 kernel
+    routes = {key: n - before[2][key] for key, n in FA.PREFILL_ROUTES.items()}
     FA.LAUNCHES.update(before[0])
     FA.PLAIN_CUDA_CALLS.update(before[1])
+    FA.PREFILL_ROUTES.update(before[2])
     log(f"K4 small check: {2 * len(cases + FLASH_CACHE)} cases within tolerance; "
-        f"worst {json.dumps(worst)} (tolerances {json.dumps(FLASH_TOL)})")
+        f"worst {json.dumps(worst)} (tolerances {json.dumps(FLASH_TOL)}); bf16 prefill "
+        f"routes {json.dumps(routes)}")
+    if routes != {"sm90": 3, "mma": len(FLASH_SWEEP), "relay": 0}:
+        raise AssertionError(f"K4 small check's bf16 prefill routes {routes}")
     return worst
 
 
@@ -1596,7 +1612,15 @@ def k4_plan(q, k, q_offset) -> dict:
         rows, blocks = FA.f32_block_rows(B, Tq, H, KV,
                                          torch.cuda.get_device_properties(0).multi_processor_count)
         return {"rows": rows, "blocks": blocks}
-    return {"pack": FA.prefill_pack(Tq, Tk, H // KV, q_offset)}
+    pack = FA.prefill_pack(Tq, Tk, H // KV, q_offset)
+    if not hasattr(FA, "prefill_route"):
+        return {"pack": pack}  # a tree from before the sm90 route
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k))
+    route = FA.prefill_route(q.dtype, q.shape, k.shape, pack, aligned)
+    plan = {"pack": pack, "route": route}
+    if route == "sm90":
+        plan.update(FA.sm90_prefill_plan(B, Tq, H, KV, q.shape[3]))
+    return plan
 
 
 def k4_rows(T, max_len, H, KV, hd, launches, reps, seed, tag="") -> list:
@@ -1673,8 +1697,10 @@ def cuobjdump():
 
 
 def mma_instruction_counts() -> dict:
-    """``HMMA`` / ``HGMMA`` instructions in the SASS of K4's bf16 libraries,
-    where the toolkit has ``cuobjdump``; empty where it has none."""
+    """Tensor-core instructions (``HMMA``: mma.sync; ``HGMMA``: wgmma) and
+    TMA tensor loads (``UTMALDG``) in the SASS of K4's bf16 libraries, where
+    the toolkit has ``cuobjdump``; empty where it has none.  The prefill
+    library must hold ``HGMMA`` and ``UTMALDG``: its sm90 kernel."""
     import re
 
     from repro_torch.kernels import build
@@ -1683,11 +1709,15 @@ def mma_instruction_counts() -> dict:
     if tool is None:
         return {}
     counts = {}
-    for name in ("flash_prefill", "flash_decode"):
+    for name in ("flash_prefill", "flash_decode", "flash_backward"):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
-    log(f"SASS tensor-core instructions: {json.dumps(counts)}")
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in ("HMMA", "HGMMA", "UTMALDG")}
+    log(f"SASS tensor-core and TMA instructions: {json.dumps(counts)}")
+    if not (counts["flash_prefill"]["HGMMA"] and counts["flash_prefill"]["UTMALDG"]):
+        raise AssertionError(f"flash_prefill's SASS holds no wgmma or no TMA load: "
+                             f"{counts['flash_prefill']}")
     return counts
 
 
@@ -1769,6 +1799,15 @@ def serve_counted(cfg, server, requests) -> tuple:
     if plain_calls:
         raise AssertionError(f"the plain attention ran {plain_calls} times on the card")
     kernel_launches = {key: n for key, n in FA.LAUNCHES.items() if key != "flash_attention"}
+    # every prefill on the route the launcher names for this model's heads
+    # (a prompt into a longer cache: one sequence a block, aligned)
+    hd = cfg.resolved_head_dim
+    route = FA.prefill_route(torch.bfloat16, (1, 2, cfg.n_heads, hd), (1, 4, cfg.n_kv_heads, hd),
+                             1, True)
+    routes = dict(FA.PREFILL_ROUTES)
+    log(f"K4 prefill launches by route: {json.dumps(routes)} (expected all '{route}')")
+    if routes != {**dict.fromkeys(routes, 0), route: cfg.n_layers * n_prefill}:
+        raise AssertionError(f"prefill routes {routes}: every prefill should be '{route}'")
     expected = dict.fromkeys(kernel_launches, 0)
     expected.update(flash_attention_prefill=cfg.n_layers * n_prefill,
                     flash_attention_decode=cfg.n_layers * n_steps,
@@ -1790,6 +1829,7 @@ def serve_counted(cfg, server, requests) -> tuple:
             f"kv~{short_len}": 1e3 * float(np.mean(short_steps))},
         "prefills": n_prefill, "decode_steps": n_steps, "k4_launches": launches,
         "k4_launches_split": dict(split), "k4_kernel_launches": kernel_launches,
+        "prefill_route": route, "prefill_routes": routes,
         "plain_attention_cuda_calls": plain_calls,
         "peak_memory_bytes": peak,
     }
@@ -1870,6 +1910,8 @@ def lm_phase(args) -> dict:
                            n_each, new_tokens)
     served, kernel_launches, _ = serve_counted(cfg, server, requests)
     rec.update(served)
+    if served["prefill_route"] != "sm90":  # glm4-9b's heads: D = 128, G = 16
+        raise AssertionError(f"glm4-9b's prefills went '{served['prefill_route']}', not 'sm90'")
     rec["logits_check"] = logits_check(cfg, params, requests[0].prompt, max_len)
 
     rec["profile"] = profile_lm(server, lm_requests(
@@ -3761,6 +3803,7 @@ def rec_training(args) -> dict:
         losses.append(float(m["loss"]))
         step_s.append(time.perf_counter() - t)
     train_launches, train_plain = dict(FA.LAUNCHES), dict(FA.PLAIN_CUDA_CALLS)
+    train_routes = dict(FA.PREFILL_ROUTES)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"SASRec losses {losses}")
     # one forward with lse and one backward through the short route's
@@ -3772,6 +3815,10 @@ def rec_training(args) -> dict:
             or train_plain != {"flash_attention": 0, "flash_attention_backward": 0}):
         raise AssertionError(f"SASRec training K4 launches {train_launches}, plain calls "
                              f"{train_plain}")
+    # D = 50, two sequences a block: the mma.sync kernel's re-laid staging
+    if train_routes != {"sm90": 0, "mma": 0, "relay": calls}:
+        raise AssertionError(f"SASRec training prefill routes {train_routes}: every "
+                             f"launch should be 'relay'")
     params = state["params"]
     rng = np.random.default_rng(args.seed)
 
@@ -3779,7 +3826,8 @@ def rec_training(args) -> dict:
         return torch.from_numpy(rng.integers(1, cfg.n_items, (n, cfg.seq_len))).cuda()
 
     out = {"train": {"batch": sizes["train_batch"], "losses": losses, "step_s": step_s,
-                     "k4_launches": train_launches, "plain_cuda_calls": train_plain}}
+                     "k4_launches": train_launches, "plain_cuda_calls": train_plain,
+                     "prefill_routes": train_routes}}
     with torch.no_grad():
         for name, chunk in (("serve_p99", None), ("serve_bulk", 4096)):
             seqs = seqs_of(sizes[name])
@@ -3789,10 +3837,14 @@ def rec_training(args) -> dict:
             s_all, ids = sasrec.score_all(params, seqs, cfg, top_k=10, batch_chunk=chunk)
             torch.cuda.synchronize()
             out[name] = {"batch": sizes[name], "s": time.perf_counter() - t,
-                         "k4_launches": dict(FA.LAUNCHES)}
+                         "k4_launches": dict(FA.LAUNCHES),
+                         "prefill_routes": dict(FA.PREFILL_ROUTES)}
             if FA.LAUNCHES["flash_attention_prefill"] != cfg.n_blocks:
                 raise AssertionError(f"{name}: K4 launches {dict(FA.LAUNCHES)}, expected "
                                      f"one prefill launch per block")
+            if FA.PREFILL_ROUTES["relay"] != cfg.n_blocks:
+                raise AssertionError(f"{name}: prefill routes {dict(FA.PREFILL_ROUTES)}, "
+                                     f"expected 'relay' (D = 50)")
             if ids.shape != (sizes[name], 10) or not torch.isfinite(s_all).all():
                 raise AssertionError(f"{name}: {tuple(ids.shape)} ids, finite "
                                      f"{bool(torch.isfinite(s_all).all())}")
@@ -4137,6 +4189,8 @@ def serve_model(args, cfg, tag: str, repeat: bool = False, profile: bool = False
     with DropRecorder() as drops:
         served, launches, out = serve_counted(cfg, server, requests)
     rec.update(served)
+    if not args.quick and served["prefill_route"] != "sm90":  # head dims 64 / 128
+        raise AssertionError(f"{tag}: prefills went '{served['prefill_route']}', not 'sm90'")
     if cfg.moe is not None:
         per = drops.prefills(cfg.n_layers, len(server.slots))
         rec["prefill_drop_fraction"] = [
@@ -4265,7 +4319,12 @@ def moe_phase(args) -> tuple:
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                for shape in ((1, T, cfg.n_heads, hd), (1, T, cfg.n_kv_heads, hd),
                              (1, T, cfg.n_kv_heads, hd)))
-    backward_rows = [k4_backward_row(
+    # granite's training forward (K4 with lse, 24 heads over 8 at D = 64)
+    # and its backward
+    backward_rows = [k4_lse_row(
+        "flash_attention_prefill_lse_granite", q, k, v,
+        rec["granite_training"]["k4_launches"]["flash_attention_prefill_lse"], args.reps),
+        k4_backward_row(
         "flash_attention_backward_granite", q, k, v,
         rec["granite_training"]["k4_launches"]["flash_attention_backward"],
         rec["granite_training"]["backward_calls_per_step"], args.reps)]

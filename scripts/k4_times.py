@@ -16,6 +16,10 @@ library call.  ``--rows`` picks the rows (default: all):
               8, D = 64)
   moonshot    the same two rows at moonshot-v1-16b-a3b's (16 over 16,
               D = 128)
+  lse         the bf16 prefill with lse (the training forward) at glm4-9b's
+              training attention, q ``(1, 4096, 32, 128)`` over 2 kv heads,
+              and granite's, q ``(1, 4096, 24, 64)`` over 8:
+              ``chip_smoke.k4_lse_row``
   f32_lm100m  the float32 kernel with lse at lm-100m's training shape, q
               ``(4, 128, 8, 64)`` over 4 kv heads: ``chip_smoke.k4_lse_row``
   sasrec      the bf16 prefill with lse at SASRec's training shape, q
@@ -57,7 +61,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402  (imports no kernel at import time)
 
-ROWS = ("main", "granite", "moonshot", "f32_lm100m", "sasrec", "backward", "backward_f32")
+ROWS = ("main", "granite", "moonshot", "lse", "f32_lm100m", "sasrec", "backward",
+        "backward_f32")
 SASREC_BULK = 262_144   # serve_bulk's users (configs/shapes.py's REC_SHAPES)
 
 
@@ -69,6 +74,24 @@ def lm_rows(arch, FA, reps: int, seed: int, tag: str) -> list:
     return chip_smoke.k4_rows(T, T + new_tokens, cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim, {key: 0 for key in FA.LAUNCHES}, reps,
                               seed=seed, tag=tag)
+
+
+def lse_rows(reps: int, seed: int) -> list:
+    import torch
+
+    from repro_torch.configs import registry
+
+    rows = []
+    for arch, name in (("glm4-9b", "flash_attention_prefill_lse"),
+                       ("granite-moe-3b-a800m", "flash_attention_prefill_lse_granite")):
+        cfg = registry.get_arch(arch).CONFIG
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        hd = cfg.resolved_head_dim
+        q, k, v = (torch.randn((1, 4096, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        rows.append(chip_smoke.k4_lse_row(name, q, k, v, 0, reps))
+        del q, k, v
+    return rows
 
 
 def lm100m_qkv(seed: int):
@@ -222,6 +245,8 @@ def main() -> int:
                     "moonshot": "moonshot-v1-16b-a3b"}[name]
             rows += lm_rows(arch, FA, args.reps, args.seed,
                             "" if name == "main" else f"_{name}")
+        elif name == "lse":
+            rows += lse_rows(args.reps, args.seed)
         elif name == "f32_lm100m":
             rows += f32_rows(args.reps, args.seed)
         elif name == "backward_f32":

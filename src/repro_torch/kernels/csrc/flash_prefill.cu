@@ -17,7 +17,11 @@
 // with the reference's rounding: scores and sums in fp32, p rounded to
 // bf16 before the P.V product, l summed from the fp32 p, the output
 // acc / max(l, 1e-20) cast once to bf16.  A row whose every key is masked
-// gives 0.  Keys at or past kv_length are never read.
+// gives 0.  Keys at or past kv_length never reach a result: the
+// mma.sync kernel never reads them; the sm90 kernel's TMA boxes read whole key
+// tiles, so it masks their scores with a select (a NaN there becomes
+// -inf) and zeroes their V rows in shared memory before P.V (0 x NaN is
+// NaN in the tensor cores too).
 //
 // Training (the JAX package's _flash_train forward) also asks for the
 // row's log-sum-exp: lse[b, t, h] = m + ln(l) in natural log, fp32, and
@@ -29,8 +33,55 @@
 // What bounds it on the H100: at glm4-9b's 4096-token prefill the causal
 // half is ~137 GFLOP per layer against ~6 MB of q/k/v/out, so operations
 // bound it (0.139 ms at 989 TFLOP/s bf16); at SASRec's (65,536 sequences
-// of 50 positions, one head, D = 50) bytes do (1.3 GB, 0.395 ms).  What the
-// design does about it (FlashAttention-2's structure):
+// of 50 positions, one head, D = 50) bytes do (1.3 GB, 0.395 ms).
+//
+// Two kernels, by the launcher's choice (mirrored by the wrapper's
+// prefill_route):
+//   sm90   flash_prefill_sm90_kernel: head dim 64 or 128, q, k, v 16-byte
+//          aligned, one sequence a block: every LM prefill and training
+//          forward (glm4-9b, granite, moonshot, llama3-405b, yi-9b);
+//   mma    the mma.sync kernel, flash_prefill_kernel<DP, false>: other head dims that are
+//          a multiple of 8 (8 .. 120: the kernel sweep's 8, 16, 32), aligned,
+//          one sequence a block;
+//   relay  the mma.sync kernel re-laid, flash_prefill_kernel<DP, true>: a head dim that is not a
+//          multiple of 8, unaligned operands, or short sequences packed
+//          (SASRec's D = 50, two sequences a block).
+//
+// The sm90 kernel (FlashAttention-3's structure, on hopper.cuh):
+//  * a block is one producer warpgroup and two (D = 128) or three (D =
+//    64) consumer warpgroups of 64 query rows; the rows are the G heads of
+//    one kv head at 128 / G (or 192 / G) positions, so each K / V tile is
+//    read once per group (glm4-9b: 16 heads x 8 positions; granite: 3 x
+//    64; moonshot: 1 x 128);
+//  * the producer's one thread loads by TMA, from 4-D tensor maps over
+//    (D, heads, T, B) in 128-byte-swizzled tiles of 64 columns: an item's
+//    Q once, and K / V tiles of 128 (D = 128) or 96 (D = 64) keys into a
+//    ring of 3 stages with full / empty mbarriers; TMA fills keys past Tk
+//    and rows past Tq with zeros (rows past Tq are never written);
+//  * S = Q.K^T is one wgmma m64nBKVk16 per 16 columns of D, Q and K read
+//    from shared memory through matrix descriptors; O += P.V is one wgmma
+//    m64nDk16 per 16 keys, P from registers (S's accumulator layout is the
+//    A fragment's), V from shared memory with the transpose bit;
+//  * the softmax runs in the accumulator registers: four partial maxima
+//    and sums a row (short dependency chains), one fma and ex2.approx a
+//    score, acc rescaled only where a row's max moved, the mask only on
+//    tiles that cross kv_length or the diagonal of the item's first row;
+//  * within a warpgroup, tile j's S and tile j - 1's P.V go to the tensor
+//    cores together and tile j's softmax runs under the P.V (the loop is
+//    unrolled by two so that P alternates between two register sets: a
+//    copy between them made ptxas serialise the wgmmas);
+//  * D = 128: a persistent grid of one block an SM walks the items
+//    (query tile x batch row x kv head, longest first, in snake rounds), an
+//    item's Q released once its last S retires so that the next item's
+//    loads overlap its last P.V and write-out; D = 64: one block an item,
+//    the three consumer warpgroups issuing their products in turns
+//    (ping-pong), so that two softmaxes run under one warpgroup's products;
+//  * registers: the producer warpgroup gives its registers back
+//    (setmaxnreg 24), the consumers take 240 (two) or 160 (three).
+// Each of these choices was timed against its alternatives on the card
+// (scripts/prefill_sm90_variants.py; the numbers are in PERF.md).
+//
+// The mma.sync kernel (FlashAttention-2's structure), for the other shapes:
 //  * the matrix products run on the tensor cores: mma.sync m16n8k16 bf16
 //    with fp32 accumulators (flash_mma.cuh), not fp32 FMAs;
 //  * a block of 4 warps takes 128 rows = the G query heads of one kv head
@@ -73,9 +124,11 @@
 //    prefill have the most keys), so the tail of the grid is short work.
 // CUDA caps grid.y at 65,535: the launcher walks the batch in chunks of
 // that many blocks' worth of rows (SASRec's bulk scoring runs 262,144).
-// Not yet: wgmma and TMA (FlashAttention-3's shape), a persistent grid.
+// Not yet in the sm90 kernel: softmax overlapped across warpgroups by
+// clusters, TMA stores of the output, fp8.
 
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 #include <algorithm>
 #include <atomic>
@@ -168,12 +221,13 @@ __device__ __forceinline__ int warp_max(int x) {
   return x;
 }
 
-// The kernel's two instantiations a head dim (the launcher's choice):
+// The mma.sync kernel's two instantiations a head dim (the launcher's choice):
 //   RELAY false  a query tile of one sequence, 16-byte staging straight
-//                into the rows (glm4-9b's, granite's and moonshot's
-//                prefills: D % 8 == 0, aligned, not packed);
+//                into the rows (route 'mma': D % 8 == 0 other than 64 and
+//                128, aligned, not packed; before the sm90 kernel it also served
+//                glm4-9b's, granite's and moonshot's prefills);
 //   RELAY true   re-laid staging (STAGE_SLAB or STAGE_ROWS), packed or not
-//                (SASRec's; every packed call, whatever D).
+//                (route 'relay': SASRec's; every packed call, whatever D).
 // Only the second carries the row tables, the per-warp tile skip and the
 // range mask: at D = 128 the skip's branch around a tile's products alone
 // cost the straight route 13% (NVIDIA H100 80GB HBM3, scripts/k4_times.py).
@@ -530,6 +584,548 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
 
 }  // namespace flash_prefill
 
+// ---------------------------------------------------------------------------
+// The sm90 route: TMA-fed, warp-specialised wgmma (hopper.cuh)
+// ---------------------------------------------------------------------------
+
+// Whether head dims 64 and 128 of the straight route go to
+// flash_prefill_sm90_kernel (a build flag, so that a measurement can build
+// the mma.sync kernel alone from the same source: -DFLASH_PREFILL_SM90=0).
+#ifndef FLASH_PREFILL_SM90
+#define FLASH_PREFILL_SM90 1
+#endif
+// The kernel's shape, by head dim (scripts/prefill_sm90_variants.py times
+// builds with other values): ping-pong between the consumer warpgroups (1) or not (0),
+// and a persistent grid of one block an SM (1) or one block an item (0)
+#ifndef FLASH_SM90_PINGPONG_64
+#define FLASH_SM90_PINGPONG_64 1
+#endif
+#ifndef FLASH_SM90_PINGPONG_128
+#define FLASH_SM90_PINGPONG_128 0
+#endif
+#ifndef FLASH_SM90_PERSISTENT_64
+#define FLASH_SM90_PERSISTENT_64 0
+#endif
+#ifndef FLASH_SM90_PERSISTENT_128
+#define FLASH_SM90_PERSISTENT_128 1
+#endif
+// keys a K / V tile, and stages of the ring
+#ifndef FLASH_SM90_BKV_64
+#define FLASH_SM90_BKV_64 96
+#endif
+#ifndef FLASH_SM90_BKV_128
+#define FLASH_SM90_BKV_128 128
+#endif
+#ifndef FLASH_SM90_STAGES_64
+#define FLASH_SM90_STAGES_64 3
+#endif
+#ifndef FLASH_SM90_STAGES_128
+#define FLASH_SM90_STAGES_128 3
+#endif
+// consumer warpgroups of 64 query rows a block, by head dim
+#ifndef FLASH_SM90_CONSUMERS_64
+#define FLASH_SM90_CONSUMERS_64 3
+#endif
+#ifndef FLASH_SM90_CONSUMERS_128
+#define FLASH_SM90_CONSUMERS_128 2
+#endif
+
+// Internal linkage: a process that loads two builds of this library (a
+// measurement of variants) keeps one set of statics each.
+namespace {
+namespace flash_prefill_sm90 {
+
+using namespace hopper;
+using flash_mma::ex2;
+using flash_mma::pack_bf16;
+
+constexpr int ROW_BYTES = 128;         // a swizzled tile row: 64 bf16 columns
+constexpr int PRODUCER_REGS = 24;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int DP>
+struct Config {
+  static constexpr int BKV = DP == 64 ? FLASH_SM90_BKV_64 : FLASH_SM90_BKV_128;
+  static constexpr int STAGES = DP == 64 ? FLASH_SM90_STAGES_64 : FLASH_SM90_STAGES_128;
+  // warpgroups of 64 rows; a block's rows are the G heads of a kv head at
+  // ROWS / G positions
+  static constexpr int CONSUMERS = DP == 64 ? FLASH_SM90_CONSUMERS_64 : FLASH_SM90_CONSUMERS_128;
+  static constexpr int ROWS = 64 * CONSUMERS;
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // the register file's 64K split between the producer and the consumers
+  static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 240 : 160;
+  static constexpr bool PINGPONG = DP == 64 ? FLASH_SM90_PINGPONG_64 : FLASH_SM90_PINGPONG_128;
+  static constexpr bool PERSISTENT =
+      DP == 64 ? FLASH_SM90_PERSISTENT_64 : FLASH_SM90_PERSISTENT_128;
+  static_assert(CONSUMERS == 2 || CONSUMERS == 3, "two or three consumer warpgroups");
+  static constexpr int HALVES = DP / 64;                        // 64-column tiles a row
+  static constexpr int Q_BYTES = HALVES * ROWS * ROW_BYTES;
+  static constexpr int TILE_BYTES = HALVES * BKV * ROW_BYTES;   // K (or V) of one stage
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES;  // + 1024-byte alignment
+  static_assert(BKV % 16 == 0 && BKV <= 256, "a tile's keys: one wgmma N, one TMA box");
+};
+
+// A persistent grid: one block an SM walks the work items, each 128
+// (or 192) query rows (row r: position t0 + r / G, head kvh G + r % G of
+// batch row b) against the keys of kv head kvh.  Warpgroup 0 is the
+// producer: its thread 0 loads each item's Q and K / V tiles by TMA, the
+// tiles into a ring of STAGES stages that runs on across items.
+// Warpgroups 1 .. CONSUMERS each own 64 rows: per tile, S = Q.K^T and O +=
+// P.V on wgmma, the softmax in the accumulator registers between them.
+// An item's Q is released (q_empty) once its last S retires, so that the
+// next item's Q and first tiles load during its last P.V and write-out.
+template <int DP>
+__global__ void __launch_bounds__(Config<DP>::THREADS, 1) flash_prefill_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, const int32_t* __restrict__ kv_length, int B, int Tq, int Tk,
+    int H, int KV, int G, int bq, int n_qtiles, int q_offset, int causal, float scale_log2) {
+  using C = Config<DP>;
+  constexpr int BKV = C::BKV, ROWS = C::ROWS, CONSUMERS = C::CONSUMERS, STAGES = C::STAGES;
+  constexpr int NS = BKV / 8;          // 8-key column groups of S
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, q_empty, kv_full[STAGES], kv_empty[STAGES];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;            // [half][row][128 bytes]
+  auto k_tile = [&](int s) { return smem + C::Q_BYTES + s * C::STAGE_BYTES; };  // [half][key][128 bytes]
+  auto v_tile = [&](int s) { return k_tile(s) + C::TILE_BYTES; };
+
+  const int tid = threadIdx.x;
+  // This block's k-th item: the items in order of length (longest query
+  // tile first, then batch row, then kv head) in rounds of gridDim.x, the
+  // block taking the bid-th of an even round and the bid-th from the end
+  // of an odd one, so that each block's long and short items pair up.
+  const int n_items = n_qtiles * B * KV;
+  // items a block: a bound the compiler sees where the grid is one block
+  // an item (without it, head dim 64's blocks took 0.149 ms at granite's
+  // prefill against 0.140 with it, NVIDIA H100 80GB HBM3,
+  // scripts/prefill_sm90_variants.py)
+  constexpr int MAX_ITEMS = C::PERSISTENT ? INT_MAX : 1;
+  struct Item {
+    int t0, kvh, b, len0, n_tiles;
+  };
+  auto item = [&](int k, Item& it) {
+    const int grid = static_cast<int>(gridDim.x), bid = static_cast<int>(blockIdx.x);
+    const int w = k * grid + ((k & 1) ? grid - 1 - bid : bid);
+    if (w >= n_items) return false;
+    const int rank = w / (B * KV), rest = w - rank * (B * KV);
+    it.b = rest / KV;
+    it.kvh = rest - it.b * KV;
+    it.t0 = (n_qtiles - 1 - rank) * bq;
+    it.len0 = kv_length != nullptr ? max(0, min(kv_length[it.b], Tk)) : Tk;
+    int n_keys = it.len0;
+    if (causal) n_keys = max(0, min(n_keys, q_offset + min(it.t0 + bq, Tq)));
+    it.n_tiles = (n_keys + BKV - 1) / BKV;
+    return true;
+  };
+
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, CONSUMERS);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- the producer warpgroup ------------------------------------------
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      int q_round = 0, g = 0;          // items with keys so far, tiles so far
+      Item it;
+      for (int k = 0; k < MAX_ITEMS && item(k, it); ++k) {
+        for (int tile = 0; tile < it.n_tiles; ++tile, ++g) {
+          const int s = g % STAGES;
+          if (g >= STAGES) mbar_wait(&kv_empty[s], (g / STAGES - 1) & 1);
+          mbar_arrive_expect_tx(&kv_full[s], C::STAGE_BYTES);
+#pragma unroll
+          for (int h = 0; h < C::HALVES; ++h) {
+            tma_load_4d(k_tile(s) + h * BKV * ROW_BYTES, &tm_k, &kv_full[s], 64 * h, it.kvh,
+                        tile * BKV, it.b);
+            tma_load_4d(v_tile(s) + h * BKV * ROW_BYTES, &tm_v, &kv_full[s], 64 * h, it.kvh,
+                        tile * BKV, it.b);
+          }
+          if (tile == 0) {
+            // Q once the last item's last S retired (its first tile already
+            // in flight); the box's bytes, rows past Tq (zeros) included
+            if (q_round > 0) mbar_wait(&q_empty, (q_round - 1) & 1);
+            mbar_arrive_expect_tx(&q_full, C::HALVES * G * bq * ROW_BYTES);
+#pragma unroll
+            for (int h = 0; h < C::HALVES; ++h)
+              tma_load_4d(Qs + h * ROWS * ROW_BYTES, &tm_q, &q_full, 64 * h, it.kvh * G, it.t0,
+                          it.b);
+            ++q_round;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- the consumer warpgroups -------------------------------------------
+    reg_alloc<C::CONSUMER_REGS>();
+    const int c = tid / 128 - 1;                  // rows 64c .. 64c + 63
+    const int t = tid % 128, warp = t / 32, lane = t % 32;
+    const int rows_used = G * bq;                 // ROWS - ROWS % G
+    // this thread's rows: l / 4 and l / 4 + 8 of its warp's 16
+    auto row_of = [&](int i) { return 64 * c + 16 * warp + lane / 4 + 8 * i; };
+    // Rows rows_used .. ROWS - 1 lie outside Q's box (past ROWS - G >=
+    // ROWS - 64, so in the last warpgroup's rows): zero them once, so that
+    // their scores are finite.  They are never written out.
+    if (c == CONSUMERS - 1 && rows_used < ROWS) {
+      const int per_half = (ROWS - rows_used) * (ROW_BYTES / 16);
+      for (int e = t; e < C::HALVES * per_half; e += 128) {
+        const int h = e / per_half;
+        reinterpret_cast<uint4*>(Qs + h * ROWS * ROW_BYTES + rows_used * ROW_BYTES)
+            [e - h * per_half] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();
+      named_barrier(1, 128);
+    }
+    // shared addresses of this warpgroup's Q rows and of stage 0's K tile
+    const uint32_t q_addr = smem_u32(Qs) + c * 64 * ROW_BYTES;
+    const uint32_t k_addr = smem_u32(k_tile(0));
+    int q_round = 0, g = 0;            // as the producer counts them
+    // Ping-pong between the warpgroups (FlashAttention-3's), in turn: each
+    // issues its products (a "point": an item's first S, then each of its
+    // tiles' S with the last tile's P.V, then its last P.V) only in its
+    // turn, so that one warpgroup's softmax runs while another's products
+    // do.  Warpgroup c waits at named barrier 3 + c for the previous one's
+    // arrival.  The turns run on across items: warpgroup 0 takes the
+    // kernel's first point without waiting and, after its last, waits once
+    // more for the last warpgroup's last arrival, so that each barrier sees
+    // one arrival for each wait and never two arrivals from one warpgroup.
+    int point = 0;
+    auto my_turn = [&]() {
+      if (C::PINGPONG && (c > 0 || point > 0)) named_barrier(3 + c, 256);
+    };
+    auto your_turn = [&]() {
+      if (C::PINGPONG)
+        asm volatile("bar.arrive %0, %1;\n" ::"r"(3 + (c + 1) % CONSUMERS), "r"(256) : "memory");
+      ++point;
+    };
+    Item it;
+    for (int k = 0; k < MAX_ITEMS && item(k, it); ++k) {
+      const int t0 = it.t0, len0 = it.len0, n_tiles = it.n_tiles;
+      // the last key each of this thread's rows may see: one comparison a
+      // score on a masked tile
+      int lim[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int pos = q_offset + t0 + row_of(i) / G;
+        lim[i] = causal ? min(len0 - 1, pos) : len0 - 1;
+      }
+      float acc[DP / 2];               // O: element 4n + e is row i = e / 2, dim 8n + 2 (l % 4) + e % 2
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};   // running max, log2 domain
+      float l[2] = {0.f, 0.f};               // this lane's partial of the running sum
+      float alpha[2] = {0.f, 0.f};           // the last update's rescale of acc
+      bool moved = false;                    // some alpha of this warp is not 1
+      const int first_q = q_offset + t0;
+
+      // wait for tile `tile`'s stage; where the tile reaches past kv_length,
+      // V's rows there hold whatever the cache holds (NaN included), and 0 x
+      // NaN is NaN in the tensor cores too, so zero them before P.V: the
+      // consumer warpgroups share the rows and meet at a named barrier.  (K's rows
+      // there only give scores that the mask's select turns to -inf.)
+      auto stage_in = [&](int tile) {
+        const int s = (g + tile) % STAGES;
+        mbar_wait(&kv_full[s], ((g + tile) / STAGES) & 1);
+        const int k0 = tile * BKV;
+        if (k0 + BKV > len0) {
+          const int z0 = max(0, len0 - k0);
+          const int per_half = (BKV - z0) * (ROW_BYTES / 16);
+          unsigned char* Vs = v_tile(s) + z0 * ROW_BYTES;
+          for (int e = tid - 128; e < C::HALVES * per_half; e += 128 * CONSUMERS) {
+            const int h = e / per_half;
+            reinterpret_cast<uint4*>(Vs + h * BKV * ROW_BYTES)[e - h * per_half] =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_proxy_async();
+          named_barrier(2, 128 * CONSUMERS);
+        }
+        return s;
+      };
+      // S = Q.K^T for stage s: DP / 16 k-steps, 32 bytes along a row each
+      auto issue_scores = [&](float (&sc)[BKV / 2], int s) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const int h = kk / 4, off = (kk % 4) * 32;
+          wgmma_ss<BKV>(sc, desc_k_major(q_addr + h * ROWS * ROW_BYTES + off),
+                        desc_k_major(k_addr + s * C::STAGE_BYTES + h * BKV * ROW_BYTES + off),
+                        kk > 0);
+        }
+        wgmma_commit();
+      };
+      // O += P.V for stage s: BKV / 16 k-steps of 16 keys, V MN-major
+      auto issue_pv = [&](const uint32_t (&pa)[BKV / 4], int s) {
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+          const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+          wgmma_rs<DP>(acc, a,
+                       desc_mn_major(k_addr + s * C::STAGE_BYTES + C::TILE_BYTES +
+                                         kk * 16 * ROW_BYTES,
+                                     BKV * ROW_BYTES),
+                       1);
+        }
+        wgmma_commit();
+      };
+      // The mask (only where the tile crosses kv_length or the causal
+      // diagonal of the block's first row, one comparison a score) and the
+      // online update: each row's max in the log2 domain, p = 2^(s scale
+      // log2 e - m) in fp32, l summed from it, p rounded to bf16 into P.V's A
+      // fragments (S's accumulator layout is that fragment's: pa[2j + i] is
+      // row i, keys 8j + 2 (l % 4) + {0, 1}), alpha the rescale of acc.
+      auto softmax = [&](float (&sc)[BKV / 2], int tile, uint32_t (&pa)[BKV / 4]) {
+        const int k0 = tile * BKV;
+        const bool masked = k0 + BKV > len0 || (causal && k0 + BKV - 1 > first_q);
+        const int kcol = k0 + 2 * (lane & 3);
+        bool any_moved = false;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // four partial maxima and sums: short dependency chains (the max is
+          // exact whatever its order; the sum's order is the kernel's own)
+          float part[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float x = sc[4 * j + 2 * i + e];
+              if (masked) x = kcol + 8 * j + e > lim[i] ? -INFINITY : x;  // a select: NaN too
+              sc[4 * j + 2 * i + e] = x;
+              part[(2 * j + e) % 4] = fmaxf(part[(2 * j + e) % 4], x);
+            }
+          float x_max = fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3]));
+          x_max = fmaxf(x_max, __shfl_xor_sync(0xffffffffu, x_max, 1));
+          x_max = fmaxf(x_max, __shfl_xor_sync(0xffffffffu, x_max, 2)) * scale_log2;
+          const float m_new = fmaxf(m[i], x_max);
+          const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+          alpha[i] = m[i] == -INFINITY ? 0.f : ex2(m[i] - m_safe);
+          any_moved |= alpha[i] != 1.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) part[k] = 0.f;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+            const float p0 = ex2(fmaf(sc[4 * j + 2 * i], scale_log2, -m_safe));
+            const float p1 = ex2(fmaf(sc[4 * j + 2 * i + 1], scale_log2, -m_safe));
+            part[j % 4] += p0 + p1;
+            pa[2 * j + i] = pack_bf16(p0, p1);
+          }
+          l[i] = l[i] * alpha[i] + ((part[0] + part[1]) + (part[2] + part[3]));
+          m[i] = m_new;
+        }
+        moved = __any_sync(0xffffffffu, any_moved);
+      };
+      // acc to the running max of the last update (a no-op where no max moved)
+      auto rescale = [&]() {
+        if (moved) {
+#pragma unroll
+          for (int n = 0; n < DP / 8; ++n) {
+            acc[4 * n] *= alpha[0];
+            acc[4 * n + 1] *= alpha[0];
+            acc[4 * n + 2] *= alpha[1];
+            acc[4 * n + 3] *= alpha[1];
+          }
+        }
+      };
+
+      // FlashAttention-3's overlap within a warpgroup: tile j's S = Q.K^T and
+      // tile j - 1's O += P.V go to the tensor cores together, and tile j's
+      // softmax runs while the P.V product does.  A stage is released once
+      // its P.V has retired.  The loop is unrolled by two so that P
+      // alternates between two register sets, never copied between them.
+      int s_prev = 0;
+      auto step = [&](int tile, uint32_t (&p_in)[BKV / 4], uint32_t (&p_out)[BKV / 4]) {
+        const int s = stage_in(tile);
+        float sc[BKV / 2];
+        my_turn();
+        wgmma_fence();
+        issue_scores(sc, s);
+        rescale();                       // while S runs
+        fence_regs(acc);                 // acc and P defined before the next fence
+        fence_regs(p_in);
+        wgmma_fence();
+        issue_pv(p_in, s_prev);
+        your_turn();
+        wgmma_wait<1>();                 // S retired; P.V may still run
+        fence_regs(sc);
+        if (t == 0 && tile == n_tiles - 1) mbar_arrive(&q_empty);  // Q's last reader retired
+        softmax(sc, tile, p_out);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(p_in);
+        if (t == 0) mbar_arrive(&kv_empty[s_prev]);
+        s_prev = s;
+      };
+      auto last_pv = [&](uint32_t (&p_in)[BKV / 4]) {
+        my_turn();
+        rescale();
+        fence_regs(acc);
+        fence_regs(p_in);
+        wgmma_fence();
+        issue_pv(p_in, s_prev);
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(p_in);
+        if (t == 0) mbar_arrive(&kv_empty[s_prev]);
+      };
+      if (n_tiles > 0) {
+        mbar_wait(&q_full, q_round & 1);
+        uint32_t pa[BKV / 4], pb[BKV / 4];
+        s_prev = stage_in(0);
+        {
+          float sc[BKV / 2];
+          my_turn();
+          wgmma_fence();
+          issue_scores(sc, s_prev);
+          your_turn();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          if (t == 0 && n_tiles == 1) mbar_arrive(&q_empty);
+          softmax(sc, 0, pa);
+        }
+        int tile = 1;
+        for (; tile + 1 < n_tiles; tile += 2) {
+          step(tile, pa, pb);
+          step(tile + 1, pb, pa);
+        }
+        if (tile < n_tiles) {
+          step(tile, pa, pb);
+          last_pv(pb);
+        } else {
+          last_pv(pa);
+        }
+      }
+
+      if (n_tiles > 0) {
+        g += n_tiles;
+        ++q_round;
+      }
+
+      // out = acc / max(l, 1e-20); rows past Tq and past rows_used are not written
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float lr = l[i];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int r = row_of(i), tq = t0 + r / G;
+        if (r >= rows_used || tq >= Tq) continue;
+        const int64_t grow = (int64_t(it.b) * Tq + tq) * H + it.kvh * G + r % G;
+        if (lse != nullptr && (lane & 3) == 0)
+          lse[grow] = lr > 0.f ? m[i] * LN2 + logf(lr) : INFINITY;
+        const float den = fmaxf(lr, 1e-20f);
+        __nv_bfloat16* out = o + grow * DP + 2 * (lane & 3);
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+              __floats2bfloat162_rn(acc[4 * n + 2 * i] / den, acc[4 * n + 2 * i + 1] / den);
+      }
+    }
+    if (C::PINGPONG && c == 0 && point > 0) named_barrier(3, 256);
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: fetched
+// through the runtime's entry-point query, so that the library links
+// nothing beyond the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over bf16 (D, heads, T, B), contiguous, whose box is 64
+// columns x box_heads heads x box_rows positions x 1, 128-byte swizzled;
+// 0 or a cudaError_t.
+inline int tensor_map(CUtensorMap* map, const void* base, int D, int heads, int T, int B,
+                      int box_heads, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(T), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(heads) * D * 2,
+                                 cuuint64_t(T) * heads * D * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_heads), cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float* lse,
+           const int32_t* kv_length, int B, int Tq, int Tk, int H, int KV, int q_offset,
+           int causal, float scale_log2, int device, cudaStream_t st) {
+  using C = Config<DP>;
+  constexpr int ROWS = C::ROWS;
+  static std::atomic<uint64_t> attr_set{0};
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (!(attr_set.load() & bit)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_prefill_sm90_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    attr_set.fetch_or(bit);
+  }
+  const int G = H / KV;
+  const int bq = ROWS / G;
+  const int n_qtiles = (Tq + bq - 1) / bq;
+  const int64_t n_items = int64_t(n_qtiles) * B * KV;
+  if (n_items > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // persistent: one block an SM (the SM count read once a device); else
+  // one block an item
+  int64_t grid = n_items;
+  if (C::PERSISTENT) {
+    static std::atomic<int> sms[64];
+    int n_sm = device < 64 ? sms[device].load() : 0;
+    if (n_sm == 0) {
+      const cudaError_t e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (device < 64) sms[device].store(n_sm);
+    }
+    grid = std::min<int64_t>(n_items, n_sm);
+  }
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, DP, H, Tq, B, G, bq);
+  if (err == 0) err = tensor_map(&tk, k, DP, KV, Tk, B, 1, C::BKV);
+  if (err == 0) err = tensor_map(&tv, v, DP, KV, Tk, B, 1, C::BKV);
+  if (err != 0) return err;
+  if (grid == 0) return 0;
+  flash_prefill_sm90_kernel<DP><<<static_cast<unsigned>(grid), C::THREADS, C::SMEM, st>>>(
+      tq, tk, tv, o, lse, kv_length, B, Tq, Tk, H, KV, G, bq, n_qtiles, q_offset, causal,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace flash_prefill_sm90
+}  // namespace
+
 // Launch on ``stream``; returns cudaGetLastError() as an int (0 = success).
 // q and o are contiguous bf16 (B, Tq, H, D), k and v contiguous bf16
 // (B, Tk, KV, D); lse is a device array of B * Tq * H fp32, or null (not
@@ -562,6 +1158,16 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   auto* ob = static_cast<__nv_bfloat16*>(o);
   auto* lf = static_cast<float*>(lse);
+  if (FLASH_PREFILL_SM90 && !relay && (D == 64 || D == 128)) {
+    return D == 64 ? flash_prefill_sm90::launch<64>(q, k, v, static_cast<__nv_bfloat16*>(o),
+                                                    static_cast<float*>(lse), kv_length, B, Tq,
+                                                    Tk, H, KV, q_offset, causal, scale_log2,
+                                                    device, st)
+                   : flash_prefill_sm90::launch<128>(q, k, v, static_cast<__nv_bfloat16*>(o),
+                                                     static_cast<float*>(lse), kv_length, B, Tq,
+                                                     Tk, H, KV, q_offset, causal, scale_log2,
+                                                     device, st);
+  }
   auto run = [&](auto mode) {
     constexpr bool M = decltype(mode)::value;
     return D <= 64 ? launch<64, M>(qb, kb, vb, ob, lf, kv_length, B, Tq, Tk, H, KV, D,

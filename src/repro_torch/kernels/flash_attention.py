@@ -20,13 +20,21 @@ the op on each rank's key range and :func:`combine_key_ranges` merges the
 ranges.
 
 ========================  ==============================================
-bfloat16, ``Tq > 1``      ``csrc/flash_prefill.cu``: mma.sync tensor
-                          cores, 128 query rows (the G heads of a kv
-                          head at 128 / G positions, or whole short
-                          sequences packed, :func:`prefill_pack`) x
-                          64-key tiles; a head dim that is not a
-                          multiple of 8 staged raw in 16-byte copies
-                          and re-laid in shared memory
+bfloat16, ``Tq > 1``      ``csrc/flash_prefill.cu``, by
+                          :func:`prefill_route`: head dim 64 or 128,
+                          aligned, one sequence a block (``'sm90'``:
+                          every LM prefill and training forward): TMA
+                          loads on mbarriers, warp-specialised wgmma,
+                          128 query rows (192 at D = 64) of the G heads
+                          of a kv head x 128- (96-) key tiles
+                          (:func:`sm90_prefill_plan`); other multiples
+                          of 8 (``'mma'``): mma.sync tensor cores, 128
+                          rows x 64-key tiles; a head dim that is not a
+                          multiple of 8, unaligned operands or short
+                          sequences packed (``'relay'``,
+                          :func:`prefill_pack`): mma.sync on operands
+                          staged raw in 16-byte copies and re-laid in
+                          shared memory
 bfloat16, ``Tq == 1``     ``csrc/flash_decode.cu``: split-KV partials
                           over key ranges of whole 64-key tiles
                           (:func:`decode_split`), then a combine kernel
@@ -79,7 +87,8 @@ kernel without autograd.
 per attention call; ``flash_attention_prefill``, ``_decode``,
 ``_combine`` and ``_f32`` count each kernel's launches, and
 ``_prefill_lse`` / ``_f32_lse`` the launches that also write ``lse``
-(training's forward).  ``flash_attention_backward`` counts backward
+(training's forward); ``PREFILL_ROUTES`` counts the bf16 prefill's
+launches (with or without ``lse``) by :func:`prefill_route`'s route.  ``flash_attention_backward`` counts backward
 calls through the kernels, ``_short`` the short route's launches,
 ``_rowstat``, ``_dkdv``, ``_dq`` and ``_reduce`` (only where the dK / dV
 rows are split) each long-route kernel's, and ``_f32`` the float32
@@ -94,8 +103,11 @@ Numbers: scores and softmax sums in float32, ``p`` rounded to the value
 type before the P·V product, the output ``acc / max(l, 1e-20)`` cast to
 ``q.dtype``; a row whose every key is masked gives 0.  ``block_q`` and
 ``block_kv`` tile the plain version as they tile the reference; the
-kernels use their own tiles (64 keys), which changes only the order of
-float32 sums and where ``p`` is rounded.
+kernels use their own tiles (64 keys; on the sm90 route
+:func:`sm90_block_kv`'s 128 or 96), which changes only the order of
+float32 sums and where ``p`` is rounded:
+``flash_attention_plain(block_kv=sm90_block_kv(D))`` has the sm90
+kernel's rounding points.
 :func:`flash_attention_split_plain` is the decode kernel's arithmetic in
 plain PyTorch (``p`` rounded against each split's running max), and
 :func:`flash_attention_backward_tiled_plain` the backward kernels' (64-row
@@ -126,6 +138,10 @@ __all__ = [
     "decode_split",
     "f32_block_rows",
     "prefill_pack",
+    "prefill_route",
+    "sm90_prefill_plan",
+    "sm90_block_kv",
+    "PREFILL_ROUTES",
     "FlashAttentionFn",
     "flash_attention",
     "flash_attention_plain",
@@ -164,6 +180,9 @@ LAUNCHES: Dict[str, int] = {
 # plain forwards and backwards on CUDA tensors: comparisons, and the
 # backward of a bf16 shape no kernel route takes
 PLAIN_CUDA_CALLS: Dict[str, int] = {"flash_attention": 0, "flash_attention_backward": 0}
+# the bf16 prefill kernel's launches (``flash_attention_prefill`` and
+# ``_prefill_lse`` together) by the route :func:`prefill_route` names
+PREFILL_ROUTES: Dict[str, int] = {"sm90": 0, "mma": 0, "relay": 0}
 
 _MAX_GROUP = 64      # query heads per kv head
 _MAX_HEAD_DIM = 128
@@ -180,10 +199,20 @@ _F32_BWD_CHUNK = 32  # query rows a chunk of that tile's walk
 _F32_BWD_ROWS = 32   # query rows a dQ tile
 _F32_BWD_TILE = 32   # keys a tile of a dQ tile's walk
 _F32_BWD_CLUSTER = 4  # blocks of a cluster, over which a tile's walk is split
+# the bf16 prefill's sm90 kernel (csrc/flash_prefill.cu, flash_prefill_sm90):
+# the head dims it takes, and by head dim its consumer warpgroups of 64
+# query rows, keys a K / V tile and stages of the K / V ring
+_SM90_HEAD_DIMS = (64, 128)
+_SM90_CONSUMERS = {64: 3, 128: 2}
+_SM90_BKV = {64: 96, 128: 128}
+_SM90_STAGES = {64: 3, 128: 3}
+_SM90_PINGPONG = {64: True, 128: False}     # turns between the consumer warpgroups
+_SM90_PERSISTENT = {64: False, 128: True}   # one block an SM walking the items
+_SM90_ROW_BYTES = 128   # a 128-byte-swizzled tile row: 64 bf16 columns
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CUDA_CALLS):
+    for counts in (LAUNCHES, PLAIN_CUDA_CALLS, PREFILL_ROUTES):
         for key in counts:
             counts[key] = 0
 
@@ -299,6 +328,65 @@ def prefill_pack(Tq: int, Tk: int, G: int, q_offset: int) -> int:
     if Tq != Tk or q_offset != 0 or 2 * Tq * G > _PREFILL_ROWS:
         return 1
     return _PREFILL_ROWS // (Tq * G)
+
+
+def prefill_route(dtype: torch.dtype, q_shape, k_shape, pack: int, aligned: bool) -> str:
+    """The kernel ``flash_prefill_launch`` runs a bfloat16 prefill of q
+    ``(B, Tq, H, D)`` over k ``(B, Tk, KV, D)`` on: ``'relay'`` (the
+    mma.sync kernel with re-laid staging) where ``D`` is not a multiple of 8, q, k
+    and v are not all 16-byte aligned (``aligned``) or ``pack`` (from
+    :func:`prefill_pack`) puts more than one sequence in a block (SASRec's
+    prefills); else ``'sm90'`` (the TMA-fed, warp-specialised wgmma kernel)
+    at head dim 64 or 128 (glm4-9b's, granite's, moonshot's, llama3-405b's
+    prefills and training forwards); else ``'mma'`` (the mma.sync
+    kernel, straight staging: head dims 8 .. 120 other than 64).  A plain
+    mirror of the launcher's choice: the wrapper counts each launch under
+    it in ``PREFILL_ROUTES``."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the prefill kernels take bfloat16, got {dtype}")
+    D = q_shape[3]
+    if D % 8 or not aligned or pack > 1:
+        return "relay"
+    return "sm90" if D in _SM90_HEAD_DIMS else "mma"
+
+
+def sm90_prefill_plan(B: int, Tq: int, H: int, KV: int, D: int,
+                      n_sm: int = 132) -> Dict[str, int]:
+    """The sm90 prefill kernel's launch at q ``(B, Tq, H, D)`` over ``KV``
+    kv heads on a card of ``n_sm`` SMs, mirroring its constants: a block's
+    threads (a producer warpgroup and the consumer warpgroups) and query
+    rows (64 a consumer warpgroup: 128 at head dim 128, 192 at 64), an
+    item's positions (``rows // G``) and rows in use (the G heads of each:
+    126 of 128 or 192 of 192 at G = 3), the query tiles a kv head and batch
+    row, the items (query tiles x batch rows x kv heads), the blocks of the
+    grid (one an SM walking the items where ``persistent``, else one an
+    item), whether the consumer warpgroups take turns (``pingpong``), the
+    keys a K / V tile, the stages of the ring and the dynamic shared memory
+    a block asks for (Q's rows and each stage's K and V tiles, in 64-column
+    tiles of 128-byte rows, plus 1024 bytes to align them)."""
+    if D not in _SM90_HEAD_DIMS:
+        raise ValueError(f"the sm90 prefill takes head dims {_SM90_HEAD_DIMS}, got {D}")
+    G = H // KV
+    consumers = _SM90_CONSUMERS[D]
+    rows = 64 * consumers
+    positions = rows // G
+    qtiles = -(-Tq // positions)
+    items = qtiles * KV * B
+    bkv, stages = _SM90_BKV[D], _SM90_STAGES[D]
+    smem = 1024 + (D // 64) * _SM90_ROW_BYTES * (rows + stages * 2 * bkv)
+    return {"threads": 128 * (1 + consumers), "rows": rows, "positions": positions,
+            "rows_used": positions * G, "qtiles": qtiles, "items": items,
+            "blocks": min(items, n_sm) if _SM90_PERSISTENT[D] else items,
+            "persistent": _SM90_PERSISTENT[D], "pingpong": _SM90_PINGPONG[D],
+            "block_kv": bkv, "stages": stages, "smem_bytes": smem}
+
+
+def sm90_block_kv(D: int) -> int:
+    """The keys a K / V tile of the sm90 prefill kernel at head dim ``D``:
+    where ``p`` is rounded (against its row's running max after each
+    tile), so ``flash_attention_plain(block_kv=sm90_block_kv(D))`` has the
+    kernel's rounding points."""
+    return _SM90_BKV[D]
 
 
 @functools.lru_cache(maxsize=None)
@@ -878,10 +966,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, q_o
             stream,
         ), "flash_attention_f32" + suffix)
     elif Tq > 1 or with_lse:  # the decode kernel writes no lse
+        pack = prefill_pack(Tq, Tk, G, int(q_offset))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
         _launched(load("flash_prefill").flash_prefill_launch(
             ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(lengths), *common,
-            prefill_pack(Tq, Tk, G, int(q_offset)), scale * _LOG2E, dev, stream,
+            pack, scale * _LOG2E, dev, stream,
         ), "flash_attention_prefill" + suffix)
+        PREFILL_ROUTES[prefill_route(q.dtype, q.shape, k.shape, pack, aligned)] += 1
     else:
         lib = load("flash_decode")
         pairs = B * KV * -(-G // _DECODE_ROWS)

@@ -5,6 +5,11 @@ and ``repro.models.layers.flash_attention`` on the serving path's
 after a cached prefix, decode over a ragged key tail, a row with no valid
 key).
 
+The last section holds the plain version at the sm90 prefill kernel's
+rounding points (``block_kv=sm90_block_kv(D)``: 128 keys at D = 128, 96
+at D = 64) against the Pallas kernel and ``_flash_impl`` at the same
+block sizes, at the LM head layouts.
+
 Inputs come from numpy seeds; bf16 inputs are rounded once in JAX and
 carried across exactly.  Tolerances are the reference's own
 (``tests/test_kernels.py``): 2e-5 in float32 (summation order only) and
@@ -226,3 +231,76 @@ def test_wrapper_counts_every_kernel_key_at_zero_on_cpu():
     assert not any(K.LAUNCHES.values()) and not any(K.PLAIN_CUDA_CALLS.values())
     with pytest.raises(ValueError, match="multiple of 64"):
         K.flash_attention_split_plain(q, kv, kv, split_keys=100)
+
+
+# ---------------------------------------------------------------------------
+# The plain version at the sm90 prefill kernel's rounding points
+# ---------------------------------------------------------------------------
+
+# The LM head layouts at narrow widths: (name, H, KV, D).  The kernel rounds
+# p against each row's running max after every K / V tile of
+# sm90_block_kv(D) keys (128 at D = 128, 96 at D = 64), which is
+# flash_attention_plain(block_kv=sm90_block_kv(D)).
+SM90_LAYOUTS = [
+    ("g16_d128", 16, 1, 128),   # glm4-9b's / llama3-405b's group
+    ("g3_d64", 6, 2, 64),       # granite's
+    ("g1_d128", 2, 2, 128),     # moonshot's
+]
+# float32: the reference's 2e-5 (order of sums only).  bf16: the element-wise
+# bound the card holds the kernel to (tests/test_torch_cuda.py's BF16_ATOL /
+# BF16_RTOL): one output rounding, 2^-7 relative, plus 2e-3 for a p whose
+# bf16 rounding flips between two exponentials at the same rounding points.
+SM90_BF16_ATOL, SM90_BF16_RTOL = 2e-3, 2.0 ** -7
+
+
+def _within_sm90(got: torch.Tensor, want, dtype: str) -> None:
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    diff = (got.float() - want).abs()
+    if dtype == "float32":
+        assert float(diff.max()) < DTYPES["float32"][2]
+    else:
+        assert float((diff - SM90_BF16_ATOL - SM90_BF16_RTOL * want.abs()).max()) <= 0.0
+
+
+@pytest.mark.parametrize("layout", SM90_LAYOUTS, ids=[c[0] for c in SM90_LAYOUTS])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_at_sm90_tiles_matches_pallas(layout, dtype):
+    """A causal prefill of two tiles and 17 keys: the plain version and the
+    Pallas kernel (interpret mode), both with sm90_block_kv(D)-key blocks."""
+    _, H, KV, D = layout
+    jdt, tdt, _ = DTYPES[dtype]
+    bkv = K.sm90_block_kv(D)
+    T = 2 * bkv + 17
+    rng = np.random.default_rng(H * 1000 + D)
+    q, tq = _pair(rng, (1, T, H, D), jdt, tdt)
+    k, tk = _pair(rng, (1, T, KV, D), jdt, tdt)
+    v, tv = _pair(rng, (1, T, KV, D), jdt, tdt)
+    want = flash_attention_pallas(q, k, v, causal=True, block_q=64, block_kv=bkv,
+                                  interpret=True)
+    got = K.flash_attention_plain(tq, tk, tv, causal=True, block_q=64, block_kv=bkv)
+    _within_sm90(got, want, dtype)
+
+
+@pytest.mark.parametrize("layout", SM90_LAYOUTS, ids=[c[0] for c in SM90_LAYOUTS])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_at_sm90_tiles_matches_flash_impl_over_a_cache(layout, dtype):
+    """A prefill of 40 positions after bkv + 30 cached ones, over a cache
+    of three tiles and 5 keys whose valid prefix is ragged (the second
+    row's ends mid-tile, 19 keys short of its last position): the plain
+    version and the reference's ``_flash_impl``, both with
+    sm90_block_kv(D)-key blocks."""
+    _, H, KV, D = layout
+    jdt, tdt, _ = DTYPES[dtype]
+    bkv = K.sm90_block_kv(D)
+    Tq, Tk, q_offset = 40, 3 * bkv + 5, bkv + 30
+    kv_length = np.asarray([q_offset + Tq, q_offset + Tq - 19], dtype=np.int32)
+    rng = np.random.default_rng(H * 1000 + D + 1)
+    q, tq = _pair(rng, (2, Tq, H, D), jdt, tdt)
+    k, tk = _pair(rng, (2, Tk, KV, D), jdt, tdt)
+    v, tv = _pair(rng, (2, Tk, KV, D), jdt, tdt)
+    want = jlayers._flash_impl(q, k, v, True, jnp.asarray(q_offset, jnp.int32),
+                               jnp.asarray(kv_length), 64, bkv)
+    got = K.flash_attention_plain(tq, tk, tv, causal=True, q_offset=q_offset,
+                                  kv_length=torch.from_numpy(kv_length), block_q=64,
+                                  block_kv=bkv)
+    _within_sm90(got, want, dtype)

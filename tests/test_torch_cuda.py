@@ -598,29 +598,62 @@ def _within(got, want, atol, rtol=BF16_RTOL):
     assert excess <= 0.0, f"exceeds {atol} + {rtol} |want| by {excess}"
 
 
+def _route(q, k, q_offset=0):
+    """The prefill route the launcher takes for a bf16 call on 16-byte
+    aligned tensors (every tensor ``_qkv`` makes)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    pack = FA.prefill_pack(q.shape[1], k.shape[1], q.shape[2] // k.shape[2], q_offset)
+    return FA.prefill_route(q.dtype, q.shape, k.shape, pack, True)
+
+
+def _prefill_once(FA, q, k, v, kw):
+    """One prefill through the wrapper: its output, after checking that it
+    launched the prefill kernel once, on the route ``prefill_route``
+    names, and that a second call gives the same bits."""
+    before, routes = dict(FA.LAUNCHES), dict(FA.PREFILL_ROUTES)
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.LAUNCHES["flash_attention_prefill"] == before["flash_attention_prefill"] + 1
+    want_routes = dict(routes)
+    want_routes[_route(q, k, kw["q_offset"])] += 1
+    assert FA.PREFILL_ROUTES == want_routes
+    assert torch.equal(FA.flash_attention(q, k, v, **kw), got)
+    return got
+
+
 @pytest.mark.parametrize("D", [8, 16, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 3, 16])
 def test_cuda_prefill_kernel_matches_plain(card, D, G):
     """A causal prefill of 100 positions (not a multiple of any tile) after
-    30 cached ones, over a 160-position cache with a ragged valid prefix."""
+    30 cached ones, over a 160-position cache with a ragged valid prefix:
+    head dims 64 and 128 on the sm90 kernel, 8 and 16 on the mma.sync
+    kernel; bit for bit the same over two calls."""
     from repro_torch.kernels import flash_attention as FA
 
     KV, T, q_offset, Tk = 2, 100, 30, 160
     q, k, v = _qkv(D * 7 + G, 2, T, Tk, G * KV, KV, D, torch.bfloat16)
+    assert _route(q, k, 30) == ("sm90" if D in (64, 128) else "mma")
     lengths = torch.tensor([q_offset + T, q_offset + T - 9], dtype=torch.int32, device="cuda")
     kw = dict(causal=True, q_offset=q_offset, kv_length=lengths)
-    before = dict(FA.LAUNCHES)
-    got = FA.flash_attention(q, k, v, **kw)
-    assert FA.LAUNCHES["flash_attention_prefill"] == before["flash_attention_prefill"] + 1
-    _within(got, FA.flash_attention_plain(q, k, v, **kw), BF16_ATOL)
+    _within(_prefill_once(FA, q, k, v, kw), FA.flash_attention_plain(q, k, v, **kw), BF16_ATOL)
 
 
 @pytest.mark.parametrize("shape", [
     # (B, Tq, Tk, H, KV, D, causal, q_offset, kv_length)
     (1, 300, 4128, 32, 2, 128, True, 0, [300]),     # glm4-9b's heads, 8 positions a block
     (2, 65, 65, 4, 4, 128, False, 0, None),         # not causal, one key past a tile
-    (1, 129, 129, 12, 2, 64, True, 0, None),        # G = 6: 126 of 128 rows in use
+    (1, 129, 129, 12, 2, 64, True, 0, None),        # G = 6: 32 positions, all 192 rows
     (1, 40, 40, 128, 2, 50, True, 0, None),         # G = 64, D = 50 (element loads)
+    # the sm90 kernel at D = 64 / 128 and G = 1, 3, 16
+    (2, 129, 129, 16, 16, 128, False, 0, None),     # G = 1, not causal, Tq = 129
+    (1, 129, 129, 24, 8, 64, True, 0, None),        # G = 3: 64 positions, Tq = 129
+    (2, 129, 300, 3, 1, 128, True, 0, [129, 100]),  # G = 3 at D = 128: 126 of 128 rows
+    (2, 50, 300, 48, 3, 64, True, 100, [150, 141]),  # G = 16 after a prefix, ragged
+    (2, 77, 200, 16, 16, 64, True, 60, [137, 100]),  # G = 1, a row's keys end mid-tile
+    (2, 33, 97, 32, 2, 128, False, 64, [97, 40]),   # not causal over a ragged cache
+    (1, 40, 40, 128, 2, 128, True, 0, None),        # G = 64: two positions a block
+    (1, 40, 40, 128, 2, 64, True, 0, None),         # G = 64 at D = 64: three
+    (3, 5, 9, 6, 2, 64, True, 4, None),             # fewer positions than a block
 ])
 def test_cuda_prefill_kernel_edges(card, shape):
     from repro_torch.kernels import flash_attention as FA
@@ -630,8 +663,36 @@ def test_cuda_prefill_kernel_edges(card, shape):
     lengths = (None if kv_length is None
                else torch.tensor(kv_length, dtype=torch.int32, device="cuda"))
     kw = dict(causal=causal, q_offset=q_offset, kv_length=lengths)
-    _within(FA.flash_attention(q, k, v, **kw), FA.flash_attention_plain(q, k, v, **kw),
+    _within(_prefill_once(FA, q, k, v, kw), FA.flash_attention_plain(q, k, v, **kw),
             BF16_ATOL)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 16])
+def test_cuda_sm90_prefill_reads_nothing_past_kv_length(card, D, G):
+    """The sm90 kernel's TMA boxes read whole key tiles, past kv_length
+    too: with NaN in every cache slot past each row's kv_length (a tile
+    straddles it in both rows), the output is the output with zeros there,
+    bit for bit, and within the bound of the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+
+    B, Tq, Tk, KV, q_offset = 2, 70, 400, 2, 110
+    q, k, v = _qkv(D + G, B, Tq, Tk, G * KV, KV, D, torch.bfloat16)
+    kv_length = [q_offset + Tq, q_offset + Tq - 23]
+    lengths = torch.tensor(kv_length, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, q_offset=q_offset, kv_length=lengths)
+    zeros_k, zeros_v, nan_k, nan_v = k.clone(), v.clone(), k.clone(), v.clone()
+    for row, n in enumerate(kv_length):
+        for t in (zeros_k, zeros_v):
+            t[row, n:] = 0
+        for t in (nan_k, nan_v):
+            t[row, n:] = float("nan")
+    assert _route(q, k, q_offset) == "sm90"
+    with_zeros = _prefill_once(FA, q, zeros_k, zeros_v, kw)
+    with_nan = _prefill_once(FA, q, nan_k, nan_v, kw)
+    assert not bool(torch.isnan(with_nan).any())
+    assert torch.equal(with_nan, with_zeros)
+    _within(with_nan, FA.flash_attention_plain(q, zeros_k, zeros_v, **kw), BF16_ATOL)
 
 
 # (name, B, Tk, H, KV, D, causal, q_offset, kv_length)
@@ -708,6 +769,8 @@ LSE_CASES = [
     (4, 50, 1, 1, 50, True),
     (2, 77, 6, 2, 50, True),
     (2, 65, 4, 4, 128, False),
+    (1, 300, 24, 8, 64, True),       # granite's heads on the sm90 kernel, 3 warpgroups
+    (2, 200, 16, 16, 128, True),     # moonshot's: G = 1
 ]
 # lse is float32: the float32 kernel sums exactly as the plain version up to
 # order; the bf16 kernel's exp2 approximation and order move it by < 1e-3
@@ -721,10 +784,15 @@ def test_cuda_k4_lse_matches_plain(card, full_fp32, case, dtype):
 
     B, T, H, KV, D, causal = case
     q, k, v = _qkv(T + D + H, B, T, T, H, KV, D, dtype)
-    before = dict(FA.LAUNCHES)
+    before, routes = dict(FA.LAUNCHES), dict(FA.PREFILL_ROUTES)
     out, lse = FA._launch(q, k, v, causal, 0, None, with_lse=True)
     route = "flash_attention_f32_lse" if dtype == torch.float32 else "flash_attention_prefill_lse"
     assert FA.LAUNCHES[route] == before[route] + 1
+    if dtype == torch.bfloat16:  # the training forward's route: sm90 at head dim 64 / 128
+        want_routes = dict(routes)
+        want_routes[FA.prefill_route(dtype, q.shape, k.shape,
+                                     FA.prefill_pack(T, T, H // KV, 0), True)] += 1
+        assert FA.PREFILL_ROUTES == want_routes
     want, want_lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
     assert lse.shape == (B, T, H) and lse.dtype == torch.float32
     assert float((lse - want_lse).abs().max()) < LSE_TOL[dtype]

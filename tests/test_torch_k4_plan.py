@@ -1,9 +1,14 @@
 """K4's launch plans, chosen in the wrapper from the call's shape: the
-float32 kernel's query rows a block (:func:`f32_block_rows`) and the bf16
-prefill kernel's sequences a block (:func:`prefill_pack`).  Plain Python:
-the CUDA kernels that take these plans are held to the plain versions in
+float32 kernel's query rows a block (:func:`f32_block_rows`), the bf16
+prefill kernel's sequences a block (:func:`prefill_pack`), the bf16
+prefill's kernel route (:func:`prefill_route`: the sm90 TMA / wgmma
+kernel, the mma.sync kernel or its re-laid staging) and the sm90
+kernel's block plan (:func:`sm90_prefill_plan`: rows, positions, grid,
+key tile, stages, shared memory).  Plain Python: the CUDA kernels that
+take these plans are held to the plain versions in
 ``tests/test_torch_cuda.py`` on the card."""
 import pytest
+import torch
 
 from repro_torch.kernels import flash_attention as K
 
@@ -89,3 +94,128 @@ def test_main_path_prefills_are_not_packed():
     assert K.prefill_pack(4096, 4096, 16, 0) == 1
     assert K.prefill_pack(4096, 4096, 3, 0) == 1
     assert K.prefill_pack(4096, 4096, 1, 0) == 1
+
+
+# ---------------------------------------------------------------------------
+# The bf16 prefill's kernel route (prefill_route) and the sm90 kernel's plan
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("glm4-9b", "granite-moe-3b-a800m", "moonshot-v1-16b-a3b", "llama3-405b")
+SMEM_OPTIN = 232_448   # an H100 block's shared memory: 227 KB
+
+
+def _heads(arch):
+    from repro_torch.configs import registry
+
+    cfg = registry.get_arch(arch).CONFIG
+    return cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+
+def _route(Tq, Tk, H, KV, D, q_offset=0, aligned=True, B=1):
+    pack = K.prefill_pack(Tq, Tk, H // KV, q_offset)
+    return K.prefill_route(torch.bfloat16, (B, Tq, H, D), (B, Tk, KV, D), pack, aligned)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_prefill_route_is_sm90_at_the_lm_shapes(arch):
+    """Every LM prefill the smoke serves (4096 tokens into a 4128-slot
+    cache, and 64 after 200 cached) and the training forward (4096 tokens,
+    no cache) take the TMA / wgmma kernel."""
+    H, KV, D = _heads(arch)
+    assert _route(4096, 4128, H, KV, D) == "sm90"
+    assert _route(64, 600, H, KV, D, q_offset=200, B=2) == "sm90"
+    assert _route(4096, 4096, H, KV, D, B=4) == "sm90"
+
+
+@pytest.mark.parametrize("D", [8, 16, 24, 32, 48, 120])
+def test_prefill_route_keeps_mma_at_other_head_dims(D):
+    """A head dim that is a multiple of 8 other than 64 or 128 (the kernel
+    sweep's 8, 16, 32), aligned and one sequence a block: the mma.sync
+    kernel."""
+    assert _route(100, 160, 4, 2, D, q_offset=30) == "mma"
+    assert _route(256, 256, 8, 2, D) == "mma"
+
+
+@pytest.mark.parametrize("Tq, Tk, H, KV, D, aligned, why", [
+    (50, 50, 1, 1, 50, True, "SASRec's head: D = 50, two sequences a block"),
+    (40, 96, 1, 1, 50, True, "D = 50 over a cache: not packed, re-laid all the same"),
+    (300, 300, 32, 2, 128, False, "q, k or v not 16-byte aligned"),
+    (20, 20, 4, 2, 64, True, "packed: three sequences of 20 x 2 rows a block"),
+    (30, 30, 2, 2, 64, True, "packed at D = 64"),
+])
+def test_prefill_route_relays_what_flash_prefill_cu_relays(Tq, Tk, H, KV, D, aligned, why):
+    assert _route(Tq, Tk, H, KV, D, aligned=aligned) == "relay", why
+
+
+def test_prefill_route_takes_bfloat16_only():
+    with pytest.raises(ValueError, match="bfloat16"):
+        K.prefill_route(torch.float32, (1, 8, 2, 64), (1, 8, 2, 64), 1, True)
+
+
+@pytest.mark.parametrize("D, G, positions, rows_used", [
+    # 128 rows at head dim 128 (two consumer warpgroups), 192 at 64 (three)
+    (128, 1, 128, 128), (128, 3, 42, 126), (128, 16, 8, 128), (128, 64, 2, 128),
+    (64, 1, 192, 192), (64, 3, 64, 192), (64, 16, 12, 192), (64, 64, 3, 192),
+])
+def test_sm90_block_row_map(D, G, positions, rows_used):
+    """A block's rows are the G heads of one kv head at rows // G
+    positions; rows past the last whole position (granite's 126 and 127 at
+    D = 128) are never written."""
+    plan = K.sm90_prefill_plan(1, 4096, G * 2, 2, D)
+    assert plan["rows"] == (128 if D == 128 else 192)
+    assert plan["threads"] == 128 + 2 * plan["rows"]
+    assert (plan["positions"], plan["rows_used"]) == (positions, rows_used)
+    assert plan["rows"] - G < plan["rows_used"] <= plan["rows"]
+    assert plan["rows_used"] > plan["rows"] - 64   # dead rows lie in the last warpgroup
+
+
+@pytest.mark.parametrize("arch, items, blocks", [
+    ("glm4-9b", 1024, 132),             # 512 query tiles of 8 positions x 2 kv heads
+    ("granite-moe-3b-a800m", 512, 512),  # 64 tiles of 64 positions x 8, one block each
+    ("moonshot-v1-16b-a3b", 512, 132),  # 32 tiles of 128 x 16
+    ("llama3-405b", 4096, 132),         # 512 tiles of 8 x 8
+])
+def test_sm90_grid_at_the_lm_shapes(arch, items, blocks):
+    """Head dim 128: a persistent grid of one block an SM walks the items;
+    head dim 64 (granite): one block an item."""
+    H, KV, D = _heads(arch)
+    plan = K.sm90_prefill_plan(1, 4096, H, KV, D)
+    assert plan["items"] == items == plan["qtiles"] * KV
+    assert plan["blocks"] == blocks
+    assert plan["persistent"] == (D == 128) and plan["pingpong"] == (D == 64)
+    assert plan["qtiles"] * plan["positions"] >= 4096 > (plan["qtiles"] - 1) * plan["positions"]
+    assert plan["items"] >= H100_SMS      # every SM has an item
+    assert K.sm90_prefill_plan(2, 20, H, KV, D)["blocks"] == 2 * KV * -(-20 // plan["positions"])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_shared_memory_fits_a_block(D):
+    """Q's rows and the ring's K / V tiles (plus 1024 bytes of alignment
+    and the 1 + 2 x stages barriers of 8 bytes) fit the 227 KB a block may
+    ask for; the tiles are whole 1024-byte swizzle atoms."""
+    plan = K.sm90_prefill_plan(1, 4096, 32, 2, D)
+    barriers = 8 * (1 + 2 * plan["stages"])
+    assert plan["smem_bytes"] + barriers <= SMEM_OPTIN
+    assert plan["block_kv"] % 16 == 0 and plan["block_kv"] <= 256
+    assert (plan["block_kv"] * 128) % 1024 == 0 and (plan["rows"] * 128) % 1024 == 0
+
+
+def test_sm90_constants_match_the_kernel_source():
+    """The mirror's constants are the kernel's defaults in
+    ``csrc/flash_prefill.cu``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(K.__file__).parent / "csrc" / "flash_prefill.cu").read_text()
+
+    def define(name):
+        return int(re.search(rf"#define {name} (\d+)", src).group(1))
+
+    assert define("FLASH_PREFILL_SM90") == 1
+    for D in (64, 128):
+        assert define(f"FLASH_SM90_BKV_{D}") == K.sm90_block_kv(D)
+        plan = K.sm90_prefill_plan(1, 128, 2, 1, D)
+        assert define(f"FLASH_SM90_PINGPONG_{D}") == plan["pingpong"]
+        assert define(f"FLASH_SM90_PERSISTENT_{D}") == plan["persistent"]
+        assert define(f"FLASH_SM90_STAGES_{D}") == plan["stages"]
+        assert 64 * define(f"FLASH_SM90_CONSUMERS_{D}") == plan["rows"]
