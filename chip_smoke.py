@@ -162,7 +162,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    L2) with its warm time logged beside; the count of tensor-core
    instructions (``HMMA``, ``HGMMA``) and TMA loads (``UTMALDG``) in the
    bf16 kernels' SASS where ``cuobjdump`` exists, the prefill library's
-   without ``HGMMA`` or ``UTMALDG`` failing the run.  The small check
+   or the backward library's without ``HGMMA`` or ``UTMALDG`` failing the
+   run.  The small check
    holds the sweep's head dims (8, 16, 32) on the mma.sync kernel
    and the cache path's prefills on the sm90 kernel.
 9. Training (``training_phase``), after the LM phase's weights are freed:
@@ -174,8 +175,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and backward) within ``TRAIN_RTOL``; K4's prefill kernel with lse
    launches exactly layers x microbatches x 2 (the remat recompute) a
    step, K4's backward kernels (``csrc/flash_backward.cu``'s long route:
-   row statistics, dK / dV, dQ and, where the dK / dV rows are split, the
-   reduce) exactly layers x microbatches each, no other K4 kernel, no
+   row statistics, the wgmma dK / dV and dQ kernels and, where the dK / dV
+   rows are split, the reduce) exactly layers x microbatches each, no other K4 kernel, no
    plain forward and no plain backward; the params are
    unchanged by step 0 (the schedule's lr is 0 there) and move at step
    1; one more step is profiled and its device time split by the port's
@@ -209,7 +210,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    two runs bit for bit, the same check refusing the gradients under
    each fault of ``BACKWARD_PLANTS`` planted at the launch, timed
    against the plain backward and
-   ``aten._scaled_dot_product_flash_attention_backward``.
+   ``aten._scaled_dot_product_flash_attention_backward``; a long-route
+   row records its route and ``sm90_backward_plan`` (``shape.plan``).
    ``--quick`` runs the ``SMOKE`` configs, SASRec's batches / 64.
 10. The MoE LMs (``moe_phase``), after phase 9 frees its weights.
    granite-moe-3b-a800m at ``CONFIG`` (full width, all 32 layers, bf16
@@ -1700,7 +1702,8 @@ def mma_instruction_counts() -> dict:
     """Tensor-core instructions (``HMMA``: mma.sync; ``HGMMA``: wgmma) and
     TMA tensor loads (``UTMALDG``) in the SASS of K4's bf16 libraries, where
     the toolkit has ``cuobjdump``; empty where it has none.  The prefill
-    library must hold ``HGMMA`` and ``UTMALDG``: its sm90 kernel."""
+    library must hold ``HGMMA`` and ``UTMALDG`` (its sm90 kernel), and so
+    must the backward library (its long route's kernels)."""
     import re
 
     from repro_torch.kernels import build
@@ -1715,9 +1718,9 @@ def mma_instruction_counts() -> dict:
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
                         for op in ("HMMA", "HGMMA", "UTMALDG")}
     log(f"SASS tensor-core and TMA instructions: {json.dumps(counts)}")
-    if not (counts["flash_prefill"]["HGMMA"] and counts["flash_prefill"]["UTMALDG"]):
-        raise AssertionError(f"flash_prefill's SASS holds no wgmma or no TMA load: "
-                             f"{counts['flash_prefill']}")
+    for name in ("flash_prefill", "flash_backward"):
+        if not (counts[name]["HGMMA"] and counts[name]["UTMALDG"]):
+            raise AssertionError(f"{name}'s SASS holds no wgmma or no TMA load: {counts[name]}")
     return counts
 
 
@@ -3420,7 +3423,8 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
     repeats = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = None if f32 else FA.backward_splits(B, T, T, H, KV, n_sm)
+    route = FA._backward_kernel(q.dtype, q.shape, k.shape)
+    splits = None if f32 else FA.backward_splits(B, T, T, H, KV, n_sm, D)
     plain = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=True)
     if f32:
         mirror = FA.flash_attention_backward_f32_tiled_plain(q, k, v, out, lse, do, causal=True)
@@ -3527,7 +3531,9 @@ def k4_backward_row(name, q, k, v, launches, per_step, reps) -> dict:
                   "library": library, "library_note": library_note,
                   "library_parts": library_parts,
                   "library_max_abs_diff_to_plain": library_err, "bytes": n_bytes,
-                  "flops": n_ops, "route": FA._backward_kernel(q.dtype, q.shape, k.shape)},
+                  "flops": n_ops, "route": route,
+                  "plan": FA.sm90_backward_plan(B, T, T, H, KV, D, n_sm)
+                  if route == "long" else None},
     }
 
 
@@ -3559,7 +3565,7 @@ def backward_expect(cfg, batch: int, seq: int, calls: int) -> tuple:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     keys = ["flash_attention_backward", "flash_attention_backward_rowstat",
             "flash_attention_backward_dkdv", "flash_attention_backward_dq"]
-    if FA.backward_splits(rows, seq, seq, cfg.n_heads, cfg.n_kv_heads, n_sm) > 1:
+    if FA.backward_splits(rows, seq, seq, cfg.n_heads, cfg.n_kv_heads, n_sm, hd) > 1:
         keys.append("flash_attention_backward_reduce")
     return dict.fromkeys(keys, calls), 0
 

@@ -36,6 +36,8 @@ library call.  ``--rows`` picks the rows (default: all):
               lm-100m's float32 q ``(4, 128, 8, 64)`` over 4 kv heads and
               at SASRec's, the shapes that ran it before their kernels
               (``plain_backward_ms``)
+  backward_long  the long route's two rows of ``backward`` alone (glm4-9b's and
+              granite's), without SASRec's row and the plain times
   backward_f32  the float32 training backward
               (``csrc/flash_backward_f32.cu``) at lm-100m's training
               shape, q ``(4, 128, 8, 64)`` over 4 kv heads:
@@ -62,7 +64,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (imports no kernel at import time)
 
 ROWS = ("main", "granite", "moonshot", "lse", "f32_lm100m", "sasrec", "backward",
-        "backward_f32")
+        "backward_long", "backward_f32")
 SASREC_BULK = 262_144   # serve_bulk's users (configs/shapes.py's REC_SHAPES)
 
 
@@ -143,7 +145,22 @@ def sasrec_rows(reps: int, seed: int) -> list:
     return rows
 
 
-def backward_rows(reps: int, seed: int, splits: list) -> list:
+def adapt_older_wrapper(FA) -> None:
+    """Let this checkout's ``chip_smoke`` rows drive the wrapper of an
+    older tree (``--src``): one whose ``backward_splits`` takes no head dim
+    (the split rule before the wgmma long route) is called without it, and
+    one without ``sm90_backward_plan`` records no plan."""
+    import inspect
+
+    if "D" not in inspect.signature(FA.backward_splits).parameters:
+        splits = FA.backward_splits
+        FA.backward_splits = lambda B, Tq, Tk, H, KV, n_sm=132, D=None: splits(
+            B, Tq, Tk, H, KV, n_sm)
+    if not hasattr(FA, "sm90_backward_plan"):
+        FA.sm90_backward_plan = lambda *args, **kwargs: None
+
+
+def backward_rows(reps: int, seed: int, splits: list, short: bool = True) -> list:
     import torch
 
     from repro_torch.configs import registry
@@ -155,8 +172,8 @@ def backward_rows(reps: int, seed: int, splits: list) -> list:
         ("glm4-9b", "flash_attention_backward"),
         ("granite-moe-3b-a800m", "flash_attention_backward_granite"))]
     rows = []
-    for cfg, B, T, name in shapes + [(None, 65_536, rc.seq_len,
-                                      "flash_attention_backward_sasrec")]:
+    sasrec = [(None, 65_536, rc.seq_len, "flash_attention_backward_sasrec")] if short else []
+    for cfg, B, T, name in shapes + sasrec:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         heads = (cfg.n_heads, cfg.n_kv_heads) if cfg else (1, 1)
         hd = cfg.resolved_head_dim if cfg else rc.d
@@ -237,6 +254,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import flash_attention as FA
 
+    adapt_older_wrapper(FA)
     torch.backends.cuda.matmul.allow_tf32 = False
     rows, extra = [], {}
     for name in picked:
@@ -251,10 +269,12 @@ def main() -> int:
             rows += f32_rows(args.reps, args.seed)
         elif name == "backward_f32":
             rows += backward_f32_rows(args.reps, args.seed)
-        elif name == "backward":
+        elif name in ("backward", "backward_long"):
             rows += backward_rows(args.reps, args.seed,
-                                  [int(n) for n in args.splits.split(",") if n])
-            extra["plain_backward_ms"] = plain_backward_ms(args.reps, args.seed)
+                                  [int(n) for n in args.splits.split(",") if n],
+                                  short=name == "backward")
+            if name == "backward":
+                extra["plain_backward_ms"] = plain_backward_ms(args.reps, args.seed)
         else:
             rows += sasrec_rows(args.reps, args.seed)
         torch.cuda.empty_cache()

@@ -3,7 +3,7 @@
 // flash_attention.py, FlashAttentionFn.backward) sends a bfloat16 call here
 // by two routes (its backward_route): the short route where a sequence is
 // one tile (SASRec's), the long route at head_dim 64 or 128 (the LMs');
-// float32 runs the plain backward.
+// float32 runs csrc/flash_backward_f32.cu.
 //
 // Replaces no Pallas kernel: it computes what the JAX package's custom-VJP
 // backward computes (src/repro/models/layers.py::_flash_train_bwd, XLA
@@ -23,10 +23,11 @@
 // Sums in fp32; p and ds are rounded to bf16 before their products (as
 // the forward rounds p before P.V); dq, dk, dv cast once to bf16.  Every
 // product runs on the tensor cores, mma.sync m16n8k16 bf16 with fp32
-// accumulators (flash_mma.cuh).  The query rows of a kv head are the G
+// accumulators: mma.sync (flash_mma.cuh) on the short route, wgmma
+// (hopper.cuh) on the long one.  The query rows of a kv head are the G
 // heads of each position in turn (row r: position r / G, head r % G), as
-// the prefill kernel lays them; rows go in tiles of BQ = 64.  No float
-// atomics: the gradients repeat their bits.
+// the prefill kernel lays them.  No float atomics: the gradients repeat
+// their bits.
 //
 // The short route (short_kernel: Tq == Tk = T, KV == 1, T H <= 64, any
 // D <= 64; SASRec's q (65,536, 50, 1, 50)).  Bytes bound it: five 327.7 MB
@@ -53,72 +54,81 @@
 //    re-laid, multiplied and written back (two raw buffers where they
 //    fit beside the padded tiles, else one).
 //
-// The long route (head_dim 64 or 128, any Tq, Tk; glm4-9b's q (1, 4096, 32,
-// 128) over 2 kv heads).  Operations bound it: five products of 2 FLOPs a
-// multiply-add over the causal pairs, 10 B H D pairs FLOPs: 3.44e11 at
-// glm4-9b's training shape, 0.348 ms at 989 TFLOP/s, against ~143 MB of
+// The long route (head_dim 64 or 128, any Tq, Tk, H / KV <= 64; glm4-9b's
+// q (1, 4096, 32, 128) over 2 kv heads, granite's (1, 4096, 24, 64) over
+// 8).  Operations bound it: five products of 2 FLOPs a multiply-add over
+// the causal pairs, 10 B H D pairs FLOPs: 3.44e11 at glm4-9b's training
+// shape, 0.348 ms at 989 TFLOP/s (granite's 0.130 ms), against ~143 MB of
 // operands (0.043 ms at 3.35 TB/s).  FlashAttention-2's backward in three
-// kernels:
-//  (a) rowstat_kernel: delta = rowsum(do o) and lse log2 e, in the row
-//      order above, padded to whole row tiles (+inf / 0);
-//  (b) dkdv_kernel: a block of 4 warps per (64-key tile, kv head, split):
-//      S^T = K Q^T and dP^T = V dO^T with keys as the m dimension (a warp
-//      owns 16 keys), then dV += P^T dO and dK += dS^T Q from registers,
-//      the dK / dV accumulators of the tile held in registers across the
-//      walk over row tiles (from the diagonal under causal);
-//  (c) dq_kernel: a block per row tile walks the key tiles up to the
-//      diagonal, recomputes S, P, dP and dS, and accumulates dQ += dS K
-//      (two more products than the five);
-//  * load balance under causal: key tile j sees Tq G - 64 j G rows, so the
-//    first tile does 64x the last one's work at 4096 positions.  The rows
-//    of a key tile are cut into `splits` runs of whole row tiles (the
-//    wrapper's backward_splits: enough blocks for three an SM), each
-//    writing an fp32 partial that reduce_kernel adds in split order; and
-//    the grid is launched longest first (key tile 0 first, dq's last row
-//    tile first);
-//  * Q / dO tiles (dK / dV) and K / V tiles (dQ) are double-buffered with
-//    16-byte cp.async, the next tile in flight while this one is
-//    multiplied; two blocks share an SM (104 KB of shared memory each at
-//    D = 128).  ptxas: dkdv_kernel 254 registers at D = 128 (its dK and dV
-//    accumulators alone take 128), 234 at D = 64; dq_kernel 221 and 189;
-//    no spills.
-// Measured and set aside (scripts/backward_fold_ab.py keeps it): dQ folded
-// into the dK / dV walk (five products, 8 warps over 128-key tiles, dQ
-// added in fp32 in a fixed key-tile order behind per-row-tile counters)
-// lost to these three kernels at both training shapes on an H100.
-// Not yet: wgmma and TMA (FlashAttention-3's shape).
+// kernels, the two that multiply written as FlashAttention-3 writes them
+// for Hopper (TMA-fed, warp-specialised wgmma, hopper.cuh):
+//  (a) rowstat_kernel: delta = rowsum(do o) and lse log2 e in row tiles:
+//      tile i of a kv head holds the rows of positions i P .. i P + P - 1,
+//      P = floor(64 / G) (G P rows: 64 at glm4-9b's G = 16, 63 at
+//      granite's 3), in 64 slots, the slots past G P and past Tq +inf / 0
+//      so that their p and ds are 0;
+//  (b) dkdv_sm90_kernel: a block owns KEYS keys (128 at D = 128: two
+//      consumer warpgroups of 64; 64 at D = 64: one, two blocks an SM) of
+//      one kv head and one split of the row tiles that see them.  One producer thread loads K and V once by TMA, then
+//      streams the row tiles (from the diagonal under causal) into a ring
+//      of STAGES stages: Q and dO each one 4-D TMA box of G heads x P
+//      positions over (D, heads, T, B), as the prefill lays its Q, with
+//      the tile's lse2 / delta by bulk copy, on full / empty mbarriers.
+//      Per row tile a consumer warpgroup issues S^T = K Q^T and dP^T =
+//      V dO^T (wgmma m64n64k16, both operands K-major from shared memory:
+//      keys are the m dimension, so P^T and dS^T come out of the
+//      accumulators in the A-fragment layout of the register form), takes
+//      p and ds in fp32 (p while dP^T runs), and issues dV += P^T dO and
+//      dK += dS^T Q (wgmma m64nDk16, A from registers, dO and Q MN-major
+//      B), dK and dV accumulating in registers across the walk;
+//  (c) dq_sm90_kernel: a block owns two row tiles (a consumer warpgroup
+//      each) of one kv head; the producer loads their Q and dO once and
+//      streams K / V tiles of DQ_KEYS keys up to the diagonal; S = Q K^T
+//      and dP = dO V^T (wgmma, shared memory), ds in registers, dQ += dS K
+//      (wgmma, K MN-major).  It recomputes S and dP: two products more
+//      than the five, which keeps every sum in a fixed order without
+//      atomics;
+//  * register plan (D = 128): dK and dV accumulators 2 x 64 floats a
+//    thread, S^T and dP^T 32 each, P^T and dS^T 16 bf16 pairs each; dQ's
+//    accumulator 64, S and dP 64 each over 128-key tiles, dS 32 pairs: the
+//    producer warpgroup gives its registers back (setmaxnreg 24), the two
+//    consumers take 240 (one consumer, two blocks an SM: 232);
+//  * masks only on the tiles that cross the diagonal (a comparison of the
+//    row's slot with (key - i P) G, no division), and in dq also Tk; key
+//    rows past Tk arrive from TMA as zeros, and their dK / dV are not
+//    written; the slots past G P are zeroed once in each stage;
+//  * load balance under causal: key tile j sees n_rt - j KEYS / P row
+//    tiles.  The row tiles of a key tile are cut into `splits` runs (the
+//    wrapper's backward_splits: the longest walk over the card's share of
+//    all walks), each writing an fp32 partial that reduce_kernel adds in
+//    split order; both grids run longest first (key tile 0 first, dq's
+//    last row tiles first).
+// The plan's constants are Config<DP>'s; the wrapper's sm90_backward_plan
+// mirrors them, and scripts/backward_sm90_variants.py builds copies with
+// other values to time them in turns.  The mma.sync kernels these
+// replaced (16 keys a warp, every warp reading the whole Q and dO tiles
+// through ldmatrix, two blocks of 4 warps an SM) and the dQ fold measured
+// and set aside before them (scripts/backward_fold_ab.py keeps it) are
+// timed against this design in PERF.md.
 
 #include "flash_mma.cuh"
+#include "hopper.cuh"
 
 #include <algorithm>
 #include <atomic>
+#include <climits>
 
 namespace flash_backward {
 
 using namespace flash_mma;
 
-constexpr int WARPS = 4;             // the long route's blocks
-constexpr int THREADS = 32 * WARPS;
-constexpr int BQ = 64;               // query rows a tile
+constexpr int BQ = 64;               // query rows a tile (the long route: slots of a row tile)
 constexpr int MAX_GRID_Y = 65535;    // blocks along the batch per launch
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int SHORT_THREADS = 256;   // the short route's blocks: 8 warps
 constexpr int SEQS = 2;              // sequences a block of the short route
 constexpr int SDP = 64;              // the short route's padded head dim
 constexpr int DSS = BQ + 8;          // row stride of a dS^T tile [key][row], bf16
-
-// the shared memory of dkdv_kernel: K and V of the tile, then two stages
-// of [Q, dO] row tiles, then two stages of [lse2, delta] (BQ floats each)
-template <int DP>
-constexpr size_t dkdv_smem() {
-  return size_t(2) * (2 * BKV + 4 * BQ) * Tile<DP>::DS + size_t(4) * 2 * 2 * BQ;
-}
-
-// dq_kernel's: Q and dO of the row tile, then two stages of [K, V]
-template <int DP>
-constexpr size_t dq_smem() {
-  return size_t(2) * (2 * BQ + 4 * BKV) * Tile<DP>::DS;
-}
 
 // the short route's: SEQS x [Q, K, V, dO] padded tiles, SEQS x [lse2,
 // delta], then n_buf raw buffers, each five slots of `slot` bytes (q, k,
@@ -134,7 +144,7 @@ inline size_t short_smem(int slot, int n_buf) {
 // bf16) and the 16-byte cover's slack
 inline int short_slot(int T, int H, int D) { return ((4 * T * H * D + 15) / 16 + 1) * 16; }
 
-// The products that accumulate (dV += P^T dO, dK += dS^T Q, dQ += dS K)
+// The short route's products that accumulate (dV += P^T dO, dK += dS^T Q)
 // are flash_mma.cuh's pv_tile: A from registers as bf16 pairs in an
 // accumulator tile's layout, B a [k][n] tile in shared memory read through
 // ldmatrix.trans, the sum in a WarpState's o (its m and l go unused).
@@ -211,301 +221,50 @@ __device__ __forceinline__ void store_dst(__nv_bfloat16* dST, int key0,
                                    2 * (lane & 3)) = dsa[0][j][i];
 }
 
-// (a) Row statistics, one warp a row of the padded row order: row r of kv
-// head kvh of batch row b (r < R = Tq G: position r / G, head kvh G + r % G)
-// gets lse2 = lse log2 e and delta = sum_d do o (lanes over d, a fixed
-// butterfly: the same bits every run); rows R .. R_pad - 1 get +inf and 0,
-// so that their p and ds are 0.
+// (a) Row statistics: slot j of row tile i of kv head kvh of batch row b
+// holds the row of position i P + j / G, head kvh G + j % G (j < G P,
+// position < Tq) and gets lse2 = lse log2 e and delta = sum_d do o; the
+// other slots get +inf and 0, so that their p and ds are 0.  D / 8 lanes
+// a slot, 16-byte loads of 8 values each, a fixed butterfly over the
+// lanes (the same bits every run): 2 slots a warp at D = 128, 4 at 64.
+template <int DP>
 __global__ void rowstat_kernel(const __nv_bfloat16* __restrict__ o,
                                const __nv_bfloat16* __restrict__ dO,
                                const float* __restrict__ lse, float* __restrict__ lse2,
-                               float* __restrict__ delta, int64_t n_rows, int Tq, int H,
-                               int KV, int D, int G, int R_pad) {
-  const int64_t idx = int64_t(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+                               float* __restrict__ delta, int64_t n_slots, int Tq, int H,
+                               int KV, int G, int P, int n_rt) {
+  constexpr int LANES = DP / 8;           // lanes a slot
   const int lane = threadIdx.x & 31;
-  if (idx >= n_rows) return;
-  const int r = static_cast<int>(idx % R_pad);
-  const int64_t bk = idx / R_pad;           // b KV + kvh
-  if (r >= Tq * G) {
-    if (lane == 0) {
-      lse2[idx] = INFINITY;
-      delta[idx] = 0.f;
-    }
-    return;
+  const int64_t idx = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / LANES;
+  const int part = lane % LANES;
+  const bool live = idx < n_slots;
+  int64_t row = -1;
+  if (live) {
+    const int j = static_cast<int>(idx % BQ);
+    const int64_t tile = idx / BQ;
+    const int i = static_cast<int>(tile % n_rt);
+    const int64_t bk = tile / n_rt;       // b KV + kvh
+    const int t = i * P + j / G, g = j % G;
+    if (j < G * P && t < Tq) row = ((bk / KV) * Tq + t) * H + (bk % KV) * G + g;
   }
-  const int64_t b = bk / KV, kvh = bk % KV;
-  const int t = r / G, g = r - t * G;
-  const int64_t row = (b * Tq + t) * H + kvh * G + g;
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(o + row * D);
-  const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(dO + row * D);
   float s = 0.f;
-  for (int d = lane; d < D / 2; d += 32) {
-    const float2 x = __bfloat1622float2(a[d]), y = __bfloat1622float2(c[d]);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-  }
+  if (row >= 0) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * DP + 8 * part);
+    const uint4 c = *reinterpret_cast<const uint4*>(dO + row * DP + 8 * part);
+    const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, cw[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_MASK, s, off);
-  if (lane == 0) {
-    lse2[idx] = lse[row] * LOG2E;
-    delta[idx] = s;
-  }
-}
-
-// (b) dK and dV of one 64-key tile of one kv head, over the row tiles
-// [lo, hi) of its split.  grid.x: key tile x kv head x split, key tile 0
-// first (under causal the longest); grid.y: batch rows of this launch.
-// part_k null: write bf16 dk / dv (scale dk); else fp32 partials, unscaled,
-// at part + split * part_stride.
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 2) dkdv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
-    const float* __restrict__ lse2, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ part_k,
-    float* __restrict__ part_v, int64_t part_stride, int Tq, int Tk, int H, int KV, int G,
-    int causal, int splits, int R_pad, float scale_log2, float scale) {
-  using T = Tile<DP>;
-  constexpr int D = DP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // BKV x DS
-  __nv_bfloat16* Vs = Ks + BKV * T::DS;                         // BKV x DS
-  __nv_bfloat16* QD = Vs + BKV * T::DS;                         // [stage][Q, dO] BQ x DS
-  float* stats = reinterpret_cast<float*>(QD + 4 * BQ * T::DS);  // [stage][lse2, delta] BQ
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2;
-  const int x = blockIdx.x;
-  const int split = x % splits;
-  const int kvh = (x / splits) % KV;
-  const int kt = x / (splits * KV);
-  const int64_t b = blockIdx.y;
-  const int k0 = kt * BKV;
-  const int R = Tq * G;
-  const int n_rt = R_pad / BQ;
-  // under causal a key at position j is seen by rows of positions >= j
-  const int first = causal ? min((k0 * G) / BQ, n_rt) : 0;
-  const int n = n_rt - first;
-  const int lo = first + static_cast<int>((int64_t(split) * n) / splits);
-  const int hi = first + static_cast<int>((int64_t(split + 1) * n) / splits);
-
-  const int64_t kv_stride = int64_t(KV) * D;
-  const __nv_bfloat16* kh = k + (b * Tk * KV + kvh) * D;
-  const __nv_bfloat16* vh = v + (b * Tk * KV + kvh) * D;
-  auto key_src = [&](const __nv_bfloat16* head) {
-    return [=](int j) -> const __nv_bfloat16* {
-      return k0 + j < Tk ? head + (k0 + j) * kv_stride : nullptr;
-    };
-  };
-  stage_rows<DP>(Ks, BKV, key_src(kh), kh, D, true, tid, THREADS);
-  stage_rows<DP>(Vs, BKV, key_src(vh), vh, D, true, tid, THREADS);
-
-  const int64_t stat0 = (b * KV + kvh) * R_pad;
-  auto stage_tile = [&](int rt, int buf) {
-    __nv_bfloat16* Qs = QD + buf * 2 * BQ * T::DS;
-    __nv_bfloat16* dOs = Qs + BQ * T::DS;
-    auto row_src = [&](const __nv_bfloat16* base) {
-      return [=](int r) -> const __nv_bfloat16* {
-        const int rg = rt * BQ + r;
-        if (rg >= R) return nullptr;
-        const int t = rg / G;
-        return base + ((b * Tq + t) * H + kvh * G + (rg - t * G)) * D;
-      };
-    };
-    stage_rows<DP>(Qs, BQ, row_src(q), q, D, true, tid, THREADS);
-    stage_rows<DP>(dOs, BQ, row_src(dO), dO, D, true, tid, THREADS);
-    float* st = stats + buf * 2 * BQ;
-    if (tid < BQ / 4) {
-      cp_async16(st + 4 * tid, lse2 + stat0 + rt * BQ + 4 * tid, 16);
-    } else if (tid < BQ / 2) {
-      const int c = tid - BQ / 4;
-      cp_async16(st + BQ + 4 * c, delta + stat0 + rt * BQ + 4 * c, 16);
-    }
-  };
-
-  WarpState<DP, 1> dk_acc, dv_acc;  // this warp's 16 keys x D
-  dk_acc.init();
-  dv_acc.init();
-  if (lo < hi) stage_tile(lo, 0);
-  cp_async_commit();  // K, V and the first row tile
-
-  // this thread's keys of the tile: 16 warp + g8 + 8 i
-  const int key_lo = k0 + 16 * warp + g8;
-  for (int rt = lo; rt < hi; ++rt) {
-    const int buf = (rt - lo) & 1;
-    if (rt + 1 < hi) {
-      stage_tile(rt + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Qs = QD + buf * 2 * BQ * T::DS;
-    const __nv_bfloat16* dOs = Qs + BQ * T::DS;
-    const float* st = stats + buf * 2 * BQ;
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x the tile's 64 rows
-    float s[1][BQ / 8][4], dp[1][BQ / 8][4];
-    score_tile<DP, 1, BQ>(s, Ks, 16 * warp, Qs, lane);
-    score_tile<DP, 1, BQ>(dp, Vs, 16 * warp, dOs, lane);
-    // a row tile needs the causal mask where its first position is below
-    // the tile's last key
-    const bool masked = causal && (rt * BQ) / G < k0 + BKV - 1;
-    uint32_t pa[1][BQ / 8][2], dsa[1][BQ / 8][2];
-    probs(s, dp, st, lane, key_lo, rt * BQ, G, Tk, causal != 0, masked, scale_log2, pa, dsa);
-    pv_tile<DP, 1, BQ>(dv_acc, pa, dOs, lane);   // dV += P^T dO
-    pv_tile<DP, 1, BQ>(dk_acc, dsa, Qs, lane);   // dK += dS^T Q
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();
-
-  // keys key_lo + 8 i, dims 8 n + 2 (lane % 4) + {0, 1}
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key_lo + 8 * i;
-    if (key >= Tk) continue;
-    const int64_t off = ((b * Tk + key) * KV + kvh) * D;
-#pragma unroll
-    for (int nt = 0; nt < T::ONT; ++nt) {
-      const int d = 8 * nt + 2 * (lane & 3);
-      if (part_k == nullptr) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + d) = __floats2bfloat162_rn(
-            scale * dk_acc.o[0][nt][2 * i], scale * dk_acc.o[0][nt][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + d) =
-            __floats2bfloat162_rn(dv_acc.o[0][nt][2 * i], dv_acc.o[0][nt][2 * i + 1]);
-      } else {
-        const int64_t p = split * part_stride + off + d;
-        *reinterpret_cast<float2*>(part_k + p) =
-            make_float2(dk_acc.o[0][nt][2 * i], dk_acc.o[0][nt][2 * i + 1]);
-        *reinterpret_cast<float2*>(part_v + p) =
-            make_float2(dv_acc.o[0][nt][2 * i], dv_acc.o[0][nt][2 * i + 1]);
-      }
+    for (int w = 0; w < 4; ++w) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[w]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cw[w]));
+      s = fmaf(x.x, y.x, s);
+      s = fmaf(x.y, y.y, s);
     }
   }
-}
-
-// (c) dQ of one row tile of one kv head over the key tiles it sees.
-// grid.x: row tile x kv head, the last row tile first (under causal the
-// longest); grid.y: batch rows of this launch.
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 2) dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
-    const float* __restrict__ lse2, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int Tq, int Tk, int H, int KV, int G, int causal, int R_pad,
-    float scale_log2, float scale) {
-  using T = Tile<DP>;
-  constexpr int D = DP;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // BQ x DS
-  __nv_bfloat16* dOs = Qs + BQ * T::DS;                         // BQ x DS
-  __nv_bfloat16* KVs = dOs + BQ * T::DS;                        // [stage][K, V] BKV x DS
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g8 = lane >> 2;
-  const int n_rt = R_pad / BQ;
-  const int rt = n_rt - 1 - static_cast<int>(blockIdx.x) / KV;
-  const int kvh = static_cast<int>(blockIdx.x) % KV;
-  const int64_t b = blockIdx.y;
-  const int R = Tq * G;
-  const int r0 = rt * BQ;
-  const int t_first = r0 / G;
-  const int t_last = min(R - 1, r0 + BQ - 1) / G;
-  const int n_keys = causal ? min(Tk, t_last + 1) : Tk;
-  const int n_tiles = (n_keys + BKV - 1) / BKV;
-
-  auto row_src = [&](const __nv_bfloat16* base) {
-    return [=](int r) -> const __nv_bfloat16* {
-      const int rg = r0 + r;
-      if (rg >= R) return nullptr;
-      const int t = rg / G;
-      return base + ((b * Tq + t) * H + kvh * G + (rg - t * G)) * D;
-    };
-  };
-  const int64_t kv_stride = int64_t(KV) * D;
-  const __nv_bfloat16* kh = k + (b * Tk * KV + kvh) * D;
-  const __nv_bfloat16* vh = v + (b * Tk * KV + kvh) * D;
-  auto kv_tile = [&](int tile) { return KVs + (tile & 1) * 2 * BKV * T::DS; };
-  auto stage_kv = [&](int tile) {
-    const int k0 = tile * BKV;
-    __nv_bfloat16* Ks = kv_tile(tile);
-    auto src = [&](const __nv_bfloat16* head) {
-      return [=](int j) -> const __nv_bfloat16* {
-        return k0 + j < Tk ? head + (k0 + j) * kv_stride : nullptr;
-      };
-    };
-    stage_rows<DP>(Ks, BKV, src(kh), kh, D, true, tid, THREADS);
-    stage_rows<DP>(Ks + BKV * T::DS, BKV, src(vh), vh, D, true, tid, THREADS);
-  };
-
-  // this thread's rows of the tile: 16 warp + g8 + 8 i
-  float l2[2], dl[2];
-  int tpos[2];
-  const int64_t stat0 = (b * KV + kvh) * R_pad + r0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * warp + g8 + 8 * i;
-    l2[i] = lse2[stat0 + r];
-    dl[i] = delta[stat0 + r];
-    tpos[i] = (r0 + r) / G;
-  }
-
-  WarpState<DP, 1> dq_acc;  // this warp's 16 rows x D
-  dq_acc.init();
-  if (n_tiles > 0) {
-    stage_rows<DP>(Qs, BQ, row_src(q), q, D, true, tid, THREADS);
-    stage_rows<DP>(dOs, BQ, row_src(dO), dO, D, true, tid, THREADS);
-    stage_kv(0);
-    cp_async_commit();
-  }
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {
-      stage_kv(tile + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = tile * BKV;
-    const __nv_bfloat16* Ks = kv_tile(tile);
-    const __nv_bfloat16* Vs = Ks + BKV * T::DS;
-    float s[1][BKV / 8][4], dp[1][BKV / 8][4];
-    score_tile<DP, 1, BKV>(s, Qs, 16 * warp, Ks, lane);    // S = Q K^T
-    score_tile<DP, 1, BKV>(dp, dOs, 16 * warp, Vs, lane);  // dP = dO V^T
-    const bool masked = k0 + BKV > Tk || (causal && k0 + BKV - 1 > t_first);
-    uint32_t dsa[1][BKV / 8][2];
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int key = k0 + 8 * j + 2 * (lane & 3) + c;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 2 * i + c;
-          float p = ex2(fmaf(s[0][j][e], scale_log2, -l2[i]));
-          if (masked && (key >= Tk || (causal && key > tpos[i]))) p = 0.f;
-          ds[e] = p * (dp[0][j][e] - dl[i]);
-        }
-      }
-      dsa[0][j][0] = pack_bf16(ds[0], ds[1]);
-      dsa[0][j][1] = pack_bf16(ds[2], ds[3]);
-    }
-    pv_tile<DP, 1, BKV>(dq_acc, dsa, Ks, lane);  // dQ += dS K
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int rg = r0 + 16 * warp + g8 + 8 * i;
-    if (rg >= R) continue;
-    const int t = rg / G;
-    __nv_bfloat16* out = dq + ((b * Tq + t) * H + kvh * G + (rg - t * G)) * D;
-#pragma unroll
-    for (int nt = 0; nt < T::ONT; ++nt) {
-      const int d = 8 * nt + 2 * (lane & 3);
-      *reinterpret_cast<__nv_bfloat162*>(out + d) =
-          __floats2bfloat162_rn(scale * dq_acc.o[0][nt][2 * i], scale * dq_acc.o[0][nt][2 * i + 1]);
-    }
+  for (int off = LANES / 2; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_MASK, s, off);
+  if (live && part == 0) {
+    lse2[idx] = row >= 0 ? lse[row] * LOG2E : INFINITY;
+    delta[idx] = row >= 0 ? s : 0.f;
   }
 }
 
@@ -758,32 +517,588 @@ int allow_smem(Kernel kernel, size_t bytes, int device, std::atomic<uint64_t>& d
   return 0;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the long route's shapes: head dim 64 or 128, at most 64 query heads a
+// kv head (a row tile holds at least one position)
+bool shape_ok(int B, int Tq, int Tk, int H, int KV, int D) {
+  return B > 0 && Tq > 0 && Tk > 0 && KV > 0 && H % KV == 0 && H / KV <= BQ &&
+         (D == 64 || D == 128) && int64_t(Tq) + BQ < (int64_t(1) << 31) &&
+         int64_t(Tk) + 256 < (int64_t(1) << 31);
+}
+
+// positions a row tile of the long route: P = floor(64 / G)
+inline int tile_positions(int H, int KV) { return BQ / (H / KV); }
+inline int row_tiles(int Tq, int H, int KV) {
+  const int P = tile_positions(H, KV);
+  return (Tq + P - 1) / P;
+}
+
+}  // namespace flash_backward
+
+// ---------------------------------------------------------------------------
+// The long route's products: TMA-fed, warp-specialised wgmma (hopper.cuh)
+// ---------------------------------------------------------------------------
+
+// Internal linkage: a process that loads two builds of this library (a
+// measurement of variants) keeps one set of statics each.
+namespace {
+namespace flash_backward_sm90 {
+
+using namespace hopper;
+using flash_backward::BQ;
+using flash_backward::LOG2E;
+using flash_mma::ex2;
+using flash_mma::pack_bf16;
+
+constexpr int ROW_BYTES = 128;             // a swizzled tile row: 64 bf16 columns
+constexpr int STAT_BYTES = 2 * BQ * 4;     // a row tile's lse2 and delta
+constexpr int PRODUCER_REGS = 24;
+constexpr int SMEM_OPTIN = 232448;         // an H100 block's shared memory
+
+template <int DP>
+struct Config {
+  static constexpr int HALVES = DP / 64;                      // 64-column tiles a row
+  // The plan (the wrapper's sm90_backward_plan mirrors it;
+  // scripts/backward_sm90_variants.py builds copies with other values):
+  // dK / dV: KEYS keys a block, a consumer warpgroup each 64; STAGES of
+  // the Q / dO ring (and of the dQ kernel's K / V ring, as many as fit)
+  static constexpr int KEYS = DP == 64 ? 64 : 128;
+  static constexpr int STAGES = 3;
+  static constexpr int CONSUMERS = KEYS / 64;
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // one consumer: two blocks an SM share its registers
+  static constexpr int MIN_BLOCKS = CONSUMERS == 1 ? 2 : 1;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 1 ? 232 : 240;
+  static constexpr int KV_BYTES = HALVES * KEYS * ROW_BYTES;        // K (or V) of the key tile
+  static constexpr int ROW_TILE_BYTES = HALVES * BQ * ROW_BYTES;    // Q (or dO) of a row tile
+  static constexpr int STAGE_BYTES = 2 * ROW_TILE_BYTES;            // [Q, dO]; stats apart
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * (STAGE_BYTES + STAT_BYTES);
+  // dQ: two consumer warpgroups of a row tile each, K / V tiles of DQ_KEYS
+  static constexpr int DQ_KEYS = 128;
+  static constexpr int DQ_CONSUMERS = 2;
+  static constexpr int DQ_THREADS = 128 * (1 + DQ_CONSUMERS);
+  static constexpr int DQ_STAGE_BYTES = 2 * HALVES * DQ_KEYS * ROW_BYTES;   // [K, V]
+  static constexpr int DQ_FIXED = 1024 + 2 * DQ_CONSUMERS * ROW_TILE_BYTES;
+  static constexpr int DQ_FIT = (SMEM_OPTIN - 256 - DQ_FIXED) / DQ_STAGE_BYTES;
+  static constexpr int DQ_STAGES = STAGES < DQ_FIT ? STAGES : DQ_FIT;
+  static constexpr int DQ_SMEM = DQ_FIXED + DQ_STAGES * DQ_STAGE_BYTES;
+  static_assert(KEYS == 64 || KEYS == 128, "one or two consumer warpgroups of 64 keys");
+  static_assert(DQ_KEYS == 64 || DQ_KEYS == 128, "a dQ K / V tile: one wgmma N");
+  static_assert(DQ_STAGES >= 2 && SMEM <= SMEM_OPTIN - 256, "the rings fit a block");
+};
+
+// Zero rows `from` .. 63 of `n_tiles` row tiles (HALVES x 64 rows of 128
+// bytes each) starting at `base`, `tile_stride` bytes apart: TMA never
+// writes them, and their products must be finite.  Threads `t` of `n`.
+template <int HALVES>
+__device__ __forceinline__ void zero_tail_rows(unsigned char* base, int tile_stride, int n_tiles,
+                                               int from, int t, int n) {
+  const int per = (BQ - from) * (ROW_BYTES / 16);   // 16-byte chunks a 64-column tile
+  const int total = n_tiles * HALVES * per;
+  for (int e = t; e < total; e += n) {
+    const int chunk = e % per, rest = e / per;
+    const int h = rest % HALVES, tile = rest / HALVES;
+    reinterpret_cast<uint4*>(base + tile * tile_stride + (h * BQ + from) * ROW_BYTES)[chunk] =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// (b) dK and dV of KEYS keys (k0 ..) of kv head kvh of batch row b0 +
+// blockIdx.y, over the row tiles [lo, hi) of its split.  grid.x: key tile
+// x kv head x split, key tile 0 first (under causal the longest).  Row
+// tile i: positions i P .. i P + P - 1, its G P rows in the kernels' row
+// order (slot r: position i P + r / G, head kvh G + r % G).  part_k null:
+// write bf16 dk / dv (dk scaled); else fp32 partials, unscaled, at part +
+// split * part_stride.
+template <int DP>
+__global__ void __launch_bounds__(Config<DP>::THREADS, Config<DP>::MIN_BLOCKS) dkdv_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, float* __restrict__ part_k,
+    float* __restrict__ part_v, int64_t part_stride, int b0, int Tq, int Tk, int KV, int G,
+    int P, int n_rt, int causal, int splits, float scale_log2, float scale) {
+  using C = Config<DP>;
+  constexpr int KEYS = C::KEYS, STAGES = C::STAGES, HALVES = C::HALVES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[STAGES], empty[STAGES];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = smem;                          // [half][key][128 bytes]
+  unsigned char* Vs = smem + C::KV_BYTES;
+  unsigned char* tiles = smem + 2 * C::KV_BYTES;     // [stage][Q, dO][half][row][128 bytes]
+  float* stats = reinterpret_cast<float*>(tiles + STAGES * C::STAGE_BYTES);  // [stage][lse2, delta][64]
+
+  const int tid = threadIdx.x;
+  const int x = static_cast<int>(blockIdx.x);
+  const int split = x % splits;
+  const int kvh = (x / splits) % KV;
+  const int kt = x / (splits * KV);
+  const int b = b0 + static_cast<int>(blockIdx.y);
+  const int k0 = kt * KEYS;
+  // under causal a key at position j is seen by the rows of positions >= j
+  const int first = causal ? min(k0 / P, n_rt) : 0;
+  const int n = n_rt - first;
+  const int lo = first + static_cast<int>((int64_t(split) * n) / splits);
+  const int hi = first + static_cast<int>((int64_t(split + 1) * n) / splits);
+  const int rows_used = G * P;
+
+  if (tid == 0) {
+    mbar_init(&kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- the producer warpgroup: one thread issues every load -------------
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == 0 && lo < hi) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_do);
+      mbar_arrive_expect_tx(&kv_full, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) {
+        tma_load_4d(Ks + h * KEYS * ROW_BYTES, &tm_k, &kv_full, 64 * h, kvh, k0, b);
+        tma_load_4d(Vs + h * KEYS * ROW_BYTES, &tm_v, &kv_full, 64 * h, kvh, k0, b);
+      }
+      const int64_t stat0 = (int64_t(b) * KV + kvh) * n_rt;
+      for (int it = 0; it < hi - lo; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+        // the boxes' bytes, positions past Tq (zeros) included
+        mbar_arrive_expect_tx(&full[s], 2 * HALVES * rows_used * ROW_BYTES + STAT_BYTES);
+        unsigned char* qs = tiles + s * C::STAGE_BYTES;
+        const int t0 = (lo + it) * P;
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          tma_load_4d(qs + h * BQ * ROW_BYTES, &tm_q, &full[s], 64 * h, kvh * G, t0, b);
+          tma_load_4d(qs + C::ROW_TILE_BYTES + h * BQ * ROW_BYTES, &tm_do, &full[s], 64 * h,
+                      kvh * G, t0, b);
+        }
+        const int64_t so = (stat0 + lo + it) * BQ;
+        bulk_load(stats + s * 2 * BQ, lse2 + so, BQ * 4, &full[s]);
+        bulk_load(stats + s * 2 * BQ + BQ, delta + so, BQ * 4, &full[s]);
+      }
+    }
+  } else {
+    // ---- the consumer warpgroups: 64 keys each ------------------------------
+    reg_alloc<C::CONSUMER_REGS>();
+    const int c = tid / 128 - 1;
+    const int t = tid % 128, warp = t / 32, lane = t % 32;
+    if (rows_used < BQ) {
+      // Q and dO have 2 STAGES row tiles, ROW_TILE_BYTES apart
+      zero_tail_rows<HALVES>(tiles, C::ROW_TILE_BYTES, 2 * STAGES, rows_used, tid - 128,
+                             128 * C::CONSUMERS);
+      fence_proxy_async();
+      named_barrier(1, 128 * C::CONSUMERS);
+    }
+    const int kc0 = k0 + 64 * c;                     // this warpgroup's first key
+    const uint32_t k_addr = smem_u32(Ks) + c * 64 * ROW_BYTES;
+    const uint32_t v_addr = smem_u32(Vs) + c * 64 * ROW_BYTES;
+    float dk_acc[DP / 2], dv_acc[DP / 2];   // element 4n + e: key 16 warp + lane / 4 + 8 (e / 2), dim 8n + 2 (lane % 4) + e % 2
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) {
+      dk_acc[e] = 0.f;
+      dv_acc[e] = 0.f;
+    }
+    // S^T = K Q^T, then dP^T = V dO^T of stage s, one commit group each:
+    // 64 keys x the tile's 64 slots, element 4j + e: key 16 warp + lane / 4
+    // + 8 (e / 2), slot 8j + 2 (lane % 4) + e % 2
+    float st[32], dpt[32];
+    auto issue_s = [&](int s) {
+      const uint32_t q_addr = smem_u32(tiles + s * C::STAGE_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int h = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<64>(st, desc_k_major(k_addr + h * KEYS * ROW_BYTES + off),
+                     desc_k_major(q_addr + h * BQ * ROW_BYTES + off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_dp = [&](int s) {
+      const uint32_t do_addr = smem_u32(tiles + s * C::STAGE_BYTES) + C::ROW_TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int h = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<64>(dpt, desc_k_major(v_addr + h * KEYS * ROW_BYTES + off),
+                     desc_k_major(do_addr + h * BQ * ROW_BYTES + off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // p = 2^(s scale log2 e - lse2) in place in st, 0 where masked: only
+    // where row tile i's first position lies below this warpgroup's last
+    // key, key sees slot r iff key G <= i P G + r
+    auto probs = [&](int s, int i) {
+      const float* l2s = stats + s * 2 * BQ;
+      const bool masked = causal && i * P < kc0 + 63;
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int thr = (kc0 + 16 * warp + lane / 4 + 8 * ii - i * P) * G;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * (lane & 3);
+          const float2 l2 = *reinterpret_cast<const float2*>(l2s + col);
+          float p0 = ex2(fmaf(st[4 * j + 2 * ii], scale_log2, -l2.x));
+          float p1 = ex2(fmaf(st[4 * j + 2 * ii + 1], scale_log2, -l2.y));
+          if (masked) {
+            p0 = col < thr ? 0.f : p0;
+            p1 = col + 1 < thr ? 0.f : p1;
+          }
+          st[4 * j + 2 * ii] = p0;
+          st[4 * j + 2 * ii + 1] = p1;
+        }
+      }
+    };
+    uint32_t pa[16], dsa[16];          // P^T and dS^T as the A fragments: [2j + ii]
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+          pa[2 * j + ii] = pack_bf16(st[4 * j + 2 * ii], st[4 * j + 2 * ii + 1]);
+    };
+    auto pack_ds = [&](int s) {
+      const float* dls = stats + s * 2 * BQ + BQ;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * (lane & 3);
+        const float2 dl = *reinterpret_cast<const float2*>(dls + col);
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+          dsa[2 * j + ii] = pack_bf16(st[4 * j + 2 * ii] * (dpt[4 * j + 2 * ii] - dl.x),
+                                      st[4 * j + 2 * ii + 1] * (dpt[4 * j + 2 * ii + 1] - dl.y));
+      }
+    };
+    // dV += P^T dO, dK += dS^T Q of stage s: 4 k-steps of 16 slots, dO and
+    // Q MN-major; one commit group
+    auto issue_grads = [&](int s) {
+      const uint32_t q_addr = smem_u32(tiles + s * C::STAGE_BYTES);
+      const uint32_t do_addr = q_addr + C::ROW_TILE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        wgmma_rs<DP>(dv_acc, a, desc_mn_major(do_addr + kk * 16 * ROW_BYTES, BQ * ROW_BYTES), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t a[4] = {dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2], dsa[4 * kk + 3]};
+        wgmma_rs<DP>(dk_acc, a, desc_mn_major(q_addr + kk * 16 * ROW_BYTES, BQ * ROW_BYTES), 1);
+      }
+      wgmma_commit();
+    };
+    auto stage_in = [&](int it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      return s;
+    };
+    // one row tile at a time: p under dP^T, then dV and dK (issuing the
+    // next tile's S^T ahead of this tile's dV / dK, with p taken under
+    // them, measured 25% slower: PERF.md)
+    const int n_it = hi - lo;
+    if (n_it > 0) mbar_wait(&kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = stage_in(it);
+      wgmma_fence();
+      issue_s(s);
+      issue_dp(s);
+      wgmma_wait<1>();                 // S^T retired; dP^T may still run
+      fence_regs(st);
+      probs(s, lo + it);
+      pack_p();
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      pack_ds(s);
+      wgmma_fence();
+      issue_grads(s);
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(dsa);
+      if (t == 0) mbar_arrive(&empty[s]);       // this warpgroup is done with the stage
+    }
+
+    // keys kc0 + 16 warp + lane / 4 + 8 ii, dims 8 n + 2 (lane % 4) + {0, 1}
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int key = kc0 + 16 * warp + lane / 4 + 8 * ii;
+      if (key >= Tk) continue;
+      const int64_t off = ((int64_t(b) * Tk + key) * KV + kvh) * DP + 2 * (lane & 3);
+#pragma unroll
+      for (int nn = 0; nn < DP / 8; ++nn) {
+        const float k0v = dk_acc[4 * nn + 2 * ii], k1v = dk_acc[4 * nn + 2 * ii + 1];
+        const float v0v = dv_acc[4 * nn + 2 * ii], v1v = dv_acc[4 * nn + 2 * ii + 1];
+        if (part_k == nullptr) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * nn) =
+              __floats2bfloat162_rn(scale * k0v, scale * k1v);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * nn) = __floats2bfloat162_rn(v0v, v1v);
+        } else {
+          const int64_t p = split * part_stride + off + 8 * nn;
+          *reinterpret_cast<float2*>(part_k + p) = make_float2(k0v, k1v);
+          *reinterpret_cast<float2*>(part_v + p) = make_float2(v0v, v1v);
+        }
+      }
+    }
+  }
+}
+
+// (c) dQ of two row tiles (a consumer warpgroup each) of kv head kvh of
+// batch row b0 + blockIdx.y, over the K / V tiles of DQ_KEYS keys its rows
+// see.  grid.x: pair of row tiles x kv head, the last pair first (under
+// causal the longest).
+template <int DP>
+__global__ void __launch_bounds__(Config<DP>::DQ_THREADS, 1) dq_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int b0, int Tq, int Tk, int H, int KV, int G, int P,
+    int n_rt, int causal, float scale_log2, float scale) {
+  using C = Config<DP>;
+  constexpr int BKV = C::DQ_KEYS, STAGES = C::DQ_STAGES, HALVES = C::HALVES;
+  constexpr int CONS = C::DQ_CONSUMERS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, kv_full[STAGES], kv_empty[STAGES];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* rows = smem;          // [Q of tile 0, Q of tile 1, dO of 0, dO of 1][half][row][128]
+  unsigned char* kv = smem + 2 * CONS * C::ROW_TILE_BYTES;   // [stage][K, V][half][key][128]
+
+  const int tid = threadIdx.x;
+  const int n_groups = (n_rt + CONS - 1) / CONS;
+  const int grp = n_groups - 1 - static_cast<int>(blockIdx.x) / KV;
+  const int kvh = static_cast<int>(blockIdx.x) % KV;
+  const int b = b0 + static_cast<int>(blockIdx.y);
+  const int tile0 = grp * CONS;
+  const int n_here = min(CONS, n_rt - tile0);
+  const int rows_used = G * P;
+  const int t_last = min(Tq, (tile0 + n_here) * P) - 1;   // the block's last position
+  const int n_keys = causal ? min(Tk, t_last + 1) : Tk;
+  const int n_kt = (n_keys + BKV - 1) / BKV;
+
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], CONS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == 0 && n_kt > 0) {
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(&q_full, n_here * 2 * HALVES * rows_used * ROW_BYTES);
+      for (int c = 0; c < n_here; ++c) {
+        const int t0 = (tile0 + c) * P;
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          tma_load_4d(rows + c * C::ROW_TILE_BYTES + h * BQ * ROW_BYTES, &tm_q, &q_full,
+                      64 * h, kvh * G, t0, b);
+          tma_load_4d(rows + (CONS + c) * C::ROW_TILE_BYTES + h * BQ * ROW_BYTES, &tm_do,
+                      &q_full, 64 * h, kvh * G, t0, b);
+        }
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&kv_empty[s], (j / STAGES - 1) & 1);
+        mbar_arrive_expect_tx(&kv_full[s], C::DQ_STAGE_BYTES);
+        unsigned char* ks = kv + s * C::DQ_STAGE_BYTES;
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h) {
+          tma_load_4d(ks + h * BKV * ROW_BYTES, &tm_k, &kv_full[s], 64 * h, kvh, j * BKV, b);
+          tma_load_4d(ks + (HALVES + h) * BKV * ROW_BYTES, &tm_v, &kv_full[s], 64 * h, kvh,
+                      j * BKV, b);
+        }
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int c = tid / 128 - 1;
+    const int t = tid % 128, warp = t / 32, lane = t % 32;
+    const bool active = c < n_here;
+    const int i = tile0 + c;            // this warpgroup's row tile
+    if (active && rows_used < BQ) {
+      // its Q and dO tiles: CONS row tiles apart
+      zero_tail_rows<HALVES>(rows + c * C::ROW_TILE_BYTES, CONS * C::ROW_TILE_BYTES, 2,
+                             rows_used, t, 128);
+      fence_proxy_async();
+      named_barrier(1 + c, 128);
+    }
+    // this thread's slots 16 warp + lane / 4 + 8 ii: lse2, delta, the last
+    // key each sees
+    float l2[2], dl[2];
+    int lim[2];
+    const int64_t so = ((int64_t(b) * KV + kvh) * n_rt + min(i, n_rt - 1)) * BQ;
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int r = 16 * warp + lane / 4 + 8 * ii;
+      l2[ii] = lse2[so + r];
+      dl[ii] = delta[so + r];
+      lim[ii] = causal ? min(Tk - 1, i * P + r / G) : Tk - 1;
+    }
+    const int first_pos = i * P;
+    const uint32_t q_addr = smem_u32(rows) + c * C::ROW_TILE_BYTES;
+    const uint32_t do_addr = q_addr + CONS * C::ROW_TILE_BYTES;
+    float acc[DP / 2];     // element 4n + e: slot 16 warp + lane / 4 + 8 (e / 2), dim 8n + 2 (lane % 4) + e % 2
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+    // S = Q K^T and dP = dO V^T of stage s, a commit group each: element
+    // 4m + e: slot 16 warp + lane / 4 + 8 (e / 2), key 8m + 2 (lane % 4) + e % 2
+    float sc[BKV / 2], dp[BKV / 2];
+    uint32_t dsa[BKV / 4];
+    auto k_of = [&](int s) { return smem_u32(kv + s * C::DQ_STAGE_BYTES); };
+    auto issue_s = [&](int s) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int h = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<BKV>(sc, desc_k_major(q_addr + h * BQ * ROW_BYTES + off),
+                      desc_k_major(k_of(s) + h * BKV * ROW_BYTES + off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_dp = [&](int s) {
+      const uint32_t v_addr = k_of(s) + HALVES * BKV * ROW_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const int h = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<BKV>(dp, desc_k_major(do_addr + h * BQ * ROW_BYTES + off),
+                      desc_k_major(v_addr + h * BKV * ROW_BYTES + off), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // p in place in sc, 0 where masked (only on tiles that cross Tk or the
+    // diagonal of the tile's first position)
+    auto probs = [&](int j) {
+      const int k0 = j * BKV;
+      const bool masked = k0 + BKV > Tk || (causal && k0 + BKV - 1 > first_pos);
+#pragma unroll
+      for (int m = 0; m < BKV / 8; ++m) {
+        const int key = k0 + 8 * m + 2 * (lane & 3);
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          float p0 = ex2(fmaf(sc[4 * m + 2 * ii], scale_log2, -l2[ii]));
+          float p1 = ex2(fmaf(sc[4 * m + 2 * ii + 1], scale_log2, -l2[ii]));
+          if (masked) {
+            p0 = key > lim[ii] ? 0.f : p0;
+            p1 = key + 1 > lim[ii] ? 0.f : p1;
+          }
+          sc[4 * m + 2 * ii] = p0;
+          sc[4 * m + 2 * ii + 1] = p1;
+        }
+      }
+    };
+    auto pack_ds = [&]() {
+#pragma unroll
+      for (int m = 0; m < BKV / 8; ++m)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+          dsa[2 * m + ii] = pack_bf16(sc[4 * m + 2 * ii] * (dp[4 * m + 2 * ii] - dl[ii]),
+                                      sc[4 * m + 2 * ii + 1] * (dp[4 * m + 2 * ii + 1] - dl[ii]));
+    };
+    // dQ += dS K of stage s: BKV / 16 k-steps of 16 keys, K MN-major
+    auto issue_dq = [&](int s) {
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2], dsa[4 * kk + 3]};
+        wgmma_rs<DP>(acc, a, desc_mn_major(k_of(s) + kk * 16 * ROW_BYTES, BKV * ROW_BYTES), 1);
+      }
+      wgmma_commit();
+    };
+    auto stage_in = [&](int j) {
+      const int s = j % STAGES;
+      mbar_wait(&kv_full[s], (j / STAGES) & 1);
+      return s;
+    };
+    if (!active) {
+      // no row tile here (the last block of an odd count): release each stage
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = stage_in(j);
+        if (t == 0) mbar_arrive(&kv_empty[s]);
+      }
+    } else if (n_kt > 0) {
+      mbar_wait(&q_full, 0);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = stage_in(j);
+        wgmma_fence();
+        issue_s(s);
+        issue_dp(s);
+        wgmma_wait<1>();               // S retired; dP may still run
+        fence_regs(sc);
+        probs(j);
+        wgmma_wait<0>();
+        fence_regs(dp);
+        pack_ds();
+        wgmma_fence();
+        issue_dq(s);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(dsa);
+        if (t == 0) mbar_arrive(&kv_empty[s]);
+      }
+    }
+
+    if (active) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int r = 16 * warp + lane / 4 + 8 * ii;
+        const int tq = i * P + r / G;
+        if (r >= rows_used || tq >= Tq) continue;
+        __nv_bfloat16* out =
+            dq + ((int64_t(b) * Tq + tq) * H + kvh * G + r % G) * DP + 2 * (lane & 3);
+#pragma unroll
+        for (int nn = 0; nn < DP / 8; ++nn)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * nn) =
+              __floats2bfloat162_rn(scale * acc[4 * nn + 2 * ii], scale * acc[4 * nn + 2 * ii + 1]);
+      }
+    }
+  }
+}
+
+// The maps of q / do (boxes of G heads x P positions) and of k / v (boxes
+// of `keys` keys); 0 or a cudaError_t
+inline int maps(CUtensorMap* tm, const void* q, const void* k, const void* v, const void* dO,
+                int B, int Tq, int Tk, int H, int KV, int D, int keys) {
+  const int G = H / KV, P = BQ / G;
+  int err = tensor_map_bf16_4d(&tm[0], q, D, H, Tq, B, G, P);
+  if (err == 0) err = tensor_map_bf16_4d(&tm[1], k, D, KV, Tk, B, 1, keys);
+  if (err == 0) err = tensor_map_bf16_4d(&tm[2], v, D, KV, Tk, B, 1, keys);
+  if (err == 0) err = tensor_map_bf16_4d(&tm[3], dO, D, H, Tq, B, G, P);
+  return err;
+}
+
 template <int DP>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dO, const float* lse2,
                 const float* delta, void* dk, void* dv, float* part_k, float* part_v, int B,
                 int Tq, int Tk, int H, int KV, int causal, int splits, float scale_log2,
                 float scale, int device, cudaStream_t st) {
+  using C = Config<DP>;
   static std::atomic<uint64_t> attr{0};
-  constexpr size_t smem = dkdv_smem<DP>();
-  const int rc = allow_smem(dkdv_kernel<DP>, smem, device, attr);
+  const int rc = flash_backward::allow_smem(dkdv_sm90_kernel<DP>, C::SMEM, device, attr);
   if (rc != 0) return rc;
-  const int G = H / KV;
-  const int R_pad = (Tq * G + BQ - 1) / BQ * BQ;
-  const int n_kt = (Tk + BKV - 1) / BKV;
+  CUtensorMap tm[4];
+  const int err = maps(tm, q, k, v, dO, B, Tq, Tk, H, KV, DP, C::KEYS);
+  if (err != 0) return err;
+  const int G = H / KV, P = BQ / G, n_rt = (Tq + P - 1) / P;
+  const int n_kt = (Tk + C::KEYS - 1) / C::KEYS;
   const int64_t part_stride = int64_t(B) * Tk * KV * DP;
-  for (int64_t b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
-    const int64_t nb = std::min<int64_t>(MAX_GRID_Y, B - b0);
-    const int64_t qo = b0 * Tq * H * DP, ko = b0 * Tk * KV * DP, so = b0 * KV * R_pad;
-    const dim3 grid(n_kt * KV * splits, static_cast<unsigned>(nb));
-    dkdv_kernel<DP><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q) + qo, static_cast<const __nv_bfloat16*>(k) + ko,
-        static_cast<const __nv_bfloat16*>(v) + ko, static_cast<const __nv_bfloat16*>(dO) + qo,
-        lse2 + so, delta + so, static_cast<__nv_bfloat16*>(dk) + ko,
-        static_cast<__nv_bfloat16*>(dv) + ko, part_k != nullptr ? part_k + ko : nullptr,
-        part_v != nullptr ? part_v + ko : nullptr, part_stride, Tq, Tk, H, KV, G, causal, splits,
-        R_pad, scale_log2, scale);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (int64_t(n_kt) * KV * splits > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  for (int64_t b0 = 0; b0 < B; b0 += flash_backward::MAX_GRID_Y) {
+    const int64_t nb = std::min<int64_t>(flash_backward::MAX_GRID_Y, B - b0);
+    const dim3 grid(static_cast<unsigned>(n_kt * KV * splits), static_cast<unsigned>(nb));
+    dkdv_sm90_kernel<DP><<<grid, C::THREADS, C::SMEM, st>>>(
+        tm[0], tm[1], tm[2], tm[3], lse2, delta, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), part_k, part_v, part_stride, static_cast<int>(b0), Tq,
+        Tk, KV, G, P, n_rt, causal, splits, scale_log2, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
 }
@@ -792,42 +1107,38 @@ template <int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO, const float* lse2,
               const float* delta, void* dq, int B, int Tq, int Tk, int H, int KV, int causal,
               float scale_log2, float scale, int device, cudaStream_t st) {
+  using C = Config<DP>;
   static std::atomic<uint64_t> attr{0};
-  constexpr size_t smem = dq_smem<DP>();
-  const int rc = allow_smem(dq_kernel<DP>, smem, device, attr);
+  const int rc = flash_backward::allow_smem(dq_sm90_kernel<DP>, C::DQ_SMEM, device, attr);
   if (rc != 0) return rc;
-  const int G = H / KV;
-  const int R_pad = (Tq * G + BQ - 1) / BQ * BQ;
-  for (int64_t b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
-    const int64_t nb = std::min<int64_t>(MAX_GRID_Y, B - b0);
-    const int64_t qo = b0 * Tq * H * DP, ko = b0 * Tk * KV * DP, so = b0 * KV * R_pad;
-    const dim3 grid((R_pad / BQ) * KV, static_cast<unsigned>(nb));
-    dq_kernel<DP><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q) + qo, static_cast<const __nv_bfloat16*>(k) + ko,
-        static_cast<const __nv_bfloat16*>(v) + ko, static_cast<const __nv_bfloat16*>(dO) + qo,
-        lse2 + so, delta + so, static_cast<__nv_bfloat16*>(dq) + qo, Tq, Tk, H, KV, G, causal,
-        R_pad, scale_log2, scale);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tm[4];
+  const int err = maps(tm, q, k, v, dO, B, Tq, Tk, H, KV, DP, C::DQ_KEYS);
+  if (err != 0) return err;
+  const int G = H / KV, P = BQ / G, n_rt = (Tq + P - 1) / P;
+  const int n_groups = (n_rt + C::DQ_CONSUMERS - 1) / C::DQ_CONSUMERS;
+  if (int64_t(n_groups) * KV > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  for (int64_t b0 = 0; b0 < B; b0 += flash_backward::MAX_GRID_Y) {
+    const int64_t nb = std::min<int64_t>(flash_backward::MAX_GRID_Y, B - b0);
+    const dim3 grid(static_cast<unsigned>(n_groups * KV), static_cast<unsigned>(nb));
+    dq_sm90_kernel<DP><<<grid, C::DQ_THREADS, C::DQ_SMEM, st>>>(
+        tm[0], tm[1], tm[2], tm[3], lse2, delta, static_cast<__nv_bfloat16*>(dq),
+        static_cast<int>(b0), Tq, Tk, H, KV, G, P, n_rt, causal, scale_log2, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-bool shape_ok(int B, int Tq, int Tk, int H, int KV, int D) {
-  return B > 0 && Tq > 0 && Tk > 0 && KV > 0 && H % KV == 0 && (D == 64 || D == 128) &&
-         int64_t(Tq) * (H / KV) + BQ < (int64_t(1) << 31);
-}
-
-}  // namespace flash_backward
+}  // namespace flash_backward_sm90
+}  // namespace
 
 // All launch on ``stream`` and return cudaGetLastError() as an int (0 =
 // success).  q, o and do are contiguous bf16 (B, Tq, H, D), k and v
 // contiguous bf16 (B, Tk, KV, D), H % KV == 0; lse is fp32 (B, Tq, H).
-// The long route takes D 64 or 128 and every pointer 16-byte aligned; its
-// lse2 and delta are fp32 (B, KV, R_pad), R_pad = Tq H / KV rounded up to
-// a multiple of 64.
+// The long route takes D 64 or 128, H / KV <= 64 and every pointer 16-byte
+// aligned; its lse2 and delta are fp32 (B, KV, n_rt, 64): n_rt =
+// ceil(Tq / P) row tiles of P = floor(64 / (H / KV)) positions, a slot a
+// row.
 
 // The short route: Tq == Tk == T, KV == 1, T H <= 64, 0 < D <= 64; any
 // 2-byte alignment.  dq, dk, dv written whole.
@@ -867,27 +1178,37 @@ extern "C" int flash_backward_short_launch(const void* q, const void* k, const v
 }
 
 // The long route, (a): lse2 = lse log2 e and delta = rowsum(do o) in the
-// kernels' row order.
+// kernels' row tiles.
 extern "C" int flash_backward_rowstat_launch(const void* o, const void* dO, const void* lse,
                                              void* lse2, void* delta, int B, int Tq, int H,
                                              int KV, int D, int device, void* stream) {
   using namespace flash_backward;
-  if (!shape_ok(B, Tq, Tq, H, KV, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(B, Tq, Tq, H, KV, D) || !(aligned16(o) && aligned16(dO)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int rc = set_device(device);
   if (rc != 0) return rc;
-  const int G = H / KV;
-  const int R_pad = (Tq * G + BQ - 1) / BQ * BQ;
-  const int64_t n_rows = int64_t(B) * KV * R_pad;
-  constexpr int ROWS_A_BLOCK = 8;  // one warp a row
-  rowstat_kernel<<<static_cast<unsigned>((n_rows + ROWS_A_BLOCK - 1) / ROWS_A_BLOCK),
-                   32 * ROWS_A_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO),
-      static_cast<const float*>(lse), static_cast<float*>(lse2), static_cast<float*>(delta),
-      n_rows, Tq, H, KV, D, G, R_pad);
+  const int G = H / KV, P = tile_positions(H, KV), n_rt = row_tiles(Tq, H, KV);
+  const int64_t n_slots = int64_t(B) * KV * n_rt * BQ;
+  constexpr int THREADS_A_BLOCK = 256;
+  const int64_t threads = n_slots * (D / 8);
+  auto* l2 = static_cast<float*>(lse2);
+  auto* dl = static_cast<float*>(delta);
+  const auto* ob = static_cast<const __nv_bfloat16*>(o);
+  const auto* db = static_cast<const __nv_bfloat16*>(dO);
+  const auto* lf = static_cast<const float*>(lse);
+  const unsigned blocks = static_cast<unsigned>((threads + THREADS_A_BLOCK - 1) / THREADS_A_BLOCK);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    rowstat_kernel<64><<<blocks, THREADS_A_BLOCK, 0, st>>>(ob, db, lf, l2, dl, n_slots, Tq, H,
+                                                            KV, G, P, n_rt);
+  else
+    rowstat_kernel<128><<<blocks, THREADS_A_BLOCK, 0, st>>>(ob, db, lf, l2, dl, n_slots, Tq,
+                                                             H, KV, G, P, n_rt);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The long route, (b): dk, dv over key tiles; splits > 1 writes fp32 partials to part_k /
+// The long route, (b): dk, dv over key tiles of sm90_backward_plan's keys;
+// splits > 1 writes fp32 partials to part_k /
 // part_v (each splits x B x Tk x KV x D) for flash_backward_reduce_launch,
 // splits == 1 writes dk / dv.
 extern "C" int flash_backward_dkdv_launch(const void* q, const void* k, const void* v,
@@ -909,6 +1230,7 @@ extern "C" int flash_backward_dkdv_launch(const void* q, const void* k, const vo
   const auto* dl = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * LOG2E;
+  using flash_backward_sm90::launch_dkdv;
   return D == 64 ? launch_dkdv<64>(q, k, v, dO, l2, dl, dk, dv, pk, pv, B, Tq, Tk, H, KV, causal,
                                    splits, scale_log2, scale, device, st)
                  : launch_dkdv<128>(q, k, v, dO, l2, dl, dk, dv, pk, pv, B, Tq, Tk, H, KV,
@@ -922,7 +1244,8 @@ extern "C" int flash_backward_dq_launch(const void* q, const void* k, const void
                                         int causal, float scale, int device, void* stream) {
   using namespace flash_backward;
   if (!shape_ok(B, Tq, Tk, H, KV, D) ||
-      !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dO)))
+      !(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dO) && aligned16(lse2) &&
+        aligned16(delta)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int rc = set_device(device);
   if (rc != 0) return rc;
@@ -930,6 +1253,7 @@ extern "C" int flash_backward_dq_launch(const void* q, const void* k, const void
   const auto* dl = static_cast<const float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * LOG2E;
+  using flash_backward_sm90::launch_dq;
   return D == 64 ? launch_dq<64>(q, k, v, dO, l2, dl, dq, B, Tq, Tk, H, KV, causal, scale_log2,
                                  scale, device, st)
                  : launch_dq<128>(q, k, v, dO, l2, dl, dq, B, Tq, Tk, H, KV, causal, scale_log2,

@@ -1033,52 +1033,6 @@ __global__ void __launch_bounds__(Config<DP>::THREADS, 1) flash_prefill_sm90_ker
   }
 }
 
-// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: fetched
-// through the runtime's entry-point query, so that the library links
-// nothing beyond the runtime
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map over bf16 (D, heads, T, B), contiguous, whose box is 64
-// columns x box_heads heads x box_rows positions x 1, 128-byte swizzled;
-// 0 or a cudaError_t.
-inline int tensor_map(CUtensorMap* map, const void* base, int D, int heads, int T, int B,
-                      int box_heads, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(T), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(heads) * D * 2,
-                                 cuuint64_t(T) * heads * D * 2};
-  const cuuint32_t box[4] = {64, cuuint32_t(box_heads), cuuint32_t(box_rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int DP>
 int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float* lse,
            const int32_t* kv_length, int B, int Tq, int Tk, int H, int KV, int q_offset,
@@ -1111,10 +1065,12 @@ int launch(const void* q, const void* k, const void* v, __nv_bfloat16* o, float*
     }
     grid = std::min<int64_t>(n_items, n_sm);
   }
+  // maps over (D, heads, T, B): Q's box G heads x bq positions, K's and
+  // V's one kv head x BKV keys
   CUtensorMap tq, tk, tv;
-  int err = tensor_map(&tq, q, DP, H, Tq, B, G, bq);
-  if (err == 0) err = tensor_map(&tk, k, DP, KV, Tk, B, 1, C::BKV);
-  if (err == 0) err = tensor_map(&tv, v, DP, KV, Tk, B, 1, C::BKV);
+  int err = tensor_map_bf16_4d(&tq, q, DP, H, Tq, B, G, bq);
+  if (err == 0) err = tensor_map_bf16_4d(&tk, k, DP, KV, Tk, B, 1, C::BKV);
+  if (err == 0) err = tensor_map_bf16_4d(&tv, v, DP, KV, Tk, B, 1, C::BKV);
   if (err != 0) return err;
   if (grid == 0) return 0;
   flash_prefill_sm90_kernel<DP><<<static_cast<unsigned>(grid), C::THREADS, C::SMEM, st>>>(

@@ -1,8 +1,9 @@
 // Hopper's own machinery for the hand-written kernels (sm_90a), in inline
 // PTX: mbarriers, TMA tensor loads into 128-byte-swizzled tiles, wgmma
 // matrix descriptors and products, named barriers and register
-// reallocation between warpgroups.  flash_prefill.cu's sm90 route is the
-// first user; nothing here is specific to attention.
+// reallocation between warpgroups, and the host's tensor-map encoder.
+// flash_prefill.cu's sm90 route and flash_backward.cu's long route use it;
+// nothing here is specific to attention.
 //
 // Tiles in shared memory are rows of 128 bytes (64 bf16 values) written by
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B: within each group of 8 rows, row r's
@@ -88,6 +89,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global memory at src into shared memory
+// at dst, both 16-byte aligned, as one bulk copy; completes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -381,6 +392,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   static_assert(N == 64 || N == 128, "no wgmma_rs of this width");
   if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b, accumulate);
   else wgmma_rs_n128(d, a, desc_b, accumulate);
+}
+
+// -- tensor maps (host) ---------------------------------------------------------
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: fetched
+// through the runtime's entry-point query, so that a library links
+// nothing beyond the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 array of extents (n0, n1, n2, n3),
+// innermost first, whose box is 64 x box1 x box2 x 1 elements (64 bf16:
+// one 128-byte row), 128-byte swizzled; elements past an extent load as
+// zeros.  0 or a cudaError_t.
+inline int tensor_map_bf16_4d(CUtensorMap* map, const void* base, int n0, int n1, int n2, int n3,
+                              int box1, int box2) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {cuuint64_t(n0), cuuint64_t(n1), cuuint64_t(n2), cuuint64_t(n3)};
+  const cuuint64_t strides[3] = {cuuint64_t(n0) * 2, cuuint64_t(n1) * n0 * 2,
+                                 cuuint64_t(n2) * n1 * n0 * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(box1), cuuint32_t(box2), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace hopper

@@ -63,10 +63,15 @@ one kv head, ``Tq H <=    taking two whole sequences at a time, each one
 64``, ``D <= 64``         64-row x 64-key tile (SASRec's 50 positions at
                           D = 50), staged raw and re-laid in shared
                           memory, the next two in flight meanwhile
-bfloat16, D 64 or 128     the long route: row statistics, a dK / dV
-                          kernel over key tiles (its rows cut in
-                          :func:`backward_splits` runs, added in order),
-                          a dQ kernel over row tiles
+bfloat16, D 64 or 128,    the long route (:func:`sm90_backward_plan`):
+``H / KV <= 64``          row statistics in row tiles of ``floor(64 /
+                          G)`` positions, a dK / dV kernel over key
+                          tiles of 128 (64 at D = 64; its row tiles cut in
+                          :func:`backward_splits` runs, added in order by
+                          a reduce kernel), a dQ kernel over pairs of row
+                          tiles; both TMA-fed, warp-specialised wgmma
+                          (one producer warp, a consumer warpgroup for
+                          each 64 keys or each row tile)
 float32, any shape        ``csrc/flash_backward_f32.cu``: CUDA-core FFMA,
                           one launch of 4-block clusters, 32-key dK / dV
                           tiles walking the rows that see them and 32-row
@@ -110,9 +115,10 @@ float32 sums and where ``p`` is rounded:
 kernel's rounding points.
 :func:`flash_attention_split_plain` is the decode kernel's arithmetic in
 plain PyTorch (``p`` rounded against each split's running max), and
-:func:`flash_attention_backward_tiled_plain` the backward kernels' (64-row
-and 64-key tiles, ``p`` and ``ds`` rounded to bf16 before their products,
-the kernels' order of sums, the short route's included) and
+:func:`flash_attention_backward_tiled_plain` the backward kernels' (the
+long route's row tiles and key tiles, ``p`` and ``ds`` rounded to bf16
+before their products, the kernels' order of sums, the short route's
+included) and
 :func:`flash_attention_backward_f32_tiled_plain` the float32 backward
 kernel's (its 32-key and 32-row tiles, each walk split over 4 ranks,
 float32 throughout), for the
@@ -151,6 +157,7 @@ __all__ = [
     "flash_attention_split_plain",
     "backward_route",
     "backward_splits",
+    "sm90_backward_plan",
     "backward_workspace",
     "flash_attention_backward_op",
     "sharded_flash_attention",
@@ -191,9 +198,17 @@ _DECODE_ROWS = 16    # query heads per block of the decode kernel
 _PREFILL_ROWS = 128  # query rows a block of the bf16 prefill kernel
 _F32_ROWS = (64, 32, 16)  # query rows a block of the float32 kernel may take
 _LOG2E = 1.4426950408889634
-_BWD_ROWS = 64       # query rows a tile of the backward kernels; the short route's bound
+_BWD_ROWS = 64       # slots of a row tile of the backward kernels; the short route's bound
 _BWD_HEAD_DIMS = (64, 128)  # the long backward route's head dims (bf16)
 _BWD_MAX_SPLITS = 8  # runs of row tiles a key tile of the dK / dV kernel is cut in
+# the long route's wgmma kernels (csrc/flash_backward.cu, Config<DP>): keys
+# a dK / dV block by head dim (64 a consumer warpgroup), stages of its Q /
+# dO ring, keys a K / V tile of the dQ kernel; a dQ block takes two row tiles
+_BWD_SM90_KEYS = {64: 64, 128: 128}
+_BWD_SM90_STAGES = 3
+_BWD_SM90_DQ_KEYS = 128
+_BWD_SM90_DQ_TILES = 2
+_SMEM_OPTIN = 232_448   # an H100 block's shared memory
 _F32_BWD_KEYS = 32   # keys a dK / dV tile of the float32 backward kernel
 _F32_BWD_CHUNK = 32  # query rows a chunk of that tile's walk
 _F32_BWD_ROWS = 32   # query rows a dQ tile
@@ -248,7 +263,9 @@ def _backward_kernel(dtype: torch.dtype, q_shape, k_shape) -> Optional[str]:
         return None
     if Tq == Tk and KV == 1 and Tq * H <= _BWD_ROWS and D <= _BWD_ROWS:
         return "short"
-    return "long" if D in _BWD_HEAD_DIMS else None
+    if D in _BWD_HEAD_DIMS and KV > 0 and H % KV == 0 and H // KV <= _MAX_GROUP:
+        return "long"
+    return None
 
 
 def backward_route(dtype: torch.dtype, q_shape, k_shape) -> str:
@@ -266,35 +283,100 @@ def backward_route(dtype: torch.dtype, q_shape, k_shape) -> str:
     return "kernel" if _backward_kernel(dtype, q_shape, k_shape) else "plain"
 
 
-def backward_splits(B: int, Tq: int, Tk: int, H: int, KV: int, n_sm: int = 132) -> int:
-    """Runs of whole 64-row tiles the dK / dV kernel cuts each key tile's
-    query rows in: blocks of ``B x KV x ceil(Tk / 64)`` key tiles give at
-    least three blocks an SM where the rows allow (each run writes an fp32
-    partial, added in order by the reduce kernel), at most
-    ``_BWD_MAX_SPLITS``, never more than the row tiles.  glm4-9b's
-    training attention (B 1, T 4096, 32 heads over 2): 128 key-tile blocks,
-    4 runs; granite's (24 over 8): 512, 1 (no partials).  On an H100 these
-    were the fastest of 1, 2, 4, 5 and 8 runs at both shapes, where four
-    blocks an SM (5 and 2 runs) took 5% and 1% longer
-    (``scripts/k4_times.py --rows backward --splits``)."""
+def _bwd_dims(D: int) -> int:
+    """The long route's kernel configuration that tiles head dim ``D``: 64
+    up to 64, else 128 (the short route's head dims, D <= 64, take 64's
+    tiles in the mirror)."""
+    return 64 if D <= 64 else 128
+
+
+def _bwd_walks(Tq: int, Tk: int, H: int, KV: int, D: int, causal: bool = True):
+    """``(P, n_rt, walks)``: the positions a row tile of the long route
+    holds (``floor(64 / G)``), its row tiles a kv head, and the row tiles
+    each dK / dV key tile walks (under causal from the tile that holds
+    its first key's position)."""
     G = H // KV
-    blocks = max(1, B * KV * -(-Tk // _TILE))
-    row_tiles = max(1, -(-Tq * G // _BWD_ROWS))
-    return max(1, min(_BWD_MAX_SPLITS, row_tiles, -(-3 * n_sm // blocks)))
+    P = max(1, _BWD_ROWS // G)
+    n_rt = -(-Tq // P)
+    keys = _BWD_SM90_KEYS[_bwd_dims(D)]
+    walks = [n_rt - (min(k0 // P, n_rt) if causal else 0) for k0 in range(0, Tk, keys)]
+    return P, n_rt, walks
+
+
+def backward_splits(B: int, Tq: int, Tk: int, H: int, KV: int, n_sm: int = 132,
+                    D: int = 128) -> int:
+    """Runs of whole row tiles the dK / dV kernel cuts each key tile's walk
+    in (each run writes an fp32 partial, added in order by the reduce
+    kernel): the longest walk over the card's share of all walks
+    (``ceil(longest * n_sm / total)``, so that no block walks longer than
+    an SM's share of the work), at most ``_BWD_MAX_SPLITS``, never more
+    than the row tiles.  glm4-9b's training attention (B 1, T 4096, 32
+    heads over 2, D = 128): 64 key tiles of 128 keys, walks 1,024 .. 32
+    row tiles, 4 runs; granite's (24 over 8, D = 64): 512 key tiles of 64
+    keys, walks 196 .. 4, 1 run (no partials).  On an H100 these were the
+    fastest of 1, 2, 4 and 8 runs at both shapes
+    (``scripts/backward_sm90_variants.py --splits``)."""
+    _, n_rt, walks = _bwd_walks(Tq, Tk, H, KV, D)
+    total = max(1, B * KV * sum(walks))
+    need = -(-max(walks, default=1) * n_sm // total)
+    return max(1, min(_BWD_MAX_SPLITS, n_rt, need))
+
+
+def sm90_backward_plan(B: int, Tq: int, Tk: int, H: int, KV: int, D: int,
+                       n_sm: int = 132) -> Dict[str, int]:
+    """The long route's launches at q ``(B, Tq, H, D)`` over ``KV`` kv heads
+    on a card of ``n_sm`` SMs, causal, mirroring the kernels' constants
+    (``csrc/flash_backward.cu``): a row tile's positions (``floor(64 /
+    G)``) and rows in use (``G`` heads each: 64 at G = 16, 63 at G = 3) of
+    its 64 slots, the row tiles a kv head; the dK / dV kernel's keys a
+    block (64 a consumer warpgroup), threads (a producer warpgroup and the
+    consumers), key tiles, runs (:func:`backward_splits`), blocks (key
+    tiles x kv heads x runs x batch rows), stages of its Q / dO ring and
+    dynamic shared memory (K and V of the key tile, each stage's Q and dO
+    row tiles in 64-column tiles of 128-byte rows and their 512 bytes of
+    lse2 / delta, plus 1024 bytes to align them); the dQ kernel's row
+    tiles a block (a consumer warpgroup each), keys a K / V tile, threads,
+    blocks, stages (as many of the dK / dV ring's as fit) and shared
+    memory (the block's Q and dO row tiles, each stage's K and V)."""
+    if D not in _BWD_HEAD_DIMS:
+        raise ValueError(f"the long backward route takes head dims {_BWD_HEAD_DIMS}, got {D}")
+    G = H // KV
+    if G > _MAX_GROUP:
+        raise ValueError(f"the long backward route takes at most {_MAX_GROUP} query heads per "
+                         f"kv head, got H/KV={G}")
+    P, n_rt, walks = _bwd_walks(Tq, Tk, H, KV, D)
+    keys, stages = _BWD_SM90_KEYS[D], _BWD_SM90_STAGES
+    halves = D // 64
+    row_tile = halves * _BWD_ROWS * _SM90_ROW_BYTES
+    splits = backward_splits(B, Tq, Tk, H, KV, n_sm, D)
+    dq_keys = _BWD_SM90_DQ_KEYS
+    dq_stage = 2 * halves * dq_keys * _SM90_ROW_BYTES
+    dq_fixed = 1024 + 2 * _BWD_SM90_DQ_TILES * row_tile
+    dq_stages = min(stages, (_SMEM_OPTIN - 256 - dq_fixed) // dq_stage)
+    return {"positions": P, "rows_used": P * G, "row_tiles": n_rt,
+            "keys": keys, "threads": 128 * (1 + keys // 64), "key_tiles": len(walks),
+            "splits": splits, "blocks": B * KV * len(walks) * splits,
+            "longest_walk": max(walks), "stages": stages,
+            "smem_bytes": 1024 + 2 * halves * keys * _SM90_ROW_BYTES
+            + stages * (2 * row_tile + 2 * _BWD_ROWS * 4),
+            "dq_row_tiles": _BWD_SM90_DQ_TILES, "dq_keys": dq_keys,
+            "dq_threads": 128 * (1 + _BWD_SM90_DQ_TILES),
+            "dq_blocks": B * KV * -(-n_rt // _BWD_SM90_DQ_TILES), "dq_stages": dq_stages,
+            "dq_smem_bytes": dq_fixed + dq_stages * dq_stage}
 
 
 def backward_workspace(B: int, Tq: int, Tk: int, H: int, KV: int, D: int, splits: int,
                        dtype: torch.dtype) -> int:
     """float32 elements of the backward kernels' workspace for inputs of
     ``dtype``.  The float32 kernel and the short route need none.  The
-    long route: ``lse2`` and ``delta`` per query row in the kernels' order,
-    padded to whole 64-row tiles (``B x KV x R_pad`` each), then, where
-    ``splits > 1``, the dK and dV partials (``splits x B x Tk x KV x D``
-    each)."""
+    long route: ``lse2`` and ``delta`` in the kernels' row tiles, 64 slots
+    a tile (``B x KV x row_tiles x 64`` each, :func:`sm90_backward_plan`),
+    then, where ``splits > 1``, the dK and dV partials (``splits x B x Tk
+    x KV x D`` each)."""
     if _backward_kernel(dtype, (B, Tq, H, D), (B, Tk, KV, D)) in ("f32", "short"):
         return 0
-    r_pad = -(-Tq * (H // KV) // _BWD_ROWS) * _BWD_ROWS
-    n = 2 * B * KV * r_pad
+    _, n_rt, _ = _bwd_walks(Tq, Tk, H, KV, D)
+    n = 2 * B * KV * n_rt * _BWD_ROWS
     if splits > 1:
         n += 2 * splits * B * Tk * KV * D
     return n
@@ -622,39 +704,47 @@ def flash_attention_backward_tiled_plain(
     plain PyTorch: ``(dq, dk, dv)`` in the inputs' dtypes.
 
     Query rows in the kernels' order (the G heads of each position in
-    turn) in tiles of 64, keys in tiles of 64; ``p = 2^(s * scale * log2 e
-    - lse * log2 e)``, 0 where masked; ``ds = p (dp - delta)``; with
-    ``rounding``, ``p`` and ``ds`` rounded to bf16 before their products,
-    as the kernels round them (off: every product in float32, which is
+    turn) in row tiles of ``floor(64 / G)`` positions (``G floor(64 / G)``
+    rows), keys in the long route's tiles (:func:`sm90_backward_plan`:
+    dK / dV blocks of 64 keys at head dim 64 and 128 at 128, dQ's K / V
+    tiles of 128 keys at both); ``p = 2^(s * scale * log2 e - lse * log2 e)``, 0 where
+    masked; ``ds = p (dp - delta)``; with ``rounding``, ``p`` and ``ds``
+    rounded to bf16 before their products, as the kernels round them (off:
+    every product in float32, which is
     :func:`flash_attention_backward_plain`'s arithmetic up to the order of
-    sums).  dQ sums over key tiles in order; dK and dV over the row tiles
-    of each of ``splits`` runs (default :func:`backward_splits` on an H100)
-    in order, the runs' sums then added in order; ``scale`` multiplies dQ
-    and dK after their sums.  The short route's order (a sequence is one
-    tile: ``Tq == Tk <= 64``, ``Tq G <= 64``) is the same with one key tile,
-    one row tile and one run: each gradient is one product.  For the tests
-    and the smoke run; the main path never calls it."""
+    sums).  dQ sums over its key tiles in order; dK and dV over the row
+    tiles of each of ``splits`` runs (default :func:`backward_splits` on an
+    H100) in order, the runs' sums then added in order; ``scale``
+    multiplies dQ and dK after their sums.  The short route's order (a
+    sequence is one tile: ``Tq == Tk <= 64``, ``Tq G <= 64``) is the same
+    with one key tile, one row tile and one run: each gradient is one
+    product.  For the tests and the smoke run; the main path never calls
+    it."""
     B, Tq, H, D = q.shape
     _, Tk, KV, _ = k.shape
     G = H // KV
     if splits is None:
-        splits = backward_splits(B, Tq, Tk, H, KV)
+        splits = backward_splits(B, Tq, Tk, H, KV, D=D)
+    dims = _bwd_dims(D)
+    kv_keys, dq_keys = _BWD_SM90_KEYS[dims], _BWD_SM90_DQ_KEYS
     dev = q.device
     R = Tq * G
-    n_rt = -(-R // _BWD_ROWS)
-    r_pad = n_rt * _BWD_ROWS
-    n_kt = -(-Tk // _TILE)
-    kp, vp = _pad_keys(k, v, _TILE)
-    kr = kp.transpose(1, 2).float()                           # (B, KV, Tk_pad, D)
+    P, n_rt, _ = _bwd_walks(Tq, Tk, H, KV, D, causal)
+    rows = P * G                                              # rows of a row tile
+    r_pad = n_rt * rows
+    width = max(kv_keys, dq_keys)
+    n_k = -(-Tk // width) * width
+    kp, vp = _pad_keys(k, v, width)
+    kr = kp.transpose(1, 2).float()                           # (B, KV, n_k, D)
     vr = vp.transpose(1, 2).float()
-    qr = _kernel_rows(q, KV, r_pad)                           # (B, KV, R_pad, D)
+    qr = _kernel_rows(q, KV, r_pad)                           # (B, KV, r_pad, D)
     dor = _kernel_rows(do, KV, r_pad)
     lse2 = _kernel_rows(lse, KV, r_pad, float("inf")) * _LOG2E
     delta = _kernel_rows((do.float() * out.float()).sum(dim=-1), KV, r_pad)
     scale = 1.0 / math.sqrt(D)
     scale_log2 = float(torch.tensor(scale, dtype=torch.float32) * _LOG2E)
     pos = torch.arange(r_pad, device=dev) // G                # each row's position
-    key = torch.arange(n_kt * _TILE, device=dev)
+    key = torch.arange(n_k, device=dev)
 
     def bf16(x):
         return x.to(torch.bfloat16).float() if rounding else x
@@ -663,11 +753,11 @@ def flash_attention_backward_tiled_plain(
         p = torch.exp2(s * scale_log2 - l2)
         return torch.where(visible, p, 0.0)
 
-    # dQ: each row tile over the key tiles in order
+    # dQ: each row over the dQ kernel's key tiles in order
     dq = torch.zeros((B, KV, r_pad, D), dtype=torch.float32, device=dev)
-    for j in range(n_kt):
-        kj, vj = kr[:, :, j * _TILE:(j + 1) * _TILE], vr[:, :, j * _TILE:(j + 1) * _TILE]
-        kj_pos = key[j * _TILE:(j + 1) * _TILE]
+    for j0 in range(0, n_k, dq_keys):
+        kj, vj = kr[:, :, j0:j0 + dq_keys], vr[:, :, j0:j0 + dq_keys]
+        kj_pos = key[j0:j0 + dq_keys]
         visible = (kj_pos < Tk)[None, :]
         if causal:
             visible = visible & (kj_pos[None, :] <= pos[:, None])
@@ -676,23 +766,24 @@ def flash_attention_backward_tiled_plain(
         dq = dq + bf16(ds) @ kj
 
     # dK, dV: each key tile over its runs of row tiles, each run in order
-    first = [min(j * _TILE * G // _BWD_ROWS, n_rt) if causal else 0 for j in range(n_kt)]
-    starts = torch.zeros((n_rt, n_kt * _TILE), dtype=torch.bool, device=dev)
+    n_kt = n_k // kv_keys
+    first = [min(j * kv_keys // P, n_rt) if causal else 0 for j in range(n_kt)]
+    starts = torch.zeros((n_rt, n_k), dtype=torch.bool, device=dev)
     for j, f in enumerate(first):
         for sp in range(1, splits):
             at = f + (sp * (n_rt - f)) // splits
             if at < n_rt:
-                starts[at, j * _TILE:(j + 1) * _TILE] = True
-    total_k = torch.zeros((B, KV, n_kt * _TILE, D), dtype=torch.float32, device=dev)
+                starts[at, j * kv_keys:(j + 1) * kv_keys] = True
+    total_k = torch.zeros((B, KV, n_k, D), dtype=torch.float32, device=dev)
     total_v = torch.zeros_like(total_k)
     acc_k, acc_v = torch.zeros_like(total_k), torch.zeros_like(total_k)
     for i in range(n_rt):
-        rows = slice(i * _BWD_ROWS, (i + 1) * _BWD_ROWS)
-        qi, doi = qr[:, :, rows], dor[:, :, rows]
-        visible = (key[:, None] <= pos[None, rows]) if causal else torch.ones(
+        tile = slice(i * rows, (i + 1) * rows)
+        qi, doi = qr[:, :, tile], dor[:, :, tile]
+        visible = (key[:, None] <= pos[None, tile]) if causal else torch.ones(
             (1, 1), dtype=torch.bool, device=dev)
-        pt = probs(kr @ qi.transpose(-1, -2), lse2[:, :, None, rows], visible)
-        dst = pt * (vr @ doi.transpose(-1, -2) - delta[:, :, None, rows])
+        pt = probs(kr @ qi.transpose(-1, -2), lse2[:, :, None, tile], visible)
+        dst = pt * (vr @ doi.transpose(-1, -2) - delta[:, :, None, tile])
         new_run = starts[i][:, None]
         total_k = torch.where(new_run, total_k + acc_k, total_k)
         total_v = torch.where(new_run, total_v + acc_v, total_v)
@@ -1029,9 +1120,10 @@ def _(q, k, v, kv_length, causal, q_offset, with_lse, block_q, block_kv):
 
 def _backward_rowstats(lib, out, do, lse, work, KV: int, dev: int, stream):
     """Launch the row-statistics kernel into the head of ``work``; returns
-    the views ``(lse2, delta)``, each ``B x KV x R_pad`` float32."""
+    the views ``(lse2, delta)``, each ``B x KV x row_tiles x 64`` float32
+    (:func:`sm90_backward_plan`'s row tiles)."""
     B, Tq, H, D = out.shape
-    n = B * KV * (-(-Tq * (H // KV) // _BWD_ROWS) * _BWD_ROWS)
+    n = B * KV * _bwd_walks(Tq, 1, H, KV, D)[1] * _BWD_ROWS
     lse2, delta = work[:n], work[n:2 * n]
     _launched(lib.flash_backward_rowstat_launch(
         out.data_ptr(), do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
@@ -1044,8 +1136,11 @@ def _launch_backward(q, k, v, out, lse, do, causal: bool):
     takes on the current stream; returns ``(dq, dk, dv, workspace)``.
     ``q``, ``out``, ``do`` ``(B, Tq, H, D)`` and ``k``, ``v`` ``(B, Tk, KV,
     D)`` in one dtype (float32: ``csrc/flash_backward_f32.cu``, one launch;
-    bfloat16: ``csrc/flash_backward.cu``), float32 ``lse`` ``(B, Tq, H)``,
-    all contiguous on one card; anything else raises."""
+    bfloat16: ``csrc/flash_backward.cu``, the short route's one launch or
+    the long route's row statistics, wgmma dK / dV and dQ kernels and,
+    where :func:`backward_splits` cuts the dK / dV walks, the reduce),
+    float32 ``lse`` ``(B, Tq, H)``, all contiguous on one card; anything
+    else raises, and a launch the card refuses raises too."""
     _check(q, k, v, None)
     if q.device.type != "cuda":
         raise ValueError(f"q lies on {q.device}: the backward kernels run on cuda")
@@ -1087,7 +1182,7 @@ def _launch_backward(q, k, v, out, lse, do, causal: bool):
             int(bool(causal)), 1.0 / math.sqrt(D), dev, stream), "flash_attention_backward_short")
         LAUNCHES["flash_attention_backward"] += 1
         return dq, dk, dv, q.new_empty((0,), dtype=torch.float32)
-    splits = backward_splits(B, Tq, Tk, H, KV, _sm_count(dev))
+    splits = backward_splits(B, Tq, Tk, H, KV, _sm_count(dev), D)
     work = torch.empty(backward_workspace(B, Tq, Tk, H, KV, D, splits, q.dtype),
                        dtype=torch.float32, device=q.device)
     lse2, delta = _backward_rowstats(lib, out, do, lse, work, KV, dev, stream)
@@ -1147,7 +1242,7 @@ def flash_attention_backward_op(
 def _(q, k, v, out, lse, do, causal, block_q, block_kv):
     B, Tq, H, D = q.shape
     _, Tk, KV, _ = k.shape
-    n = backward_workspace(B, Tq, Tk, H, KV, D, backward_splits(B, Tq, Tk, H, KV), q.dtype)
+    n = backward_workspace(B, Tq, Tk, H, KV, D, backward_splits(B, Tq, Tk, H, KV, D=D), q.dtype)
     return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
             q.new_empty((n,), dtype=torch.float32))
 

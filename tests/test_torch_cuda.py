@@ -888,6 +888,17 @@ BWD_CASES = [
     (3, 50, 50, 1, 1, 50, False),
     (5, 16, 16, 4, 1, 64, True),
     (3, 33, 33, 1, 1, 17, True),
+    # the long route's wgmma kernels at their edges: G = 1, 3, 16, 64 at
+    # both head dims (row tiles of 64, 21, 4 and 1 positions), Tq = 129
+    # (a ragged last row tile), Tk past and short of Tq, past one 128-key
+    # tile, not causal, B = 3
+    (1, 129, 129, 2, 2, 128, True),
+    (2, 129, 129, 3, 3, 64, False),
+    (1, 129, 129, 64, 1, 64, True),
+    (1, 100, 60, 128, 2, 128, True),
+    (2, 129, 200, 16, 1, 64, False),
+    (3, 70, 150, 3, 1, 128, True),
+    (1, 129, 129, 48, 1, 128, True),
 ]
 # each gradient's relative L2 error and largest element error over its
 # largest element (chip_smoke.py's BWD_L2_RTOL / BWD_MAX_RTOL): against the
@@ -940,12 +951,15 @@ def test_cuda_backward_kernel_matches_plain_and_mirror(card, full_fp32, case):
     from repro_torch.kernels import flash_attention as FA
 
     B, Tq, Tk, H, KV, D, causal = case
+    short = Tq == Tk and KV == 1 and Tq * H <= 64 and D <= 64
+    assert FA._backward_kernel(torch.bfloat16, (B, Tq, H, D), (B, Tk, KV, D)) == (
+        "short" if short else "long")
     q, k, v, out, lse, do = _bwd_inputs(Tq + H, *case)
     FA.reset_launch_counts()
     got = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
     torch.cuda.synchronize()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = FA.backward_splits(B, Tq, Tk, H, KV, n_sm)
+    splits = FA.backward_splits(B, Tq, Tk, H, KV, n_sm, D)
     assert FA.LAUNCHES == _bwd_launches(q, k, splits)
     assert FA.PLAIN_CUDA_CALLS["flash_attention_backward"] == 0
     again = FA.flash_attention_backward_op(q, k, v, out, lse, do, causal, 512, 1024)[:3]
@@ -1026,16 +1040,17 @@ def test_cuda_backward_short_route_past_131070_sequences(card, full_fp32):
 
 def test_cuda_backward_long_route_on_a_grid_past_what_the_card_holds(card, full_fp32):
     """glm4-9b's heads (32 over 2, D = 128) at B = 8 x 4096 positions: the
-    dK / dV kernel's 1,024 blocks and the dQ kernel's 16,384, far more than
-    the card holds at once; against the plain backward and the mirror, and
-    bit for bit twice."""
+    dK / dV kernel's blocks (512 key tiles of 128 keys x the runs) and the
+    dQ kernel's 8,192, far more than the card holds at once; against the
+    plain backward and the mirror, and bit for bit twice."""
     from repro_torch.kernels import flash_attention as FA
 
     case = (8, 4096, 4096, 32, 2, 128, True)
     q, k, v, out, lse, do = _bwd_inputs(12, *case)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = FA.backward_splits(8, 4096, 4096, 32, 2, n_sm)
-    assert 64 * 8 * 2 * splits > 2 * n_sm
+    splits = FA.backward_splits(8, 4096, 4096, 32, 2, n_sm, 128)
+    plan = FA.sm90_backward_plan(8, 4096, 4096, 32, 2, 128, n_sm)
+    assert plan["blocks"] > 2 * n_sm and plan["dq_blocks"] > 2 * n_sm
     FA.reset_launch_counts()
     got = FA.flash_attention_backward_op(q, k, v, out, lse, do, True, 512, 1024)[:3]
     torch.cuda.synchronize()

@@ -167,6 +167,65 @@ def test_tiled_mirror_unrounded_on_each_route_is_the_plain_backward(case):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
+# The long route's row tiles (floor(64 / G) positions) and key tiles
+# (a dK / dV block's 128 keys at D = 128, 64 at 64; the dQ kernel's 128):
+# (B, Tq, Tk, H, KV, D, causal) at G = 1, 3 and 16, both head dims, Tq
+# not a multiple of the row tile, Tk past Tq and past one key tile
+RETILE_CASES = [
+    (1, 70, 70, 2, 2, 128, True),      # G = 1: two row tiles, the second of 6 positions
+    (1, 50, 90, 6, 2, 64, True),       # G = 3: 63-row tiles of 21 positions, Tk > Tq
+    (1, 37, 80, 16, 1, 128, False),    # G = 16: 4 positions a tile, Tk > Tq
+    (2, 30, 130, 3, 1, 128, True),     # Tk past one 128-key tile
+]
+
+
+def _retile_inputs(case):
+    B, Tq, Tk, H, KV, D, _ = case
+    rng = np.random.default_rng(Tq * 7 + Tk + H + D)
+    q, do = (rng.standard_normal((B, Tq, H, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, Tk, KV, D)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", RETILE_CASES, ids=[str(c).replace(" ", "") for c in RETILE_CASES])
+def test_retiled_mirror_matches_reference_vjp(case):
+    """The wgmma kernels' tiles on bf16 inputs against ``jax.vjp`` of the
+    reference (its ``_flash_train_bwd``), Tk past Tq included."""
+    B, Tq, Tk, H, KV, D, causal = case
+    q, k, v, do = _retile_inputs(case)
+
+    def f(a, b, c):
+        return jlayers.flash_attention(a, b, c, causal=causal)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)))
+    wants = vjp(jnp.asarray(do, dtype=jnp.bfloat16))
+    tq, tk, tv, tdo = (_bf16(a) for a in (q, k, v, do))
+    out, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal, return_lse=True)
+    got = FA.flash_attention_backward_tiled_plain(tq, tk, tv, out, lse, tdo, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, wants):
+        l2, worst = _rel(g, np.asarray(w.astype(jnp.float32)))
+        assert l2 <= BF16_L2 and worst <= BF16_MAX, (name, l2, worst)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("case", [(1, 130, 130, 16, 1, 128, True), (1, 100, 150, 3, 1, 64, True),
+                                  (2, 45, 45, 4, 2, 64, False)],
+                         ids=["G16-33tiles", "G3-Tk150", "G2-noncausal"])
+def test_retiled_mirror_unrounded_at_each_split_count(case, splits):
+    """Runs of row tiles cut where the dK / dV kernel cuts them (each key
+    tile's walk from its diagonal tile), float32 throughout: the plain
+    backward's gradients at every split count (the float32 tolerance of
+    the float32 kernel's mirror: only the order of sums differs)."""
+    B, Tq, Tk, H, KV, D, causal = case
+    q, k, v, do = (torch.from_numpy(a) for a in _retile_inputs(case))
+    out, lse = FA.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    want = FA.flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal)
+    got = FA.flash_attention_backward_tiled_plain(q, k, v, out, lse, do, causal=causal,
+                                                  splits=splits, rounding=False)
+    for g, w in zip(got, want):   # dK sums 2,080 terms at G = 16: atol by the largest
+        _f32_close(g, w)
+
+
 def test_tiled_mirror_with_more_keys_than_queries():
     """Tk > Tq (no cache: the queries sit at positions 0 .. Tq - 1), causal
     and not: the keys no query sees get zero gradients."""

@@ -219,3 +219,109 @@ def test_sm90_constants_match_the_kernel_source():
         assert define(f"FLASH_SM90_PERSISTENT_{D}") == plan["persistent"]
         assert define(f"FLASH_SM90_STAGES_{D}") == plan["stages"]
         assert 64 * define(f"FLASH_SM90_CONSUMERS_{D}") == plan["rows"]
+
+
+# ---------------------------------------------------------------------------
+# The bf16 training backward's long route: the wgmma kernels' plan
+# (sm90_backward_plan), which the splits, the workspace and the mirror follow
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("glm4-9b", "granite-moe-3b-a800m", "llama3-405b", "yi-9b",
+               "moonshot-v1-16b-a3b")
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_sm90_backward_plan_at_the_lm_training_shapes(arch):
+    """A microbatch row of 4096 positions at each LM's heads: row tiles of
+    floor(64 / G) positions (G of them in use per position), dK / dV blocks
+    of 64 keys a consumer warpgroup in key tiles x kv heads x runs, two row
+    tiles a dQ block,
+    and both kernels' shared memory within a block's 227 KB (with their
+    barriers)."""
+    H, KV, D = _heads(arch)
+    G = H // KV
+    plan = K.sm90_backward_plan(1, 4096, 4096, H, KV, D)
+    assert plan["positions"] == 64 // G
+    assert plan["rows_used"] == G * (64 // G) > 64 - G
+    assert plan["row_tiles"] == -(-4096 // plan["positions"])
+    assert plan["key_tiles"] == 4096 // plan["keys"]
+    assert plan["splits"] == K.backward_splits(1, 4096, 4096, H, KV, H100_SMS, D)
+    assert plan["blocks"] == KV * plan["key_tiles"] * plan["splits"]
+    assert plan["dq_blocks"] == KV * -(-plan["row_tiles"] // plan["dq_row_tiles"])
+    assert plan["threads"] == 128 * (1 + plan["keys"] // 64)
+    assert plan["dq_threads"] == 128 * (1 + plan["dq_row_tiles"])
+    barriers = 8 * (1 + 2 * max(plan["stages"], plan["dq_stages"]))
+    assert plan["smem_bytes"] + barriers <= SMEM_OPTIN
+    assert plan["dq_smem_bytes"] + barriers <= SMEM_OPTIN
+    assert plan["dq_stages"] >= 2
+    # key tile 0 walks every row tile; the runs: the longest walk over an
+    # SM's share of all walks, at most 8
+    walks = [plan["row_tiles"] - min(k0 // plan["positions"], plan["row_tiles"])
+             for k0 in range(0, 4096, plan["keys"])]
+    assert plan["longest_walk"] == max(walks) == plan["row_tiles"]
+    assert plan["splits"] == max(1, min(8, -(-max(walks) * H100_SMS // (KV * sum(walks)))))
+
+
+@pytest.mark.parametrize("arch, rows, splits, blocks, dq_blocks", [
+    ("glm4-9b", 64, 4, 256, 1024),              # G = 16: 1,024 row tiles of 4 positions
+    ("granite-moe-3b-a800m", 63, 1, 512, 784),  # G = 3: 196 tiles of 21, 63 rows; 64-key blocks
+    ("moonshot-v1-16b-a3b", 64, 1, 512, 512),   # G = 1: 64 tiles of 64 positions
+])
+def test_sm90_backward_plan_numbers(arch, rows, splits, blocks, dq_blocks):
+    H, KV, D = _heads(arch)
+    plan = K.sm90_backward_plan(1, 4096, 4096, H, KV, D)
+    assert (plan["rows_used"], plan["splits"], plan["blocks"], plan["dq_blocks"]) == (
+        rows, splits, blocks, dq_blocks)
+
+
+@pytest.mark.parametrize("G, positions, rows_used", [
+    (1, 64, 64), (2, 32, 64), (3, 21, 63), (5, 12, 60), (16, 4, 64), (48, 1, 48), (64, 1, 64),
+])
+def test_sm90_backward_row_tiles(G, positions, rows_used):
+    """A row tile is floor(64 / G) whole positions: at most 64 rows, and
+    fewer than G of its 64 slots idle."""
+    plan = K.sm90_backward_plan(2, 129, 129, G * 2, 2, 64)
+    assert (plan["positions"], plan["rows_used"]) == (positions, rows_used)
+    assert plan["row_tiles"] == -(-129 // positions)
+    ws = K.backward_workspace(2, 129, 129, G * 2, 2, 64, 1, torch.bfloat16)
+    assert ws == 2 * 2 * 2 * plan["row_tiles"] * 64
+
+
+def test_sm90_backward_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError, match="head dims"):
+        K.sm90_backward_plan(1, 128, 128, 4, 2, 96)
+    with pytest.raises(ValueError, match="at most 64"):
+        K.sm90_backward_plan(1, 128, 128, 130, 1, 64)
+    assert K._backward_kernel(torch.bfloat16, (1, 128, 130, 64), (1, 128, 1, 64)) is None
+
+
+@pytest.mark.parametrize("B, T, H, KV, want", [
+    (1, 4096, 32, 2, 4),     # glm4-9b: walks 1,024 .. 32 over 64 key tiles
+    (1, 4096, 24, 8, 1),     # granite: 256 key tiles fill the card
+    (1, 10, 10, 2, 1),       # one row tile
+    (1, 2048, 64, 1, 8),     # G = 64, one position a tile: capped at 8
+    (64, 4096, 32, 8, 1),
+])
+def test_backward_splits_follow_the_walks(B, T, H, KV, want):
+    assert K.backward_splits(B, T, T, H, KV, H100_SMS, 128) == want
+
+
+def test_sm90_backward_constants_match_the_kernel_source():
+    """The mirror's constants are the kernels' in ``csrc/flash_backward.cu``
+    (``Config<DP>``)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(K.__file__).parent / "csrc" / "flash_backward.cu").read_text()
+
+    def const(name):
+        return re.search(rf"static constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(re.search(r"constexpr int BQ = (\d+);", src).group(1)) == K._BWD_ROWS
+    assert int(const("DQ_CONSUMERS")) == K._BWD_SM90_DQ_TILES
+    keys = re.fullmatch(r"DP == 64 \? (\d+) : (\d+)", const("KEYS")).groups()
+    for D, want in zip((64, 128), keys):
+        plan = K.sm90_backward_plan(1, 128, 128, 2, 1, D)
+        assert int(want) == plan["keys"]
+        assert int(const("STAGES")) == plan["stages"]
+        assert int(const("DQ_KEYS")) == plan["dq_keys"]
